@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the Packet group-scheduling DES (`repro`).
+
+The JAX package `repro` is the untouched reference; this package mirrors
+its layout (`core/des.py`, `core/sweep.py`, `kernels/packet_step/...`) so
+every counterpart is found under the same name. It imports `torch` and
+`numpy` only. The hand-written CUDA kernels live under `csrc/` and are
+built with `nvcc` at first launch, never at import.
+
+Every entry point takes ``device=None``, which means the card:
+`resolve_device(None)` raises when CUDA is unavailable. Only an explicit
+``device="cpu"`` runs on the CPU (plain PyTorch versions of the kernels).
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,25 @@
+"""The one place that decides where the port's tensors live."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the CUDA card (raises without one); anything else is
+    taken literally. There is no silent fall-back to the CPU: a caller who
+    wants the CPU says ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' "
+                "explicitly to run the plain PyTorch path on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but "
+                               f"torch.cuda.is_available() is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,244 @@
+"""Guards of the port: where it runs, what it refuses, what it imports.
+
+The machine that runs these tests has no GPU, no `nvcc` and no `triton`;
+the port must import there, run on the CPU only when asked to by name,
+and never substitute one thing for another silently.
+"""
+import importlib
+import pathlib
+import pkgutil
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import resolve_device
+from repro_torch.core import des as tdes
+from repro_torch.core import precision as tprecision
+from repro_torch.core import sweep as tsweep
+from repro_torch.kernels import build as tbuild
+from repro_torch.workload.lublin import WorkloadParams, generate_workload
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+
+
+@pytest.fixture()
+def without_cuda(monkeypatch):
+    """Make the absence of a card explicit, whatever the machine has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def wl():
+    return generate_workload(WorkloadParams(n_jobs=120, nodes=20, load=0.9,
+                                            homogeneous=True, seed=2))
+
+
+def submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_package_layout_mirrors_the_reference():
+    mods = submodules()
+    for name in ("core.des", "core.packet", "core.metrics", "core.sweep",
+                 "core.precision", "workload.lublin",
+                 "kernels.packet_step.ref", "kernels.packet_step.kernel",
+                 "kernels.packet_step.ops", "device"):
+        assert f"repro_torch.{name}" in mods
+    assert (REPO / "src/repro_torch/csrc/packet_step.cu").is_file()
+
+
+@pytest.mark.parametrize("name", submodules())
+def test_every_submodule_imports_without_a_gpu_toolchain(name):
+    """The kernel is built at first launch, never at import."""
+    importlib.import_module(name)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_the_reference(path):
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
+    bad = [ln for ln in path.read_text().splitlines() if pattern.match(ln)]
+    assert not bad, bad
+
+
+class TestDeviceResolution:
+    def test_none_means_the_card_and_raises_without_one(self, without_cuda):
+        with pytest.raises(RuntimeError, match="is_available"):
+            resolve_device(None)
+
+    def test_cuda_by_name_raises_without_one(self, without_cuda):
+        with pytest.raises(RuntimeError, match="is_available"):
+            resolve_device("cuda")
+
+    def test_cpu_only_by_name(self):
+        assert resolve_device("cpu") == torch.device("cpu")
+        assert resolve_device(torch.device("cpu")).type == "cpu"
+
+    def test_pack_workload_default_device_raises(self, wl, without_cuda):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdes.pack_workload(wl)
+
+    def test_run_packet_grid_default_device_raises(self, wl, without_cuda):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1])
+
+    def test_engine_default_device_raises(self, wl, without_cuda):
+        pw = tdes.pack_workload(wl, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdes.simulate_packet_scan_lanes(pw, [1.0], [50.0], 20)
+
+    def test_sweep_plan_default_device_raises(self, without_cuda):
+        with pytest.raises(RuntimeError, match="is_available"):
+            tsweep.sweep_plan("auto", 8)
+
+
+class TestStepImpl:
+    def test_cuda_step_on_cpu_tensors_raises(self, wl):
+        pw = tdes.pack_workload(wl, device="cpu")
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tdes.simulate_packet_scan_lanes(pw, [1.0], [50.0], 20,
+                                            step_impl="cuda", device="cpu")
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1],
+                                   step_impl="cuda", device="cpu")
+
+    def test_unknown_step_impl_raises(self, wl):
+        with pytest.raises(ValueError, match="unknown step_impl"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1],
+                                   step_impl="xla", device="cpu")
+
+    def test_torch_is_the_cpu_default(self, wl):
+        a = tsweep.run_packet_grid(wl, ks=[1.0, 9.0], s_props=[0.1],
+                                   device="cpu")
+        b = tsweep.run_packet_grid(wl, ks=[1.0, 9.0], s_props=[0.1],
+                                   step_impl="torch", device="cpu")
+        assert np.array_equal(a.avg_wait, b.avg_wait) and a.ok.all()
+
+
+class TestUnportedPathsRaise:
+    @pytest.mark.parametrize("mode", ["seq", "vmap_k", "vmap_s"])
+    def test_mode(self, wl, mode):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], mode=mode,
+                                   device="cpu")
+
+    @pytest.mark.parametrize("flag", ["vmap_k", "vmap_s"])
+    def test_legacy_flags(self, wl, flag):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], device="cpu",
+                                   **{flag: True})
+
+    def test_non_inert_chaos(self, wl):
+        chaos = tdes.ChaosConfig(mtbf_chip_hours=5.0)
+        with pytest.raises(NotImplementedError, match="threefry"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], chaos=chaos,
+                                   device="cpu")
+
+    def test_inert_chaos_is_the_fault_free_program(self, wl):
+        a = tsweep.run_packet_grid(wl, ks=[2.0], s_props=[0.1], device="cpu",
+                                   chaos=tdes.ChaosConfig())
+        b = tsweep.run_packet_grid(wl, ks=[2.0], s_props=[0.1], device="cpu")
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def test_unknown_mode_is_a_value_error(self, wl):
+        with pytest.raises(ValueError, match="unknown sweep mode"):
+            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], mode="warp",
+                                   device="cpu")
+
+    def test_engine_chaos_needs_its_streams(self, wl):
+        pw = tdes.pack_workload(wl, device="cpu")
+        with pytest.raises(ValueError, match="u1 and u2"):
+            tdes.simulate_packet_scan_lanes(
+                pw, [1.0], [50.0], 20, device="cpu",
+                chaos=tdes.ChaosConfig(mtbf_chip_hours=5.0))
+        with pytest.raises(ValueError, match="without a ChaosConfig"):
+            tdes.simulate_packet_scan_lanes(
+                pw, [1.0], [50.0], 20, device="cpu", u1=torch.ones((240, 1)))
+
+
+class TestEngineArguments:
+    def test_workload_on_another_device_raises(self, wl, monkeypatch):
+        pw = tdes.pack_workload(wl, device="cpu")
+        monkeypatch.setattr(tdes, "resolve_device",
+                            lambda d=None: torch.device("meta"))
+        with pytest.raises(ValueError, match="lives on cpu"):
+            tdes.simulate_packet_scan_lanes(pw, [1.0], [50.0], 20)
+
+    def test_mismatched_lane_arrays_raise(self, wl):
+        pw = tdes.pack_workload(wl, device="cpu")
+        with pytest.raises(ValueError, match="equal-length"):
+            tdes.simulate_packet_scan_lanes(pw, [1.0, 2.0], [50.0], 20,
+                                            device="cpu")
+
+
+class TestPrecision:
+    @pytest.mark.parametrize("given,want", [
+        (np.float32, np.float32), ("float64", np.float64),
+        (torch.float64, np.float64), (torch.float32, np.float32)])
+    def test_canonical_dtype(self, given, want):
+        assert tprecision.canonical_dtype(given) == np.dtype(want)
+        assert tprecision.torch_dtype(given) == getattr(
+            torch, np.dtype(want).name)
+
+    @pytest.mark.parametrize("bad", [np.int32, np.float16, torch.bfloat16])
+    def test_other_dtypes_raise(self, bad):
+        with pytest.raises(ValueError, match="float32 or float64"):
+            tprecision.canonical_dtype(bad)
+
+    def test_float64_needs_no_scoped_flag(self, wl):
+        pw = tdes.pack_workload(wl, np.float64, device="cpu")
+        assert pw.tj_prefw.dtype == torch.float64
+        assert pw.jtype.dtype == torch.int32
+
+
+class TestBuild:
+    def test_flags_are_the_stated_ones(self):
+        flags = " ".join(tbuild.NVCC_FLAGS)
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert "-fmad=false" in flags and "-O3" in flags
+        assert "-std=c++17" in flags and "-shared" in flags
+        assert "use_fast_math" not in flags
+
+    def test_library_is_keyed_by_source_and_flags(self, tmp_path):
+        src = tmp_path / "k.cu"
+        src.write_text("// a")
+        a = tbuild.library_path(src)
+        assert a == tbuild.library_path(src)
+        assert a.parent == tbuild.BUILD_DIR and a.suffix == ".so"
+        src.write_text("// b")
+        assert tbuild.library_path(src) != a
+        assert tbuild.library_path(src, ("-O0",)) != tbuild.library_path(src)
+
+    def test_build_directory_is_ignored_by_git(self):
+        assert tbuild.BUILD_DIR == REPO / "build" / "repro_torch"
+        assert "/build/" in (REPO / ".gitignore").read_text().split()
+
+    def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(tbuild.shutil, "which", lambda _: None)
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+        with pytest.raises(RuntimeError, match="nvcc was not found"):
+            tbuild.find_nvcc()
+
+    def test_failed_build_raises_with_the_compiler_output(self, monkeypatch,
+                                                          tmp_path):
+        fake = tmp_path / "nvcc"
+        fake.write_text("#!/bin/sh\necho 'error: no such thing' >&2\nexit 3\n")
+        fake.chmod(0o755)
+        monkeypatch.setattr(tbuild, "find_nvcc", lambda: str(fake))
+        monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "out")
+        with pytest.raises(RuntimeError, match="no such thing"):
+            tbuild.build_library("packet_step")
+        assert not list((tmp_path / "out").glob("*.so"))
+
+
+def test_cuda_source_carries_its_note():
+    text = (REPO / "src/repro_torch/csrc/packet_step.cu").read_text()
+    head = text[:text.index("#include")]
+    assert "event_step_kernel" in head
+    assert "src/repro/kernels/packet_step/kernel.py" in head
+    assert "What bounds it" in head and "does not do" in head
