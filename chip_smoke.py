@@ -1,29 +1,58 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version on the card, drives the port's main path (the
-paper's 37 x 6 grid of 5000-job workloads through `run_packet_grid`) and
-prints one JSON line per phase. It needs one CUDA device and `nvcc`; with
-no device it exits non-zero and prints no result. The last line of its
-standard output is
+Builds the CUDA kernels from the sources in this checkout (one `nvcc` per
+source, started together; the attention kernel's build goes on while the
+DES phases run), holds each against its plain PyTorch version on the card,
+drives the port's two paths and prints one JSON line per phase:
+
+- the DES grid: the paper's 37 x 6 grid of 5000-job workloads through
+  `run_packet_grid` (event-step kernel);
+- LM serving: `repro_torch.launch.serve.main` on granite-3-2b at full
+  width and depth (40 layers, bf16, random weights from seed 0), 4 prompts
+  of 2048 tokens, 32 new tokens each (flash-attention kernel in every
+  layer of the prefill).
+
+`--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
+`torch.profiler` (device time by kind of kernel, idle share). It is off by
+default because the profiler's first session in a process costs seconds of
+set-up.
+
+It needs one CUDA device and `nvcc`; with no device it exits non-zero and
+prints no result. The last line of its standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
-Tolerance of every kernel-vs-plain comparison: integer columns and group-log
-keys equal; float columns at most 2 ulp apart (the build uses -fmad=false
-and no fast math, so each operation rounds as PyTorch's elementwise ops do
-and the expected difference is 0; 2 ulp leaves room for a libm `log` that
-differs in its last bit).
+Tolerances of the kernel-vs-plain comparisons:
+
+- event step: integer columns and group-log keys equal; float columns at
+  most 2 ulp apart (the build uses -fmad=false and no fast math, so each
+  operation rounds as PyTorch's elementwise ops do and the expected
+  difference is 0; 2 ulp leaves room for a libm `log` that differs in its
+  last bit);
+- flash attention: |kernel - plain| <= atol + tol * |plain| elementwise.
+  float32: tol = atol = 2e-5 (sums in another order, FMA, CUDA's `expf`).
+  bfloat16: tol = 2e-2 (the output's rounding, as tests/test_kernels.py:46;
+  both sides round one float32 result, so they differ by at most one bf16
+  step, 2^-7 * |plain|) and atol = 2e-2 times the root mean square of the
+  plain output. A late row of a long causal sequence averages thousands of
+  keys and is about 0.05 in size, so a fixed 2e-2 would let a kernel that
+  drops a tile of keys pass.
+
+Float32 matrix products run in full float32: TF32 is switched off for
+matmuls and cuDNN before anything runs.
 """
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -31,11 +60,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import des, sweep
 from repro_torch.core.metrics import SCALAR_METRIC_FIELDS, efficiency_metrics
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import kernel as attn_kernel
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.packet_step import kernel as step_kernel
 from repro_torch.kernels.packet_step import ops as step_ops
+from repro_torch.launch import serve
+from repro_torch.models import layers, lm
+from repro_torch.models.layers import unembed
+from repro_torch.serve.engine import generate, make_serve_step
 from repro_torch.workload.lublin import (WorkloadParams, generate_workload,
                                          paper_workloads)
 
@@ -43,6 +80,23 @@ ULP_BOUND = 2.0
 SEG = des.SCAN_SEG
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 FP32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ATTN_CASES = [
+    # B, Sq, Skv, H, KV, hd, causal, window, softcap
+    (2, 64, 64, 4, 2, 32, True, 0, 0.0),        # tests/test_kernels.py:24-31
+    (1, 128, 128, 8, 8, 64, True, 0, 0.0),
+    (2, 48, 48, 4, 1, 32, True, 16, 0.0),       # MQA + local window
+    (1, 32, 96, 4, 2, 32, True, 0, 0.0),        # prefix offset (Skv > Sq)
+    (2, 64, 64, 4, 4, 32, False, 0, 0.0),       # bidirectional
+    (1, 40, 40, 2, 2, 16, True, 0, 0.0),        # ragged
+    (1, 64, 64, 4, 4, 32, True, 0, 20.0),       # softcap 20
+    (4, 2048, 2048, 32, 8, 64, True, 0, 0.0),   # granite-3-2b, main-path size
+    (1, 512, 512, 10, 1, 256, True, 256, 0.0),  # recurrentgemma-2b layout
+]
+GRANITE_CASE = ATTN_CASES[7]
+SERVE_ARCH = "granite-3-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 2048, 32, 0
 CHAOS = dict(mtbf_chip_hours=50.0, ckpt_period=300.0, straggler_prob=0.05,
              straggler_factor=1.5, straggler_deadline=2.0)
 PLAIN_RUN_SECONDS = 150.0       # per plain whole-dispatch run, then a prefix
@@ -202,11 +256,20 @@ def phase_env():
          nvcc=nvcc.stdout.strip().splitlines()[-2:])
 
 
-def phase_build():
-    t0 = time.perf_counter()
-    step_kernel.load()
-    secs = time.perf_counter() - t0
-    lib = build.library_path(build.CSRC_DIR / f"{step_kernel.SOURCE}.cu")
+def start_builds(pool):
+    """Both kernels' libraries, one nvcc per source, started together.
+    Returns {kernel module: future of its build's seconds}."""
+    def timed_load(mod):
+        t0 = time.perf_counter()
+        mod.load()
+        return time.perf_counter() - t0
+    return {m: pool.submit(timed_load, m) for m in (step_kernel, attn_kernel)}
+
+
+def phase_build(mod, built):
+    """Waits for one library's build and prints its ptxas lines."""
+    secs = built.result()
+    lib = build.library_path(build.CSRC_DIR / f"{mod.SOURCE}.cu", mod.FLAGS)
     log = lib.with_suffix(".log").read_text().splitlines()
     ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
     emit("build", seconds=secs, library=lib.name, ptxas=ptxas)
@@ -434,7 +497,286 @@ def time_kernel(d: Dispatch):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(flows, launches, plain_ms):
+# --------------------------------------------------------------------------
+# flash attention and the serving path
+# --------------------------------------------------------------------------
+
+class AttnWorst:
+    """Largest kernel-vs-plain attention difference seen so far."""
+    abs_err = 0.0
+
+
+def attn_inputs(case, dtype, seed):
+    """q, k, v of one case on the card, standard normal, from a seed."""
+    B, Sq, Skv, H, KV, hd = case[:6]
+    gen = torch.Generator(device=Dispatch.device).manual_seed(seed)
+    draw = lambda *shape: torch.randn(shape, generator=gen,
+                                      device=Dispatch.device).to(dtype)
+    return draw(B, Sq, H, hd), draw(B, Skv, KV, hd), draw(B, Skv, KV, hd)
+
+
+def attn_check(got, want, label):
+    """Kernel output against the plain version's, per the stated bound.
+    Returns (largest absolute difference, the bound's absolute term)."""
+    tol = ATTN_TOL[want.dtype]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: kernel gave {tuple(got.shape)} {got.dtype}, plain "
+             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{label}: the kernel's output is not finite")
+    atol = tol
+    if want.dtype == torch.bfloat16:
+        atol = tol * float(w.square().mean().sqrt())
+    d = (g - w).abs()
+    excess = float((d - tol * w.abs()).max())
+    if excess > atol:
+        fail(f"{label}: |kernel - plain| exceeds {atol} + {tol}*|plain| "
+             f"(largest excess {excess})")
+    err = float(d.max())
+    AttnWorst.abs_err = max(AttnWorst.abs_err, err)
+    return err, atol
+
+
+def phase_attention_kernel():
+    """The kernel against impl="torch" on every listed shape, both types."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(ATTN_CASES):
+            B, Sq, Skv, H, KV, hd, causal, window, softcap = case
+            q, k, v = attn_inputs(case, dtype, seed=i)
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
+            want = attn_ops.flash_attention(q, k, v, impl="torch", **kw)
+            torch.cuda.synchronize()
+            label = (f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} hd={hd} "
+                     f"causal={causal} window={window} softcap={softcap} "
+                     f"{str(dtype).replace('torch.', '')}")
+            err, atol = attn_check(got, want, f"attention_kernel {label}")
+            emit("attention_kernel", shape=label, max_abs_err=err,
+                 atol=atol, rtol=ATTN_TOL[dtype], ok=True)
+            del q, k, v, got, want
+
+
+class Capture:
+    """Passes every call on to `fn` and keeps the inputs, keywords and
+    output of the calls whose index is in `keep`."""
+
+    def __init__(self, fn, keep):
+        self.fn, self.keep, self.calls, self.kept = fn, set(keep), 0, {}
+
+    def __call__(self, q, k, v, **kw):
+        out = self.fn(q, k, v, **kw)
+        if self.calls in self.keep:
+            self.kept[self.calls] = (q, k, v, kw, out)
+        self.calls += 1
+        return out
+
+
+def serve_argv():
+    return ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--max-new", str(SERVE_NEW),
+            "--seed", str(SERVE_SEED)]
+
+
+def phase_serve_path(profile: bool):
+    """`launch.serve.main` on full-width granite-3-2b, once; then the same
+    parameters and prompts through a prefill with the plain attention, for
+    comparison, and with `profile` a profiled warm run."""
+    cfg = get_config(SERVE_ARCH)
+    n_layers = cfg.n_layers
+    capture = Capture(attn_ops.flash_attention, (0, n_layers - 1))
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    layers.flash_attention = capture
+    try:
+        attn_ops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = serve.main(serve_argv(), stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = attn_ops.flash_attention.launches
+    finally:
+        layers.flash_attention = attn_ops.flash_attention
+    peak = torch.cuda.max_memory_allocated()
+
+    if out.shape != (SERVE_BATCH, SERVE_NEW):
+        fail(f"serve_path: tokens have shape {out.shape}")
+    if out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail("serve_path: a token lies outside [0, vocab)")
+    logits = stats["prefill_logits"][..., :cfg.vocab_size]
+    if not bool(torch.isfinite(logits).all()):
+        fail("serve_path: the prefill's logits are not finite")
+    if launches != n_layers:
+        fail(f"serve_path: {launches} flash-attention launches in one "
+             f"prefill, expected {n_layers}")
+    layer_err = {}
+    for idx, (q, k, v, kw, got) in sorted(capture.kept.items()):
+        want = attention_ref(q, k, v, **kw)
+        layer_err[f"layer_{idx}"], _ = attn_check(
+            got, want, f"serve_path layer {idx}")
+    capture.kept.clear()
+    new_tokens = SERVE_BATCH * SERVE_NEW
+    gen_s = stats["prefill_seconds"] + stats["decode_seconds"]
+    emit("serve_path", arch=SERVE_ARCH, n_layers=n_layers,
+         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+         dtype=cfg.param_dtype, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+         max_new=SERVE_NEW, launches=launches,
+         captured_layers_max_abs_err=layer_err,
+         prefill_seconds=stats["prefill_seconds"],
+         decode_seconds=stats["decode_seconds"],
+         decode_ms_per_step=1e3 * stats["decode_seconds"] / (SERVE_NEW - 1),
+         tokens_per_second=new_tokens / gen_s,
+         main_wall_seconds=wall, peak_memory_bytes=peak,
+         sample=out[0][:8].tolist(), ok=True)
+
+    # the same parameters and prompts again, through the prefill only (the
+    # decode steps run no attention kernel): the plain attention by name
+    cfg, pol, params, prompts = serve.setup(SERVE_ARCH, False, SERVE_BATCH,
+                                            SERVE_PROMPT, SERVE_SEED, None)
+    plain_stats = {}
+    layers.flash_attention = functools.partial(attn_ops.flash_attention,
+                                               impl="torch")
+    try:
+        plain = generate(cfg, pol, params, prompts, max_new=1,
+                         stats=plain_stats)
+    finally:
+        layers.flash_attention = attn_ops.flash_attention
+    plain_logits = plain_stats["prefill_logits"][..., :cfg.vocab_size]
+    emit("serve_plain_attention", impl="torch", stage="prefill",
+         first_token_agreement=float((out[:, 0] == plain[:, 0]).mean()),
+         first_tokens=out[:, 0].tolist(),
+         plain_first_tokens=plain[:, 0].tolist(),
+         last_position_logits_max_abs_diff=float(
+             (logits.float() - plain_logits.float()).abs().max()),
+         prefill_seconds=plain_stats["prefill_seconds"],
+         note="not gated: bf16 near-ties can flip a greedy token")
+    if profile:
+        profile_serving(cfg, pol, params, prompts)
+    return launches
+
+
+PROFILE_DECODE_STEPS = 8
+MATMUL_KERNEL_MARKS = ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")
+
+
+def kernel_times(prof) -> dict:
+    """{kernel name: (device us, launches)} of a profiler session."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        out[e.key] = (e.self_device_time_total, e.count)
+    return out
+
+
+def summarize(name, wall_s, times, steps=1):
+    """Device time of one profiled stage, by kind of kernel, per step,
+    against the stage's unprofiled host-clock wall `wall_s`."""
+    busy_ms = 1e-3 * sum(t for t, _ in times.values()) / steps
+    wall_ms = 1e3 * wall_s / steps
+    kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for key, (t, _) in times.items():
+        low = key.lower()
+        kind = ("flash_attention" if "attn_kernel" in low else
+                "matmul" if any(m in low for m in MATMUL_KERNEL_MARKS) else
+                "other")
+        kinds[kind] += 1e-3 * t / steps
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(stage=name, steps=steps, wall_ms=wall_ms,
+                device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+                by_kind_ms=kinds,
+                launches=sum(c for _, c in times.values()) // steps,
+                top_kernels=[dict(name=k[:90], ms=1e-3 * t / steps,
+                                  launches=c // steps)
+                             for k, (t, c) in top])
+
+
+@torch.inference_mode()
+def profile_serving(cfg, pol, params, prompts):
+    """Where a warm serving run's time goes: one prefill and
+    PROFILE_DECODE_STEPS decode steps timed on the host clock (each stage
+    ended by a synchronize), then the same stages under torch.profiler for
+    the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    step = make_serve_step(cfg, pol)
+    max_len = prompts.shape[1] + PROFILE_DECODE_STEPS
+
+    def prefill():
+        hidden, cache = lm.prefill(cfg, pol, params, prompts, max_len)
+        logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
+        torch.cuda.synchronize()
+        return torch.argmax(logits, dim=-1), cache
+
+    def decode(tok, cache):
+        for _ in range(PROFILE_DECODE_STEPS):
+            tok, cache = step(params, cache, tok)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, cache = prefill()
+    t1 = time.perf_counter()
+    decode(tok, cache)
+    t2 = time.perf_counter()
+    with profile(activities=acts) as prof_p:
+        tok, cache = prefill()
+    with profile(activities=acts) as prof_d:
+        decode(tok, cache)
+    for name, wall, prof, steps in (
+            ("prefill", t1 - t0, prof_p, 1),
+            ("decode", t2 - t1, prof_d, PROFILE_DECODE_STEPS)):
+        emit("serve_profile", **summarize(name, wall, kernel_times(prof),
+                                          steps))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """CUDA-event ms per call over `reps` calls, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_attention():
+    """Kernel, plain version and SDPA on granite-3-2b's layer at the main
+    path's size (bf16, causal), in turns; and what bounds the same work."""
+    B, Sq, Skv, H, KV, hd, causal, window, softcap = GRANITE_CASE
+    q, k, v = attn_inputs(GRANITE_CASE, torch.bfloat16, seed=100)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda")
+    plain = lambda: attn_ops.flash_attention(q, k, v, impl="torch")
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    runs = {"kernel": [], "plain": [], "library": []}
+    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        fn = {"kernel": kernel, "plain": plain, "library": library}[name]
+        runs[name].append(cuda_ms(fn, 3 if name == "plain" else 20))
+    lib_err = float((library().transpose(1, 2).float()
+                     - plain().float()).abs().max())
+    pairs = Sq * (Sq + 1) // 2           # causal, Sq == Skv: visible pairs
+    flops = 4 * B * H * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, o
+    t_ops = 1e3 * flops / BF16_OPS_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return dict(shape=f"B={B} S={Sq} H={H} KV={KV} hd={hd} causal bf16",
+                ms=min(runs["kernel"]), plain_ms=min(runs["plain"]),
+                library_ms=min(runs["library"]), runs_ms=runs,
+                run_order="kernel, plain, library, library, plain, kernel",
+                library_max_abs_err_vs_plain=lib_err, flops=flops,
+                bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels(flows, launches, plain_ms, attn_launches):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -458,22 +800,66 @@ def phase_kernels(flows, launches, plain_ms):
         "main_shape": main,
         "other_shapes": others,
     }]}
+    attn = time_attention()
+    line["kernels"].append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
+        "launches": attn_launches,
+        "max_abs_err": AttnWorst.abs_err,
+        "ms": attn["ms"],
+        "plain_ms": attn["plain_ms"],
+        "bound_ms": attn["bound_ms"],
+        "bound_by": attn["bound_by"],
+        "library_ms": attn["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True), timed as the "
+                   "yardstick only",
+        "unit": f"one launch = one layer's attention; {attn['shape']}",
+        "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
+                        "ops_per_s": BF16_OPS_PER_S},
+        "main_shape": attn,
+    })
     print(json.dumps(line), flush=True)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile a warm serving run (torch.profiler)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_env()
-    phase_build()
-    flows = paper_workloads(0)
-    phase_kernel_step(flows)
-    plain_ms = phase_kernel_run(flows)
-    launches = phase_main_path(flows)
-    phase_stages(flows)
-    phase_kernels(flows, launches, plain_ms)
-    emit("done", total_seconds=time.perf_counter() - t0)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = start_builds(pool)
+        timed("env", phase_env)
+        timed("build packet_step", phase_build, step_kernel,
+              builds[step_kernel])
+        flows = timed("workloads", paper_workloads, 0)
+        timed("kernel_step", phase_kernel_step, flows)
+        plain_ms = timed("kernel_run", phase_kernel_run, flows)
+        launches = timed("main_path", phase_main_path, flows)
+        timed("main_path_stages", phase_stages, flows)
+        timed("build flash_attention, wait", phase_build, attn_kernel,
+              builds[attn_kernel])
+    timed("attention_kernel", phase_attention_kernel)
+    attn_launches = timed("serve_path", phase_serve_path, args.profile)
+    timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches)
+    emit("done", total_seconds=time.perf_counter() - t0,
+         phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,12 @@
+"""phi3-medium-14b [dense] — RoPE SwiGLU GQA. [arXiv:2404.14219; unverified]
+40L d_model=5120 40H (GQA kv=10) d_ff=17920 vocab=100352.
+40 heads / kv=10 do not divide TP=16 -> policy resolves batch-parallel
+(dp_batch) attention on the production mesh."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=10,
+    d_ff=17920, vocab_size=100352,
+    param_dtype="bfloat16", compute_dtype="bfloat16", remat="full",
+)

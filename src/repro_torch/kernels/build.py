@@ -45,20 +45,21 @@ def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+def build_library(name: str, flags=NVCC_FLAGS) -> Path:
+    """Compile ``csrc/<name>.cu`` with `flags` unless an up-to-date library
+    exists.
 
     nvcc's output (ptxas reports each kernel's registers and spills) is
     kept beside the library as ``<library>.log``. Raises RuntimeError
     carrying that output when the build fails."""
     source = CSRC_DIR / f"{name}.cu"
-    out = library_path(source)
+    out = library_path(source, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [find_nvcc(), *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -70,5 +71,5 @@ def build_library(name: str) -> Path:
     return out
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(name)))
+def load_library(name: str, flags=NVCC_FLAGS) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_library(name, flags)))

@@ -1,0 +1,105 @@
+"""Public wrapper of the flash-attention kernel, in the model layout.
+
+`flash_attention(q, k, v)` takes ``q [B, Sq, H, hd]`` and ``k``/``v``
+``[B, Skv, KV, hd]`` (``H % KV == 0``) and returns ``[B, Sq, H, hd]`` in
+``q.dtype``: the function of the reference's
+`repro.kernels.flash_attention.ops.flash_attention`.
+
+On CUDA tensors it launches the hand-written kernel
+(`repro_torch/csrc/flash_attention.cu`) or raises; there is no path from a
+failed launch to the plain version. On CPU tensors it runs the plain
+PyTorch version (`ref.py`). ``impl="torch"`` asks for the plain version by
+name on either device; ``impl="cuda"`` on CPU tensors raises.
+
+`flash_attention.launches` counts kernel launches (and nothing else).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as _kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: the recognized implementations
+IMPLS = ("cuda", "torch")
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GRID_Y = 65535      # B * H is the grid's second dimension
+
+
+def resolve_impl(impl: str | None, device: torch.device) -> str:
+    """Default: the kernel on a CUDA device, the plain version on the CPU.
+    ``"cuda"`` on a CPU device raises."""
+    if impl is None:
+        return "cuda" if device.type == "cuda" else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; available: {IMPLS}")
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors; these live on "
+                         f"{device} (use impl='torch' there)")
+    return impl
+
+
+def _check(q, k, v):
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got "
+                            f"{type(x).__name__}")
+        if x.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got shape "
+                             f"{tuple(x.shape)}")
+        if x.device != q.device:
+            raise ValueError(f"{name} lives on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}, q {q.dtype}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {q.dtype}")
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, KV, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must both be [B={B}, Skv, KV, hd={hd}]; "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if min(B, Sq, Skv, H, KV) < 1 or H % KV:
+        raise ValueError(f"need B, Sq, Skv, H, KV >= 1 and H % KV == 0; got "
+                         f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, impl: str | None = None):
+    """q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] -> [B, Sq, H, hd].
+
+    Query row i sits at absolute position ``i + Skv - Sq``. Rows that see
+    no key at all (causal with ``Skv < Sq``) are outside the contract, as
+    they are for the reference's kernel."""
+    _check(q, k, v)
+    impl = resolve_impl(impl, q.device)
+    window, softcap = int(window), float(softcap)
+    if impl == "torch":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if B * H > MAX_GRID_Y:
+        raise ValueError(f"B * H = {B * H} exceeds the grid's {MAX_GRID_Y}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _kernel.launch(
+            q.dtype == torch.bfloat16, hd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), (B, Sq, Skv, H, KV), causal,
+            window, softcap, 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaGetLastError() = {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

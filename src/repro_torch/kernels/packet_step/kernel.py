@@ -12,6 +12,7 @@ import ctypes
 from repro_torch.kernels import build
 
 SOURCE = "packet_step"
+FLAGS = build.NVCC_FLAGS
 N_INPUTS = 16       # 9 read-only operands + 7 chaos operands (or null)
 N_STATE_COLS = 23
 N_LOGS = 4
@@ -26,7 +27,7 @@ def load() -> ctypes.CDLL:
     first call."""
     global _lib
     if _lib is None:
-        lib = build.load_library(SOURCE)
+        lib = build.load_library(SOURCE, FLAGS)
         fn = lib.packet_step_launch
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_void_p),

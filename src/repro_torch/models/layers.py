@@ -1,0 +1,266 @@
+"""Shared transformer building blocks, in PyTorch.
+
+The counterpart of the reference's `repro/models/layers.py`. Parameters
+are plain dictionaries of tensors with JAX's weight orientation
+``[in, out]`` (``x @ w``); the reference's `Boxed` logical axes belong to
+TPU sharding and are not carried. Every function takes a `Policy`, whose
+`constrain` is the identity on one card. Public layouts are the
+reference's: ``[B, S, H, hd]`` for attention and ``[B, T, KV, hd]`` for one
+layer's KV cache.
+
+Full-sequence attention runs the flash-attention kernel under
+``cfg.attention_impl == "pallas"`` (CUDA on the card, its plain version on
+the CPU) and the plain query-chunked softmax under ``"xla"``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import Policy
+
+ATTN_CHUNK = 512          # query-chunk length for full-sequence attention
+NEG_INF = -1e30
+
+
+def dense_init(gen: torch.Generator, in_dim, out_dim, dtype):
+    w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
+                    device=gen.device) * (1.0 / math.sqrt(in_dim))
+    return w.to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab, dim, dtype):
+    w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
+                    device=gen.device) * 0.02
+    return w.to(dtype)
+
+
+def norm_init(dim, dtype, norm_type="rmsnorm", device=None):
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if norm_type == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x, eps, norm_type="rmsnorm"):
+    xf = x.float()
+    if norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        var = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]. Rotates the
+    two halves of the head dim in float32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # [hd/2]
+    ang = positions[..., None].float() * freqs              # [..., S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig):
+    hd, d, dt = cfg.hd, cfg.d_model, cfg.pdtype()
+    return {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, dt),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dt),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dt),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, dt),
+    }
+
+
+def _repeat_kv(k, repeat: int):
+    """Exact GQA KV replication: kv head j -> repeat copies, so that query
+    head i (group g = H/KV') still reads its own key/value."""
+    if repeat == 1:
+        return k
+    return torch.repeat_interleave(k, repeat, dim=2)
+
+
+def _chunked_sdpa(q, k, v, *, causal: bool, window: int, offset: int,
+                  softcap: float = 0.0, chunk: int = ATTN_CHUNK):
+    """Exact softmax attention computed in query chunks (the plain path).
+
+    q: [B, S, H, hd]; k, v: [B, T, KV, hd] with H % KV == 0. Each chunk
+    computes [B, KV, g, chunk, T] float32 logits, softmaxes over T exactly,
+    rounds the weights to v's dtype and contracts. ``offset`` is the
+    absolute position of q[0] minus that of k[0].
+    """
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    chunk = min(chunk, S)
+    ki = torch.arange(T, device=q.device)
+    kf = k.float()
+    outs = []
+    for c0 in range(0, S, chunk):
+        qi = q[:, c0:c0 + chunk]
+        n = qi.shape[1]
+        qg = qi.reshape(B, n, KV, g, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), kf) * scale
+        if softcap > 0:
+            logits = torch.tanh(logits / softcap) * softcap
+        pos_q = c0 + torch.arange(n, device=q.device) + offset
+        mask = torch.ones((n, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= ki[None, :] <= pos_q[:, None]
+        if window > 0:
+            mask &= ki[None, :] > pos_q[:, None] - window
+        logits = logits.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
+                    .reshape(B, n, H, hd))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
+                 window: int = 0, causal: bool = True):
+    """Full-sequence (train / prefill) attention. Returns (out, (k, v)).
+
+    The returned k, v have KV heads already replicated per the policy, ready
+    to seed a decode cache.
+    """
+    B, S, d = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k = _repeat_kv(k, pol.kv_repeat)
+    v = _repeat_kv(v, pol.kv_repeat)
+    if cfg.attention_impl == "pallas":
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.logit_softcap)
+    else:
+        out = _chunked_sdpa(q, k, v, causal=causal, window=window, offset=0,
+                            softcap=cfg.logit_softcap)
+    y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+    return y, (k, v)
+
+
+def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,
+                window: int = 0):
+    """One-token decode step.
+
+    x: [B, 1, d]; cache_[kv]: [B, T, KVr, hd] (KV heads pre-replicated);
+    pos: int, [] or [B] absolute position of the new token. With a ring
+    cache (window > 0 and T == window) the write index is pos % T.
+    The new key and value are written into `cache_k` / `cache_v` IN PLACE
+    (the reference returns updated copies). Returns
+    (out [B, 1, d], cache_k, cache_v).
+    """
+    B, _, d = x.shape
+    hd = cfg.hd
+    T = cache_k.shape[1]
+    KVr = cache_k.shape[2]
+    ring = window > 0 and T == window
+    if isinstance(pos, int) and not ring and pos >= T:
+        raise ValueError(f"position {pos} does not fit a cache of {T} slots")
+    q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
+    if isinstance(pos, torch.Tensor):
+        posb = pos.to(x.device).expand(B)
+    else:       # a fill on the device: no host-to-device copy, no sync
+        posb = torch.full((B,), int(pos), dtype=torch.long, device=x.device)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, posb[:, None], cfg.rope_theta)
+        k = apply_rope(k, posb[:, None], cfg.rope_theta)
+    k = _repeat_kv(k, pol.kv_repeat)
+    v = _repeat_kv(v, pol.kv_repeat)
+
+    slot = posb % T if ring else posb
+    # The reference blends a one-hot row into the cache; writing the new
+    # row at `slot` gives the same values (the blend multiplies the other
+    # rows by exactly 1 and the slot's old value by exactly 0).
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+
+    ki = torch.arange(T, device=x.device)[None, :]
+    if ring:
+        # slot i holds absolute position: valid iff within the last `window`
+        age = (slot[:, None] - ki) % T
+        valid = age <= torch.clamp(posb[:, None], max=T - 1)
+    else:
+        valid = ki <= posb[:, None]
+        if window > 0:
+            valid &= ki > posb[:, None] - window
+
+    g = cfg.n_heads // KVr
+    qg = q.reshape(B, 1, KVr, g, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          cache_k.to(x.dtype).float()) / math.sqrt(hd)
+    if cfg.logit_softcap > 0:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    logits = logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    # the weights are rounded to x's dtype before P.V, as in the reference
+    out = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype),
+                       cache_v.to(x.dtype)).reshape(B, 1, cfg.n_heads * hd)
+    y = out @ p["wo"]
+    return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------- MLP
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig):
+    d, d_ff, dt = cfg.d_model, cfg.d_ff, cfg.pdtype()
+    if cfg.mlp_type == "swiglu":
+        return {"wi": dense_init(gen, d, d_ff, dt),
+                "wg": dense_init(gen, d, d_ff, dt),
+                "wo": dense_init(gen, d_ff, d, dt)}
+    return {"wi": dense_init(gen, d, d_ff, dt),
+            "wo": dense_init(gen, d_ff, d, dt)}
+
+
+def mlp_forward(p, cfg: ModelConfig, pol: Policy, x):
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+    else:
+        h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu's default
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------- head
+
+def unembed(cfg: ModelConfig, pol: Policy, x, embed_w):
+    """Project to (padded) vocab logits with the embedding table; padded
+    entries masked to -1e30."""
+    logits = x @ embed_w.to(x.dtype).T
+    if cfg.logit_softcap > 0:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    pad = logits.shape[-1] - cfg.vocab_size
+    if pad > 0:
+        mask = torch.arange(logits.shape[-1], device=x.device) < cfg.vocab_size
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return logits
+
+
+def padded_vocab(cfg: ModelConfig, multiple: int = 16) -> int:
+    return int(math.ceil(cfg.vocab_size / multiple) * multiple)

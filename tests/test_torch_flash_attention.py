@@ -1,0 +1,168 @@
+"""The port's flash-attention module against the reference's.
+
+The plain PyTorch version (`repro_torch.kernels.flash_attention.ref`,
+reached through the public wrapper `ops.flash_attention` on CPU tensors) is
+held against the reference's Pallas kernel run in interpret mode on the CPU
+(`repro.kernels.flash_attention.ops.flash_attention`, ``bq = bkv = 32``, as
+`tests/test_kernels.py` runs it) and against the reference's oracle
+`attention_ref`, on the same numpy inputs.
+
+Tolerances (abs + rel, as `tests/test_kernels.py:46`): 2e-5 in float32
+(the same function summed in another order) and 2e-2 in bfloat16 (both
+sides round the float32 result to bf16 once; a sum that lands near a
+rounding boundary may round the other way).
+
+The CUDA kernel itself runs only on the card: `chip_smoke.py` holds it
+against this plain version there.
+"""
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as tkernel
+from repro_torch.kernels.flash_attention import ops as tops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from test_torch_reference import load_reference
+
+CASES = [
+    # B, Sq, Skv, H, KV, hd, causal, window, softcap
+    (2, 64, 64, 4, 2, 32, True, 0, 0.0),        # tests/test_kernels.py:24-31
+    (1, 128, 128, 8, 8, 64, True, 0, 0.0),
+    (2, 48, 48, 4, 1, 32, True, 16, 0.0),       # MQA + local window
+    (1, 32, 96, 4, 2, 32, True, 0, 0.0),        # prefix offset (Skv > Sq)
+    (2, 64, 64, 4, 4, 32, False, 0, 0.0),       # bidirectional
+    (1, 40, 40, 2, 2, 16, True, 0, 0.0),        # ragged
+    (1, 64, 64, 4, 4, 32, True, 0, 20.0),       # softcap 20
+    (1, 128, 128, 32, 8, 64, True, 0, 0.0),     # granite-3-2b's head layout
+]
+DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return load_reference()
+
+
+def inputs(case, seed):
+    B, Sq, Skv, H, KV, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd), dtype=np.float32),
+            rng.standard_normal((B, Skv, KV, hd), dtype=np.float32),
+            rng.standard_normal((B, Skv, KV, hd), dtype=np.float32))
+
+
+def to_jax(ref, arrays, dtype_name):
+    return [ref.jnp.asarray(a, getattr(ref.jnp, dtype_name)) for a in arrays]
+
+
+def to_torch(arrays, dtype):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def as_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_plain_version_matches_reference_kernel_and_oracle(ref, case,
+                                                           dtype_name):
+    causal, window, softcap = case[6:]
+    dtype, tol = DTYPES[dtype_name]
+    arrays = inputs(case, seed=sum(case[:6]))
+    qj, kj, vj = to_jax(ref, arrays, dtype_name)
+    want_kernel = ref.attn_ops.flash_attention(
+        qj, kj, vj, causal=causal, window=window, softcap=softcap, bq=32,
+        bkv=32)
+    want_oracle = ref.attn_ref.attention_ref(
+        qj, kj, vj, causal=causal, window=window, softcap=softcap)
+    q, k, v = to_torch(arrays, dtype)
+    got = tops.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    assert got.dtype == dtype and tuple(got.shape) == tuple(q.shape)
+    for want in (want_kernel, want_oracle):
+        np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=tol,
+                                   atol=tol)
+
+
+class TestRouting:
+    def args(self, dtype=torch.float32):
+        return to_torch(inputs(CASES[0], seed=1), dtype)
+
+    def test_cpu_tensors_take_the_plain_version_and_count_nothing(self):
+        before = tops.flash_attention.launches
+        q, k, v = self.args()
+        a = tops.flash_attention(q, k, v)
+        b = tops.flash_attention(q, k, v, impl="torch")
+        assert torch.equal(a, b)
+        assert torch.equal(a, attention_ref(q, k, v))
+        assert tops.flash_attention.launches == before == 0
+
+    def test_cuda_by_name_on_cpu_tensors_raises(self):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tops.flash_attention(*self.args(), impl="cuda")
+
+    def test_unknown_impl_raises(self):
+        with pytest.raises(ValueError, match="unknown impl"):
+            tops.flash_attention(*self.args(), impl="pallas")
+
+    def test_resolution(self):
+        assert tops.resolve_impl(None, torch.device("cpu")) == "torch"
+        assert tops.resolve_impl(None, torch.device("cuda", 0)) == "cuda"
+        assert tops.resolve_impl("torch", torch.device("cuda", 0)) == "torch"
+
+
+class TestChecks:
+    def test_float16_is_refused(self):
+        q, k, v = to_torch(inputs(CASES[0], seed=2), torch.float16)
+        with pytest.raises(ValueError, match="dtype must be one of"):
+            tops.flash_attention(q, k, v)
+
+    def test_mixed_dtypes_are_refused(self):
+        q, k, v = to_torch(inputs(CASES[0], seed=2), torch.float32)
+        with pytest.raises(ValueError, match="has dtype"):
+            tops.flash_attention(q, k.to(torch.bfloat16), v)
+
+    def test_heads_must_divide(self):
+        q, k, v = to_torch(inputs((1, 8, 8, 3, 2, 16), seed=3),
+                           torch.float32)
+        with pytest.raises(ValueError, match="H % KV"):
+            tops.flash_attention(q, k, v)
+
+    def test_k_and_v_shapes_must_agree(self):
+        q, k, v = to_torch(inputs(CASES[0], seed=4), torch.float32)
+        with pytest.raises(ValueError, match="k and v"):
+            tops.flash_attention(q, k, v[:, :-1])
+        with pytest.raises(ValueError, match="k and v"):
+            tops.flash_attention(q, k[..., :16], v[..., :16])
+
+    def test_rank_is_checked(self):
+        q, k, v = to_torch(inputs(CASES[0], seed=5), torch.float32)
+        with pytest.raises(ValueError, match="4-D"):
+            tops.flash_attention(q[0], k, v)
+
+    def test_tensors_only(self):
+        q, k, v = inputs(CASES[0], seed=6)
+        with pytest.raises(TypeError, match="must be a tensor"):
+            tops.flash_attention(q, k, v)
+
+
+class TestBinding:
+    def test_flags_are_the_stated_ones(self):
+        flags = " ".join(tkernel.FLAGS)
+        assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
+        assert "-fmad=false" not in flags and "use_fast_math" not in flags
+
+    def test_head_dims(self):
+        assert tkernel.HEAD_DIMS == (16, 32, 64, 128, 256)
+
+    def test_unsupported_head_dim_raises_before_any_build(self):
+        with pytest.raises(ValueError, match="no instantiation"):
+            tkernel.launch(True, 96, 0, 0, 0, 0, (1, 1, 1, 1, 1), True, 0,
+                           0.0, 1.0, 0)

@@ -23,7 +23,12 @@ from repro_torch.workload.lublin import WorkloadParams, generate_workload
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "serve_lm_torch.py"]
+CUDA_SOURCES = [("packet_step.cu", "event_step_kernel",
+                 "src/repro/kernels/packet_step/kernel.py"),
+                ("flash_attention.cu", "_attn_kernel",
+                 "src/repro/kernels/flash_attention/kernel.py")]
 
 
 @pytest.fixture()
@@ -48,9 +53,17 @@ def test_package_layout_mirrors_the_reference():
     for name in ("core.des", "core.packet", "core.metrics", "core.sweep",
                  "core.precision", "workload.lublin",
                  "kernels.packet_step.ref", "kernels.packet_step.kernel",
-                 "kernels.packet_step.ops", "device"):
+                 "kernels.packet_step.ops", "device",
+                 "kernels.flash_attention.ref", "kernels.flash_attention.kernel",
+                 "kernels.flash_attention.ops", "models.config",
+                 "models.layers", "models.lm", "models.registry",
+                 "models.convert", "configs", "configs.granite_3_2b",
+                 "configs.yi_6b", "configs.phi3_medium_14b",
+                 "configs.starcoder2_7b", "sharding.policy", "serve.engine",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in mods
-    assert (REPO / "src/repro_torch/csrc/packet_step.cu").is_file()
+    for source, _, _ in CUDA_SOURCES:
+        assert (REPO / "src/repro_torch/csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("name", submodules())
@@ -236,9 +249,11 @@ class TestBuild:
         assert not list((tmp_path / "out").glob("*.so"))
 
 
-def test_cuda_source_carries_its_note():
-    text = (REPO / "src/repro_torch/csrc/packet_step.cu").read_text()
+@pytest.mark.parametrize("source,function,tpu_file", CUDA_SOURCES,
+                         ids=[c[0] for c in CUDA_SOURCES])
+def test_cuda_source_carries_its_note(source, function, tpu_file):
+    text = (REPO / "src/repro_torch/csrc" / source).read_text()
     head = text[:text.index("#include")]
-    assert "event_step_kernel" in head
-    assert "src/repro/kernels/packet_step/kernel.py" in head
+    assert function in head
+    assert tpu_file in head
     assert "What bounds it" in head and "does not do" in head

@@ -66,7 +66,11 @@ def load_reference() -> types.SimpleNamespace:
 
     Fields: `jax`, `jnp`, `core` (repro.core), `des`, `packet`, `metrics`,
     `sweep`, `precision`, `lublin`, `step_ops`
-    (repro.kernels.packet_step.ops).
+    (repro.kernels.packet_step.ops); the model stack: `configs`
+    (repro.configs), `layers`, `lm`, `registry` (repro.models.*),
+    `policy` (repro.sharding.policy), `engine` (repro.serve.engine),
+    `launch_serve` (repro.launch.serve), `attn_ops` and `attn_ref`
+    (repro.kernels.flash_attention.ops / .ref).
     """
     global _REF
     if _REF is not None:
@@ -79,10 +83,19 @@ def load_reference() -> types.SimpleNamespace:
     from repro.core import des, metrics, packet, precision, sweep
     from repro.kernels.packet_step import ops as step_ops
     from repro.workload import lublin
+    import repro.configs as configs
+    from repro.kernels.flash_attention import ops as attn_ops
+    from repro.kernels.flash_attention import ref as attn_ref
+    from repro.launch import serve as launch_serve
+    from repro.models import layers, lm, registry
+    from repro.serve import engine
+    from repro.sharding import policy
     _REF = types.SimpleNamespace(
         jax=jax, jnp=jnp, core=core, des=des, packet=packet,
         metrics=metrics, sweep=sweep, precision=precision, lublin=lublin,
-        step_ops=step_ops)
+        step_ops=step_ops, configs=configs, layers=layers, lm=lm,
+        registry=registry, policy=policy, engine=engine,
+        launch_serve=launch_serve, attn_ops=attn_ops, attn_ref=attn_ref)
     return _REF
 
 
@@ -95,6 +108,12 @@ def test_reference_imports(ref):
     assert callable(ref.core.run_packet_grid)
     assert callable(ref.step_ops.fused_packet_step)
     assert ref.des.STEP_IMPLS == ("xla", "pallas")
+
+
+def test_reference_model_stack_imports(ref):
+    assert callable(ref.lm.prefill) and callable(ref.engine.generate)
+    assert callable(ref.attn_ops.flash_attention)
+    assert ref.configs.get_config("granite-3-2b").n_layers == 40
 
 
 def test_loader_is_idempotent(ref):
