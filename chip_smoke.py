@@ -3,20 +3,25 @@
     python3 chip_smoke.py [--profile]
 
 Builds the CUDA kernels from the sources in this checkout (one `nvcc` per
-source, started together; the attention kernel's build goes on while the
+source, started together; the attention and RG-LRU builds go on while the
 DES phases run), holds each against its plain PyTorch version on the card,
-drives the port's two paths and prints one JSON line per phase:
+drives the port's three paths and prints one JSON line per phase:
 
 - the DES grid: the paper's 37 x 6 grid of 5000-job workloads through
   `run_packet_grid` (event-step kernel);
 - LM serving: `repro_torch.launch.serve.main` on granite-3-2b at full
   width and depth (40 layers, bf16, random weights from seed 0), 4 prompts
   of 2048 tokens, 32 new tokens each (flash-attention kernel in every
-  layer of the prefill).
+  layer of the prefill);
+- LM training: `repro_torch.launch.train.main` on recurrentgemma-2b at full
+  width and depth (26 layers, bf16, random weights from seed 0), 3 AdamW
+  steps of 2 x 4096 tokens (RG-LRU kernel forward and reverse in every
+  recurrent layer, flash-attention kernel in every attention layer).
 
 `--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
-`torch.profiler` (device time by kind of kernel, idle share). It is off by
-default because the profiler's first session in a process costs seconds of
+`torch.profiler` (device time by kind of kernel, idle share), and
+`train_profile`, a warm training step the same way. It is off by default
+because the profiler's first session in a process costs seconds of
 set-up.
 
 It needs one CUDA device and `nvcc`; with no device it exits non-zero and
@@ -38,7 +43,24 @@ Tolerances of the kernel-vs-plain comparisons:
   step, 2^-7 * |plain|) and atol = 2e-2 times the root mean square of the
   plain output. A late row of a long causal sequence averages thousands of
   keys and is about 0.05 in size, so a fixed 2e-2 would let a kernel that
-  drops a tile of keys pass.
+  drops a tile of keys pass. The attention backward (plain PyTorch, not a
+  kernel) is held against autograd through the plain forward with the
+  same bf16 bound.
+- RG-LRU recurrence, forward and reverse: the same form of bound. float32:
+  rtol 2e-4, atol 2e-5 (the reference's own tolerance for its kernel
+  against its oracle, on inputs of unit size: the recurrence summed in
+  another order, FMA, CUDA's `expf`); bfloat16 inputs: rtol 2e-2 and atol
+  2e-2 times the RMS of the plain output, as for attention (outputs
+  rounded once to bf16). A float32 / bfloat16 pair is held at the bound
+  of each output's type. The recurrent layers captured on the training
+  path are held at the float32 bound with atol the smaller of 2e-5 and
+  2e-4 times the plain output's RMS: their gradients are those of a mean
+  over 8192 tokens, far below unit size (so that a fixed 2e-5 would pass
+  an output of zeros), and their decays, near 1, sum thousands of steps
+  (dlog_a's largest difference there is about 5e-5 of its RMS).
+- the training step's first loss and gradient norm, kernels against both
+  plain versions at reduced depth: relative difference at most
+  TRAIN_PLAIN_GATE (a few times the measured gap).
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN before anything runs.
@@ -47,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -66,13 +89,20 @@ from repro_torch.core.metrics import SCALAR_METRIC_FIELDS, efficiency_metrics
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as attn_kernel
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.packet_step import kernel as step_kernel
 from repro_torch.kernels.packet_step import ops as step_ops
-from repro_torch.launch import serve
-from repro_torch.models import layers, lm
+from repro_torch.kernels.rglru_scan import kernel as lru_kernel
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.launch import serve, train
+from repro_torch.models import hybrid, layers, lm
 from repro_torch.models.layers import unembed
 from repro_torch.serve.engine import generate, make_serve_step
+from repro_torch.sharding.policy import single_device_policy
+from repro_torch.train import data as train_data
+from repro_torch.train.optim import AdamWConfig, global_norm, tree_leaves
+from repro_torch.train.step import init_state, make_loss_fn, make_train_step
 from repro_torch.workload.lublin import (WorkloadParams, generate_workload,
                                          paper_workloads)
 
@@ -97,6 +127,24 @@ ATTN_CASES = [
 GRANITE_CASE = ATTN_CASES[7]
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 2048, 32, 0
+LRU_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+LRU_CASES = [
+    # B, S, D, with_h0
+    (2, 64, 128, False),        # tests/test_kernels.py:64-70
+    (1, 128, 256, True),
+    (2, 50, 100, True),         # S and D not multiples of the block
+    (1, 8, 512, False),
+    (2, 4096, 2560, False),     # recurrentgemma-2b, main-path size
+    (2, 4096, 2560, True),
+]
+LRU_MAIN = LRU_CASES[4]
+LRU_MIXED_CASE = LRU_CASES[2]   # log_a and b of different types
+TRAIN_PLAIN_GATE = {"loss": 5e-5, "grad_norm": 5e-4}
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SEED = 2, 4096, 3, 0
+# the recurrentgemma-2b attention layer of the training path
+RG_ATTN_CASE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256, True, 2048, 0.0)
+PLAIN_COMPARE_LAYERS = 5        # one (rec, rec, attn) repeat + the tail
 CHAOS = dict(mtbf_chip_hours=50.0, ckpt_period=300.0, straggler_prob=0.05,
              straggler_factor=1.5, straggler_deadline=2.0)
 PLAIN_RUN_SECONDS = 150.0       # per plain whole-dispatch run, then a prefix
@@ -257,13 +305,14 @@ def phase_env():
 
 
 def start_builds(pool):
-    """Both kernels' libraries, one nvcc per source, started together.
+    """The kernels' libraries, one nvcc per source, started together.
     Returns {kernel module: future of its build's seconds}."""
     def timed_load(mod):
         t0 = time.perf_counter()
         mod.load()
         return time.perf_counter() - t0
-    return {m: pool.submit(timed_load, m) for m in (step_kernel, attn_kernel)}
+    return {m: pool.submit(timed_load, m)
+            for m in (step_kernel, attn_kernel, lru_kernel)}
 
 
 def phase_build(mod, built):
@@ -515,25 +564,41 @@ def attn_inputs(case, dtype, seed):
     return draw(B, Sq, H, hd), draw(B, Skv, KV, hd), draw(B, Skv, KV, hd)
 
 
-def attn_check(got, want, label):
-    """Kernel output against the plain version's, per the stated bound.
-    Returns (largest absolute difference, the bound's absolute term)."""
-    tol = ATTN_TOL[want.dtype]
+def differences(got, want, rtol, label):
+    """Fails unless the kernel's output has the plain version's shape and
+    type and is finite. Returns (largest |got - want|, largest
+    |got - want| - rtol * |want|, root mean square of `want`)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{label}: kernel gave {tuple(got.shape)} {got.dtype}, plain "
              f"{tuple(want.shape)} {want.dtype}")
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         fail(f"{label}: the kernel's output is not finite")
-    atol = tol
-    if want.dtype == torch.bfloat16:
-        atol = tol * float(w.square().mean().sqrt())
     d = (g - w).abs()
-    excess = float((d - tol * w.abs()).max())
+    return (float(d.max()), float((d - rtol * w.abs()).max()),
+            float(w.square().mean().sqrt()))
+
+
+def bounded_check(got, want, tol, label):
+    """Kernel output against the plain version's: |got - want| <= atol +
+    rtol * |want| elementwise, with tol = (rtol, atol) and, for bf16, atol
+    scaled by the root mean square of `want`. Returns (largest absolute
+    difference, the bound's absolute term)."""
+    rtol, atol = tol
+    err, excess, rms = differences(got, want, rtol, label)
+    if want.dtype == torch.bfloat16:
+        atol = atol * rms
     if excess > atol:
-        fail(f"{label}: |kernel - plain| exceeds {atol} + {tol}*|plain| "
+        fail(f"{label}: |kernel - plain| exceeds {atol} + {rtol}*|plain| "
              f"(largest excess {excess})")
-    err = float(d.max())
+    return err, atol
+
+
+def attn_check(got, want, label):
+    """`bounded_check` at the attention's tolerance (ATTN_TOL, relative and
+    absolute alike); keeps the largest difference in AttnWorst."""
+    tol = ATTN_TOL[want.dtype]
+    err, atol = bounded_check(got, want, (tol, tol), label)
     AttnWorst.abs_err = max(AttnWorst.abs_err, err)
     return err, atol
 
@@ -558,16 +623,29 @@ def phase_attention_kernel():
 
 
 class Capture:
-    """Passes every call on to `fn` and keeps the inputs, keywords and
-    output of the calls whose index is in `keep`."""
+    """Passes every call on to `fn` and keeps, detached, the positional
+    arguments, keywords and output of the calls whose index is in `keep`.
+    Stands in for a wrapper in its module, so `launches` is the wrapper's
+    own count (a wrapper adds to it through its module's name)."""
 
     def __init__(self, fn, keep):
         self.fn, self.keep, self.calls, self.kept = fn, set(keep), 0, {}
 
-    def __call__(self, q, k, v, **kw):
-        out = self.fn(q, k, v, **kw)
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
         if self.calls in self.keep:
-            self.kept[self.calls] = (q, k, v, kw, out)
+            detach = lambda xs: [x.detach() if isinstance(x, torch.Tensor)
+                                 else x for x in xs]
+            self.kept[self.calls] = (detach(args), kw, detach(
+                out if isinstance(out, tuple) else (out,)))
         self.calls += 1
         return out
 
@@ -611,7 +689,7 @@ def phase_serve_path(profile: bool):
         fail(f"serve_path: {launches} flash-attention launches in one "
              f"prefill, expected {n_layers}")
     layer_err = {}
-    for idx, (q, k, v, kw, got) in sorted(capture.kept.items()):
+    for idx, ((q, k, v), kw, (got,)) in sorted(capture.kept.items()):
         want = attention_ref(q, k, v, **kw)
         layer_err[f"layer_{idx}"], _ = attn_check(
             got, want, f"serve_path layer {idx}")
@@ -675,10 +753,12 @@ def summarize(name, wall_s, times, steps=1):
     against the stage's unprofiled host-clock wall `wall_s`."""
     busy_ms = 1e-3 * sum(t for t, _ in times.values()) / steps
     wall_ms = 1e3 * wall_s / steps
-    kinds = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"flash_attention": 0.0, "lru_scan": 0.0, "matmul": 0.0,
+             "other": 0.0}
     for key, (t, _) in times.items():
         low = key.lower()
         kind = ("flash_attention" if "attn_kernel" in low else
+                "lru_scan" if "lru_kernel" in low else
                 "matmul" if any(m in low for m in MATMUL_KERNEL_MARKS) else
                 "other")
         kinds[kind] += 1e-3 * t / steps
@@ -776,7 +856,374 @@ def time_attention():
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(flows, launches, plain_ms, attn_launches):
+# --------------------------------------------------------------------------
+# the RG-LRU kernel and the training path
+# --------------------------------------------------------------------------
+
+class LruWorst:
+    """Largest kernel-vs-plain RG-LRU difference seen so far."""
+    abs_err = 0.0
+
+
+def lru_inputs(case, a_dtype, b_dtype, seed):
+    """log_a (in `a_dtype`), b (in `b_dtype`), h0 (float32 or None) and
+    the reverse's dh (in `b_dtype`), dh_last on the card, from a seed;
+    log_a as tests/test_kernels.py draws it (decays in about
+    [0.72, 0.99])."""
+    B, S, D, with_h0 = case
+    gen = torch.Generator(device=Dispatch.device).manual_seed(seed)
+    draw = lambda *shape: torch.randn(shape, generator=gen,
+                                      device=Dispatch.device)
+    log_a = (-torch.exp(draw(B, S, D) * 0.5) * 0.1).to(a_dtype)
+    b = draw(B, S, D).to(b_dtype)
+    h0 = draw(B, D) if with_h0 else None
+    return log_a, b, h0, draw(B, S, D).to(b_dtype), draw(B, D)
+
+
+def lru_runs():
+    """(seed, case, log_a's type, b's type) of every `lru_kernel` check:
+    every listed shape in float32 and in bf16, then one shape with each
+    mixed pair."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        for i, case in enumerate(LRU_CASES):
+            yield i, case, dtype, dtype
+    for a_dtype, b_dtype in ((bf16, f32), (f32, bf16)):
+        yield len(LRU_CASES), LRU_MIXED_CASE, a_dtype, b_dtype
+
+
+def phase_lru_kernel():
+    """Forward and reverse launches against impl="torch" on every run of
+    `lru_runs`. One type: that type's bound for every output (a bf16
+    kernel also rounds dh0 to bf16). A mixed pair, which the wrapper widens
+    to float32: each output at its own type's bound."""
+    name_of = lambda dt: str(dt).replace("torch.", "")
+    for seed, case, a_dtype, b_dtype in lru_runs():
+        log_a, b, h0, dh, dh_last = lru_inputs(case, a_dtype, b_dtype, seed)
+        types = (name_of(b_dtype) if a_dtype == b_dtype else
+                 f"log_a {name_of(a_dtype)} b {name_of(b_dtype)}")
+        label = (f"B={case[0]} S={case[1]} D={case[2]} "
+                 f"h0={'yes' if case[3] else 'no'} {types}")
+        got = lru_ops.lru_forward(log_a, b, h0, impl="cuda")
+        want = lru_ops.lru_forward(log_a, b, h0, impl="torch")
+        h = want[0]
+        got_r = lru_ops.lru_reverse(log_a, dh, h, h0, dh_last, impl="cuda")
+        want_r = lru_ops.lru_reverse(log_a, dh, h, h0, dh_last,
+                                     impl="torch")
+        torch.cuda.synchronize()
+        errs, tols = {}, {}
+        for name, g, w in zip(("h", "h_last", "db", "dlog_a", "dh0"),
+                              got + got_r, want + want_r):
+            tol = LRU_TOL[b_dtype if a_dtype == b_dtype else w.dtype]
+            errs[name], _ = bounded_check(g, w, tol,
+                                          f"lru_kernel {label} {name}")
+            tols[name] = tol
+        LruWorst.abs_err = max(LruWorst.abs_err, *errs.values())
+        emit("lru_kernel", shape=label, max_abs_err=errs,
+             rtol_atol=tols, ok=True)
+        del log_a, b, h0, dh, dh_last, got, want, got_r, want_r, h
+
+
+def phase_attention_grad():
+    """The attention Function at recurrentgemma-2b's layer of the training
+    path (forward by the kernel, backward plain): its forward output and
+    its gradients against autograd through the plain forward; and the
+    forward kernel's and the backward's times there. Returns a dict for the
+    kernels line."""
+    B, Sq, Skv, H, KV, hd, causal, window, softcap = RG_ATTN_CASE
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = (x.requires_grad_() for x in
+               attn_inputs(RG_ATTN_CASE, torch.bfloat16, seed=200))
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=Dispatch.device).manual_seed(201),
+        device=Dispatch.device).to(torch.bfloat16)
+    out = attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
+    got = (out.detach(),) + torch.autograd.grad(out, (q, k, v), do)
+    out = attention_ref(q, k, v, **kw)
+    want = (out.detach(),) + torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        errs[name], _ = attn_check(g, w, f"attention_grad {name}")
+    del out, got, want
+    q, k, v = (x.detach() for x in (q, k, v))
+    runs = {"kernel_forward": [], "plain_backward": []}
+    fns = {"kernel_forward": lambda: attn_ops.flash_attention(
+               q, k, v, impl="cuda", **kw),
+           "plain_backward": lambda: attention_bwd_ref(q, k, v, do, **kw)}
+    for name in ("kernel_forward", "plain_backward", "plain_backward",
+                 "kernel_forward"):
+        runs[name].append(cuda_ms(fns[name], 3))
+    shape = (f"B={B} S={Sq} H={H} KV={KV} hd={hd} causal window={window} "
+             f"bf16")
+    # visible (query, key) pairs of a causal window (Sq == Skv); the
+    # forward does 2 products of hd per pair (QK^T, PV), the backward 5
+    # (QK^T again, dP, dV, dQ, dK); bf16 inputs, so the bf16 peak bounds
+    # both
+    pairs = B * H * sum(min(i + 1, window) for i in range(Sq))
+    elem = 2                                        # bytes of bf16
+    bounds = {}
+    for name, flops, nbytes in (
+            ("forward", 4 * hd * pairs,
+             elem * (2 * q.numel() + k.numel() + v.numel())),
+            ("backward", 10 * hd * pairs,
+             elem * (3 * q.numel() + 2 * (k.numel() + v.numel())))):
+        t_ops = 1e3 * flops / BF16_OPS_PER_S
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        bounds[name] = dict(flops=flops, bytes=nbytes,
+                            bound_ms=max(t_ops, t_bytes),
+                            bound_by="operations" if t_ops >= t_bytes
+                            else "bytes")
+    out = dict(shape=shape, kernel_forward_ms=min(runs["kernel_forward"]),
+               plain_backward_ms=min(runs["plain_backward"]), runs_ms=runs,
+               run_order="kernel_forward, plain_backward, plain_backward, "
+                         "kernel_forward", bounds=bounds)
+    emit("attention_grad", max_abs_err=errs,
+         note="the backward is plain PyTorch (attention_bwd_ref), not a "
+              "kernel: the TPU package has none to port", ok=True, **out)
+    return out
+
+
+def train_argv():
+    return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+            "--seed", str(TRAIN_SEED), "--log-every", "1"]
+
+
+def phase_train_path():
+    """`launch.train.main` on full recurrentgemma-2b for TRAIN_STEPS steps,
+    its launches counted per step; in the first step, the kernel outputs of
+    the first and the last recurrent layer (forward, and the reverse of the
+    same two layers) and of the first and the last attention layer against
+    the plain versions. Returns the launch counts."""
+    cfg = get_config(TRAIN_ARCH)
+    pat, reps, tail = hybrid._split(cfg)
+    n_rec = sum(t == "rec" for t in list(pat) * reps + list(tail))
+    n_attn = cfg.n_layers - n_rec
+    rec_in_reps = sum(t == "rec" for t in pat) * reps
+    attn_in_reps = sum(t == "attn" for t in pat) * reps
+    # per step: forward of every layer, the repeats' forward again under
+    # remat in the backward, the reverse walk once per recurrent layer
+    want = {"lru_forward": n_rec + rec_in_reps, "lru_reverse": n_rec,
+            "flash_attention": n_attn + attn_in_reps}
+    # calls 0 and n_rec - 1 of the first step: layer 0 forward and the last
+    # recurrent layer's forward; in the backward the last layer's reverse
+    # comes first and layer 0's last
+    fwd_capture = Capture(hybrid.chunked_lru, (0, n_rec - 1))
+    rev_capture = Capture(lru_ops.lru_reverse, (0, n_rec - 1))
+    attn_capture = Capture(attn_ops.flash_attention, (0, n_attn - 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    lru_ops.lru_forward.launches = 0
+    lru_ops.lru_reverse.launches = 0
+    attn_ops.flash_attention.launches = 0
+    hybrid.chunked_lru, lru_ops.lru_reverse = fwd_capture, rev_capture
+    layers.flash_attention = attn_capture
+    try:
+        t0 = time.perf_counter()
+        train.main(train_argv(), stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"lru_forward": lru_ops.lru_forward.launches,
+               "lru_reverse": lru_ops.lru_reverse.launches,
+               "flash_attention": attn_ops.flash_attention.launches}
+    finally:
+        hybrid.chunked_lru = fwd_capture.fn
+        lru_ops.lru_reverse = rev_capture.fn
+        layers.flash_attention = attn_capture.fn
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if not np.isfinite(stats["losses"]).all():
+        fail(f"train_path: a loss is not finite: {stats['losses']}")
+    per_step = {k: v / TRAIN_STEPS for k, v in got.items()}
+    if per_step != want:
+        fail(f"train_path: launches per step {per_step}, expected {want}")
+    # the float32 bound, atol the smaller of its own and rtol * the plain
+    # output's RMS (see the top); every layer is measured before the gate
+    rtol, atol = LRU_TOL[torch.float32]
+    layer_err = {}
+
+    def check(name, got_, want_):
+        err, excess, rms = differences(got_, want_, rtol, f"train_path {name}")
+        layer_err[name] = dict(max_abs_err=err, excess=excess, plain_rms=rms,
+                               atol=min(atol, rtol * rms))
+
+    for idx, ((a, bx, _), _, (out,)) in sorted(fwd_capture.kept.items()):
+        layer = "first" if idx == 0 else "last"
+        plain = lru_ops.chunked_lru(a, bx, impl="torch")
+        check(f"forward_{layer}_rec_layer", out, plain)
+    for idx, ((log_a, dh, h, h0, dh_last, _), _, outs) in sorted(
+            rev_capture.kept.items()):
+        layer = "last" if idx == 0 else "first"
+        plain = lru_ops.lru_reverse(log_a, dh, h, h0, dh_last, impl="torch")
+        for name, g, w in zip(("db", "dlog_a", "dh0"), outs, plain):
+            check(f"reverse_{layer}_rec_layer_{name}", g, w)
+    if any(e["excess"] > e["atol"] for e in layer_err.values()):
+        fail(f"train_path: a captured recurrent layer exceeds |kernel - "
+             f"plain| <= atol + {rtol}*|plain|: {layer_err}")
+    LruWorst.abs_err = max(LruWorst.abs_err,
+                           *(e["max_abs_err"] for e in layer_err.values()))
+    for idx, ((q, k, v), kw, (out,)) in sorted(attn_capture.kept.items()):
+        layer = "first" if idx == 0 else "last"
+        err, _ = attn_check(out, attention_ref(q, k, v, **kw),
+                            f"train_path {layer} attention layer")
+        layer_err[f"forward_{layer}_attn_layer"] = dict(max_abs_err=err)
+    for c in (fwd_capture, rev_capture, attn_capture):
+        c.kept.clear()
+    warm = stats["step_seconds"][1:] or stats["step_seconds"]
+    sec = sum(warm) / len(warm)
+    emit("train_path", arch=TRAIN_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, d_rnn=cfg.d_rnn,
+         heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", window=cfg.local_window,
+         dtype=cfg.param_dtype, remat=cfg.remat, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, steps=TRAIN_STEPS, launches=got,
+         launches_per_step=per_step, expected_per_step=want,
+         losses=stats["losses"], grad_norms=stats["grad_norms"],
+         step_seconds=stats["step_seconds"],
+         seconds_per_step_warm=sec,
+         tokens_per_second_warm=TRAIN_BATCH * TRAIN_SEQ / sec,
+         main_wall_seconds=wall, peak_memory_bytes=peak,
+         captured_layers_max_abs_err=layer_err, ok=True)
+    return got
+
+
+def phase_train_plain_kernels():
+    """The first step's loss and gradient norm with the kernels and with
+    both kernels' plain versions, at full width and reduced depth (one
+    (rec, rec, attn) repeat + the two-block tail), the same parameters
+    and batch, gated at TRAIN_PLAIN_GATE."""
+    cfg = get_config(TRAIN_ARCH).with_(n_layers=PLAIN_COMPARE_LAYERS,
+                                       attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    batch = next(train_data.batches(cfg, train_data.DataConfig(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=TRAIN_SEED)))
+    batch = {k: torch.from_numpy(v).to(Dispatch.device).long()
+             for k, v in batch.items()}
+    res = {}
+    for run in ("kernels", "plain"):
+        gen = torch.Generator(device=Dispatch.device).manual_seed(TRAIN_SEED)
+        params = hybrid.init_params(cfg, pol, gen)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if run == "plain":
+            hybrid.chunked_lru = functools.partial(lru_ops.chunked_lru,
+                                                   impl="torch")
+            layers.flash_attention = functools.partial(
+                attn_ops.flash_attention, impl="torch")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = make_loss_fn(cfg, pol)(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            gn = float(global_norm(grads))
+            res[run] = dict(loss=float(loss.detach()), grad_norm=gn,
+                            seconds=time.perf_counter() - t0)
+        finally:
+            hybrid.chunked_lru = lru_ops.chunked_lru
+            layers.flash_attention = attn_ops.flash_attention
+        del params, leaves, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = {k: abs(res["kernels"][k] - res["plain"][k]) / abs(res["plain"][k])
+           for k in TRAIN_PLAIN_GATE}
+    if not all(np.isfinite([r[k] for r in res.values()
+                            for k in TRAIN_PLAIN_GATE])):
+        fail(f"train_plain_kernels: not finite: {res}")
+    if any(rel[k] > TRAIN_PLAIN_GATE[k] for k in rel):
+        fail(f"train_plain_kernels: kernels and plain versions differ by "
+             f"{rel} (relative), over {TRAIN_PLAIN_GATE}")
+    emit("train_plain_kernels", arch=TRAIN_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         first_step=res, relative_difference=rel, gate=TRAIN_PLAIN_GATE,
+         note="reduced depth, full width; the same parameters and batch",
+         ok=True)
+
+
+def profile_training():
+    """Where a warm training step's time goes: full recurrentgemma-2b as in
+    `train_path`, one step to warm up, one timed on the host clock (ended
+    by a synchronize), then one under torch.profiler for the device time
+    by kind of kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH).with_(attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    ocfg = AdamWConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+    gen = torch.Generator(device=Dispatch.device).manual_seed(TRAIN_SEED)
+    state = init_state(cfg, pol, gen, ocfg)
+    step = make_train_step(cfg, pol, ocfg)
+    batch = next(train_data.batches(cfg, train_data.DataConfig(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=TRAIN_SEED)))
+    batch = {k: torch.from_numpy(v).to(Dispatch.device).long()
+             for k, v in batch.items()}
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    emit("train_profile", **summarize("train step", wall,
+                                      kernel_times(prof)))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_lru():
+    """Kernel and plain version, forward and reverse, at the main path's
+    shape (float32, as the model runs them), in turns; and what bounds the
+    same work."""
+    log_a, b, _, dh, dh_last = lru_inputs(LRU_MAIN, torch.float32,
+                                          torch.float32, seed=300)
+    h, _ = lru_ops.lru_forward(log_a, b, impl="torch")
+    fns = {
+        "forward": lambda: lru_ops.lru_forward(log_a, b, impl="cuda"),
+        "plain_forward": lambda: lru_ops.lru_forward(log_a, b, impl="torch"),
+        "reverse": lambda: lru_ops.lru_reverse(log_a, dh, h, None, dh_last,
+                                               impl="cuda"),
+        "plain_reverse": lambda: lru_ops.lru_reverse(log_a, dh, h, None,
+                                                     dh_last, impl="torch"),
+    }
+    order = ("forward", "plain_forward", "reverse", "plain_reverse",
+             "plain_reverse", "reverse", "plain_forward", "forward")
+    runs = {k: [] for k in fns}
+    for name in order:
+        runs[name].append(cuda_ms(fns[name], 5 if "plain" in name else 50))
+    B, S, D, _ = LRU_MAIN
+    n = B * S * D
+    # bytes: forward reads log_a, b and writes h (+ h_last); reverse reads
+    # log_a, dh, h, dh_last and writes db, dlog_a, dh0; float32 throughout.
+    # operations: one exp and one FMA an element forward, one exp, one FMA
+    # and two multiplies reverse
+    fwd_bytes, rev_bytes = 4 * (3 * n + B * D), 4 * (5 * n + 2 * B * D)
+    bounds = {}
+    for name, nbytes, ops in (("forward", fwd_bytes, 2 * n),
+                              ("reverse", rev_bytes, 4 * n)):
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * ops / FP32_OPS_PER_S
+        bounds[name] = dict(bytes=nbytes, ops=ops,
+                            bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops
+                            else "operations")
+    return dict(shape=f"B={B} S={S} D={D} float32, no h0",
+                ms=min(runs["forward"]), reverse_ms=min(runs["reverse"]),
+                plain_ms=min(runs["plain_forward"]),
+                reverse_plain_ms=min(runs["plain_reverse"]), runs_ms=runs,
+                run_order=", ".join(order), bounds=bounds)
+
+
+
+def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
+                  train_launches):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -820,6 +1267,36 @@ def phase_kernels(flows, launches, plain_ms, attn_launches):
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": BF16_OPS_PER_S},
         "main_shape": attn,
+        "launches_by_path": {"serve_path": attn_launches,
+                             "train_path": train_launches["flash_attention"]},
+        "recurrentgemma_layer": attn_grad,
+    })
+    lru = time_lru()
+    line["kernels"].append({
+        "name": "lru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:36",
+        "launches": train_launches["lru_forward"]
+                    + train_launches["lru_reverse"],
+        "launches_forward": train_launches["lru_forward"],
+        "launches_reverse": train_launches["lru_reverse"],
+        "max_abs_err": LruWorst.abs_err,
+        "ms": lru["ms"],
+        "plain_ms": lru["plain_ms"],
+        "bound_ms": lru["bounds"]["forward"]["bound_ms"],
+        "bound_by": lru["bounds"]["forward"]["bound_by"],
+        "library_ms": None,
+        "reverse_ms": lru["reverse_ms"],
+        "reverse_plain_ms": lru["reverse_plain_ms"],
+        "reverse_bound_ms": lru["bounds"]["reverse"]["bound_ms"],
+        "unit": f"one forward launch (ms, plain_ms, bound_ms) and one "
+                f"reverse launch (reverse_*) over one recurrent layer; "
+                f"{lru['shape']}; no single PyTorch call computes this "
+                f"recurrence",
+        "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
+                        "ops_per_s": FP32_OPS_PER_S},
+        "main_shape": lru,
     })
     print(json.dumps(line), flush=True)
 
@@ -828,7 +1305,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a warm serving run (torch.profiler)")
+                    help="also profile a warm serving run and a warm "
+                         "training step (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
@@ -843,7 +1321,7 @@ def main(argv=None):
         seconds[name] = time.perf_counter() - t
         return out
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = start_builds(pool)
         timed("env", phase_env)
         timed("build packet_step", phase_build, step_kernel,
@@ -855,9 +1333,18 @@ def main(argv=None):
         timed("main_path_stages", phase_stages, flows)
         timed("build flash_attention, wait", phase_build, attn_kernel,
               builds[attn_kernel])
+        timed("build rglru_scan, wait", phase_build, lru_kernel,
+              builds[lru_kernel])
     timed("attention_kernel", phase_attention_kernel)
     attn_launches = timed("serve_path", phase_serve_path, args.profile)
-    timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches)
+    timed("lru_kernel", phase_lru_kernel)
+    attn_grad = timed("attention_grad", phase_attention_grad)
+    train_launches = timed("train_path", phase_train_path)
+    timed("train_plain_kernels", phase_train_plain_kernels)
+    if args.profile:
+        timed("train_profile", profile_training)
+    timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches,
+          attn_grad, train_launches)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

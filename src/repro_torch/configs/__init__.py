@@ -1,7 +1,8 @@
-"""Configurations of the assigned architectures that the port serves.
+"""Configurations of the assigned architectures that the port runs.
 
 ``get_config(arch)`` returns the full-size `ModelConfig` of the reference's
-`repro/configs/` (the four dense ones are copied here); ``smoke_config``
+`repro/configs/` (the four dense ones and recurrentgemma-2b are copied
+here); ``smoke_config``
 the reduced same-family config the tests use. The other architectures of
 ``ARCHS`` raise `NotImplementedError` naming their ROADMAP.md item. The
 reference's ``SHAPES``, ``cells`` and ``input_specs`` describe its TPU
@@ -20,13 +21,14 @@ ARCHS: tuple[str, ...] = (
     "recurrentgemma-2b", "seamless-m4t-large-v2",
 )
 
-#: the dense architectures, whose configs live in this package
-PORTED_ARCHS = ("yi-6b", "phi3-medium-14b", "granite-3-2b", "starcoder2-7b")
+#: the architectures whose configs live in this package: the four dense
+#: ones and the hybrid recurrentgemma-2b
+PORTED_ARCHS = ("yi-6b", "phi3-medium-14b", "granite-3-2b", "starcoder2-7b",
+                "recurrentgemma-2b")
 
 _FAMILY_OF_UNPORTED = {
     "qwen2-moe-a2.7b": "moe", "arctic-480b": "moe", "pixtral-12b": "vlm",
-    "xlstm-1.3b": "ssm", "recurrentgemma-2b": "hybrid",
-    "seamless-m4t-large-v2": "encdec",
+    "xlstm-1.3b": "ssm", "seamless-m4t-large-v2": "encdec",
 }
 
 

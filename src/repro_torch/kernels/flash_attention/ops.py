@@ -11,6 +11,13 @@ failed launch to the plain version. On CPU tensors it runs the plain
 PyTorch version (`ref.py`). ``impl="torch"`` asks for the plain version by
 name on either device; ``impl="cuda"`` on CPU tensors raises.
 
+Under autograd (grad mode on and an input that requires a gradient) it
+goes through `AttentionFunction`: the forward as above, the backward
+`ref.attention_bwd_ref` in plain PyTorch on either device. The TPU package
+has no backward kernel to port, so this gradient is not a kernel of the
+port. Without autograd (serving, under `torch.inference_mode`) the forward
+runs as it is.
+
 `flash_attention.launches` counts kernel launches (and nothing else).
 """
 from __future__ import annotations
@@ -20,25 +27,12 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as _kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
+from repro_torch.kernels.routing import resolve_impl
 
-#: the recognized implementations
-IMPLS = ("cuda", "torch")
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_Y = 65535      # B * H is the grid's second dimension
-
-
-def resolve_impl(impl: str | None, device: torch.device) -> str:
-    """Default: the kernel on a CUDA device, the plain version on the CPU.
-    ``"cuda"`` on a CPU device raises."""
-    if impl is None:
-        return "cuda" if device.type == "cuda" else "torch"
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; available: {IMPLS}")
-    if impl == "cuda" and device.type != "cuda":
-        raise ValueError(f"impl='cuda' needs CUDA tensors; these live on "
-                         f"{device} (use impl='torch' there)")
-    return impl
 
 
 def _check(q, k, v):
@@ -65,16 +59,8 @@ def _check(q, k, v):
                          f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, impl: str | None = None):
-    """q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] -> [B, Sq, H, hd].
-
-    Query row i sits at absolute position ``i + Skv - Sq``. Rows that see
-    no key at all (causal with ``Skv < Sq``) are outside the contract, as
-    they are for the reference's kernel."""
-    _check(q, k, v)
-    impl = resolve_impl(impl, q.device)
-    window, softcap = int(window), float(softcap)
+def _forward(q, k, v, causal: bool, window: int, softcap: float,
+             impl: str):
     if impl == "torch":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
@@ -100,6 +86,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                            f"cudaGetLastError() = {err}")
     flash_attention.launches += 1
     return out
+
+
+class AttentionFunction(torch.autograd.Function):
+    """(q, k, v) -> attention; forward by `impl`, backward in plain
+    PyTorch (`attention_bwd_ref`), recomputing the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, impl):
+        out = _forward(q, k, v, causal, window, softcap, impl)
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_ref(q, k, v, do, **ctx.masks)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, impl: str | None = None):
+    """q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] -> [B, Sq, H, hd].
+
+    Query row i sits at absolute position ``i + Skv - Sq``. Rows that see
+    no key at all (causal with ``Skv < Sq``) are outside the contract, as
+    they are for the reference's kernel."""
+    _check(q, k, v)
+    impl = resolve_impl(impl, q.device)
+    window, softcap = int(window), float(softcap)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return AttentionFunction.apply(q, k, v, causal, window, softcap,
+                                       impl)
+    return _forward(q, k, v, causal, window, softcap, impl)
 
 
 flash_attention.launches = 0

@@ -1,0 +1,27 @@
+"""Which implementation a kernel wrapper runs, from where its tensors live.
+
+Every wrapper of the port has two implementations: ``"cuda"``, the
+hand-written kernel, and ``"torch"``, its plain PyTorch version. With no
+choice, CUDA tensors take the kernel and CPU tensors the plain version;
+``"cuda"`` asked for on CPU tensors raises. Nothing falls back from one to
+the other.
+"""
+from __future__ import annotations
+
+import torch
+
+#: the recognized implementations
+IMPLS = ("cuda", "torch")
+
+
+def resolve_impl(impl: str | None, device: torch.device) -> str:
+    """Default: the kernel on a CUDA device, the plain version on the CPU.
+    ``"cuda"`` on a CPU device raises."""
+    if impl is None:
+        return "cuda" if device.type == "cuda" else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; available: {IMPLS}")
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors; these live on "
+                         f"{device} (use impl='torch' there)")
+    return impl

@@ -1,12 +1,16 @@
 """Parameters of the JAX package carried over to the port.
 
-`params_from_jax(cfg, tree)` takes the reference's unboxed
-`repro.models.lm.init_params` tree with its leaves as numpy arrays
-(``np.asarray`` of each JAX array) and returns the port's parameter
-dictionary: the layer-stacked leaves ``[L, ...]`` become one dictionary
-per layer, orientation ``[in, out]`` and dtypes kept (bfloat16 arrives as
-numpy's ``bfloat16`` extension type and is rebuilt exactly). Nothing here
-imports JAX.
+`params_from_jax(cfg, tree)` takes the reference's unboxed `init_params`
+tree (`repro.models.lm` for the dense family, `repro.models.hybrid` for the
+hybrid one) with its leaves as numpy arrays (``np.asarray`` of each JAX
+array) and returns the port's parameter dictionary: the stacked leaves
+under the family's ``STACKED_KEYS`` (``[L, ...]`` dense layers, ``[R, ...]``
+hybrid pattern repeats) become one dictionary per layer or repeat, every
+other subtree (the hybrid tail among them) is carried as it is, and the
+hybrid blocks' ``kind_*`` structural markers are dropped;
+orientation ``[in, out]`` and dtypes are kept (bfloat16 arrives as numpy's
+``bfloat16`` extension type and is rebuilt exactly). Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import get_family
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -27,19 +32,25 @@ def _tensor(x, device) -> torch.Tensor:
 
 def _map(tree, fn):
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: _map(v, fn) for k, v in tree.items()
+                if not k.startswith("kind_")}
     return fn(tree)
 
 
+def _unstack(stacked, dev):
+    """Leaves [n, ...] -> n trees of their [...] slices."""
+    first = stacked
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [_map(stacked, lambda x, i=i: _tensor(np.asarray(x)[i], dev))
+            for i in range(np.shape(first)[0])]
+
+
 def params_from_jax(cfg: ModelConfig, tree, device=None):
-    """The port's parameters from the reference's dense-LM tree.
+    """The port's parameters from the reference's dense-LM or hybrid tree.
     ``device=None`` means the card (raises without one)."""
     dev = resolve_device(device)
-    if cfg.n_experts:
-        raise NotImplementedError("MoE parameters are not ported yet")
-    stacked = tree["layers"]
-    layers = [_map(stacked, lambda x, i=i: _tensor(np.asarray(x)[i], dev))
-              for i in range(cfg.n_layers)]
-    return {"embed": _tensor(tree["embed"], dev),
-            "layers": layers,
-            "norm": _map(tree["norm"], lambda x: _tensor(x, dev))}
+    stacked = get_family(cfg).STACKED_KEYS     # raises for unported ones
+    return {k: (_unstack(v, dev) if k in stacked else
+                _map(v, lambda x: _tensor(x, dev)))
+            for k, v in tree.items()}

@@ -1,0 +1,249 @@
+"""RecurrentGemma-style hybrid LM: RG-LRU recurrent blocks + local attention,
+in PyTorch.
+
+The counterpart of the reference's `repro/models/hybrid.py` (Griffin,
+arXiv:2402.19427): residual blocks cycle through ``cfg.block_pattern``
+(("rec", "rec", "attn") for recurrentgemma-2b), each block temporal mixing
++ gated MLP, pre-norm. The RG-LRU is the diagonal linear recurrence
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
+    a_t = exp(-c * softplus(Lambda) * r_t),  r_t, i_t = sigmoid gates,
+
+run over the whole sequence by the hand-written CUDA kernel under
+``cfg.attention_impl == "pallas"`` (`kernels/rglru_scan`, its plain version
+on the CPU; differentiable through its reverse walk) and by a plain
+log-depth associative scan (`lru_scan`, autograd's own gradient) under
+``"xla"``. Local attention runs the flash-attention kernel or the chunked
+softmax, as in `layers.attn_forward`.
+
+Parameters are ``{"embed", "reps": [R superblock dicts], "tail", "norm"}``:
+the reference's pattern-repeat-stacked leaves ``[R, ...]`` become one
+dictionary per repeat and its `lax.scan` over repeats a Python loop; the
+non-multiple tail (26 = 8 * 3 + 2) stays unrolled. The reference's
+``kind_*`` structural markers are not carried. With ``cfg.remat != "none"``
+each repeat runs under `torch.utils.checkpoint` (non-reentrant), as the
+reference wraps its scan body in `jax.checkpoint`; the tail does not.
+
+Serving (`HybridCache`, `init_cache`, `decode_step`) is not ported yet and
+raises, naming `SERVING_ITEM`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.rglru_scan.ops import chunked_lru
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import Policy
+
+LRU_C = 8.0
+#: keys of the parameter tree whose per-repeat list the reference stacks
+#: along a leading axis (its ``[R, ...]`` leaves)
+STACKED_KEYS = ("reps",)
+#: where the serving path stands in ROADMAP.md
+SERVING_ITEM = ("ROADMAP.md Queue 1 item 2 (hybrid serving: init_cache, "
+                "decode_step and the token-by-token replay of generate)")
+
+
+def _pattern(cfg: ModelConfig) -> tuple[str, ...]:
+    return cfg.block_pattern or ("rec", "rec", "attn")
+
+
+def _split(cfg: ModelConfig):
+    pat = _pattern(cfg)
+    reps, tail = divmod(cfg.n_layers, len(pat))
+    return pat, reps, pat[:tail]
+
+
+# ------------------------------------------------------------------ RG-LRU
+
+def rglru_init(gen: torch.Generator, cfg: ModelConfig):
+    d, dr, dt = cfg.d_model, cfg.d_rnn or cfg.d_model, cfg.pdtype()
+    dev = gen.device
+    # Lambda init so a^c in [0.9, 0.999] (Griffin appendix)
+    u = torch.rand((dr,), generator=gen, device=dev) * (0.999 - 0.9) + 0.9
+    lam = torch.log(torch.expm1(-torch.log(u) / LRU_C))    # softplus^-1
+    return {
+        "ln": L.norm_init(d, dt, cfg.norm_type, dev),
+        "wx": L.dense_init(gen, d, dr, dt),
+        "wy": L.dense_init(gen, d, dr, dt),
+        "conv": torch.randn((cfg.conv_width, dr), generator=gen,
+                            device=dev).to(dt) * 0.1,
+        "wr": L.dense_init(gen, dr, dr, torch.float32, scale=0.02),
+        "wi": L.dense_init(gen, dr, dr, torch.float32, scale=0.02),
+        "lam": lam,
+        "wo": L.dense_init(gen, dr, d, dt),
+    }
+
+
+def _causal_conv(x, kernel, state: Optional[torch.Tensor] = None):
+    """x: [B, S, C]; kernel: [W, C]. state: [B, W-1, C] tail of prev tokens.
+    Returns (out [B, S, C], the new state)."""
+    W = kernel.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * kernel[i] for i in range(W))
+    return out, xp[:, -(W - 1):]
+
+
+def rglru_gates(p, u):
+    """u: [B, S, dr] conv output -> (a, bx) of h = a*h + bx, float32."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["wr"])
+    i = torch.sigmoid(uf @ p["wi"])
+    log_a = -LRU_C * F.softplus(p["lam"]) * r       # [B, S, dr]
+    a = torch.exp(log_a)
+    bx = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
+    return a, bx
+
+
+def _shift(x, s: int, fill: float):
+    """x shifted s steps later along axis 1, the first s steps `fill`."""
+    pad = torch.full_like(x[:, :s], fill)
+    return torch.cat([pad, x[:, :-s]], dim=1)
+
+
+def lru_scan(a, bx, h0=None):
+    """Diagonal first-order recurrence by a log-depth associative scan over
+    time (the reference's ``"xla"`` path), in plain differentiable ops:
+    after the round of shift s every position holds the composition of the
+    2s steps that end there."""
+    if h0 is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]], 1)
+    S = a.shape[1]
+    s = 1
+    while s < S:
+        # (a1, b1) the earlier span, (a2, b2) the later: (a1 a2, a2 b1 + b2)
+        bx = a * _shift(bx, s, 0.0) + bx
+        a = _shift(a, s, 1.0) * a
+        s *= 2
+    return bx
+
+
+def rglru_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
+                  return_state: bool = False):
+    """Griffin recurrent block body. state = (h [B,dr], conv [B,W-1,dr])."""
+    B, S, d = x.shape
+    h = L.apply_norm(p["ln"], x, cfg.norm_eps, cfg.norm_type)
+    u = h @ p["wx"]
+    gate = F.gelu(h @ p["wy"], approximate="tanh")  # jax.nn.gelu's default
+    u = pol.constrain(u, "batch", "seq", "rnn")
+    h0, conv_st = state if state is not None else (None, None)
+    u, conv_st = _causal_conv(u, p["conv"], conv_st)
+    a, bx = rglru_gates(p, u)
+    if cfg.attention_impl == "pallas" and S > 1:
+        hs = chunked_lru(a, bx, h0)
+    else:
+        hs = lru_scan(a, bx, h0)
+    y = (hs.to(x.dtype) * gate) @ p["wo"]
+    if return_state:
+        return y, (hs[:, -1], conv_st)
+    return y
+
+
+# ------------------------------------------------------------------ blocks
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str):
+    dev = gen.device
+    p = {"ln2": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type, dev),
+         "mlp": L.mlp_init(gen, cfg)}
+    if kind == "rec":
+        p["rec"] = rglru_init(gen, cfg)
+    else:
+        p["ln1"] = L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type, dev)
+        p["attn"] = L.attn_init(gen, cfg)
+    return p
+
+
+def _block_fwd(p, cfg: ModelConfig, pol: Policy, x, positions, kind: str):
+    if kind == "rec":
+        x = x + rglru_forward(p["rec"], cfg, pol, x)
+    else:
+        h = L.apply_norm(p["ln1"], x, cfg.norm_eps, cfg.norm_type)
+        a, _ = L.attn_forward(p["attn"], cfg, pol, h, positions,
+                              window=cfg.local_window)
+        x = x + a
+    h = L.apply_norm(p["ln2"], x, cfg.norm_eps, cfg.norm_type)
+    x = x + L.mlp_forward(p["mlp"], cfg, pol, h)
+    return pol.constrain(x, "batch", "seq", None)
+
+
+def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
+    """Random parameters on `gen`'s device, drawn from `gen` in a fixed
+    order (embedding, the repeats block by block, the tail)."""
+    pat, reps, tail = _split(cfg)
+
+    def superblock():
+        return {f"b{i}_{t}": _block_init(gen, cfg, t)
+                for i, t in enumerate(pat)}
+
+    params = {
+        "embed": L.embed_init(gen, L.padded_vocab(cfg), cfg.d_model,
+                              cfg.pdtype()),
+        "reps": [superblock() for _ in range(reps)],
+        "norm": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type,
+                            gen.device),
+    }
+    if tail:
+        params["tail"] = {f"t{i}_{t}": _block_init(gen, cfg, t)
+                          for i, t in enumerate(tail)}
+    return params
+
+
+def forward(cfg: ModelConfig, pol: Policy, params, tokens):
+    """Full-sequence forward (the training step's). Returns (hidden [B,S,d]
+    post-final-norm, aux_loss = 0)."""
+    pat, reps, tail = _split(cfg)
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(cfg.cdtype())
+    x = pol.constrain(x, "batch", "seq", None)
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, bp):
+        for i, t in enumerate(pat):
+            x = _block_fwd(bp[f"b{i}_{t}"], cfg, pol, x, positions, t)
+        return x
+
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for bp in params["reps"]:
+        # nothing in a block draws random numbers: no RNG state to replay
+        x = (checkpoint(body, x, bp, use_reentrant=False,
+                        preserve_rng_state=False) if remat else body(x, bp))
+    for i, t in enumerate(tail):
+        x = _block_fwd(params["tail"][f"t{i}_{t}"], cfg, pol, x, positions, t)
+    x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ------------------------------------------------------------------ decode
+
+def _unserved(what: str):
+    raise NotImplementedError(
+        f"hybrid {what} is not ported yet ({SERVING_ITEM})")
+
+
+class HybridCache:
+    """The reference's decode state (RG-LRU states, conv tails, ring KV
+    caches of `local_window` slots, position): not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        _unserved("HybridCache")
+
+
+def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """The reference's `HybridCache` (RG-LRU states, conv tails, ring KV
+    caches): not ported yet."""
+    _unserved("init_cache")
+
+
+def decode_step(cfg: ModelConfig, pol: Policy, params, cache, tokens):
+    """One-token hybrid decode: not ported yet."""
+    _unserved("decode_step")

@@ -27,9 +27,10 @@ ATTN_CHUNK = 512          # query-chunk length for full-sequence attention
 NEG_INF = -1e30
 
 
-def dense_init(gen: torch.Generator, in_dim, out_dim, dtype):
+def dense_init(gen: torch.Generator, in_dim, out_dim, dtype, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
-                    device=gen.device) * (1.0 / math.sqrt(in_dim))
+                    device=gen.device) * scale
     return w.to(dtype)
 
 

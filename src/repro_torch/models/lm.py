@@ -6,7 +6,9 @@ The counterpart of the reference's `repro/models/lm.py` for ``n_experts ==
 "norm": {...}}``: the reference's layer-stacked leaves ``[L, ...]`` become
 one dictionary per layer, and its `lax.scan` over layers a Python loop.
 The MoE branch and the other families raise `NotImplementedError` naming
-their ROADMAP.md item (`check_ported`).
+their ROADMAP.md item (`check_ported`); the hybrid family has its own
+module (`models/hybrid.py`), and this module's functions refuse it
+(`_check_dense`).
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ from repro_torch.sharding.policy import Policy
 
 #: families of the reference that the port does not have yet -> their item
 UNPORTED_FAMILIES = {
-    "hybrid": "ROADMAP.md Queue 1 item 1 (training path, hybrid family)",
-    "moe": "ROADMAP.md Queue 1 item 10 (MoE family)",
-    "vlm": "ROADMAP.md Queue 1 item 11 (VLM backbone)",
-    "ssm": "ROADMAP.md Queue 1 item 12 (xLSTM family)",
-    "encdec": "ROADMAP.md Queue 1 item 13 (encoder-decoder family)",
+    "moe": "ROADMAP.md Queue 1 item 11 (MoE family)",
+    "vlm": "ROADMAP.md Queue 1 item 12 (VLM backbone)",
+    "ssm": "ROADMAP.md Queue 1 item 13 (xLSTM family)",
+    "encdec": "ROADMAP.md Queue 1 item 14 (encoder-decoder family)",
 }
+#: keys of the parameter tree whose per-layer list the reference stacks
+#: along a leading axis (its ``[L, ...]`` leaves)
+STACKED_KEYS = ("layers",)
 
 
 class DecodeCache(NamedTuple):
@@ -35,16 +39,26 @@ class DecodeCache(NamedTuple):
 
 
 def check_ported(cfg: ModelConfig):
-    """Raises unless `cfg` is of the dense family without experts: the
-    port's one refusal of what it does not run yet."""
+    """Raises unless the port has `cfg`'s family: dense (this module) or
+    hybrid (`models/hybrid.py`, whose serving raises on its own). The
+    port's one refusal of the families it does not have yet."""
     family = "moe" if cfg.n_experts else cfg.family
-    if family == "dense":
+    if family in ("dense", "hybrid"):
         return
     if family not in UNPORTED_FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
     raise NotImplementedError(
         f"{cfg.name}: family {family!r} is not ported yet "
         f"({UNPORTED_FAMILIES[family]})")
+
+
+def _check_dense(cfg: ModelConfig):
+    """This module's functions run the dense family only."""
+    check_ported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: models/lm.py runs the dense family, "
+                         f"not {cfg.family!r}; take the family's module from "
+                         f"models.registry.get_family")
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig):
@@ -60,7 +74,7 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig):
 def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
     """Random parameters on `gen`'s device, drawn from `gen` in a fixed
     order (embedding, then layer by layer)."""
-    check_ported(cfg)
+    _check_dense(cfg)
     embed = L.embed_init(gen, L.padded_vocab(cfg), cfg.d_model, cfg.pdtype())
     return {
         "embed": embed,
@@ -92,7 +106,7 @@ def forward(cfg: ModelConfig, pol: Policy, params, tokens):
     Returns (hidden [B,S,d] post-final-norm, aux_loss); the aux loss of a
     dense model is 0.
     """
-    check_ported(cfg)
+    _check_dense(cfg)
     B, S = tokens.shape
     x = embed_tokens(cfg, pol, params, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
@@ -109,7 +123,7 @@ def prefill(cfg: ModelConfig, pol: Policy, params, tokens, max_len: int,
     Each layer's K/V, rounded to `cache_dtype`, seed a cache of length
     ``max_len`` (ring-truncated to the local window if the arch has one).
     """
-    check_ported(cfg)
+    _check_dense(cfg)
     B, S = tokens.shape
     x = embed_tokens(cfg, pol, params, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
@@ -144,7 +158,7 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: DecodeCache,
     """One decode step. tokens: [B, 1]. Returns (logits [B,1,V], cache):
     the cache's tensors are updated in place and returned with ``pos + 1``.
     """
-    check_ported(cfg)
+    _check_dense(cfg)
     x = embed_tokens(cfg, pol, params, tokens)
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(lp["ln1"], x, cfg.norm_eps, cfg.norm_type)

@@ -1,25 +1,25 @@
 """`get_family`: the model API of a config's family, as in the reference.
 
-The port has one family, the dense LM of `models/lm.py`, whose module
-serves as the API:
+The port has two families, each a module that serves as its API:
   init_params(cfg, pol, gen)              -> parameter dict on gen's device
   forward(cfg, pol, params, tokens)        -> (hidden [B,S,d], aux)
   init_cache(cfg, pol, batch, max_len)    -> decode state
   decode_step(cfg, pol, params, cache, tokens) -> (logits [B,1,V], cache)
-
-The other families raise `NotImplementedError` naming their ROADMAP.md
-item (`lm.check_ported`). A table of families comes back with the second
-one. The reference's `cache_axes` (logical sharding axes of the cache) has
-no counterpart on one card.
+the dense LM (`models/lm.py`) and the hybrid RG-LRU + local-attention LM
+(`models/hybrid.py`, whose `init_cache` and `decode_step` raise: its
+serving is not ported yet). The other families raise `NotImplementedError`
+naming their ROADMAP.md item (`lm.check_ported`). The reference's
+`cache_axes` (logical sharding axes of the cache) has no counterpart on one
+card.
 """
 from __future__ import annotations
 
 from types import ModuleType
 
-from repro_torch.models import lm
+from repro_torch.models import hybrid, lm
 from repro_torch.models.config import ModelConfig
 
 
 def get_family(cfg: ModelConfig) -> ModuleType:
     lm.check_ported(cfg)
-    return lm
+    return hybrid if cfg.family == "hybrid" else lm

@@ -2,10 +2,12 @@
 
 The counterpart of the reference's `repro/serve/engine.py` (dense branch,
 `engine.py:45-83`). ``serve_step`` is one new token for every sequence of
-the batch against the KV cache; ``generate`` prefills the prompt (which
-seeds the cache), takes the last position's argmax, then runs
-``max_new - 1`` decode steps. Greedy ties go to the first index, as
-`torch.argmax` and `jnp.argmax` both resolve them.
+the batch against the family's decode state; ``generate`` prefills the
+prompt (which seeds the KV cache), takes the last position's argmax, then
+runs ``max_new - 1`` decode steps. Greedy ties go to the first index, as
+`torch.argmax` and `jnp.argmax` both resolve them. The reference replays a
+recurrent family's prompt token by token from the family's `init_cache`;
+the hybrid family's raises, as its serving is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,15 +20,16 @@ import torch
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import unembed
+from repro_torch.models.registry import get_family
 from repro_torch.sharding.policy import Policy
 
 
 def make_serve_step(cfg: ModelConfig, pol: Policy):
     """(params, cache, tokens [B,1]) -> (next_tokens [B,1], cache)."""
-    lm.check_ported(cfg)
+    family = get_family(cfg)
 
     def serve_step(params, cache, tokens):
-        logits, cache = lm.decode_step(cfg, pol, params, cache, tokens)
+        logits, cache = family.decode_step(cfg, pol, params, cache, tokens)
         return torch.argmax(logits[:, -1:], dim=-1), cache
 
     return serve_step
@@ -54,6 +57,10 @@ def generate(cfg: ModelConfig, pol: Policy, params, prompts,
     prompts = torch.as_tensor(prompts, device=device).long()
     B, S = prompts.shape
     max_len = max_len or (S + max_new)
+    if cfg.family != "dense":
+        # the reference replays the prompt token by token from the family's
+        # `init_cache`; the hybrid family's raises (not ported yet)
+        get_family(cfg).init_cache(cfg, pol, B, max_len)
 
     t0 = _clock(device) if stats is not None else 0.0
     hidden, cache = lm.prefill(cfg, pol, params, prompts, max_len)

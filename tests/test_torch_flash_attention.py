@@ -12,6 +12,12 @@ Tolerances (abs + rel, as `tests/test_kernels.py:46`): 2e-5 in float32
 sides round the float32 result to bf16 once; a sum that lands near a
 rounding boundary may round the other way).
 
+The gradient (`AttentionFunction`, whose backward is the plain
+`attention_bwd_ref` on every device) is held against autograd through the
+port's `attention_ref` and against `jax.grad` of the reference's
+`attention_ref`: float32 rtol 1e-4, atol 2e-5 (dK and dV sum over every
+query of a KV group, in another order); bfloat16 2e-2 as above.
+
 The CUDA kernel itself runs only on the card: `chip_smoke.py` holds it
 against this plain version there.
 """
@@ -40,6 +46,16 @@ CASES = [
     (1, 128, 128, 32, 8, 64, True, 0, 0.0),     # granite-3-2b's head layout
 ]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+GRAD_CASES = [
+    # B, Sq, Skv, H, KV, hd, causal, window, softcap
+    (2, 64, 64, 4, 2, 32, True, 0, 0.0),        # causal GQA
+    (2, 48, 48, 4, 1, 32, True, 16, 0.0),       # MQA + local window
+    (1, 32, 96, 4, 2, 32, True, 0, 0.0),        # prefix offset (Skv > Sq)
+    (2, 64, 64, 4, 4, 32, False, 0, 0.0),       # bidirectional
+    (1, 64, 64, 4, 4, 32, True, 0, 20.0),       # softcap 20
+    (1, 600, 600, 2, 1, 16, True, 100, 0.0),    # MQA, window, 2 query blocks
+]
+GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +81,7 @@ def to_torch(arrays, dtype):
 
 def as_f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -91,6 +107,51 @@ def test_plain_version_matches_reference_kernel_and_oracle(ref, case,
                                    atol=tol)
 
 
+@pytest.mark.parametrize("case", GRAD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_gradient_matches_autograd_and_jax_grad(ref, case):
+    causal, window, softcap = case[6:]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    arrays = inputs(case, seed=sum(case[:6]) + 1)
+    do = np.random.default_rng(9).standard_normal(
+        arrays[0].shape).astype(np.float32)
+    jnp = ref.jnp
+
+    def jloss(q, k, v):
+        return jnp.sum(ref.attn_ref.attention_ref(q, k, v, **kw) * do)
+
+    want_jax = ref.jax.jit(ref.jax.grad(jloss, argnums=(0, 1, 2)))(
+        *to_jax(ref, arrays, "float32"))
+    q, k, v = (x.requires_grad_() for x in to_torch(arrays, torch.float32))
+    tdo = torch.from_numpy(do)
+    out = tops.flash_attention(q, k, v, **kw)
+    assert type(out.grad_fn).__name__ == "AttentionFunctionBackward"
+    got = torch.autograd.grad(out, (q, k, v), tdo)
+    want_torch = torch.autograd.grad(attention_ref(q, k, v, **kw), (q, k, v),
+                                     tdo)
+    for g, wt, wj in zip(got, want_torch, want_jax):
+        np.testing.assert_allclose(as_f32(g), as_f32(wt), **GRAD_TOL)
+        np.testing.assert_allclose(as_f32(g), as_f32(wj), **GRAD_TOL)
+
+
+def test_gradient_in_bfloat16():
+    """MQA with a window (recurrentgemma's layout, narrow), bf16 inputs:
+    the gradients in bf16 against autograd through the plain forward."""
+    case = (2, 80, 80, 4, 1, 32, True, 24, 0.0)
+    q, k, v = (x.requires_grad_() for x in
+               to_torch(inputs(case, seed=5), torch.bfloat16))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)
+                     ).to(torch.bfloat16)
+    kw = dict(causal=True, window=24)
+    got = torch.autograd.grad(tops.flash_attention(q, k, v, **kw), (q, k, v),
+                              do)
+    want = torch.autograd.grad(attention_ref(q, k, v, **kw), (q, k, v), do)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(as_f32(g), as_f32(w), rtol=2e-2,
+                                   atol=2e-2)
+
+
 class TestRouting:
     def args(self, dtype=torch.float32):
         return to_torch(inputs(CASES[0], seed=1), dtype)
@@ -107,6 +168,16 @@ class TestRouting:
     def test_cuda_by_name_on_cpu_tensors_raises(self):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             tops.flash_attention(*self.args(), impl="cuda")
+
+    def test_no_autograd_function_without_a_gradient(self):
+        """Serving runs under inference mode: the forward alone."""
+        q, k, v = self.args()
+        assert tops.flash_attention(q, k, v).grad_fn is None
+        q.requires_grad_()
+        with torch.inference_mode():
+            assert tops.flash_attention(q, k, v).grad_fn is None
+        out = tops.flash_attention(q, k, v)
+        assert type(out.grad_fn).__name__ == "AttentionFunctionBackward"
 
     def test_unknown_impl_raises(self):
         with pytest.raises(ValueError, match="unknown impl"):

@@ -19,16 +19,21 @@ from repro_torch.core import des as tdes
 from repro_torch.core import precision as tprecision
 from repro_torch.core import sweep as tsweep
 from repro_torch.kernels import build as tbuild
+from repro_torch.kernels.rglru_scan import ops as tlru
+from repro_torch.launch import train as tlaunch_train
 from repro_torch.workload.lublin import WorkloadParams, generate_workload
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
-    REPO / "examples" / "serve_lm_torch.py"]
+    REPO / "examples" / "serve_lm_torch.py",
+    REPO / "examples" / "train_lm_torch.py"]
 CUDA_SOURCES = [("packet_step.cu", "event_step_kernel",
                  "src/repro/kernels/packet_step/kernel.py"),
                 ("flash_attention.cu", "_attn_kernel",
-                 "src/repro/kernels/flash_attention/kernel.py")]
+                 "src/repro/kernels/flash_attention/kernel.py"),
+                ("rglru_scan.cu", "_lru_kernel",
+                 "src/repro/kernels/rglru_scan/kernel.py")]
 
 
 @pytest.fixture()
@@ -60,7 +65,10 @@ def test_package_layout_mirrors_the_reference():
                  "models.convert", "configs", "configs.granite_3_2b",
                  "configs.yi_6b", "configs.phi3_medium_14b",
                  "configs.starcoder2_7b", "sharding.policy", "serve.engine",
-                 "launch.serve"):
+                 "launch.serve", "kernels.rglru_scan.ref",
+                 "kernels.rglru_scan.kernel", "kernels.rglru_scan.ops",
+                 "models.hybrid", "configs.recurrentgemma_2b", "train.data",
+                 "train.loss", "train.optim", "train.step", "launch.train"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()
@@ -109,6 +117,11 @@ class TestDeviceResolution:
         with pytest.raises(RuntimeError, match="is_available"):
             tsweep.sweep_plan("auto", 8)
 
+    def test_train_launcher_default_device_raises(self, without_cuda):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tlaunch_train.main(["--arch", "recurrentgemma-2b", "--reduced",
+                                "--steps", "1"])
+
 
 class TestStepImpl:
     def test_cuda_step_on_cpu_tensors_raises(self, wl):
@@ -131,6 +144,15 @@ class TestStepImpl:
         b = tsweep.run_packet_grid(wl, ks=[1.0, 9.0], s_props=[0.1],
                                    step_impl="torch", device="cpu")
         assert np.array_equal(a.avg_wait, b.avg_wait) and a.ok.all()
+
+
+class TestKernelImpl:
+    def test_rglru_cuda_on_cpu_tensors_raises(self):
+        x = torch.zeros((1, 4, 8))
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tlru.lru_chunked(x, x, impl="cuda")
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tlru.chunked_lru(x + 0.5, x, impl="cuda")
 
 
 class TestUnportedPathsRaise:

@@ -70,7 +70,10 @@ def load_reference() -> types.SimpleNamespace:
     (repro.configs), `layers`, `lm`, `registry` (repro.models.*),
     `policy` (repro.sharding.policy), `engine` (repro.serve.engine),
     `launch_serve` (repro.launch.serve), `attn_ops` and `attn_ref`
-    (repro.kernels.flash_attention.ops / .ref).
+    (repro.kernels.flash_attention.ops / .ref); the training slice:
+    `hybrid` (repro.models.hybrid), `train_step`, `train_loss`,
+    `train_optim`, `train_data` (repro.train.*), `lru_kernel` and `lru_ref`
+    (repro.kernels.rglru_scan.kernel / .ref).
     """
     global _REF
     if _REF is not None:
@@ -86,16 +89,25 @@ def load_reference() -> types.SimpleNamespace:
     import repro.configs as configs
     from repro.kernels.flash_attention import ops as attn_ops
     from repro.kernels.flash_attention import ref as attn_ref
+    from repro.kernels.rglru_scan import kernel as lru_kernel
+    from repro.kernels.rglru_scan import ref as lru_ref
     from repro.launch import serve as launch_serve
-    from repro.models import layers, lm, registry
+    from repro.models import hybrid, layers, lm, registry
     from repro.serve import engine
     from repro.sharding import policy
+    from repro.train import data as train_data
+    from repro.train import loss as train_loss
+    from repro.train import optim as train_optim
+    from repro.train import step as train_step
     _REF = types.SimpleNamespace(
         jax=jax, jnp=jnp, core=core, des=des, packet=packet,
         metrics=metrics, sweep=sweep, precision=precision, lublin=lublin,
         step_ops=step_ops, configs=configs, layers=layers, lm=lm,
         registry=registry, policy=policy, engine=engine,
-        launch_serve=launch_serve, attn_ops=attn_ops, attn_ref=attn_ref)
+        launch_serve=launch_serve, attn_ops=attn_ops, attn_ref=attn_ref,
+        hybrid=hybrid, train_step=train_step, train_loss=train_loss,
+        train_optim=train_optim, train_data=train_data,
+        lru_kernel=lru_kernel, lru_ref=lru_ref)
     return _REF
 
 
