@@ -5,10 +5,16 @@
 Builds the CUDA kernels from the sources in this checkout (one `nvcc` per
 source, started together; the attention and RG-LRU builds go on while the
 DES phases run), holds each against its plain PyTorch version on the card,
-drives the port's three paths and prints one JSON line per phase:
+drives the port's four paths and prints one JSON line per phase:
 
 - the DES grid: the paper's 37 x 6 grid of 5000-job workloads through
   `run_packet_grid` (event-step kernel);
+- the DES while-loop engine: `simulate_packet` over the same 222 lanes of
+  both flows in one call each (the group-formation decision kernel once
+  per lockstep formation), `run_packet_grid(mode="seq")` on three cells
+  and the legacy `vmap_k` / `vmap_s` layouts, each held against the fused
+  grid (group counts and `ok` equal, metrics within rtol 1e-5 in float32
+  and 1e-12 in float64, the reference's own bounds);
 - LM serving: `repro_torch.launch.serve.main` on granite-3-2b at full
   width and depth (40 layers, bf16, random weights from seed 0), 4 prompts
   of 2048 tokens, 32 new tokens each (flash-attention kernel in every
@@ -36,6 +42,9 @@ Tolerances of the kernel-vs-plain comparisons:
   operation rounds as PyTorch's elementwise ops do and the expected
   difference is 0; 2 ulp leaves room for a libm `log` that differs in its
   last bit);
+- group-formation decision: `j` and `m` equal; `dur` and `work` at most
+  2 ulp apart (built like the event step, so the expected difference is
+  0);
 - flash attention: |kernel - plain| <= atol + tol * |plain| elementwise.
   float32: tol = atol = 2e-5 (sums in another order, FMA, CUDA's `expf`).
   bfloat16: tol = 2e-2 (the output's rounding, as tests/test_kernels.py:46;
@@ -85,12 +94,16 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import des, sweep
-from repro_torch.core.metrics import SCALAR_METRIC_FIELDS, efficiency_metrics
+from repro_torch.core.metrics import (SCALAR_METRIC_FIELDS, Metrics,
+                                      efficiency_metrics)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as attn_kernel
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
+from repro_torch.kernels.packet_select import kernel as select_kernel
+from repro_torch.kernels.packet_select import ops as select_ops
+from repro_torch.kernels.packet_select.ref import packet_select_ref
 from repro_torch.kernels.packet_step import kernel as step_kernel
 from repro_torch.kernels.packet_step import ops as step_ops
 from repro_torch.kernels.rglru_scan import kernel as lru_kernel
@@ -148,6 +161,12 @@ PLAIN_COMPARE_LAYERS = 5        # one (rec, rec, attn) repeat + the tail
 CHAOS = dict(mtbf_chip_hours=50.0, ckpt_period=300.0, straggler_prob=0.05,
              straggler_factor=1.5, straggler_deadline=2.0)
 PLAIN_RUN_SECONDS = 150.0       # per plain whole-dispatch run, then a prefix
+SELECT_SHAPES = [(T, H) for T in (1, 222, 4096) for H in (1, 8, 130)]
+SELECT_TIMED = [(222, 8, torch.float32), (222, 8, torch.float64),
+                (1 << 20, 8, torch.float32)]
+SELECT_GRAPH_LAUNCHES = 200     # launches captured in one CUDA graph
+SEQ_RTOL = {np.dtype(np.float32): 1e-5, np.dtype(np.float64): 1e-12}
+SEQ_CELLS = (0, 18, 36)         # smallest, middle and largest k, S = 0.05
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_metrics.json")
 
@@ -312,7 +331,7 @@ def start_builds(pool):
         mod.load()
         return time.perf_counter() - t0
     return {m: pool.submit(timed_load, m)
-            for m in (step_kernel, attn_kernel, lru_kernel)}
+            for m in (step_kernel, attn_kernel, lru_kernel, select_kernel)}
 
 
 def phase_build(mod, built):
@@ -418,9 +437,11 @@ def check_golden():
 
 def phase_main_path(flows):
     """`run_packet_grid` through the normal entry point, both paper flows,
-    all 222 cells, fused and chunked. Returns the launch count."""
+    all 222 cells, fused and chunked. Returns the launch count and the
+    fused grid of each flow."""
     step_ops.packet_event_steps.launches = 0
     ks = sweep.PAPER_SCALE_RATIOS
+    fused = {}
     for flow, dtype in (("homog0.85", np.float32), ("hetero0.85", np.float64)):
         wl = flows[flow]
         grids, walls, launched = {}, {}, {}
@@ -466,11 +487,12 @@ def phase_main_path(flows):
             if not np.array_equal(getattr(grids["fused"], f_),
                                   getattr(grids["chunked"], f_)):
                 fail(f"main_path {flow}: fused and chunked differ in {f_}")
+        fused[flow] = grids["fused"]
     launches = step_ops.packet_event_steps.launches
     emit("main_path_check", fused_equals_chunked=True,
          golden_max_rel_dev=check_golden(), golden_rtol=1e-9,
          launches=launches, ok=True)
-    return launches
+    return launches, fused
 
 
 def phase_stages(flows):
@@ -544,6 +566,233 @@ def time_kernel(d: Dispatch):
                 ops_per_launch=ops_per_launch,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------------
+# the group-formation decision kernel and the while-loop engine (seq path)
+# --------------------------------------------------------------------------
+
+class SelectWorst:
+    """Largest kernel-vs-plain decision difference seen so far."""
+    ulp = 0.0
+    abs_err = 0.0
+
+
+def select_inputs(T: int, H: int, dtype, seed: int):
+    """Decision operands on the card from a seed. From T = 16 on, the last
+    five rows are the cases a random draw does not make: an all-empty row,
+    two tied types, no free nodes, s = 0, and a tiny k whose node threshold
+    exceeds 2**31."""
+    dev = Dispatch.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev,
+                                  dtype=torch.float64)
+    sum_w, s_j = u(T, H) * 1e4, u(T, H) * 10 + 1
+    p_j, oldest, t_max = 0.5 + 1.5 * u(T, H), u(T, H) * 100, \
+        600 + 3000 * u(T, H)
+    nonempty = u(T, H) > 0.3
+    nonempty[:, 0] = True
+    now, k = 200 + 1000 * u(T), 0.1 + 5 * u(T)
+    m_free = torch.floor(1 + 100 * u(T)).to(torch.int32)
+    if T >= 16:
+        empty, tie, no_free, s_zero, tiny_k = range(T - 5, T)
+        nonempty[empty] = False
+        if H > 1:
+            for a in (s_j, p_j, oldest, t_max):
+                a[tie, -1] = a[tie, 0]
+            sum_w[tie, 0] = sum_w[tie, -1] = 1e6
+            nonempty[tie, -1] = True
+        m_free[no_free] = 0
+        s_j[s_zero] = 0.0
+        k[tiny_k] = 1e-9
+        sum_w[tiny_k] *= 1e3
+    f = lambda a: a.to(dtype).contiguous()
+    return (f(sum_w), f(s_j), f(p_j), f(oldest), f(t_max),
+            nonempty.contiguous(), f(now), f(k), m_free)
+
+
+def select_bytes_and_ops(T: int, H: int, dtype):
+    """What one decision launch must move and compute: five [T, H] float
+    operands and the bool mask read once, now / k / m_free read, j / m /
+    dur / work written; per type about 9 operations (divide, subtract,
+    max, divide, add, two multiplies, select, compare), per row 8."""
+    fsz = torch.finfo(dtype).bits // 8
+    nbytes = 5 * T * H * fsz + T * H + 2 * T * fsz + 4 * T + 4 * T \
+        + 3 * T * fsz
+    return nbytes, 9 * T * H + 8 * T
+
+
+def time_select(T: int, H: int, dtype):
+    """Kernel and plain version at one shape, in turns, by CUDA events:
+    `ms`, the kernel's device time per launch, from a CUDA graph of
+    SELECT_GRAPH_LAUNCHES wrapper calls replayed (so the host's time per
+    call does not hide it); `stream_ms`, per call when the wrapper is
+    called back to back (what the engine pays); and the bound."""
+    args = select_inputs(T, H, dtype, seed=7)
+    kernel = lambda: select_ops.fused_packet_select(*args, impl="cuda")
+    kernel()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(SELECT_GRAPH_LAUNCHES):
+            kernel()
+    fns = {"graph": lambda: graph.replay(), "stream": kernel,
+           "plain": lambda: packet_select_ref(*args)}
+    runs = {name: [] for name in fns}
+    order = ("graph", "stream", "plain", "plain", "stream", "graph")
+    for name in order:
+        runs[name].append(cuda_ms(fns[name], 5 if name == "graph" else 100)
+                          / (SELECT_GRAPH_LAUNCHES if name == "graph"
+                             else 1))
+    nbytes, ops = select_bytes_and_ops(T, H, dtype)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    return dict(shape=f"T={T} H={H} {str(dtype).replace('torch.', '')}",
+                ms=min(runs["graph"]), stream_ms=min(runs["stream"]),
+                plain_ms=min(runs["plain"]), runs_ms=runs,
+                run_order=", ".join(order), bytes=nbytes, ops=ops,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_select_kernel():
+    """The decision kernel against its plain version on the card, both
+    types, every listed shape; then its times. Returns the times."""
+    shapes = []
+    for dtype in (torch.float32, torch.float64):
+        for T, H in SELECT_SHAPES:
+            args = select_inputs(T, H, dtype, seed=1000 * T + H)
+            got = select_ops.fused_packet_select(*args, impl="cuda")
+            want = packet_select_ref(*args)
+            torch.cuda.synchronize()
+            label = f"T={T} H={H} {str(dtype).replace('torch.', '')}"
+            for name, g, w in zip(("j", "m"), got[:2], want[:2]):
+                if not torch.equal(g, w):
+                    fail(f"select_kernel {label}: {name} differs")
+            worst = 0.0
+            for name, g, w in zip(("dur", "work"), got[2:], want[2:]):
+                u = ulp_diff(g, w)
+                if u > ULP_BOUND:
+                    fail(f"select_kernel {label}: {name} differs by {u} "
+                         f"ulp (bound {ULP_BOUND})")
+                worst = max(worst, u)
+                SelectWorst.abs_err = max(SelectWorst.abs_err, float(
+                    (g.double() - w.double()).abs().max()))
+            SelectWorst.ulp = max(SelectWorst.ulp, worst)
+            shapes.append(dict(shape=label, max_ulp=worst))
+    times = [time_select(*shape) for shape in SELECT_TIMED]
+    emit("select_kernel", launches=select_ops.fused_packet_select.launches,
+         launches_note="comparison and timing launches of this phase, "
+                       "not of a path", shapes=shapes, j_m_equal=True,
+         max_ulp=SelectWorst.ulp, ulp_bound=ULP_BOUND,
+         max_abs_err=SelectWorst.abs_err, times=times, ok=True)
+    return times
+
+
+def check_grid(got: Metrics, want: Metrics, rtol: float, label: str):
+    """`got` against the fused lane engine's grid: group counts and `ok`
+    equal, every float metric within `rtol`. Returns the largest relative
+    deviation."""
+    if not (np.array_equal(got.n_groups, want.n_groups)
+            and np.array_equal(got.ok, want.ok) and got.ok.all()):
+        fail(f"{label}: group counts or ok differ from the fused grid")
+    worst = 0.0
+    for f_ in SCALAR_METRIC_FIELDS:
+        g = np.asarray(getattr(got, f_), np.float64)
+        w = np.asarray(getattr(want, f_), np.float64)
+        if not np.all(np.abs(g - w) <= rtol * np.abs(w)):
+            fail(f"{label}: {f_} differs from the fused grid beyond rtol "
+                 f"{rtol}")
+        dev = np.abs(g - w) / np.maximum(np.abs(w), 1e-300)
+        worst = max(worst, float(np.max(np.where(g == w, 0.0, dev))))
+    return worst
+
+
+def phase_seq_path(flows, fused):
+    """The while-loop engine, `simulate_packet`, over all 222 lanes of
+    each paper flow in one call (a select-kernel launch per lockstep group
+    formation), then `run_packet_grid` with mode="seq" (step_impl="torch":
+    the same engine, one cell per call) on three cells and the legacy
+    vmap_k / vmap_s layouts on the whole homog0.85 grid; every result
+    against the fused grid of `phase_main_path`. Returns the select
+    kernel's launches in this path."""
+    select_ops.fused_packet_select.launches = 0
+    step_ops.packet_event_steps.launches = 0
+    K, S = len(sweep.PAPER_SCALE_RATIOS), len(sweep.PAPER_INIT_PROPS)
+    formations = 0
+    for flow, dtype in (("homog0.85", np.float32), ("hetero0.85", np.float64)):
+        wl, want = flows[flow], fused[flow]
+        d = Dispatch(wl, dtype, False)      # the grid's lanes, k major
+        M = d.M
+        stats = {}
+        before = select_ops.fused_packet_select.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw = des.pack_workload(wl, dtype)
+        res = des.simulate_packet(pw, d.k[0], d.s[0], M, stats=stats)
+        m = efficiency_metrics(pw.submit, res, M, pw.t_last_submit)
+        got = Metrics(*(x.cpu().numpy().reshape((K, S)) for x in m))
+        wall = time.perf_counter() - t0
+        launched = select_ops.fused_packet_select.launches - before
+        if launched != stats["inner"]:
+            fail(f"seq_path {flow}: {launched} select launches for "
+                 f"{stats['inner']} group formations")
+        formations += stats["inner"]
+        rel = check_grid(got, want, SEQ_RTOL[np.dtype(dtype)],
+                         f"seq_path {flow}")
+        emit("seq_path", run="simulate_packet", flow=flow,
+             dtype=str(np.dtype(dtype)), lanes=K * S, n_jobs=wl.n_jobs,
+             ring=d.ring, wall_seconds=wall,
+             outer_iterations=stats["outer"],
+             inner_iterations=stats["inner"], select_launches=launched,
+             host_syncs=stats["syncs"],
+             groups_formed=int(got.n_groups.sum()),
+             max_rel_dev_vs_fused=float(rel),
+             rtol=SEQ_RTOL[np.dtype(dtype)], ok=True)
+
+    wl, want = flows["homog0.85"], fused["homog0.85"]
+    ks = [sweep.PAPER_SCALE_RATIOS[i] for i in SEQ_CELLS]
+    before = select_ops.fused_packet_select.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sweep.run_packet_grid(wl, ks=ks, s_props=[0.05], mode="seq",
+                                step_impl="torch")
+    wall = time.perf_counter() - t0
+    launched = select_ops.fused_packet_select.launches - before
+    # one lane a call: each lockstep formation forms exactly one group
+    if launched != int(got.n_groups.sum()):
+        fail(f"seq_path seq cells: {launched} select launches for "
+             f"{int(got.n_groups.sum())} groups")
+    formations += launched
+    cells = Metrics(*(np.asarray(x)[list(SEQ_CELLS)][:, :1] for x in want))
+    rel = check_grid(got, cells, SEQ_RTOL[np.dtype(np.float32)],
+                     "seq_path seq cells")
+    emit("seq_path", run="run_packet_grid(mode='seq', step_impl='torch')",
+         flow="homog0.85", dtype="float32", ks=ks, s_prop=0.05,
+         wall_seconds=wall, select_launches=launched,
+         max_rel_dev_vs_fused=float(rel), ok=True)
+
+    for flag in ("vmap_k", "vmap_s"):
+        before = step_ops.packet_event_steps.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sweep.run_packet_grid(wl, **{flag: True})
+        wall = time.perf_counter() - t0
+        launched = step_ops.packet_event_steps.launches - before
+        if launched < 1:
+            fail(f"seq_path {flag}: the event-step kernel never ran")
+        rel = check_grid(got, want, SEQ_RTOL[np.dtype(np.float32)],
+                         f"seq_path {flag}")
+        emit("seq_path", run=f"run_packet_grid({flag}=True)",
+             flow="homog0.85", dtype="float32", lanes=K * S,
+             dispatches=S if flag == "vmap_k" else K, wall_seconds=wall,
+             event_step_launches=launched, max_rel_dev_vs_fused=float(rel),
+             ok=True)
+    launches = select_ops.fused_packet_select.launches
+    if launches != formations or launches < 1:
+        fail(f"seq_path: {launches} select launches for {formations} "
+             f"group formations")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -947,13 +1196,23 @@ def phase_attention_grad():
         errs[name], _ = attn_check(g, w, f"attention_grad {name}")
     del out, got, want
     q, k, v = (x.detach() for x in (q, k, v))
-    runs = {"kernel_forward": [], "plain_backward": []}
+    # SDPA has no window argument: the causal window as a boolean mask
+    pos = torch.arange(Sq, device=q.device)
+    visible = ((pos[None, :] <= pos[:, None])
+               & (pos[None, :] > pos[:, None] - window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    runs = {"kernel_forward": [], "plain_backward": [], "library": []}
     fns = {"kernel_forward": lambda: attn_ops.flash_attention(
                q, k, v, impl="cuda", **kw),
-           "plain_backward": lambda: attention_bwd_ref(q, k, v, do, **kw)}
-    for name in ("kernel_forward", "plain_backward", "plain_backward",
-                 "kernel_forward"):
+           "plain_backward": lambda: attention_bwd_ref(q, k, v, do, **kw),
+           "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=visible, enable_gqa=True)}
+    order = ("kernel_forward", "plain_backward", "library", "library",
+             "plain_backward", "kernel_forward")
+    for name in order:
         runs[name].append(cuda_ms(fns[name], 3))
+    lib_err = float((fns["library"]().transpose(1, 2).float()
+                     - attention_ref(q, k, v, **kw).float()).abs().max())
     shape = (f"B={B} S={Sq} H={H} KV={KV} hd={hd} causal window={window} "
              f"bf16")
     # visible (query, key) pairs of a causal window (Sq == Skv); the
@@ -975,9 +1234,13 @@ def phase_attention_grad():
                             bound_by="operations" if t_ops >= t_bytes
                             else "bytes")
     out = dict(shape=shape, kernel_forward_ms=min(runs["kernel_forward"]),
-               plain_backward_ms=min(runs["plain_backward"]), runs_ms=runs,
-               run_order="kernel_forward, plain_backward, plain_backward, "
-                         "kernel_forward", bounds=bounds)
+               plain_backward_ms=min(runs["plain_backward"]),
+               library_ms=min(runs["library"]),
+               library="torch.nn.functional.scaled_dot_product_attention("
+                       "attn_mask=<causal window of 2048 as bool>, "
+                       "enable_gqa=True), timed as the yardstick only",
+               library_max_abs_err_vs_plain=lib_err, runs_ms=runs,
+               run_order=", ".join(order), bounds=bounds)
     emit("attention_grad", max_abs_err=errs,
          note="the backward is plain PyTorch (attention_bwd_ref), not a "
               "kernel: the TPU package has none to port", ok=True, **out)
@@ -1223,7 +1486,7 @@ def time_lru():
 
 
 def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
-                  train_launches):
+                  train_launches, select_times, select_launches):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -1298,6 +1561,31 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": lru,
     })
+    sel = select_times[0]           # (222, 8) float32: the engine's shape
+    line["kernels"].append({
+        "name": "packet_select",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/packet_select.cu",
+        "replaces": "src/repro/kernels/packet_select/kernel.py:24",
+        "launches": select_launches,
+        "max_abs_err": SelectWorst.abs_err,
+        "max_ulp": SelectWorst.ulp,
+        "ms": sel["ms"],
+        "plain_ms": sel["plain_ms"],
+        "bound_ms": sel["bound_ms"],
+        "bound_by": sel["bound_by"],
+        "library_ms": None,
+        "stream_ms": sel["stream_ms"],
+        "unit": f"one launch = one group-formation decision for every "
+                f"lane; {sel['shape']} (the 222-lane seq_path); ms from a "
+                f"CUDA graph of {SELECT_GRAPH_LAUNCHES} launches, "
+                f"stream_ms per wrapper call back to back; no single "
+                f"PyTorch call computes this decision",
+        "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
+                        "ops_per_s": FP32_OPS_PER_S},
+        "main_shape": sel,
+        "other_shapes": select_times[1:],
+    })
     print(json.dumps(line), flush=True)
 
 
@@ -1321,7 +1609,7 @@ def main(argv=None):
         seconds[name] = time.perf_counter() - t
         return out
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = start_builds(pool)
         timed("env", phase_env)
         timed("build packet_step", phase_build, step_kernel,
@@ -1329,8 +1617,12 @@ def main(argv=None):
         flows = timed("workloads", paper_workloads, 0)
         timed("kernel_step", phase_kernel_step, flows)
         plain_ms = timed("kernel_run", phase_kernel_run, flows)
-        launches = timed("main_path", phase_main_path, flows)
+        launches, fused = timed("main_path", phase_main_path, flows)
         timed("main_path_stages", phase_stages, flows)
+        timed("build packet_select, wait", phase_build, select_kernel,
+              builds[select_kernel])
+        select_times = timed("select_kernel", phase_select_kernel)
+        select_launches = timed("seq_path", phase_seq_path, flows, fused)
         timed("build flash_attention, wait", phase_build, attn_kernel,
               builds[attn_kernel])
         timed("build rglru_scan, wait", phase_build, lru_kernel,
@@ -1344,7 +1636,7 @@ def main(argv=None):
     if args.profile:
         timed("train_profile", profile_training)
     timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches,
-          attn_grad, train_launches)
+          attn_grad, train_launches, select_times, select_launches)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

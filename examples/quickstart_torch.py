@@ -1,7 +1,8 @@
 """Quickstart of the PyTorch/CUDA port: the paper in ~40 lines, on the GPU.
 
 Generates a Lublin-Feitelson workload, runs the Packet-algorithm DES over a
-scale-ratio sweep with the hand-written CUDA event-step kernel, and prints
+scale-ratio sweep with the hand-written CUDA event-step kernel (and three
+cells again with `mode="seq"`, the while-loop engine), and prints
 the queue-time / utilization trade-off plus the plateau threshold — the
 number the paper's method hands a JMS administrator. Needs one CUDA device
 and `nvcc` (the kernel is built at first use); pass `--cpu` to run the plain
@@ -33,6 +34,15 @@ for i, k in enumerate(ks):
     print(f"{k:6.1f} | {grid.avg_wait[i, 0]:13.1f} "
           f"{grid.med_wait[i, 0]:9.1f} {grid.full_util[i, 0]:9.3f} "
           f"{grid.useful_util[i, 0]:7.3f} | {grid.avg_wait[i, 1]:14.1f}")
+
+# the first three cells again, one per call, through the while-loop engine
+# (mode="seq"; on the GPU each group formation is one launch of the
+# hand-written decision kernel): a dispatch layout, not a policy
+seq = run_packet_grid(wl, ks=ks[:3], s_props=[0.05], mode="seq",
+                      step_impl="torch", device=device)
+assert (seq.n_groups[:, 0] == grid.n_groups[:3, 0]).all()
+print(f"\nmode='seq' (while-loop engine) agrees on k = {ks[:3]}: "
+      f"avg wait {[round(float(w), 1) for w in seq.avg_wait[:, 0]]}")
 
 thr = plateau_threshold(np.asarray(ks), grid.avg_wait[:, 0])
 print(f"\nadministrator recommendation: scale ratio k >= {thr.threshold} "

@@ -2,7 +2,10 @@
 
 The JAX package `repro` is the untouched reference; this package mirrors
 its layout (`core/des.py`, `core/sweep.py`, `kernels/packet_step/...`) so
-every counterpart is found under the same name. It imports `torch` and
+every counterpart is found under the same name: the DES engines
+(`simulate_packet`, `simulate_packet_scan`, `simulate_packet_scan_lanes`,
+`simulate_packet_reference`, `simulate_packet_host`) and the grid sweep
+(`run_packet_grid`) are exported by `repro_torch.core`. It imports `torch` and
 `numpy` only. The hand-written CUDA kernels live under `csrc/` and are
 built with `nvcc` at first launch, never at import.
 

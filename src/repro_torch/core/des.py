@@ -1,15 +1,24 @@
 """Lane-batched discrete-event simulator of the Packet algorithm, PyTorch.
 
-Counterpart of `repro.core.des` for the batched-lane scan engine
-(`simulate_packet_scan_lanes`): every lane is one (scale ratio k, init time
-s) experiment over the same packed workload. State is carried as
-``[state, T]`` columns with the lanes on the minor axis (scalars as
-``[1, T]``, per-type rows as ``[H, T]``, ring rows as ``[ring, T]``), the
-layout of the reference's event-step kernel, so neighbouring GPU threads
-touch neighbouring addresses.
+Counterpart of `repro.core.des`. Every lane is one (scale ratio k, init
+time s) experiment over the same packed workload. Four engines:
 
-The engine on a GPU
--------------------
+  * `simulate_packet_scan_lanes` — the batched-lane scan engine of the
+    grid sweep. State is carried as ``[state, T]`` columns with the lanes
+    on the minor axis (scalars as ``[1, T]``, per-type rows as ``[H, T]``,
+    ring rows as ``[ring, T]``), the layout of the reference's event-step
+    kernel, so neighbouring GPU threads touch neighbouring addresses.
+  * `simulate_packet` — the reference's while-loop engine (an event loop
+    with a nested group-formation loop), run over lanes in lockstep with
+    lane-major ``[T, ...]`` state; each group formation takes its decision
+    in one launch of the select kernel (`kernels/packet_select`). This is
+    the sweep's ``mode="seq"`` path with ``step_impl="torch"``.
+  * `simulate_packet_scan` — one lane of the scan engine.
+  * `simulate_packet_reference` — the reference's seed oracle, one lane,
+    eager O(N) writes per group; an independent check, off the main path.
+
+The scan engine on a GPU
+------------------------
 A host loop runs at most ``n_segs = budget / seg`` segments and stops when
 no lane is active. Each segment is ONE call of
 `repro_torch.kernels.packet_step.ops.packet_event_steps`, which advances
@@ -40,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import precision
+from repro_torch.core import packet, precision
 from repro_torch.device import resolve_device
 from repro_torch.workload.lublin import Workload
 
@@ -488,6 +497,28 @@ def _lane_tensor(x, dtype, device):
                         dtype=dtype, device=device)
 
 
+def _chaos_streams(chaos, u1, u2, L_cap: int, T: int, dtype, device):
+    """The ``[L_cap, T]`` uniform streams on `device`: required with a
+    ChaosConfig, refused without one."""
+    if chaos is None:
+        if u1 is not None or u2 is not None:
+            raise ValueError("u1/u2 were given without a ChaosConfig")
+        return None, None
+    if u1 is None or u2 is None:
+        raise ValueError(
+            "a ChaosConfig needs the uniform streams u1 and u2 "
+            f"([{L_cap}, {T}]) as operands: the port has no stream "
+            "generator of its own yet (ROADMAP.md Queue 1, chaos axis "
+            "with a threefry generator)")
+    u1, u2 = ((u if isinstance(u, torch.Tensor) else torch.tensor(
+        np.asarray(u))).to(device=device, dtype=dtype).contiguous()
+              for u in (u1, u2))
+    if tuple(u1.shape) != (L_cap, T) or tuple(u2.shape) != (L_cap, T):
+        raise ValueError(f"u1/u2 must have shape [{L_cap}, {T}], got "
+                         f"{tuple(u1.shape)} and {tuple(u2.shape)}")
+    return u1, u2
+
+
 def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
                                priority=None, t_max=None,
                                ring: int | None = None,
@@ -543,23 +574,9 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
               if t_max is None else _lane_tensor(t_max, dtype, dev))
 
     has_chaos = chaos is not None
-    if not has_chaos:
-        if u1 is not None or u2 is not None:
-            raise ValueError("u1/u2 were given without a ChaosConfig")
-        chaos_params = None
-    else:
-        if u1 is None or u2 is None:
-            raise ValueError(
-                "a ChaosConfig needs the uniform streams u1 and u2 "
-                f"([{L_cap}, {T}]) as operands: the port has no stream "
-                "generator of its own yet (ROADMAP.md Queue 1, chaos axis "
-                "with a threefry generator)")
-        u1 = u1.to(device=dev, dtype=dtype).contiguous()
-        u2 = u2.to(device=dev, dtype=dtype).contiguous()
-        if tuple(u1.shape) != (L_cap, T) or tuple(u2.shape) != (L_cap, T):
-            raise ValueError(f"u1/u2 must have shape [{L_cap}, {T}], got "
-                             f"{tuple(u1.shape)} and {tuple(u2.shape)}")
-        chaos_params = chaos_param_columns(chaos, T, dtype, dev)
+    u1, u2 = _chaos_streams(chaos, u1, u2, L_cap, T, dtype, dev)
+    chaos_params = (chaos_param_columns(chaos, T, dtype, dev) if has_chaos
+                    else None)
 
     k_col = k.reshape(1, T).contiguous()
     s_col = s.reshape(1, T).contiguous()
@@ -598,3 +615,492 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
                      straggler_kills=cols.straggler_kills[0],
                      requeues=cols.requeues[0],
                      requeued_jobs=cols.requeued_jobs[0])
+
+
+# --------------------------------------------------------------------------
+# The while-loop engine, in lockstep over lanes.
+# --------------------------------------------------------------------------
+
+class DesState(NamedTuple):
+    """State of the while-loop engine, lane-major: scalars ``[T]``, per-type
+    rows ``[T, H]``, the ring ``[T, ring]`` and the group log ``[T, L]``
+    (``L = N + R``). The fields are the reference's `DesState`."""
+    t: torch.Tensor
+    next_sub: torch.Tensor
+    head: torch.Tensor
+    tail: torch.Tensor
+    m_free: torch.Tensor
+    grp_end: torch.Tensor
+    grp_m: torch.Tensor
+    log_key: torch.Tensor
+    log_t: torch.Tensor
+    log_m: torch.Tensor
+    log_headw: torch.Tensor
+    qlen_int: torch.Tensor
+    busy_ns: torch.Tensor
+    useful_ns: torch.Tensor
+    n_groups: torch.Tensor
+    iters: torch.Tensor        # outer-loop iterations of the lane
+    pool_w: torch.Tensor
+    pool_oldest: torch.Tensor
+    pool_code: torch.Tensor
+    grp_jtype: torch.Tensor
+    grp_rem_w: torch.Tensor
+    grp_rem_cnt: torch.Tensor
+    grp_rem_oldest: torch.Tensor
+    lost_work: torch.Tensor
+    failures: torch.Tensor
+    straggler_kills: torch.Tensor
+    requeues: torch.Tensor
+    requeued_jobs: torch.Tensor
+
+
+def initial_des_state(n_types: int, ring: int, log_cap: int, n_lanes: int,
+                      m_nodes: int, dtype: torch.dtype, device) -> DesState:
+    """The empty-cluster state of `n_lanes` lanes of the while engine."""
+    T = n_lanes
+
+    def full(cols, value, dt):
+        shape = (T,) if cols is None else (T, cols)
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    f, i = dtype, torch.int32
+    return DesState(
+        t=full(None, 0.0, f), next_sub=full(None, 0, i),
+        head=full(n_types, 0, i), tail=full(n_types, 0, i),
+        m_free=full(None, int(m_nodes), i),
+        grp_end=full(ring, INF, f), grp_m=full(ring, 0, i),
+        log_key=full(log_cap, KEY_PAD, i), log_t=full(log_cap, 0.0, f),
+        log_m=full(log_cap, 0, i), log_headw=full(log_cap, 0.0, f),
+        qlen_int=full(None, 0.0, f), busy_ns=full(None, 0.0, f),
+        useful_ns=full(None, 0.0, f), n_groups=full(None, 0, i),
+        iters=full(None, 0, i),
+        pool_w=full(n_types, 0.0, f), pool_oldest=full(n_types, INF, f),
+        pool_code=full(n_types, 0, i), grp_jtype=full(ring, 0, i),
+        grp_rem_w=full(ring, 0.0, f), grp_rem_cnt=full(ring, 0, i),
+        grp_rem_oldest=full(ring, INF, f), lost_work=full(None, 0.0, f),
+        failures=full(None, 0, i), straggler_kills=full(None, 0, i),
+        requeues=full(None, 0, i), requeued_jobs=full(None, 0, i))
+
+
+def _is_scalar(x) -> bool:
+    return x.dim() == 0 if isinstance(x, torch.Tensor) else np.ndim(x) == 0
+
+
+def simulate_packet(pw: PackedWorkload, k, s_init, m_nodes, priority=None,
+                    t_max=None, max_iters: int | None = None,
+                    ring: int | None = None,
+                    chaos: ChaosConfig | None = None, u1=None, u2=None,
+                    device=None, stats: dict | None = None) -> DesResult:
+    """The Packet DES as the reference's while-loop engine, over lanes.
+
+    An outer loop takes one event per iteration (the earlier of the next
+    submission and the first running group's end); after each event an
+    inner loop forms groups (paper Steps 1-5) until the lane is blocked.
+    `k` and `s_init` are scalars or ``[T]`` lanes (a scalar broadcasts);
+    the lanes run in lockstep, each loop stopping when no lane is active,
+    and every update is masked so that a lane that is done or blocked is
+    untouched: lane t gives the reference's `simulate_packet` with
+    ``(k[t], s_init[t])``. With scalar `k` and `s_init` the lane axis is
+    squeezed from the result.
+
+    Every inner iteration takes its decision (queue weights, argmax, node
+    count, duration) in ONE call of `fused_packet_select` over all lanes:
+    on CUDA tensors the hand-written kernel, on CPU tensors its plain
+    version. The job times come from `_reconstruct_job_times` over the
+    ``[T, N + R]`` group log. `device=None` means the CUDA card and must
+    be where `pw` lives.
+
+    `chaos` as in `simulate_packet_scan_lanes`: the uniform streams `u1`
+    and `u2` (``[N + R, T]``) are operands, row g consumed by the g-th
+    group a lane forms. `max_iters` caps each lane's outer iterations
+    (default ``4N + 64 + 2R``; a lane that hits it reports
+    `budget_exhausted`). If `stats` is a dict, it receives the lockstep
+    iteration counts (``outer``, ``inner``) and the host syncs
+    (``syncs``, one boolean read per loop test) of this call.
+    """
+    from repro_torch.kernels.packet_select.ops import fused_packet_select
+
+    dev = resolve_device(device)
+    if pw.submit.device != dev:
+        raise ValueError(f"packed workload lives on {pw.submit.device}, "
+                         f"engine was asked to run on {dev}")
+    H, N = pw.n_types, pw.n_jobs
+    ring = resolve_ring(m_nodes, N, ring)
+    R = resolve_max_requeues(chaos, N)
+    L = N + R                       # group-log capacity: G <= N + requeues
+    dtype = pw.submit.dtype
+    squeeze = _is_scalar(k) and _is_scalar(s_init)
+    k = _lane_tensor(k, dtype, dev)
+    s = _lane_tensor(s_init, dtype, dev)
+    T = max(int(k.shape[0]), int(s.shape[0]))
+    if k.dim() != 1 or s.dim() != 1 or {int(k.shape[0]),
+                                        int(s.shape[0])} - {1, T}:
+        raise ValueError(f"k and s_init must be scalars or equal-length "
+                         f"lane arrays, got {tuple(k.shape)} and "
+                         f"{tuple(s.shape)}")
+    k = k.expand(T).contiguous()
+    s = s.expand(T).contiguous()
+    p_j = (torch.ones((H,), dtype=dtype, device=dev) if priority is None
+           else _lane_tensor(priority, dtype, dev))
+    tmax_j = (torch.full((H,), 3600.0, dtype=dtype, device=dev)
+              if t_max is None else _lane_tensor(t_max, dtype, dev))
+    if max_iters is None:
+        max_iters = 4 * N + 64 + 2 * R
+    has_chaos = chaos is not None
+    u1, u2 = _chaos_streams(chaos, u1, u2, L, T, dtype, dev)
+    if has_chaos:
+        cp = ChaosParams(*(c[0] for c in
+                           chaos_param_columns(chaos, T, dtype, dev)))
+
+    prefw, tsub, t_end = pw.tj_prefw, pw.tj_submit, pw.t_last_submit
+    lanes = torch.arange(T, device=dev)
+    w_off = torch.arange(H, device=dev) * (N + 1)   # flat rows of tj_prefw
+    s_off = torch.arange(H, device=dev) * N         # flat rows of tj_submit
+    # the decision's per-type operands that do not change
+    s_rows = s[:, None].expand(T, H).contiguous()
+    p_rows = p_j.expand(T, H).contiguous()
+    tmax_rows = tmax_j.expand(T, H).contiguous()
+    zero_f = torch.zeros((), dtype=dtype, device=dev)
+    inf_f = torch.full((), INF, dtype=dtype, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    m_nodes = int(m_nodes)
+    st = initial_des_state(H, ring, L, T, m_nodes, dtype, dev)
+
+    def more():
+        """[T]: the outer loop's condition per lane. A group holds at least
+        one node until its end, so "a group is running" is m_free < M."""
+        return (((st.next_sub < N) | (st.m_free < m_nodes)) &
+                (st.iters < max_iters))
+
+    def finish_remnant(slot, do_fin):
+        """Chaos at a group's end: merge the stashed requeue into the
+        type's pool (the deferred credit walk), clear the slot's stash."""
+        j_f = st.grp_jtype[lanes, slot]
+        jf = j_f.long()
+        cnt, rem_w, rem_old, rem_lo, rem_hi, walk = _resolve_remnant(
+            prefw, tsub, N, j_f, st.grp_rem_cnt[lanes, slot],
+            st.grp_rem_w[lanes, slot], st.grp_rem_oldest[lanes, slot])
+        pool_code = st.pool_code[lanes, jf]
+        old_cnt, old_lo, old_frag = _pool_decode(pool_code, N)
+        inc = cnt > 0
+        was_empty = old_cnt == 0
+        # the remnant span abuts the live window only if no formation of
+        # this type ran while the group held it
+        contig = rem_hi == st.head[lanes, jf]
+        frag = torch.where(inc, old_frag | ~walk | ~was_empty | ~contig,
+                           old_frag)
+        new_lo = torch.where(was_empty, rem_lo,
+                             torch.minimum(old_lo, rem_lo))
+        new_code = (new_lo * 2 + frag.to(i32)) * (N + 1) + old_cnt + cnt
+        st.pool_w[lanes, jf] = st.pool_w[lanes, jf] + torch.where(
+            do_fin, rem_w, zero_f)
+        st.pool_oldest[lanes, jf] = torch.minimum(
+            st.pool_oldest[lanes, jf], torch.where(do_fin, rem_old, inf_f))
+        st.pool_code[lanes, jf] = torch.where(do_fin & inc, new_code,
+                                              pool_code)
+        st.grp_rem_w[lanes, slot] = torch.where(
+            do_fin, zero_f, st.grp_rem_w[lanes, slot])
+        st.grp_rem_cnt[lanes, slot] = torch.where(
+            do_fin, zero_i, st.grp_rem_cnt[lanes, slot])
+        st.grp_rem_oldest[lanes, slot] = torch.where(
+            do_fin, inf_f, st.grp_rem_oldest[lanes, slot])
+        st.requeued_jobs.add_(torch.where(do_fin, cnt, zero_i))
+
+    def event(act):
+        """One event in every lane of `act`: a submission or a finish."""
+        sub_idx = torch.clamp(st.next_sub, max=N - 1).long()
+        t_sub = torch.where(st.next_sub < N, pw.submit[sub_idx], inf_f)
+        slot = torch.argmin(st.grp_end, dim=1)
+        t_fin = st.grp_end[lanes, slot]
+        take_sub = t_sub <= t_fin
+        t_new = torch.where(take_sub, t_sub, t_fin)
+        # queue-length integral over the elapsed interval (clipped)
+        qlen = torch.sum(st.tail - st.head, dim=1).to(dtype)
+        if has_chaos:
+            qlen = qlen + torch.sum(st.pool_code % (N + 1), dim=1).to(dtype)
+        q_inc = qlen * _window_overlap(st.t, t_new, t_end)
+        st.qlen_int.copy_(torch.where(act, st.qlen_int + q_inc,
+                                      st.qlen_int))
+        st.t.copy_(torch.where(act, t_new, st.t))
+        do_sub = act & take_sub
+        do_fin = act & ~take_sub
+        st.tail.index_put_((lanes, pw.jtype[sub_idx].long()),
+                           do_sub.to(i32), accumulate=True)
+        st.next_sub.add_(do_sub)
+        if has_chaos:
+            finish_remnant(slot, do_fin)
+        st.m_free.add_(torch.where(do_fin, st.grp_m[lanes, slot], zero_i))
+        st.grp_end[lanes, slot] = torch.where(do_fin, inf_f, t_fin)
+        st.grp_m[lanes, slot] = torch.where(do_fin, zero_i,
+                                            st.grp_m[lanes, slot])
+        st.iters.add_(act)
+
+    def form(sched, nonempty, free):
+        """One group in every lane of `sched` (paper Steps 1-5); `free`
+        marks the free ring slots."""
+        sum_w = (torch.take(prefw, st.tail + w_off) -
+                 torch.take(prefw, st.head + w_off))
+        oldest = torch.take(tsub, torch.clamp(st.head, max=N - 1) + s_off)
+        if has_chaos:
+            # requeued remainder counts toward weight / age / emptiness
+            sum_w = sum_w + st.pool_w
+            oldest = torch.minimum(oldest, st.pool_oldest)
+        j, m, dur, work = fused_packet_select(
+            sum_w, s_rows, p_rows, oldest, tmax_rows, nonempty, st.t, k,
+            st.m_free)
+        jl = j.long()
+        m_grp = m.to(i32)
+        slot = torch.argmax(free.to(torch.int8), dim=1)   # first free
+        gslot = torch.clamp(st.n_groups, max=L - 1).long()
+        head_j = st.head[lanes, jl]
+        tail_j = st.tail[lanes, jl]
+        head_w = prefw[jl, head_j.long()]
+        if not has_chaos:
+            t_fin = st.t + dur
+            useful_end = t_fin
+        else:
+            out = _chaos_outcome(cp, u1[gslot, lanes], u2[gslot, lanes],
+                                 st.requeues < R, s, work, m_grp, dur)
+            t_fin = st.t + out.dur
+            useful_end = torch.where(out.failed, st.t + s + out.ckpt_done,
+                                     t_fin)
+            requeued = out.failed | out.killed
+            # stash the requeue span for the finish (see finish_remnant)
+            p_cnt, p_lo, p_frag = _pool_decode(st.pool_code[lanes, jl], N)
+            has_pool = p_cnt > 0
+            qlo = torch.where(has_pool, p_lo, head_j)
+            res0 = torch.where(has_pool, torch.maximum(
+                head_w - prefw[jl, qlo.long()] - st.pool_w[lanes, jl],
+                zero_f), zero_f)
+            walk_ok = ~(has_pool & p_frag)
+            span_code = 1 + qlo * (N + 1) + tail_j
+            rem_agg = work - out.credit
+            a_has = requeued & (rem_agg > CREDIT_EPS)
+            a_cnt = (tail_j - head_j) + p_cnt
+            code = torch.where(requeued & walk_ok, span_code,
+                               torch.where(a_has, -a_cnt, zero_i))
+            stash_w = torch.where(
+                requeued & walk_ok, res0 + out.credit,
+                torch.where(a_has, torch.maximum(rem_agg, zero_f), zero_f))
+            stash_old = torch.where(a_has & ~walk_ok, oldest[lanes, jl],
+                                    inf_f)
+            for col, val in ((st.grp_jtype, j), (st.grp_rem_w, stash_w),
+                             (st.grp_rem_cnt, code),
+                             (st.grp_rem_oldest, stash_old)):
+                col[lanes, slot] = torch.where(sched, val, col[lanes, slot])
+            for col, val in ((st.pool_w, zero_f), (st.pool_oldest, inf_f),
+                             (st.pool_code, zero_i)):
+                col[lanes, jl] = torch.where(sched, val, col[lanes, jl])
+            st.lost_work.add_(torch.where(sched, out.lost, zero_f))
+            st.failures.add_(sched & out.failed)
+            st.straggler_kills.add_(sched & out.killed & ~out.failed)
+            st.requeues.add_(sched & requeued)
+        m_f = m_grp.to(dtype)
+        busy_inc = m_f * _window_overlap(st.t, t_fin, t_end)
+        useful_inc = m_f * _window_overlap(st.t + s, useful_end, t_end)
+        # O(1) group-log append; job times reconstructed after the loop
+        for col, val in ((st.log_key, j * (N + 1) + tail_j),
+                         (st.log_t, st.t), (st.log_m, m_grp),
+                         (st.log_headw, head_w)):
+            col[lanes, gslot] = torch.where(sched, val, col[lanes, gslot])
+        st.head[lanes, jl] = torch.where(sched, tail_j, head_j)  # drain all
+        st.m_free.sub_(torch.where(sched, m_grp, zero_i))
+        st.grp_end[lanes, slot] = torch.where(sched, t_fin,
+                                              st.grp_end[lanes, slot])
+        st.grp_m[lanes, slot] = torch.where(sched, m_grp,
+                                            st.grp_m[lanes, slot])
+        st.busy_ns.add_(torch.where(sched, busy_inc, zero_f))
+        st.useful_ns.add_(torch.where(sched, useful_inc, zero_f))
+        st.n_groups.add_(sched)
+
+    counts = {"outer": 0, "inner": 0, "syncs": 1}
+    act = more()
+    go = bool(act.any())
+    while go:
+        counts["outer"] += 1
+        event(act)
+        while True:
+            nonempty = st.tail > st.head
+            if has_chaos:
+                nonempty = nonempty | (st.pool_code > 0)
+            free = st.grp_end == INF
+            sched = (act & (st.m_free > 0) & torch.any(nonempty, dim=1) &
+                     torch.any(free, dim=1))
+            # the outer test rides on the inner test's sync; it is read
+            # only once no lane forms a group, when the state is final
+            nxt = more()
+            any_sched, go = torch.stack((sched.any(), nxt.any())).tolist()
+            counts["syncs"] += 1
+            if not any_sched:
+                break
+            counts["inner"] += 1
+            form(sched, nonempty, free)
+        act = nxt
+
+    start_t, run_start_t = _reconstruct_job_times(
+        pw, st.log_key, st.log_t, st.log_m, st.log_headw, s)
+    drained = ((st.next_sub >= N) &
+               torch.all(torch.isinf(st.grp_end), dim=1) &
+               torch.all(st.head == st.tail, dim=1))
+    if has_chaos:
+        drained = drained & torch.all(st.pool_code == 0, dim=1)
+    ok = drained & torch.all(torch.isfinite(start_t), dim=1)
+    res = DesResult(start_t=start_t, run_start_t=run_start_t,
+                    qlen_int=st.qlen_int, busy_ns=st.busy_ns,
+                    useful_ns=st.useful_ns, n_groups=st.n_groups,
+                    makespan=st.t, ok=ok, budget_exhausted=~drained,
+                    lost_work=st.lost_work, failures=st.failures,
+                    straggler_kills=st.straggler_kills,
+                    requeues=st.requeues, requeued_jobs=st.requeued_jobs)
+    if stats is not None:
+        stats.update(counts)
+    return DesResult(*(x[0] for x in res)) if squeeze else res
+
+
+# --------------------------------------------------------------------------
+# Single-lane entry points.
+# --------------------------------------------------------------------------
+
+def _one_lane(x):
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1)
+    return np.reshape(np.asarray(x, np.float64), 1)
+
+
+def simulate_packet_scan(pw: PackedWorkload, k, s_init, m_nodes,
+                         priority=None, t_max=None, ring: int | None = None,
+                         budget: int | None = None, seg: int | None = None,
+                         chaos: ChaosConfig | None = None,
+                         step_impl: str | None = None, u1=None, u2=None,
+                         device=None) -> DesResult:
+    """One (k, s) experiment through the scan engine: a one-lane dispatch
+    of `simulate_packet_scan_lanes` with the lane axis squeezed. `u1` and
+    `u2` are the lane's ``[N + R]`` streams under chaos."""
+    u1, u2 = (None if u is None else torch.as_tensor(np.asarray(u) if not
+              isinstance(u, torch.Tensor) else u).reshape(-1, 1)
+              for u in (u1, u2))
+    res = simulate_packet_scan_lanes(
+        pw, _one_lane(k), _one_lane(s_init), m_nodes, priority=priority,
+        t_max=t_max, ring=ring, budget=budget, seg=seg, chaos=chaos,
+        step_impl=step_impl, u1=u1, u2=u2, device=device)
+    return DesResult(*(x[0] for x in res))
+
+
+REFERENCE_RING = 512     # the seed oracle's fixed ring
+
+
+def simulate_packet_reference(pw: PackedWorkload, k, s_init, m_nodes,
+                              priority=None, t_max=None,
+                              max_iters: int | None = None,
+                              device=None) -> DesResult:
+    """The seed implementation of the reference, one experiment: a host
+    loop over events with eager O(N) writes of every job's start times per
+    group, a fixed ring of 512 and the plain policy functions. No chaos.
+
+    It shares nothing with `simulate_packet` but the policy formulas, so
+    it stays an independent check of that engine; nothing on the main
+    path calls it.
+    """
+    dev = resolve_device(device)
+    if pw.submit.device != dev:
+        raise ValueError(f"packed workload lives on {pw.submit.device}, "
+                         f"engine was asked to run on {dev}")
+    H, N = pw.n_types, pw.n_jobs
+    dtype = pw.submit.dtype
+    k = _lane_tensor(k, dtype, dev)[0]
+    s = _lane_tensor(s_init, dtype, dev)[0]
+    s_j = s.expand(H)
+    p_j = (torch.ones((H,), dtype=dtype, device=dev) if priority is None
+           else _lane_tensor(priority, dtype, dev))
+    tmax_j = (torch.full((H,), 3600.0, dtype=dtype, device=dev)
+              if t_max is None else _lane_tensor(t_max, dtype, dev))
+    if max_iters is None:
+        max_iters = 4 * N + 64
+    t_end = pw.t_last_submit
+    types = torch.arange(H, device=dev)
+    inf_f = torch.full((), INF, dtype=dtype, device=dev)
+    t = torch.zeros((), dtype=dtype, device=dev)
+    qlen_int, busy, useful = (torch.zeros((), dtype=dtype, device=dev)
+                              for _ in range(3))
+    head = torch.zeros((H,), dtype=torch.int32, device=dev)
+    tail = torch.zeros((H,), dtype=torch.int32, device=dev)
+    m_free = torch.tensor(int(m_nodes), dtype=torch.int32, device=dev)
+    grp_end = torch.full((REFERENCE_RING,), INF, dtype=dtype, device=dev)
+    grp_m = torch.zeros((REFERENCE_RING,), dtype=torch.int32, device=dev)
+    start_t = torch.full((N,), INF, dtype=dtype, device=dev)
+    run_start_t = torch.full((N,), INF, dtype=dtype, device=dev)
+    next_sub = n_groups = iters = 0
+
+    while ((next_sub < N or bool(torch.any(~torch.isinf(grp_end))))
+           and iters < max_iters):
+        t_sub = pw.submit[next_sub] if next_sub < N else inf_f
+        slot = int(torch.argmin(grp_end))
+        t_fin = grp_end[slot].clone()
+        take_sub = bool(t_sub <= t_fin)
+        t_new = t_sub if take_sub else t_fin
+        qlen = torch.sum(tail - head).to(dtype)
+        qlen_int = qlen_int + qlen * _window_overlap(t, t_new, t_end)
+        t = t_new
+        if take_sub:
+            tail[int(pw.jtype[next_sub])] += 1
+            next_sub += 1
+        else:
+            m_free = m_free + grp_m[slot]
+            grp_end[slot] = INF
+            grp_m[slot] = 0
+        while (bool(m_free > 0) and bool(torch.any(tail > head))
+               and bool(torch.any(torch.isinf(grp_end)))):
+            nonempty = tail > head
+            sum_w = pw.tj_prefw[types, tail.long()] - \
+                pw.tj_prefw[types, head.long()]
+            oldest = pw.tj_submit[types, torch.clamp(head, max=N - 1).long()]
+            w = packet.queue_weights(sum_w, s_j, p_j, oldest, t, tmax_j,
+                                     nonempty)
+            j = int(torch.argmax(w))
+            work = sum_w[j]
+            m_grp = packet.group_nodes(work, k, s_j[j], m_free)
+            dur = packet.group_duration(work, s_j[j], m_grp)
+            slot = int(torch.argmax(torch.isinf(grp_end).to(torch.int8)))
+            t_grp_fin = t + dur
+            in_grp = ((pw.jtype == j) & (pw.rank >= head[j]) &
+                      (pw.rank < tail[j]))
+            start_t = torch.where(in_grp, t, start_t)
+            head_w = pw.tj_prefw[j, int(head[j])]
+            run_start = t + s_j[j] + (pw.cumw - head_w) / m_grp.to(dtype)
+            run_start_t = torch.where(in_grp, run_start, run_start_t)
+            m_f = m_grp.to(dtype)
+            busy = busy + m_f * _window_overlap(t, t_grp_fin, t_end)
+            useful = useful + m_f * _window_overlap(t + s_j[j], t_grp_fin,
+                                                    t_end)
+            head[j] = tail[j]
+            m_free = m_free - m_grp
+            grp_end[slot] = t_grp_fin
+            grp_m[slot] = m_grp
+            n_groups += 1
+        iters += 1
+
+    drained = (next_sub >= N and bool(torch.all(torch.isinf(grp_end)))
+               and bool(torch.all(head == tail)))
+    ok = drained and bool(torch.all(torch.isfinite(start_t)))
+    zero_f = torch.zeros((), dtype=dtype, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    as_i = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    as_b = lambda v: torch.tensor(v, dtype=torch.bool, device=dev)
+    return DesResult(start_t=start_t, run_start_t=run_start_t,
+                     qlen_int=qlen_int, busy_ns=busy, useful_ns=useful,
+                     n_groups=as_i(n_groups), makespan=t, ok=as_b(ok),
+                     budget_exhausted=as_b(not drained), lost_work=zero_f,
+                     failures=zero_i, straggler_kills=zero_i,
+                     requeues=zero_i, requeued_jobs=zero_i)
+
+
+def simulate_packet_host(wl: Workload, k: float, s_prop: float,
+                         dtype=np.float32, device=None) -> DesResult:
+    """Convenience entry point: a workload, a scale ratio and an init
+    proportion in, the while engine's DesResult as numpy arrays out."""
+    pw = pack_workload(wl, dtype, device)
+    s = wl.init_time_for_proportion(s_prop)
+    res = simulate_packet(pw, k, s, wl.params.nodes, device=device)
+    return DesResult(*(x.cpu().numpy() for x in res))

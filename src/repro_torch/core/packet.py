@@ -12,6 +12,11 @@ k = 0.5 -> 8 nodes, k = 1 -> 4 nodes, k = 2 -> 2 nodes, k = 4 -> 1 node.
 All functions are shape-polymorphic over broadcastable tensors (they are
 called per lane and over ``[H, T]``) and keep the reference's exact order
 of operations, so per-element results round identically.
+
+The node threshold is cast to int32 as XLA casts it: NaN gives 0 and a
+value outside the int32 range its nearest limit (a tiny `k` makes
+``ceil(work / (k * s))`` exceed 2**31, where PyTorch's own cast is
+undefined and gives INT_MIN on x86).
 """
 from __future__ import annotations
 
@@ -32,7 +37,14 @@ def m_threshold(sum_work, k, s_j):
     """Nodes so the group's execution time is ~= k x its init time (Step 4)."""
     m = torch.ceil(sum_work / (torch.clamp(k, min=1e-9) *
                                torch.clamp(s_j, min=1e-9)))
-    return torch.clamp(m, min=1.0).to(torch.int32)
+    return saturating_int32(torch.clamp(m, min=1.0))
+
+
+def saturating_int32(x):
+    """float -> int32 as XLA converts: NaN -> 0, out-of-range values to the
+    nearer int32 limit. float64 holds both limits exactly."""
+    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    return torch.clamp(x, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
 
 
 def group_nodes(sum_work, k, s_j, m_free):

@@ -13,13 +13,21 @@ dispatch layouts:
   * ``"fused"``   — ONE dispatch over all lanes.
 
 Both layouts give every lane the same result (a lane does not depend on
-its dispatch companions), which the tests pin exactly.
+its dispatch companions), which the tests pin exactly. Three more layouts
+run one part of the grid per call, as the reference's do:
+
+  * ``"seq"``     — one cell per call. ``step_impl="torch"`` runs the
+    while-loop engine (`simulate_packet`, one lane; its group-formation
+    decision is the select kernel on the card, its plain version on the
+    CPU), the reference's ``"xla"`` path; ``step_impl="cuda"`` runs one
+    lane of the scan engine through the event-step kernel, the
+    reference's ``"pallas"`` path.
+  * ``vmap_k=True`` / ``vmap_s=True`` (legacy) — one init-proportion
+    column, or one scale-ratio row, per dispatch of the scan engine.
 
 Not ported yet, and raising `NotImplementedError` rather than running
-something else: ``mode="seq"`` (the single-lane engines), the legacy
-``vmap_k``/``vmap_s`` layouts, and a non-inert `chaos` operand of
-`run_packet_grid` (the chaos axis needs a uniform-stream generator); see
-ROADMAP.md, Queue 1.
+something else: a non-inert `chaos` operand of `run_packet_grid` (the
+chaos axis needs a uniform-stream generator); see ROADMAP.md, Queue 1.
 """
 from __future__ import annotations
 
@@ -32,7 +40,9 @@ import torch
 
 from repro_torch.core import precision
 from repro_torch.core.des import (ChaosConfig, chaos_is_inert, pack_workload,
-                                  resolve_ring, simulate_packet_scan_lanes)
+                                  resolve_ring, simulate_packet,
+                                  simulate_packet_scan,
+                                  simulate_packet_scan_lanes)
 from repro_torch.core.metrics import Metrics, efficiency_metrics
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packet_step.ops import resolve_step_impl
@@ -137,14 +147,10 @@ def resolve_mode(mode: str, n_lanes: int) -> str:
     or slower on an H100 (PERF.md, Findings). The reference's thresholds
     (`CHUNKED_MIN_LANES`, the device count) were measured for XLA on a
     CPU and are not carried over. `n_lanes` is validated only. Unknown
-    strings raise ValueError; known but unported layouts raise
-    NotImplementedError."""
+    strings raise ValueError."""
     if mode not in SWEEP_MODES:
         raise ValueError(
             f"unknown sweep mode {mode!r}; available: {SWEEP_MODES}")
-    if mode in ("seq", "vmap_k", "vmap_s"):
-        raise _not_ported(f"mode={mode!r}",
-                          "`seq` mode and the single-lane engines")
     if int(n_lanes) < 1:
         raise ValueError(f"a sweep needs at least one lane, got {n_lanes}")
     return "fused" if mode == "auto" else mode
@@ -207,6 +213,23 @@ def _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring, chunk: int,
     return Metrics(*(x[inv] for x in gathered))
 
 
+def _cell_metrics(pw, k, s, m_nodes, ring, step_impl, device):
+    """One cell of mode='seq', as numpy leaves of shape []: the while
+    engine for ``step_impl="torch"``, one scan-engine lane through the
+    event-step kernel for ``"cuda"``."""
+    if step_impl == "torch":
+        res = simulate_packet(pw, k, s, m_nodes, ring=ring, device=device)
+    else:
+        res = simulate_packet_scan(pw, k, s, m_nodes, ring=ring,
+                                   step_impl=step_impl, device=device)
+    m = efficiency_metrics(pw.submit, res, m_nodes, pw.t_last_submit)
+    return Metrics(*(x.cpu().numpy() for x in m))
+
+
+def _stack(parts, axis: int) -> Metrics:
+    return Metrics(*(np.stack(x, axis=axis) for x in zip(*parts)))
+
+
 def run_packet_grid(wl: Workload,
                     ks: Sequence[float] = PAPER_SCALE_RATIOS,
                     s_props: Sequence[float] = PAPER_INIT_PROPS,
@@ -223,25 +246,34 @@ def run_packet_grid(wl: Workload,
 
     Returns a Metrics tuple of numpy arrays of shape
     ``[len(ks), len(s_props)]``. `device=None` runs on the CUDA card (and
-    raises without one); ``device="cpu"`` runs the plain PyTorch step on
-    the CPU. `step_impl` is ``"cuda"`` | ``"torch"`` (default by device).
-    `on_budget_exhausted` ("raise" | "warn" | "ignore") governs lanes
-    whose schedules were truncated by the event budget. `chunk_lanes`
-    overrides the chunked-mode dispatch width.
+    raises without one); ``device="cpu"`` runs the plain PyTorch versions
+    on the CPU. `step_impl` is ``"cuda"`` | ``"torch"`` (default by
+    device). `mode` is one of SWEEP_MODES (see the module docstring); the
+    legacy ``vmap_k=True`` / ``vmap_s=True`` flags select the column and
+    row layouts and exclude each other, `mode` and `chaos`, as in the
+    reference. `on_budget_exhausted` ("raise" | "warn" | "ignore") governs
+    lanes whose schedules were truncated by the event budget.
+    `chunk_lanes` overrides the chunked-mode dispatch width.
 
-    So far it takes ``mode in ("auto", "chunked", "fused")`` and an
-    inert `chaos`; the other layouts and a fault grid raise
-    NotImplementedError.
+    A non-inert `chaos` raises NotImplementedError (no fault grid yet).
     """
-    if vmap_k or vmap_s:
-        raise _not_ported("the vmap_k/vmap_s layouts",
-                          "`seq` mode and the single-lane engines")
+    if vmap_k and vmap_s:
+        raise ValueError("vmap_k=True and vmap_s=True are mutually "
+                         "exclusive batching layouts; pass at most one "
+                         "(or use mode='fused' for the full lane axis)")
+    if (vmap_k or vmap_s) and mode != "auto":
+        raise ValueError("pass either mode= or the legacy vmap_k/vmap_s "
+                         "flags, not both")
+    if chaos is not None and (vmap_k or vmap_s):
+        raise ValueError("chaos sweeps have no vmap_k/vmap_s layout; use "
+                         "mode='seq'/'chunked'/'fused'")
     if not chaos_is_inert(chaos):
         raise _not_ported(
             "a non-inert chaos operand of run_packet_grid",
             "chaos axis of `run_packet_grid` with a threefry generator")
     K, S = len(ks), len(s_props)
-    mode = resolve_mode(mode, K * S)
+    mode = ("vmap_k" if vmap_k else "vmap_s" if vmap_s
+            else resolve_mode(mode, K * S))
     dev = resolve_device(device)
     step_impl = resolve_step_impl(step_impl, dev)
     np_dtype = precision.canonical_dtype(dtype)
@@ -252,16 +284,30 @@ def run_packet_grid(wl: Workload,
     s_vals = np.asarray([wl.init_time_for_proportion(p) for p in s_props],
                         np_dtype)
     ks_arr = np.asarray(ks, np_dtype)
-    k_lanes = np.repeat(ks_arr, S)
-    s_lanes = np.tile(s_vals, K)
-    if mode == "chunked":
-        lanes = _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring,
-                                 max(1, int(chunk_lanes or CHUNK_LANES)),
-                                 step_impl, dev)
-    else:                       # fused
-        lanes = _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring,
-                              step_impl, dev)
-    out = Metrics(*(x.reshape((K, S) + x.shape[1:]) for x in lanes))
+    if mode == "seq":
+        cells = _stack([_cell_metrics(pw, k, s, m_nodes, ring, step_impl,
+                                      dev)
+                        for k in ks_arr for s in s_vals], axis=0)
+        out = Metrics(*(x.reshape((K, S) + x.shape[1:]) for x in cells))
+    elif mode == "vmap_k":      # one init-proportion column per dispatch
+        out = _stack([_lane_metrics(pw, ks_arr, np.full(K, s, np_dtype),
+                                    m_nodes, ring, step_impl, dev)
+                      for s in s_vals], axis=1)
+    elif mode == "vmap_s":      # one scale-ratio row per dispatch
+        out = _stack([_lane_metrics(pw, np.full(S, k, np_dtype), s_vals,
+                                    m_nodes, ring, step_impl, dev)
+                      for k in ks_arr], axis=0)
+    else:
+        k_lanes = np.repeat(ks_arr, S)
+        s_lanes = np.tile(s_vals, K)
+        if mode == "chunked":
+            lanes = _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring,
+                                     max(1, int(chunk_lanes or CHUNK_LANES)),
+                                     step_impl, dev)
+        else:                   # fused
+            lanes = _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring,
+                                  step_impl, dev)
+        out = Metrics(*(x.reshape((K, S) + x.shape[1:]) for x in lanes))
     _enforce_budget(out, on_budget_exhausted, "run_packet_grid", ks, s_props)
     return out
 

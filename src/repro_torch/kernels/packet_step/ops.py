@@ -22,6 +22,7 @@ from repro_torch.core.des import (FLOAT_STATE_COLS, N_STATE_COLS,
                                   ChaosParams, ScanState)
 from repro_torch.kernels.packet_step import kernel as _kernel
 from repro_torch.kernels.packet_step.ref import packet_steps_ref
+from repro_torch.kernels.routing import check_operand
 
 #: the recognized per-event step implementations
 STEP_IMPLS = ("cuda", "torch")
@@ -39,20 +40,6 @@ def resolve_step_impl(step_impl: str | None, device: torch.device) -> str:
         raise ValueError("step_impl='cuda' needs CUDA tensors; these live "
                          f"on {device} (use step_impl='torch' there)")
     return step_impl
-
-
-def _check(name, x, shape, dtype, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
-    if x.device != device:
-        raise ValueError(f"{name} lives on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
@@ -100,7 +87,7 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
             ("k", k, (1, T), dtype), ("s", s, (1, T), dtype),
             ("p_j", p_j, (H,), dtype), ("tmax_j", tmax_j, (H,), dtype),
             ("t_last", t_last, (1, 1), dtype)):
-        _check(name, x, shape, dt, device)
+        check_operand(name, x, shape, dt, device)
     if len(state) != N_STATE_COLS:
         raise ValueError(f"state must have {N_STATE_COLS} columns")
     rows_of = {"head": H, "tail": H, "pool_w": H, "pool_oldest": H,
@@ -108,17 +95,17 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
                "grp_jtype": ring, "grp_rem_w": ring, "grp_rem_cnt": ring,
                "grp_rem_oldest": ring}
     for name, x in zip(ScanState._fields, state):
-        _check(f"state.{name}", x, (rows_of.get(name, 1), T),
+        check_operand(f"state.{name}", x, (rows_of.get(name, 1), T),
                dtype if name in FLOAT_STATE_COLS else i32, device)
     L_cap = 1
     if has_chaos:
         L_cap = int(u1.shape[0])
-        _check("u1", u1, (L_cap, T), dtype, device)
-        _check("u2", u2, (L_cap, T), dtype, device)
+        check_operand("u1", u1, (L_cap, T), dtype, device)
+        check_operand("u2", u2, (L_cap, T), dtype, device)
         if len(chaos_params) != len(ChaosParams._fields):
             raise ValueError("chaos_params must hold the five fault columns")
         for name, x in zip(ChaosParams._fields, chaos_params):
-            _check(f"chaos_params.{name}", x, (1, T), dtype, device)
+            check_operand(f"chaos_params.{name}", x, (1, T), dtype, device)
     if logs is None:
         if log_offset != 0:
             raise ValueError("log_offset needs caller-owned log buffers")
@@ -134,7 +121,7 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
                          f"do not fit buffers of {rows} rows")
     for name, x, dt in zip(("log_key", "log_t", "log_m", "log_headw"), logs,
                            (i32, dtype, i32, dtype)):
-        _check(name, x, (rows, T), dt, device)
+        check_operand(name, x, (rows, T), dt, device)
 
     if step_impl == "torch":
         new = packet_steps_ref(

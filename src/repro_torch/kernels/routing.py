@@ -25,3 +25,19 @@ def resolve_impl(impl: str | None, device: torch.device) -> str:
         raise ValueError(f"impl='cuda' needs CUDA tensors; these live on "
                          f"{device} (use impl='torch' there)")
     return impl
+
+
+def check_operand(name, x, shape, dtype, device):
+    """Raise unless `x` is a contiguous tensor of `shape` and `dtype` on
+    `device`: what a kernel wrapper checks before handing a pointer on."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name} lives on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -19,6 +19,7 @@ from repro_torch.core import des as tdes
 from repro_torch.core import precision as tprecision
 from repro_torch.core import sweep as tsweep
 from repro_torch.kernels import build as tbuild
+from repro_torch.kernels.packet_select import ops as tselect
 from repro_torch.kernels.rglru_scan import ops as tlru
 from repro_torch.launch import train as tlaunch_train
 from repro_torch.workload.lublin import WorkloadParams, generate_workload
@@ -33,7 +34,9 @@ CUDA_SOURCES = [("packet_step.cu", "event_step_kernel",
                 ("flash_attention.cu", "_attn_kernel",
                  "src/repro/kernels/flash_attention/kernel.py"),
                 ("rglru_scan.cu", "_lru_kernel",
-                 "src/repro/kernels/rglru_scan/kernel.py")]
+                 "src/repro/kernels/rglru_scan/kernel.py"),
+                ("packet_select.cu", "_select_kernel",
+                 "src/repro/kernels/packet_select/kernel.py")]
 
 
 @pytest.fixture()
@@ -68,7 +71,9 @@ def test_package_layout_mirrors_the_reference():
                  "launch.serve", "kernels.rglru_scan.ref",
                  "kernels.rglru_scan.kernel", "kernels.rglru_scan.ops",
                  "models.hybrid", "configs.recurrentgemma_2b", "train.data",
-                 "train.loss", "train.optim", "train.step", "launch.train"):
+                 "train.loss", "train.optim", "train.step", "launch.train",
+                 "kernels.packet_select.ref", "kernels.packet_select.kernel",
+                 "kernels.packet_select.ops"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()
@@ -147,6 +152,32 @@ class TestStepImpl:
 
 
 class TestKernelImpl:
+    def test_packet_select_cuda_on_cpu_tensors_raises(self):
+        rows, lane = torch.ones((2, 3)), torch.ones((2,))
+        args = (rows, rows, rows, rows, rows, rows > 0, lane, lane,
+                torch.ones((2,), dtype=torch.int32))
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tselect.fused_packet_select(*args, impl="cuda")
+        before = tselect.fused_packet_select.launches
+        j, m, dur, work = tselect.fused_packet_select(*args)
+        assert j.dtype == torch.int32 and m.dtype == torch.float32
+        assert tselect.fused_packet_select.launches == before
+
+    @pytest.mark.parametrize("bad,match", [
+        ({"nonempty": torch.ones((2, 3))}, "nonempty has dtype"),
+        ({"m_free": torch.ones((2,))}, "m_free has dtype"),
+        ({"k": torch.ones((3,))}, "k has shape"),
+        ({"oldest": torch.ones((3, 2)).t()}, "oldest must be contiguous"),
+        ({"s_j": torch.ones((2, 3), dtype=torch.float64)}, "s_j has dtype")])
+    def test_packet_select_checks_its_operands(self, bad, match):
+        rows, lane = torch.ones((2, 3)), torch.ones((2,))
+        args = dict(sum_w=rows, s_j=rows, p_j=rows, oldest=rows, t_max=rows,
+                    nonempty=rows > 0, now=lane, k=lane,
+                    m_free=torch.ones((2,), dtype=torch.int32))
+        args.update(bad)
+        with pytest.raises(ValueError, match=match):
+            tselect.fused_packet_select(**args)
+
     def test_rglru_cuda_on_cpu_tensors_raises(self):
         x = torch.zeros((1, 4, 8))
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -156,17 +187,29 @@ class TestKernelImpl:
 
 
 class TestUnportedPathsRaise:
+    """What is not ported raises by name; the layouts that once raised here
+    (`seq`, `vmap_k`, `vmap_s`) now run, on the CPU, and give `fused`'s
+    grid."""
+    GRID = dict(ks=[0.5, 1.0, 9.0], s_props=[0.1, 0.4], device="cpu")
+
+    def assert_equals_fused(self, wl, grid):
+        fused = tsweep.run_packet_grid(wl, mode="fused", **self.GRID)
+        assert grid.avg_wait.shape == (3, 2) and grid.ok.all()
+        assert np.array_equal(grid.n_groups, fused.n_groups)
+        for f in ("avg_wait", "med_wait", "avg_qlen", "full_util",
+                  "useful_util", "avg_run_wait"):
+            np.testing.assert_allclose(getattr(grid, f), getattr(fused, f),
+                                       rtol=1e-5, err_msg=f)
+
     @pytest.mark.parametrize("mode", ["seq", "vmap_k", "vmap_s"])
     def test_mode(self, wl, mode):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], mode=mode,
-                                   device="cpu")
+        grid = tsweep.run_packet_grid(wl, mode=mode, **self.GRID)
+        self.assert_equals_fused(wl, grid)
 
     @pytest.mark.parametrize("flag", ["vmap_k", "vmap_s"])
     def test_legacy_flags(self, wl, flag):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], device="cpu",
-                                   **{flag: True})
+        grid = tsweep.run_packet_grid(wl, **{flag: True}, **self.GRID)
+        self.assert_equals_fused(wl, grid)
 
     def test_non_inert_chaos(self, wl):
         chaos = tdes.ChaosConfig(mtbf_chip_hours=5.0)
