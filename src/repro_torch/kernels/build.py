@@ -1,18 +1,20 @@
 """Builds the port's CUDA sources into shared libraries, at first use.
 
 Each kernel is one ``.cu`` file under `repro_torch/csrc/` with a plain C
-interface (no PyTorch headers, so it compiles in seconds). `build_library`
-runs `nvcc` for ``sm_90a`` into a build directory next to the checkout's
-`src/` (listed in `.gitignore`), keyed by a hash of the source and the
-flags, and `load_library` opens the result with `ctypes`. Nothing here runs
-at import: the machine that imports the package for the CPU tests has no
-`nvcc`.
+interface (no PyTorch headers, so it compiles in seconds), which may
+include headers of its own from the same directory. `build_library` runs
+`nvcc` for ``sm_90a`` into a build directory next to the checkout's `src/`
+(listed in `.gitignore`), keyed by a hash of the source, the headers it
+includes and the flags, and `load_library` opens the result with
+`ctypes`. Nothing here runs at import: the machine that imports the
+package for the CPU tests has no `nvcc`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -39,10 +42,27 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def local_includes(source: Path) -> list[Path]:
+    """`source` and every file it includes with ``#include "..."``,
+    directly or through another, resolved beside the including file (as
+    nvcc resolves them), in the order first met."""
+    seen = [source]
+    for path in seen:
+        for name in INCLUDE.findall(path.read_text()):
+            header = Path(os.path.normpath(path.parent / name))
+            if header not in seen:
+                seen.append(header)
+    return seen
+
+
 def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The library's path, keyed by the bytes of `source`, of the headers
+    it includes (`local_includes`) and by `flags`."""
+    h = hashlib.sha256()
+    for path in local_includes(source):
+        h.update(path.read_bytes() + b"\0")
+    h.update("\0".join(flags).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_library(name: str, flags=NVCC_FLAGS) -> Path:

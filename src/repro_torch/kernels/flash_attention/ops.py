@@ -5,11 +5,17 @@
 ``q.dtype``: the function of the reference's
 `repro.kernels.flash_attention.ops.flash_attention`.
 
-On CUDA tensors it launches the hand-written kernel
+On CUDA tensors it launches a hand-written kernel
 (`repro_torch/csrc/flash_attention.cu`) or raises; there is no path from a
-failed launch to the plain version. On CPU tensors it runs the plain
-PyTorch version (`ref.py`). ``impl="torch"`` asks for the plain version by
-name on either device; ``impl="cuda"`` on CPU tensors raises.
+failed launch to the plain version or to the other kernel. Which kernel is
+a dispatch by type (`kernel.KIND`): bfloat16 inputs run the Hopper kernel
+(`wgmma` tensor-core products fed by TMA copies, p carried into the P.V
+product as two bf16 terms; held to the plain version at 2e-2), float32
+inputs the CUDA-core kernel (float32 throughout; 2e-5).
+`check_launchable` refuses, before anything is built or launched, what the
+TMA copies cannot take. On CPU tensors it runs the plain PyTorch version
+(`ref.py`). ``impl="torch"`` asks for the plain version by name on either
+device; ``impl="cuda"`` on CPU tensors raises.
 
 Under autograd (grad mode on and an input that requires a gradient) it
 goes through `AttentionFunction`: the forward as above, the backward
@@ -31,7 +37,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 from repro_torch.kernels.routing import resolve_impl
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = tuple(_kernel.KIND)     # the types with a kernel
 MAX_GRID_Y = 65535      # B * H is the grid's second dimension
 
 
@@ -59,14 +65,12 @@ def _check(q, k, v):
                          f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV}")
 
 
-def _forward(q, k, v, causal: bool, window: int, softcap: float,
-             impl: str):
-    if impl == "torch":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
-
-    B, Sq, H, hd = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
+def check_launchable(q, k, v):
+    """Raises ValueError for what the kernels cannot take: a grid of more
+    than MAX_GRID_Y (b, h) pairs, an input that is not contiguous (the TMA
+    tensor maps describe the contiguous model layout), or one whose data
+    does not start on a 16-byte boundary (a TMA map's base address)."""
+    B, H = q.shape[0], q.shape[2]
     if B * H > MAX_GRID_Y:
         raise ValueError(f"B * H = {B * H} exceeds the grid's {MAX_GRID_Y}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -74,16 +78,27 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float,
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _forward(q, k, v, causal: bool, window: int, softcap: float,
+             impl: str):
+    if impl == "torch":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+
+    check_launchable(q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _kernel.launch(
-            q.dtype == torch.bfloat16, hd, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), (B, Sq, Skv, H, KV), causal,
-            window, softcap, 1.0 / math.sqrt(hd), stream)
+            q.dtype, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), (B, Sq, Skv, H, KV), causal, window, softcap,
+            1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaGetLastError() = {err}")
+                           f"code {err} (see kernel.launch)")
     flash_attention.launches += 1
     return out
 

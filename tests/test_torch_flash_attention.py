@@ -18,9 +18,15 @@ port's `attention_ref` and against `jax.grad` of the reference's
 `attention_ref`: float32 rtol 1e-4, atol 2e-5 (dK and dV sum over every
 query of a KV group, in another order); bfloat16 2e-2 as above.
 
-The CUDA kernel itself runs only on the card: `chip_smoke.py` holds it
-against this plain version there.
+The CUDA kernels themselves run only on the card: `chip_smoke.py` holds
+them against this plain version there (bfloat16: the Hopper kernel, which
+carries p into the P.V product as two bf16 terms; float32: the CUDA-core
+kernel). Here the tests hold what surrounds them: the dispatch by type,
+the checks that refuse what the TMA copies cannot take, and the binding,
+each before anything is built.
 """
+import ctypes
+import types
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -189,6 +195,25 @@ class TestRouting:
         assert tops.resolve_impl("torch", torch.device("cuda", 0)) == "torch"
 
 
+@pytest.fixture
+def no_build(monkeypatch):
+    """Fails a test that would build or open the CUDA library."""
+    def refuse(*args, **kw):
+        raise AssertionError("the CUDA library was built or opened")
+    monkeypatch.setattr(tkernel.build, "load_library", refuse)
+    monkeypatch.setattr(tkernel, "_lib", None)
+
+
+def misaligned(shape, dtype):
+    """A contiguous tensor of `shape` whose data starts 2 bytes past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 8, dtype=dtype)
+    start = next(i for i in range(1, 8)
+                 if (flat.data_ptr() + i * flat.element_size()) % 16)
+    return flat[start:start + n].view(shape)
+
+
 class TestChecks:
     def test_float16_is_refused(self):
         q, k, v = to_torch(inputs(CASES[0], seed=2), torch.float16)
@@ -223,6 +248,40 @@ class TestChecks:
         with pytest.raises(TypeError, match="must be a tensor"):
             tops.flash_attention(q, k, v)
 
+    @pytest.mark.parametrize("name", ["q", "k", "v"])
+    def test_tma_refuses_an_unaligned_base_before_any_build(self, no_build,
+                                                            name):
+        args = dict(zip("qkv", to_torch(inputs(CASES[1], seed=7),
+                                        torch.bfloat16)))
+        args[name] = misaligned(tuple(args[name].shape), torch.bfloat16)
+        assert args[name].is_contiguous() and args[name].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"{name} must start on a "
+                                             f"16-byte boundary"):
+            tops._forward(args["q"], args["k"], args["v"], True, 0, 0.0,
+                          "cuda")
+
+    @pytest.mark.parametrize("name", ["q", "k", "v"])
+    def test_tma_refuses_a_non_contiguous_input_before_any_build(
+            self, no_build, name):
+        args = dict(zip("qkv", to_torch(inputs(CASES[1], seed=8),
+                                        torch.bfloat16)))
+        x = args[name]
+        args[name] = x.transpose(1, 2).contiguous().transpose(1, 2)
+        assert torch.equal(args[name], x) and not args[name].is_contiguous()
+        with pytest.raises(ValueError, match=f"{name} must be contiguous"):
+            tops._forward(args["q"], args["k"], args["v"], True, 0, 0.0,
+                          "cuda")
+
+    def test_grid_limit_before_any_build(self, no_build):
+        q = torch.zeros((tops.MAX_GRID_Y + 1, 1, 1, 16), dtype=torch.bfloat16)
+        k = torch.zeros((tops.MAX_GRID_Y + 1, 1, 1, 16), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="exceeds the grid"):
+            tops.check_launchable(q, k, k)
+
+    def test_aligned_contiguous_inputs_pass(self):
+        tops.check_launchable(*to_torch(inputs(CASES[1], seed=9),
+                                        torch.bfloat16))
+
 
 class TestBinding:
     def test_flags_are_the_stated_ones(self):
@@ -233,7 +292,52 @@ class TestBinding:
     def test_head_dims(self):
         assert tkernel.HEAD_DIMS == (16, 32, 64, 128, 256)
 
-    def test_unsupported_head_dim_raises_before_any_build(self):
+    def test_unsupported_head_dim_raises_before_any_build(self, no_build):
         with pytest.raises(ValueError, match="no instantiation"):
-            tkernel.launch(True, 96, 0, 0, 0, 0, (1, 1, 1, 1, 1), True, 0,
+            tkernel.launch(torch.bfloat16, 96, 0, 0, 0, 0, (1, 1, 1, 1, 1),
+                           True, 0, 0.0, 1.0, 0)
+        with pytest.raises(ValueError, match="no instantiation"):
+            tkernel.smem_bytes(torch.float32, 96)
+
+    def test_dtype_dispatch_is_stated(self, monkeypatch):
+        """bfloat16 goes to the Hopper kernel (kind 1), float32 to the
+        CUDA-core kernel (kind 0): one C call each, no other."""
+        assert tkernel.KIND == {torch.float32: 0, torch.bfloat16: 1}
+        calls = []
+        fake = types.SimpleNamespace(
+            flash_attention_launch=lambda *a: calls.append(a) or 0)
+        monkeypatch.setattr(tkernel, "load", lambda: fake)
+        for dtype, kind in ((torch.bfloat16, 1), (torch.float32, 0)):
+            assert tkernel.launch(dtype, 64, 16, 32, 48, 64,
+                                  (2, 5, 7, 4, 2), True, 3, 0.5, 0.125,
+                                  99) == 0
+            assert calls[-1][:2] == (kind, 64)
+            assert calls[-1][6:13] == (2, 5, 7, 4, 2, 1, 3)
+        assert len(calls) == 2
+
+    @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+    def test_other_dtypes_raise_before_any_build(self, no_build, dtype):
+        with pytest.raises(ValueError, match="no kernel for"):
+            tkernel.launch(dtype, 64, 0, 0, 0, 0, (1, 1, 1, 1, 1), True, 0,
                            0.0, 1.0, 0)
+        with pytest.raises(ValueError, match="no kernel for"):
+            tkernel.smem_bytes(dtype, 64)
+
+    def test_c_signature(self, monkeypatch):
+        """The types the binding gives the two C functions: kind, head dim,
+        four device pointers, B, Sq, Skv, H, KV, causal, window, softcap,
+        scale, the stream; and (kind, head dim) -> bytes."""
+        fake = types.SimpleNamespace(
+            flash_attention_launch=types.SimpleNamespace(),
+            flash_attention_smem_bytes=types.SimpleNamespace())
+        monkeypatch.setattr(tkernel.build, "load_library",
+                            lambda name, flags: fake)
+        monkeypatch.setattr(tkernel, "_lib", None)
+        assert tkernel.load() is fake
+        c = ctypes
+        assert fake.flash_attention_launch.argtypes == (
+            [c.c_int, c.c_int] + [c.c_void_p] * 4 + [c.c_int] * 7
+            + [c.c_float] * 2 + [c.c_void_p])
+        assert fake.flash_attention_launch.restype is c.c_int
+        assert fake.flash_attention_smem_bytes.argtypes == [c.c_int, c.c_int]
+        assert fake.flash_attention_smem_bytes.restype is c.c_int

@@ -291,6 +291,19 @@ class TestBuild:
         src.write_text("// b")
         assert tbuild.library_path(src) != a
         assert tbuild.library_path(src, ("-O0",)) != tbuild.library_path(src)
+        # a header the source includes, and one that header includes
+        (tmp_path / "inc").mkdir()
+        (tmp_path / "inc" / "h.cuh").write_text('#include "g.cuh"\n// 1')
+        (tmp_path / "inc" / "g.cuh").write_text("// 1")
+        src.write_text('// b\n#include <cuda.h>\n  #include "inc/h.cuh"\n')
+        assert tbuild.local_includes(src) == [
+            src, tmp_path / "inc" / "h.cuh", tmp_path / "inc" / "g.cuh"]
+        b = tbuild.library_path(src)
+        (tmp_path / "inc" / "h.cuh").write_text('#include "g.cuh"\n// 2')
+        c = tbuild.library_path(src)
+        assert c != b
+        (tmp_path / "inc" / "g.cuh").write_text("// 2")
+        assert tbuild.library_path(src) not in (b, c)
 
     def test_build_directory_is_ignored_by_git(self):
         assert tbuild.BUILD_DIR == REPO / "build" / "repro_torch"
