@@ -220,14 +220,15 @@ class Dispatch:
 
     device = torch.device("cuda", 0)
 
-    def __init__(self, wl, dtype, with_chaos: bool, seed: int = 0):
+    def __init__(self, wl, dtype, with_chaos: bool, seed: int = 0,
+                 ring: int | None = None):
         dev = self.device
         self.wl, self.with_chaos = wl, with_chaos
         self.pw = des.pack_workload(wl, dtype, dev)
         self.tdt = self.pw.submit.dtype
         self.N, self.H = self.pw.n_jobs, self.pw.n_types
         self.M = int(wl.params.nodes)
-        self.ring = des.resolve_ring(self.M, self.N)
+        self.ring = des.resolve_ring(self.M, self.N, ring)
         ks = np.repeat(np.asarray(sweep.PAPER_SCALE_RATIOS, dtype),
                        len(sweep.PAPER_INIT_PROPS))
         ss = np.tile(np.asarray([wl.init_time_for_proportion(p)
@@ -282,6 +283,12 @@ class Dispatch:
         return (f"N={self.N} M={self.M} ring={self.ring} T={self.T} "
                 f"{str(self.tdt).replace('torch.', '')} "
                 f"chaos={'on' if self.with_chaos else 'off'}")
+
+    def plan(self) -> dict:
+        """The event-step kernel's launch plan for this dispatch: one lane
+        a block, one warp a lane."""
+        return dict(lanes_per_block=1, **step_kernel.launch_plan(
+            self.H, self.ring, self.tdt == torch.float64)._asdict())
 
 
 def clone_state(state):
@@ -395,13 +402,35 @@ def attention_instantiations(log: str) -> list:
     return sorted(rows, key=lambda r: (r["kernel"], r["hd"]))
 
 
+def step_shapes(flows):
+    """The dispatches `kernel_step` holds: the paper's two flows in both
+    types, then rings the launch plan treats apart (shorter than a warp,
+    not a multiple of 32, and columns too long for shared memory)."""
+    shapes = [(flows[flow], dtype, None)
+              for flow, dtype in (("homog0.85", np.float32),
+                                  ("homog0.85", np.float64),
+                                  ("hetero0.85", np.float32),
+                                  ("hetero0.85", np.float64))]
+    m16 = generate_workload(WorkloadParams(nodes=16, homogeneous=True,
+                                           seed=1, daily_amplitude=0.3))
+    m333 = generate_workload(WorkloadParams(nodes=333, seed=0))
+    shapes += [(m16, np.float32, None), (m16, np.float64, None),
+               (m333, np.float64, None)]
+    # one lane's grp_end alone exceeds the 227 KB a block may opt into
+    for dtype, itemsize in ((np.float32, 4), (np.float64, 8)):
+        ring = step_kernel.SMEM_OPTIN // itemsize + 64
+        shapes.append((flows["hetero0.85"], dtype, ring))
+    return shapes
+
+
 def phase_kernel_step(flows):
     """n_steps = 1 from the initial state and from states taken mid-run,
-    all four instantiations, both ring sizes."""
-    for flow, dtype in ((("homog0.85"), np.float32), ("homog0.85", np.float64),
-                        ("hetero0.85", np.float32), ("hetero0.85", np.float64)):
+    all eight instantiations (float32/float64 x chaos off/on x the ring in
+    shared or device memory), the paper's rings and the shapes of
+    `step_shapes`."""
+    for wl, dtype, ring in step_shapes(flows):
         for with_chaos in (False, True):
-            d = Dispatch(flows[flow], dtype, with_chaos)
+            d = Dispatch(wl, dtype, with_chaos, ring=ring)
             state = d.initial_state()
             worst, at = 0.0, []
             done = 0
@@ -417,17 +446,21 @@ def phase_kernel_step(flows):
                                            f"kernel_step {d.label()} "
                                            f"after {warm} steps"))
                 at.append(warm)
-            emit("kernel_step", shape=d.label(), states_after_steps=at,
-                 max_ulp=worst, ulp_bound=ULP_BOUND, ok=True)
+            emit("kernel_step", shape=d.label(), plan=d.plan(),
+                 states_after_steps=at, max_ulp=worst, ulp_bound=ULP_BOUND,
+                 ok=True)
 
 
 def phase_kernel_run(flows):
     """A whole dispatch at full width, kernel against plain version, segment
-    by segment; chaos off, then on. Returns the plain version's ms per
-    segment (chaos off), for the kernels line."""
+    by segment: homog0.85 float32 chaos off, then on, then hetero0.85
+    float64 (ring 500). Returns the plain version's ms per segment (homog,
+    chaos off), for the kernels line."""
     plain_ms = None
-    for with_chaos in (False, True):
-        d = Dispatch(flows["homog0.85"], np.float32, with_chaos)
+    for flow, dtype, with_chaos in (("homog0.85", np.float32, False),
+                                    ("homog0.85", np.float32, True),
+                                    ("hetero0.85", np.float64, False)):
+        d = Dispatch(flows[flow], dtype, with_chaos)
         a, b = d.initial_state(), d.initial_state()
         la, lb = d.new_logs(d.n_segs * SEG), d.new_logs(d.n_segs * SEG)
         worst, segs, plain_s = 0.0, 0, 0.0
@@ -446,7 +479,7 @@ def phase_kernel_run(flows):
             if plain_s > PLAIN_RUN_SECONDS:
                 break
         whole = not d.any_active(a)
-        if not with_chaos:
+        if plain_ms is None:
             plain_ms = 1e3 * plain_s / segs
         emit("kernel_run", shape=d.label(), segments=segs,
              steps_compared=segs * SEG, budget=d.budget,
@@ -612,8 +645,10 @@ def time_kernel(d: Dispatch):
     ops_per_launch = ops_per_event * events / segs
     t_bytes = 1e3 * bytes_per_launch / HBM_BYTES_PER_S
     t_ops = 1e3 * ops_per_launch / FP32_OPS_PER_S
-    return dict(shape=d.label(), segments=segs, events=events,
+    return dict(shape=d.label(), plan=d.plan(), segments=segs, events=events,
                 ms=min(times), ms_runs=times,
+                ns_per_lane_step=1e6 * min(times) / SEG,
+                ns_per_event=1e6 * min(times) * segs / events,
                 bytes_per_launch=bytes_per_launch,
                 ops_per_launch=ops_per_launch,
                 bound_ms=max(t_bytes, t_ops),
@@ -1559,6 +1594,9 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
         "library_ms": None,
         "unit": f"one launch = {SEG} events for every lane, averaged over "
                 f"a whole fused dispatch; {main['shape']}",
+        "plan": main["plan"],
+        "ns_per_lane_step": main["ns_per_lane_step"],
+        "ns_per_event": main["ns_per_event"],
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": main,

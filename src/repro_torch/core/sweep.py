@@ -141,10 +141,10 @@ def _not_ported(what: str, item: str):
 def resolve_mode(mode: str, n_lanes: int) -> str:
     """Resolve mode='auto' to the concrete dispatch layout; validate others.
 
-    ``"auto"`` is ``"fused"`` at every lane count: one thread runs one
-    lane, so the paper's 222 lanes are 7 warps that a GPU runs side by
-    side, and sorted chunks dispatched one after the other measured equal
-    or slower on an H100 (PERF.md, Findings). The reference's thresholds
+    ``"auto"`` is ``"fused"`` at every lane count: one warp runs one
+    lane, so the paper's 222 lanes are 222 warps that a GPU runs side by
+    side, and sorted chunks dispatched one after the other measured
+    slower on an H100 (PERF.md, Findings). The reference's thresholds
     (`CHUNKED_MIN_LANES`, the device count) were measured for XLA on a
     CPU and are not carried over. `n_lanes` is validated only. Unknown
     strings raise ValueError."""

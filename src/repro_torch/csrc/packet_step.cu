@@ -12,21 +12,72 @@
 // kernel's function.
 //
 // What bounds it on this card: latency, not bytes or arithmetic. Every lane
-// is a dependent chain of about 3N events; each event is a handful of
-// gathers into the per-type prefix tables plus a scan of the lane's ring of
-// running groups, and the next event cannot start before this one's writes.
-// The paper's grid has 222 lanes per workload, which is 7 warps: they occupy
-// 7 of the 132 SMs and the rest of the card idles.
+// is a dependent chain of about 3N events, and the next event cannot start
+// before this one's writes. Each event scans the lane's ring of running
+// groups (first free slot, earliest finish), walks the H job types (queue
+// sums, weights, argmax) and then forms a group or consumes one event.
 //
-// What this design does about that: one thread per lane, state kept in the
-// lane-minor `[state, T]` layout so the 32 threads of a warp read
-// neighbouring addresses, per-lane scalars held in registers across the
-// whole loop and written back once per launch, one warp per block so the
-// warps spread over separate SMs, and a block stops early (filling its
-// remaining log rows with pads) once all of its lanes have drained. What it
-// does not do: split one lane's ring scan or type loop across threads, keep
-// the ring in shared memory, or batch several workloads into one launch to
-// fill the card. Those are later work.
+// What this design does about that: ONE WARP PER LANE, one lane a block
+// (grid T, 32 threads), so the 222 lanes of the paper's grid are 222 warps
+// over the whole card instead of 7 warps on 7 SMs. Inside a warp:
+// - the ring's `grp_end` column lives in dynamic shared memory for the
+//   whole launch (staged at the start, written back at the end), beside the
+//   lane's `head` and `tail` rows; thread i scans slots i, i+32, ... (the
+//   other ring columns are touched at one slot per event and stay in
+//   device memory). Where one lane's columns do not fit the 227 KB a block
+//   may opt into, the RING_SMEM = false instantiation scans the same
+//   columns in device memory with the same split; the launch plan
+//   (kernel.py :: launch_plan) picks it and sizes the shared memory, so no
+//   shape is refused;
+// - thread h computes type h's queue sum and weight (a loop of stride 32
+//   for H > 32); the priorities and T_max of the first 32 types stay in
+//   registers, and the next submission and the finishing slot's node count
+//   are loaded before the scans that do not need them, so that their
+//   latency hides behind the scans;
+// - the formation and the finish are scalar: every thread of the warp runs
+//   them on the same operands (uniform control flow, no broadcast needed),
+//   in the order of operations of the one-thread-per-lane design, and
+//   thread 0 alone writes, between two __syncwarp()s;
+// - a warp stops as soon as its lane has drained (the activity flag is the
+//   same in all 32 threads) and pads its remaining log rows.
+// An event is then a chain of shared loads, one round of gathers into the
+// [H, N+1] tables, warp reductions (redux.sync, shuffles, votes), two
+// divides per type in parallel and the scalar update with its divides:
+// 1.0 µs (float32, ring 100) to 1.6 µs (float64, ring 500) a lane step on
+// an H100 80GB HBM3 at 700 W (PERF.md). What it does not do: batch several
+// workloads into one launch (the cohort axis), so 222 warps leave most of
+// each SM's issue slots idle; and a launch of few steps still pays for
+// staging the ring.
+//
+// Why the warp reductions equal the serial first-index rules. `grp_end`
+// holds finite times and +inf (a free slot) only, never NaN, so `<` and
+// `==` order it totally (-0 and +0 compare equal, as in the serial scan).
+// - first free slot: each thread keeps the least free slot of its own
+//   subset; the least of those (__reduce_min_sync) is the least free slot
+//   overall, or none (then sslot = 0, as serially);
+// - earliest finish: each thread scans its slots in increasing order with
+//   a strict `<` from (+inf, its first slot), so it keeps the first index
+//   of its subset's minimum (its first slot when that minimum is +inf).
+//   The warp's minimum comes from __reduce_min_sync over order-preserving
+//   integer keys (equal values, -0 and +0 included, have equal keys), and
+//   the least index among the
+//   threads at that minimum is the first index of the minimum overall,
+//   which is what the serial `e < t_efin` walk from slot 0 returns, and
+//   slot 0 when every slot is +inf. t_efin is the winning thread's own
+//   value, so its bits are those of grp_end[eslot];
+// - argmax over types: the serial rule `h == 0 || w > best_w` starts from
+//   w_0; if w_0 is NaN nothing compares greater and j = 0; otherwise best
+//   is the running maximum of the non-NaN weights, replaced only by a
+//   strictly greater one, so j is the first index of the largest non-NaN
+//   weight (-0 and +0 tie). A plain max-reduction of the weights would not
+//   give this (a NaN between two finite weights breaks its associativity),
+//   so the warp reduces keys instead: the order-preserving key of each
+//   non-NaN weight, the largest key for a NaN at type 0 and 0, below every
+//   non-NaN key, for a NaN elsewhere and for threads past H. The first
+//   index of the largest key (__reduce_max_sync, then __reduce_min_sync
+//   over the indices at it) is then the serial j in both cases; a later
+//   block of 32 types replaces it only with a strictly larger key;
+// - queue sums are integer sums (__reduce_add_sync), exact in any order.
 //
 // Arithmetic contract: compiled with -fmad=false and without fast math, so
 // every multiply, add and divide rounds on its own, in the order the plain
@@ -37,8 +88,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <float.h>
+#include <limits.h>
 
 namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
 
 template <typename F> struct Lim;
 template <> struct Lim<float> {
@@ -102,99 +156,213 @@ __device__ inline F window_overlap(F a, F b, F t_end) {
   return f_max(f_min(b, t_end) - f_min(a, t_end), F(0));
 }
 
-template <typename F, bool HAS_CHAOS>
-__global__ void packet_step_kernel(const Params<F> p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = lane < p.T;
+// Order-preserving unsigned keys of finite values and infinities (no NaN):
+// a < b exactly when key(a) < key(b), and equal values (-0 and +0
+// included, through the + 0) have equal keys.
+__device__ inline unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(x + 0.0f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ inline unsigned long long order_key(double x) {
+  const unsigned long long b =
+      static_cast<unsigned long long>(__double_as_longlong(x + 0.0));
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+
+// The least `idx` among the threads whose `v` is the warp's minimum.
+__device__ inline int warp_first_min(float v, int idx) {
+  const unsigned k = order_key(v);
+  const unsigned kmin = __reduce_min_sync(FULL, k);
+  return __reduce_min_sync(FULL, k == kmin ? idx : INT_MAX);
+}
+__device__ inline int warp_first_min(double v, int idx) {
+  const unsigned long long k = order_key(v);
+  const unsigned hi = (unsigned)(k >> 32), lo = (unsigned)k;
+  const unsigned mhi = __reduce_min_sync(FULL, hi);
+  const unsigned mlo = __reduce_min_sync(FULL, hi == mhi ? lo : 0xffffffffu);
+  return __reduce_min_sync(FULL, (hi == mhi && lo == mlo) ? idx : INT_MAX);
+}
+
+// Key of type h's weight for the first-index argmax under the serial rule
+// `h == 0 || w > best_w`: the order of the weights, except that a NaN at
+// type 0 wins (no weight compares greater than it) and a NaN elsewhere
+// never does (it compares greater than nothing), as serially.
+__device__ inline unsigned long long weight_key(float w, int h) {
+  return isnan(w) ? (h == 0 ? 0xffffffffull : 0ull)
+                  : (unsigned long long)order_key(w);
+}
+__device__ inline unsigned long long weight_key(double w, int h) {
+  return isnan(w) ? (h == 0 ? ~0ull : 0ull) : order_key(w);
+}
+
+// The warp's largest key: one redux.sync for the 32-bit keys of a float,
+// two for the 64-bit keys of a double (high word, then low word).
+__device__ inline unsigned long long warp_max_key(unsigned long long k,
+                                                  float) {
+  return __reduce_max_sync(FULL, (unsigned)k);
+}
+__device__ inline unsigned long long warp_max_key(unsigned long long k,
+                                                  double) {
+  const unsigned hi = (unsigned)(k >> 32), lo = (unsigned)k;
+  const unsigned mhi = __reduce_max_sync(FULL, hi);
+  const unsigned mlo = __reduce_max_sync(FULL, hi == mhi ? lo : 0u);
+  return ((unsigned long long)mhi << 32) | mlo;
+}
+
+// The log row of a step that forms no group.
+template <typename F>
+__device__ inline void write_pad(int* key, F* t, int* m, F* hw, int row) {
+  key[row] = 0x7fffffff; t[row] = F(0); m[row] = 0; hw[row] = F(0);
+}
+
+template <typename F, bool HAS_CHAOS, bool RING_SMEM>
+__global__ void __launch_bounds__(32)
+packet_step_kernel(const Params<F> p) {
+  const int lid = threadIdx.x;
+  const int lane = blockIdx.x;
   const int T = p.T, H = p.H, N = p.N, ring = p.ring;
   const int N1 = N + 1;
   const F INF = Lim<F>::inf();
   const F EPS9 = F(1e-9);
-  const int KEY_PAD = 0x7fffffff;
+  const bool lead = lid == 0;
 
-  // per-lane scalars live in registers across the whole loop
-  F k = 0, s = 0, t_last = 0, t = 0, qlen_int = 0, busy_ns = 0,
-    useful_ns = 0, lost_work = 0;
-  F c_mtbf = 0, c_ckpt = 0, c_prob = 0, c_factor = 0, c_dead = 0;
-  int next_sub = 0, m_free = 0, n_groups = 0, failures = 0, kills = 0,
-      requeues = 0, requeued_jobs = 0;
-  if (valid) {
-    k = p.k[lane]; s = p.s[lane]; t_last = p.t_last[0];
-    t = p.t[lane]; next_sub = p.next_sub[lane]; m_free = p.m_free[lane];
-    qlen_int = p.qlen_int[lane]; busy_ns = p.busy_ns[lane];
-    useful_ns = p.useful_ns[lane]; n_groups = p.n_groups[lane];
-    if (HAS_CHAOS) {
-      c_mtbf = p.mtbf[lane]; c_ckpt = p.ckpt[lane]; c_prob = p.prob[lane];
-      c_factor = p.factor[lane]; c_dead = p.dead[lane];
-      lost_work = p.lost_work[lane]; failures = p.failures[lane];
-      kills = p.straggler_kills[lane]; requeues = p.requeues[lane];
-      requeued_jobs = p.requeued_jobs[lane];
+  // the ring's grp_end [ring] of F, then the head and tail rows [H] of
+  // int: shared memory or the state columns themselves, at stride 1 or T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  F* ring_p; int* head_p; int* tail_p; int rs;
+  if constexpr (RING_SMEM) {
+    ring_p = reinterpret_cast<F*>(smem_raw);
+    head_p = reinterpret_cast<int*>(smem_raw + (long long)ring * sizeof(F));
+    tail_p = head_p + H;
+    rs = 1;
+    for (int r = lid; r < ring; r += 32) ring_p[r] = p.grp_end[r * T + lane];
+    for (int h = lid; h < H; h += 32) {
+      head_p[h] = p.head[h * T + lane];
+      tail_p[h] = p.tail[h * T + lane];
     }
+    __syncwarp();
+  } else {
+    ring_p = p.grp_end + lane; head_p = p.head + lane;
+    tail_p = p.tail + lane; rs = T;
+  }
+
+  // per-lane scalars: the same value in every thread of the warp
+  const F k = p.k[lane], s = p.s[lane], t_last = p.t_last[0];
+  F t = p.t[lane], qlen_int = p.qlen_int[lane], busy_ns = p.busy_ns[lane],
+    useful_ns = p.useful_ns[lane], lost_work = 0;
+  F c_mtbf = 0, c_ckpt = 0, c_prob = 0, c_factor = 0, c_dead = 0;
+  int next_sub = p.next_sub[lane], m_free = p.m_free[lane],
+      n_groups = p.n_groups[lane], failures = 0, kills = 0, requeues = 0,
+      requeued_jobs = 0;
+  if (HAS_CHAOS) {
+    c_mtbf = p.mtbf[lane]; c_ckpt = p.ckpt[lane]; c_prob = p.prob[lane];
+    c_factor = p.factor[lane]; c_dead = p.dead[lane];
+    lost_work = p.lost_work[lane]; failures = p.failures[lane];
+    kills = p.straggler_kills[lane]; requeues = p.requeues[lane];
+    requeued_jobs = p.requeued_jobs[lane];
   }
   const F s_c = f_max(s, EPS9);   // maximum(s, 1e-9)
   const F k_c = f_max(k, EPS9);
+  // the priority and max(T_max, 1e-9) of type lid, for the whole launch
+  const F pj0 = lid < H ? p.p_j[lid] : F(0);
+  const F tm0 = lid < H ? f_max(p.tmax_j[lid], EPS9) : F(1);
 
   int step = 0;
   for (; step < p.n_steps; ++step) {
-    bool active = false, can_sched = false;
-    int sslot = 0, eslot = 0, j = 0, qsum = 0, psum = 0;
-    F t_efin = INF, work = 0, oldest_j = INF;
+    // the next submission, loaded now so that its latency hides behind
+    // the scans (only a submission event uses it)
+    const int sub_idx = min(next_sub, N - 1);
+    const F sub_t = p.submit[sub_idx];
+    const int sub_j = p.jtype[sub_idx];
 
-    if (valid) {
-      // one pass over the ring: first free slot, earliest finish, any busy
-      bool any_free = false, any_busy = false;
-      t_efin = p.grp_end[lane];
-      for (int r = 0; r < ring; ++r) {
-        const F e = p.grp_end[r * T + lane];
-        const bool fr = isinf(e);
-        if (fr && !any_free) { sslot = r; any_free = true; }
-        any_busy |= !fr;
-        if (e < t_efin) { t_efin = e; eslot = r; }
-      }
-      // one pass over the types: queue sums, weights, first argmax
-      bool queued = false, any_win = false, any_pool = false;
-      F best_w = 0;
-      for (int h = 0; h < H; ++h) {
-        const int hd = p.head[h * T + lane];
-        const int tl = p.tail[h * T + lane];
+    // ---- the ring: first free slot, first index of the minimum, any busy
+    F vmin = INF;
+    int vidx = lid, vfree = INT_MAX;
+    bool busy = false;
+#pragma unroll 4
+    for (int r = lid; r < ring; r += 32) {
+      const F e = ring_p[r * rs];
+      const bool fr = isinf(e);
+      vfree = (fr && vfree == INT_MAX) ? r : vfree;
+      busy |= !fr;
+      if (e < vmin) { vmin = e; vidx = r; }
+    }
+    const int eslot = warp_first_min(vmin, vidx);
+    const F t_efin = __shfl_sync(FULL, vmin, eslot & 31);
+    int sslot = __reduce_min_sync(FULL, vfree);
+    const bool any_free = sslot != INT_MAX;
+    if (!any_free) sslot = 0;
+    const bool any_busy = __any_sync(FULL, busy);
+    // what a finish of slot eslot reads, loaded behind the type loop
+    const int e_m = p.grp_m[eslot * T + lane];
+
+    // ---- the types: queue sums, weights, first argmax
+    bool any_win = false, any_pool = false;
+    int qpart = 0, ppart = 0, j = 0, head_j = 0, tail_j = 0, pc_j = 0;
+    unsigned long long best_key = 0;
+    F work = 0, oldest_j = INF, head_w = 0, pool_w_j = 0;
+    for (int h0 = 0; h0 < H; h0 += 32) {
+      const int h = h0 + lid;
+      F w = -INF, sw = 0, old = INF, pw_hd = 0, pw = 0;
+      int hd = 0, tl = 0, pc = 0;
+      if (h < H) {
+        hd = head_p[h * rs];
+        tl = tail_p[h * rs];
         bool ne = tl > hd;
         any_win |= ne;
-        qsum += tl - hd;
-        F sw = p.prefw[h * N1 + tl] - p.prefw[h * N1 + hd];
-        F old = p.tsub[h * N + min(hd, N - 1)];
+        qpart += tl - hd;
+        pw_hd = p.prefw[h * N1 + hd];
+        sw = p.prefw[h * N1 + tl] - pw_hd;
+        old = p.tsub[h * N + min(hd, N - 1)];
         if (HAS_CHAOS) {
-          const int pc = p.pool_code[h * T + lane];
+          pc = p.pool_code[h * T + lane];
+          pw = p.pool_w[h * T + lane];
           ne |= pc > 0;
           any_pool |= pc > 0;
-          psum += pc % N1;
-          sw = sw + p.pool_w[h * T + lane];
+          ppart += pc % N1;
+          sw = sw + pw;
           old = f_min(old, p.pool_oldest[h * T + lane]);
         }
-        queued |= ne;
+        const F pj = h0 == 0 ? pj0 : p.p_j[h];
+        const F tm = h0 == 0 ? tm0 : f_max(p.tmax_j[h], EPS9);
         const F c_j = sw / s_c;
         const F t_cur = f_max(t - old, F(0));
-        F w = (c_j * p.p_j[h]) *
-              (F(1) + t_cur / f_max(p.tmax_j[h], EPS9));
+        w = (c_j * pj) * (F(1) + t_cur / tm);
         w = ne ? w : -INF;
-        if (h == 0 || w > best_w) {
-          best_w = w; j = h; work = sw; oldest_j = old;
+      }
+      // the first type of the largest key; a later block of 32 types
+      // replaces it only with a strictly larger key
+      const unsigned long long kw = h < H ? weight_key(w, h) : 0ull;
+      const unsigned long long kmax = warp_max_key(kw, F(0));
+      const int imax = __reduce_min_sync(FULL, kw == kmax ? lid : INT_MAX);
+      int hit = -1;
+      if (h0 == 0 || kmax > best_key) {
+        best_key = kmax; j = h0 + imax; hit = imax;
+      }
+      if (hit >= 0) {
+        work = __shfl_sync(FULL, sw, hit);
+        oldest_j = __shfl_sync(FULL, old, hit);
+        head_j = __shfl_sync(FULL, hd, hit);
+        tail_j = __shfl_sync(FULL, tl, hit);
+        head_w = __shfl_sync(FULL, pw_hd, hit);
+        if (HAS_CHAOS) {
+          pc_j = __shfl_sync(FULL, pc, hit);
+          pool_w_j = __shfl_sync(FULL, pw, hit);
         }
       }
-      active = (next_sub < N) || any_busy || any_win ||
-               (HAS_CHAOS && any_pool);
-      can_sched = (m_free > 0) && queued && any_free;
     }
+    const int qsum = __reduce_add_sync(FULL, qpart);
+    const int psum = HAS_CHAOS ? __reduce_add_sync(FULL, ppart) : 0;
+    any_win = __any_sync(FULL, any_win);
+    if (HAS_CHAOS) any_pool = __any_sync(FULL, any_pool);
+    // a type is queued when its window or (under chaos) its pool is not empty
+    const bool queued = any_win || any_pool;
+    const bool active = (next_sub < N) || any_busy || queued;
+    const bool can_sched = (m_free > 0) && queued && any_free;
 
-    // the whole block has drained: stop, the rest of its rows are pads
-    if (__syncthreads_and(!active)) break;
-    if (!valid) continue;
-
+    // the lane has drained: it stays so, the rest of its rows are pads
+    if (!active) break;
     const int row = (p.log_offset + step) * T + lane;
-    if (!active) {
-      p.log_key[row] = KEY_PAD; p.log_t[row] = F(0);
-      p.log_m[row] = 0; p.log_hw[row] = F(0);
-      continue;
-    }
 
     if (can_sched) {
       // ---- form one group (paper Steps 1-5) ----
@@ -204,10 +372,9 @@ __global__ void packet_step_kernel(const Params<F> p) {
       m_grp = max(m_grp, 0);
       const F m_f = (F)m_grp;
       const F dur = s + work / (F)max(m_grp, 1);
-      const int head_j = p.head[j * T + lane];
-      const int tail_j = p.tail[j * T + lane];
-      const F head_w = p.prefw[j * N1 + head_j];
       F t_gfin, useful_end;
+      F stash_w = 0, stash_old = INF;
+      int code = 0;
       if (!HAS_CHAOS) {
         t_gfin = t + dur;
         useful_end = t_gfin;
@@ -239,14 +406,12 @@ __global__ void packet_step_kernel(const Params<F> p) {
         useful_end = failed ? (t + s) + ckpt_done : t_gfin;
         const bool requeued = failed || killed;
         // stash the requeue span + credit for the finish event
-        const int pc = p.pool_code[j * T + lane];
-        const int p_cnt = pc % N1;
-        const int meta = pc / N1;
+        const int p_cnt = pc_j % N1;
+        const int meta = pc_j / N1;
         const int p_lo = meta >> 1;
         const bool p_frag = (meta & 1) == 1;
         const bool has_pool = p_cnt > 0;
         const int qlo = has_pool ? p_lo : head_j;
-        const F pool_w_j = p.pool_w[j * T + lane];
         const F res0 =
             has_pool ? f_max((head_w - p.prefw[j * N1 + qlo]) - pool_w_j,
                              F(0))
@@ -258,18 +423,10 @@ __global__ void packet_step_kernel(const Params<F> p) {
         const bool a_has = requeued && (rem_agg > EPS9);
         const int a_cnt = (tail_j - head_j) + p_cnt;
         const bool walk_req = requeued && walk_ok;
-        const int code = walk_req ? span_code : (a_has ? -a_cnt : 0);
-        const F stash_w =
-            walk_req ? avail : (a_has ? f_max(rem_agg, F(0)) : F(0));
-        const F stash_old = (a_has && !walk_ok) ? oldest_j : INF;
+        code = walk_req ? span_code : (a_has ? -a_cnt : 0);
+        stash_w = walk_req ? avail : (a_has ? f_max(rem_agg, F(0)) : F(0));
+        stash_old = (a_has && !walk_ok) ? oldest_j : INF;
 
-        p.pool_w[j * T + lane] = F(0);
-        p.pool_oldest[j * T + lane] = INF;
-        p.pool_code[j * T + lane] = 0;
-        p.grp_jtype[sslot * T + lane] = j;
-        p.grp_rem_w[sslot * T + lane] = stash_w;
-        p.grp_rem_cnt[sslot * T + lane] = code;
-        p.grp_rem_oldest[sslot * T + lane] = stash_old;
         lost_work = lost_work + lost;
         failures += failed ? 1 : 0;
         kills += (killed && !failed) ? 1 : 0;
@@ -277,23 +434,33 @@ __global__ void packet_step_kernel(const Params<F> p) {
       }
       const F busy_inc = m_f * window_overlap(t, t_gfin, t_last);
       const F useful_inc = m_f * window_overlap(t + s, useful_end, t_last);
-
-      p.head[j * T + lane] = tail_j;
       m_free -= m_grp;
-      p.grp_end[sslot * T + lane] = t_gfin;
-      p.grp_m[sslot * T + lane] = m_grp;
       busy_ns = busy_ns + busy_inc;
       useful_ns = useful_ns + useful_inc;
       n_groups += 1;
 
-      p.log_key[row] = j * N1 + tail_j;
-      p.log_t[row] = t;
-      p.log_m[row] = m_grp;
-      p.log_hw[row] = head_w;
+      __syncwarp();   // every thread has read what thread 0 overwrites
+      if (lead) {
+        if (HAS_CHAOS) {
+          p.pool_w[j * T + lane] = F(0);
+          p.pool_oldest[j * T + lane] = INF;
+          p.pool_code[j * T + lane] = 0;
+          p.grp_jtype[sslot * T + lane] = j;
+          p.grp_rem_w[sslot * T + lane] = stash_w;
+          p.grp_rem_cnt[sslot * T + lane] = code;
+          p.grp_rem_oldest[sslot * T + lane] = stash_old;
+        }
+        head_p[j * rs] = tail_j;
+        ring_p[sslot * rs] = t_gfin;
+        p.grp_m[sslot * T + lane] = m_grp;
+        p.log_key[row] = j * N1 + tail_j;
+        p.log_t[row] = t;
+        p.log_m[row] = m_grp;
+        p.log_hw[row] = head_w;
+      }
     } else {
       // ---- consume one event: a submission or a group finish ----
-      const int sub_idx = min(next_sub, N - 1);
-      const F t_sub = (next_sub < N) ? p.submit[sub_idx] : INF;
+      const F t_sub = (next_sub < N) ? sub_t : INF;
       const bool take_sub = t_sub <= t_efin;
       const F t_new = take_sub ? t_sub : t_efin;
       F qlen = (F)qsum;
@@ -301,14 +468,18 @@ __global__ void packet_step_kernel(const Params<F> p) {
       const F q_inc = qlen * window_overlap(t, t_new, t_last);
 
       if (take_sub) {
-        const int sub_j = p.jtype[sub_idx];
+        const int new_tail = tail_p[sub_j * rs] + 1;
         next_sub += 1;
-        p.tail[sub_j * T + lane] += 1;
+        __syncwarp();
+        if (lead) tail_p[sub_j * rs] = new_tail;
       } else {
+        int j_f = 0, new_code = 0, cnt_r = 0;
+        bool inc = false;
+        F new_pool_w = 0, new_pool_old = INF;
         if (HAS_CHAOS) {
           // resolve the stashed requeue span into its member set (the
           // deferred credit walk) and merge it into the per-type pool
-          const int j_f = p.grp_jtype[eslot * T + lane];
+          j_f = p.grp_jtype[eslot * T + lane];
           const int code = p.grp_rem_cnt[eslot * T + lane];
           const F stored_w = p.grp_rem_w[eslot * T + lane];
           const F stored_old = p.grp_rem_oldest[eslot * T + lane];
@@ -333,7 +504,7 @@ __global__ void packet_step_kernel(const Params<F> p) {
           const F m_w = f_max((hi_w - cut_w) - m_res, F(0));
           const int m_cnt = hi - cut;
           const F m_old = p.tsub[j_f * N + min(cut, N - 1)];
-          const int cnt_r = walk ? m_cnt : -code;
+          cnt_r = walk ? m_cnt : -code;
           const F rem_w_r = walk ? m_w : stored_w;
           const F rem_old_r = (walk && m_cnt > 0) ? m_old : stored_old;
           const int rem_lo_r = walk ? cut : 0;
@@ -343,43 +514,51 @@ __global__ void packet_step_kernel(const Params<F> p) {
           const int ometa = opc / N1;
           const int old_lo = ometa >> 1;
           const bool old_frag = (ometa & 1) == 1;
-          const bool inc = cnt_r > 0;
+          inc = cnt_r > 0;
           const bool was_empty = old_cnt == 0;
-          const bool contig = hi == p.head[j_f * T + lane];
+          const bool contig = hi == head_p[j_f * rs];
           const bool frag =
               inc ? (old_frag || !walk || !was_empty || !contig) : old_frag;
           const int new_lo = was_empty ? rem_lo_r : min(old_lo, rem_lo_r);
-          const int new_code =
-              (new_lo * 2 + (frag ? 1 : 0)) * N1 + old_cnt + cnt_r;
-
-          p.pool_w[j_f * T + lane] = p.pool_w[j_f * T + lane] + rem_w_r;
-          p.pool_oldest[j_f * T + lane] =
-              f_min(p.pool_oldest[j_f * T + lane], rem_old_r);
-          if (inc) p.pool_code[j_f * T + lane] = new_code;
-          p.grp_rem_w[eslot * T + lane] = F(0);
-          p.grp_rem_cnt[eslot * T + lane] = 0;
-          p.grp_rem_oldest[eslot * T + lane] = INF;
+          new_code = (new_lo * 2 + (frag ? 1 : 0)) * N1 + old_cnt + cnt_r;
+          new_pool_w = p.pool_w[j_f * T + lane] + rem_w_r;
+          new_pool_old = f_min(p.pool_oldest[j_f * T + lane], rem_old_r);
           requeued_jobs += cnt_r;
         }
-        m_free += p.grp_m[eslot * T + lane];
-        p.grp_end[eslot * T + lane] = INF;
-        p.grp_m[eslot * T + lane] = 0;
+        m_free += e_m;
+        __syncwarp();   // every thread has read what thread 0 overwrites
+        if (lead) {
+          if (HAS_CHAOS) {
+            p.pool_w[j_f * T + lane] = new_pool_w;
+            p.pool_oldest[j_f * T + lane] = new_pool_old;
+            if (inc) p.pool_code[j_f * T + lane] = new_code;
+            p.grp_rem_w[eslot * T + lane] = F(0);
+            p.grp_rem_cnt[eslot * T + lane] = 0;
+            p.grp_rem_oldest[eslot * T + lane] = INF;
+          }
+          ring_p[eslot * rs] = INF;
+          p.grp_m[eslot * T + lane] = 0;
+        }
       }
       t = t_new;
       qlen_int = qlen_int + q_inc;
+      if (lead) write_pad(p.log_key, p.log_t, p.log_m, p.log_hw, row);
+    }
+    __syncwarp();   // thread 0's writes are seen by the next event's reads
+  }
 
-      p.log_key[row] = KEY_PAD; p.log_t[row] = F(0);
-      p.log_m[row] = 0; p.log_hw[row] = F(0);
+  // rows after the lane drained
+  for (int st = step + lid; st < p.n_steps; st += 32)
+    write_pad(p.log_key, p.log_t, p.log_m, p.log_hw,
+              (p.log_offset + st) * T + lane);
+  if (RING_SMEM) {
+    for (int r = lid; r < ring; r += 32) p.grp_end[r * T + lane] = ring_p[r];
+    for (int h = lid; h < H; h += 32) {
+      p.head[h * T + lane] = head_p[h];
+      p.tail[h * T + lane] = tail_p[h];
     }
   }
-
-  if (!valid) return;
-  // rows this block skipped by stopping early
-  for (; step < p.n_steps; ++step) {
-    const int row = (p.log_offset + step) * T + lane;
-    p.log_key[row] = KEY_PAD; p.log_t[row] = F(0);
-    p.log_m[row] = 0; p.log_hw[row] = F(0);
-  }
+  if (!lead) return;
   p.t[lane] = t; p.next_sub[lane] = next_sub; p.m_free[lane] = m_free;
   p.qlen_int[lane] = qlen_int; p.busy_ns[lane] = busy_ns;
   p.useful_ns[lane] = useful_ns; p.n_groups[lane] = n_groups;
@@ -390,9 +569,22 @@ __global__ void packet_step_kernel(const Params<F> p) {
   }
 }
 
+template <typename F, bool HAS_CHAOS, bool RING_SMEM>
+int launch_variant(const Params<F>& p, long long smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        packet_step_kernel<F, HAS_CHAOS, RING_SMEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  packet_step_kernel<F, HAS_CHAOS, RING_SMEM>
+      <<<p.T, 32, (size_t)smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename F, bool HAS_CHAOS>
 int launch(const void* const* in, void* const* st, void* const* logs,
-           const int* dims, int block, cudaStream_t stream) {
+           const int* dims, const int* plan, cudaStream_t stream) {
   Params<F> p;
   p.prefw = (const F*)in[0]; p.tsub = (const F*)in[1];
   p.submit = (const F*)in[2]; p.jtype = (const int*)in[3];
@@ -418,9 +610,16 @@ int launch(const void* const* in, void* const* st, void* const* logs,
   p.T = dims[0]; p.H = dims[1]; p.N = dims[2]; p.ring = dims[3];
   p.r_cap = dims[4]; p.L_cap = dims[5]; p.cut_steps = dims[6];
   p.log_offset = dims[7]; p.n_steps = dims[8];
-  const int grid = (p.T + block - 1) / block;
-  packet_step_kernel<F, HAS_CHAOS><<<grid, block, 0, stream>>>(p);
-  return (int)cudaGetLastError();
+  const long long smem = plan[0];
+  const bool ring_in_smem = plan[1] != 0;
+  // a plan that does not hold what the shared-memory ring touches is
+  // refused before any launch
+  const long long need =
+      (long long)p.ring * sizeof(F) + 2LL * p.H * sizeof(int);
+  if ((ring_in_smem && smem < need) || (!ring_in_smem && smem != 0))
+    return (int)cudaErrorInvalidValue;
+  if (ring_in_smem) return launch_variant<F, HAS_CHAOS, true>(p, smem, stream);
+  return launch_variant<F, HAS_CHAOS, false>(p, 0, stream);
 }
 
 }  // namespace
@@ -430,17 +629,21 @@ int launch(const void* const* in, void* const* st, void* const* logs,
 //   st[23]:  the state columns in ScanState order
 //   logs[4]: key, t, m, head_w
 //   dims[9]: T, H, N, ring, r_cap, L_cap, cut_steps, log_offset, n_steps
-// Launches on `stream`, does not synchronise, allocates nothing. Returns
-// cudaGetLastError() of the launch (0 = accepted).
+//   plan[2]: dynamic shared bytes of the block, ring in shared memory (1)
+//            or device memory (0); kernel.py :: launch_plan makes it
+// Launches T blocks of one warp (one lane each) on `stream`, does not
+// synchronise, allocates nothing. Returns cudaGetLastError() of the launch
+// (0 = accepted), or the error of raising the block's shared-memory limit,
+// or cudaErrorInvalidValue for a plan that does not hold the shape.
 extern "C" int packet_step_launch(int is_f64, int has_chaos,
                                   const void* const* in, void* const* st,
                                   void* const* logs, const int* dims,
-                                  int block, void* stream) {
+                                  const int* plan, void* stream) {
   cudaStream_t cs = (cudaStream_t)stream;
   if (is_f64) {
-    return has_chaos ? launch<double, true>(in, st, logs, dims, block, cs)
-                     : launch<double, false>(in, st, logs, dims, block, cs);
+    return has_chaos ? launch<double, true>(in, st, logs, dims, plan, cs)
+                     : launch<double, false>(in, st, logs, dims, plan, cs);
   }
-  return has_chaos ? launch<float, true>(in, st, logs, dims, block, cs)
-                   : launch<float, false>(in, st, logs, dims, block, cs);
+  return has_chaos ? launch<float, true>(in, st, logs, dims, plan, cs)
+                   : launch<float, false>(in, st, logs, dims, plan, cs);
 }

@@ -136,13 +136,15 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
     inputs += [u1, u2, *chaos_params] if has_chaos else [None] * 7
     dims = (T, H, N, ring, r_cap, L_cap, max(N.bit_length(), 1), log_offset,
             n_steps)
+    is_f64 = dtype == torch.float64
+    plan = _kernel.launch_plan(H, ring, is_f64)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = _kernel.launch(
-            dtype == torch.float64, has_chaos,
+            is_f64, has_chaos,
             [0 if x is None else x.data_ptr() for x in inputs],
             [x.data_ptr() for x in state], [x.data_ptr() for x in logs],
-            dims, stream)
+            dims, plan, stream)
     if err != 0:
         raise RuntimeError(f"packet_step kernel launch failed: "
                            f"cudaGetLastError() = {err}")

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.core import des as tdes
+from repro_torch.kernels.packet_step import kernel as tkernel
 from repro_torch.kernels.packet_step import ops as tops
 from repro_torch.kernels.packet_step.ref import packet_step_ref
 from test_torch_reference import load_reference
@@ -345,3 +346,55 @@ def test_no_except_around_the_launch():
     code = "\n".join(line.split("#")[0] for line in src.splitlines())
     assert "except" not in code and "try:" not in code
     assert code.count("launches += 1") == 1
+
+
+# --------------------------------------------------------------------------
+# the kernel's launch plan (pure Python: no card needed)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,ring,is_f64,smem", [
+    (8, 100, False, 464),       # homog0.85 float32: 400 + 64 bytes
+    (8, 500, True, 4064),       # hetero0.85 float64: 4000 + 64
+    (8, 1, False, 68),          # ring 1: 4 + 64
+    (8, 16, True, 192),         # ring 16, shorter than a warp: 128 + 64
+    (40, 333, True, 2984),      # 40 types, ring 333: 2664 + 320
+], ids=["homog-f32-ring100", "hetero-f64-ring500", "ring1", "ring16",
+        "H40-ring333"])
+def test_launch_plan_keeps_the_ring_in_shared_memory(H, ring, is_f64, smem):
+    plan = tkernel.launch_plan(H, ring, is_f64)
+    assert plan.ring_in_smem
+    assert plan.smem_bytes == tkernel.lane_smem_bytes(ring, H, is_f64) == smem
+    assert plan.smem_bytes <= tkernel.SMEM_OPTIN
+
+
+@pytest.mark.parametrize("ring,is_f64", [(29_040, True), (29_100, True),
+                                         (58_080, False), (58_100, False),
+                                         (1_000_000, True)])
+def test_launch_plan_takes_rings_beyond_the_shared_memory_opt_in(
+        ring, is_f64):
+    """One lane's columns beyond 232 448 bytes: the device-memory ring,
+    never a refusal; just inside, the shared-memory ring."""
+    per_lane = tkernel.lane_smem_bytes(ring, 8, is_f64)
+    plan = tkernel.launch_plan(8, ring, is_f64)
+    assert plan.ring_in_smem == (per_lane <= tkernel.SMEM_OPTIN)
+    assert plan.smem_bytes == (per_lane if plan.ring_in_smem else 0)
+
+
+@pytest.mark.parametrize("is_f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("H", [1, 8, 33])
+def test_launch_plan_switches_at_the_opt_in_exactly(H, is_f64):
+    """The longest ring whose columns fit the opt-in stays in shared
+    memory; one slot more takes the device-memory ring."""
+    itemsize = 8 if is_f64 else 4
+    ring = (tkernel.SMEM_OPTIN - 8 * H) // itemsize
+    inside = tkernel.launch_plan(H, ring, is_f64)
+    assert inside.ring_in_smem and inside.smem_bytes <= tkernel.SMEM_OPTIN
+    outside = tkernel.launch_plan(H, ring + 1, is_f64)
+    assert not outside.ring_in_smem and outside.smem_bytes == 0
+
+
+@pytest.mark.parametrize("args", [(0, 100, False), (8, 0, False),
+                                  (8, -1, True)])
+def test_launch_plan_rejects_what_no_launch_has(args):
+    with pytest.raises(ValueError):
+        tkernel.launch_plan(*args)
