@@ -2,19 +2,21 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the CUDA kernels from the sources in this checkout (one `nvcc` per
-source, started together; the attention and RG-LRU builds go on while the
-DES phases run), holds each against its plain PyTorch version on the card,
-drives the port's four paths and prints one JSON line per phase:
+Builds the five CUDA kernels from the sources in this checkout (one `nvcc`
+per source, started together; the attention and RG-LRU builds go on while
+the DES phases run), holds each against its plain PyTorch version on the
+card, drives the port's four paths and prints one JSON line per phase:
 
 - the DES grid: the paper's 37 x 6 grid of 5000-job workloads through
   `run_packet_grid` (event-step kernel);
 - the DES while-loop engine: `simulate_packet` over the same 222 lanes of
-  both flows in one call each (the group-formation decision kernel once
-  per lockstep formation), `run_packet_grid(mode="seq")` on three cells
-  and the legacy `vmap_k` / `vmap_s` layouts, each held against the fused
-  grid (group counts and `ok` equal, metrics within rtol 1e-5 in float32
-  and 1e-12 in float64, the reference's own bounds);
+  both flows in one call each, one launch of the while-loop kernel a call
+  (the group-formation decision inlined), beside its plain lockstep
+  version (`impl="torch"`, the decision kernel once per lockstep
+  formation); `run_packet_grid(mode="seq")` on three cells (one kernel
+  launch a cell) and the legacy `vmap_k` / `vmap_s` layouts; each held
+  against the fused grid (group counts and `ok` equal, metrics within
+  rtol 1e-5 in float32 and 1e-12 in float64, the reference's own bounds);
 - LM serving: `repro_torch.launch.serve.main` on granite-3-2b at full
   width and depth (40 layers, bf16, random weights from seed 0), 4 prompts
   of 2048 tokens, 32 new tokens each (flash-attention kernel in every
@@ -45,6 +47,11 @@ Tolerances of the kernel-vs-plain comparisons:
 - group-formation decision: `j` and `m` equal; `dur` and `work` at most
   2 ulp apart (built like the event step, so the expected difference is
   0);
+- while-loop engine: the final state's integer columns (group-log keys
+  and node counts, counters, iterations), `n_groups`, `ok` and
+  `budget_exhausted` equal; every float column of the final state, the
+  group log and the job times at most 2 ulp apart (built like the event
+  step; the expected difference is 0);
 - flash attention: |kernel - plain| <= atol + tol * |plain| elementwise.
   float32 (the CUDA-core kernel): tol = atol = 2e-5 (sums in another
   order, FMA, CUDA's `expf`). bfloat16 (the Hopper kernel): tol = 2e-2
@@ -81,6 +88,7 @@ matmuls and cuDNN before anything runs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -111,6 +119,8 @@ from repro_torch.kernels.packet_select import ops as select_ops
 from repro_torch.kernels.packet_select.ref import packet_select_ref
 from repro_torch.kernels.packet_step import kernel as step_kernel
 from repro_torch.kernels.packet_step import ops as step_ops
+from repro_torch.kernels.packet_while import kernel as while_kernel
+from repro_torch.kernels.packet_while import ops as while_ops
 from repro_torch.kernels.rglru_scan import kernel as lru_kernel
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.launch import serve, train
@@ -191,6 +201,8 @@ SELECT_TIMED = [(222, 8, torch.float32), (222, 8, torch.float64),
 SELECT_GRAPH_LAUNCHES = 200     # launches captured in one CUDA graph
 SEQ_RTOL = {np.dtype(np.float32): 1e-5, np.dtype(np.float64): 1e-12}
 SEQ_CELLS = (0, 18, 36)         # smallest, middle and largest k, S = 0.05
+PLAIN_TURN_SECONDS = 20.0       # a second plain while-engine run below this
+WHILE_CUT_JOBS = 1000           # the cut workload of `while_kernel`
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_metrics.json")
 
@@ -362,18 +374,21 @@ def start_builds(pool):
         mod.load()
         return time.perf_counter() - t0
     return {m: pool.submit(timed_load, m)
-            for m in (step_kernel, attn_kernel, lru_kernel, select_kernel)}
+            for m in (step_kernel, attn_kernel, lru_kernel, select_kernel,
+                      while_kernel)}
 
 
-def phase_build(mod, built):
-    """Waits for one library's build and prints its ptxas lines. Returns
-    the build's seconds and its log."""
+def phase_build(mod, built, describe=None):
+    """Waits for one library's build and prints its ptxas lines (and, with
+    `describe`, what it reads from the log per instantiation). Returns the
+    build's seconds and its log."""
     secs = built.result()
     lib = build.library_path(build.CSRC_DIR / f"{mod.SOURCE}.cu", mod.FLAGS)
     log = lib.with_suffix(".log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", seconds=secs, library=lib.name, ptxas=ptxas)
+    extra = {} if describe is None else {"instantiations": describe(log)}
+    emit("build", seconds=secs, library=lib.name, ptxas=ptxas, **extra)
     return secs, log
 
 
@@ -400,6 +415,37 @@ def attention_instantiations(log: str) -> list:
             cur["registers"] = int(re.search(r"Used (\d+) registers",
                                              ln).group(1))
     return sorted(rows, key=lambda r: (r["kernel"], r["hd"]))
+
+
+def while_instantiations(log: str) -> list:
+    """Registers and spills of each while-kernel instantiation, read from
+    the ptxas lines of its build log, with the dynamic shared bytes its
+    launch plan gives a lane of the paper's flows (homog0.85 in float32,
+    ring 100; hetero0.85 in float64, ring 500; 8 types)."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            f, chaos, smem = re.search(
+                r"packet_while_kernelI([fd])Lb([01])ELb([01])E",
+                entry.group(1)).groups()
+            is_f64, chaos, in_smem = f == "d", chaos == "1", smem == "1"
+            ring = 500 if is_f64 else 100
+            cur = dict(dtype="float64" if is_f64 else "float32",
+                       chaos=chaos, ring_in_smem=in_smem,
+                       smem_bytes=(while_kernel.lane_smem_bytes(
+                           ring, 8, is_f64, chaos) if in_smem else 0),
+                       smem_shape=f"ring {ring}, 8 types")
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", ln).groups()
+            cur.update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    return sorted(rows, key=lambda r: (r["dtype"], r["chaos"],
+                                       r["ring_in_smem"]))
 
 
 def step_shapes(flows):
@@ -795,69 +841,366 @@ def check_grid(got: Metrics, want: Metrics, rtol: float, label: str):
     return worst
 
 
+class WhileWorst:
+    """Largest kernel-vs-plain while-engine difference seen so far."""
+    ulp = 0.0
+    abs_err = 0.0
+
+
+class WhileCapture:
+    """Stands in for `packet_while` in its module, so that `launches` is
+    the wrapper's own count (the wrapper adds to it through its module's
+    name): passes every call on, ends it with a synchronize, and keeps each
+    call's arguments, final state, counts and host seconds."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, counts = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append(dict(args=args, kw=kw, state=state,
+                               counts=dict(counts),
+                               seconds=time.perf_counter() - t0))
+        return state, counts
+
+
+def while_runs(pw, k, s, M, impls, plain_limit=None, **kw):
+    """`simulate_packet` through its normal entry point, once per entry of
+    `impls` ("cuda": no `impl`, the default on the card; "torch": the plain
+    lockstep engine by name), in that order; a second plain run is skipped
+    when the first took longer than `plain_limit` seconds. Gates each call
+    on its launches: the kernel once and no decision launch; the plain
+    version no kernel launch and one decision launch per lockstep
+    formation. Returns one dict per run: the DesResult, the final state,
+    the counts, the host seconds of the call and of the wrapper."""
+    cap = WhileCapture(while_ops.packet_while)
+    while_ops.packet_while = cap
+    runs = []
+    try:
+        for impl in impls:
+            plain_runs = [r for r in runs if r["impl"] == "torch"]
+            if impl == "torch" and plain_runs and plain_limit is not None \
+                    and plain_runs[0]["seconds"] > plain_limit:
+                continue
+            stats = {}
+            sel0 = select_ops.fused_packet_select.launches
+            while0 = while_ops.packet_while.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = des.simulate_packet(
+                pw, k, s, M, stats=stats,
+                impl=None if impl == "cuda" else "torch", **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            sel = select_ops.fused_packet_select.launches - sel0
+            launched = while_ops.packet_while.launches - while0
+            if impl == "cuda" and (launched, sel) != (1, 0):
+                fail(f"while engine: the kernel's call made {launched} "
+                     f"packet_while and {sel} select launches, expected 1 "
+                     f"and 0")
+            if impl == "torch" and (launched, sel) != (0, stats["inner"]):
+                fail(f"while engine: the plain call made {launched} "
+                     f"packet_while launches and {sel} select launches for "
+                     f"{stats['inner']} lockstep formations")
+            call = cap.calls[-1]
+            runs.append(dict(impl=impl, res=res, state=call["state"],
+                             call=call, stats=stats, seconds=seconds,
+                             wrapper_seconds=call["seconds"],
+                             select_launches=sel, while_launches=launched))
+    finally:
+        while_ops.packet_while = cap.fn
+    return runs
+
+
+def compare_while(got, want, label):
+    """The kernel's final state and DesResult against the plain version's:
+    the integer columns (group log keys and node counts, counters, `iters`,
+    `n_groups`) and `ok` / `budget_exhausted` equal, every float column of
+    the state and the job times within ULP_BOUND. Returns the largest ulp
+    difference."""
+    gs, ws = got["state"], want["state"]
+    for name, g, w in zip(des.DesState._fields, gs, ws):
+        if name not in des.FLOAT_DES_COLS and not torch.equal(g, w):
+            fail(f"{label}: integer column {name} differs")
+    for name in ("ok", "budget_exhausted"):
+        if not torch.equal(getattr(got["res"], name),
+                           getattr(want["res"], name)):
+            fail(f"{label}: {name} differs")
+    floats = [(n, getattr(gs, n), getattr(ws, n))
+              for n in des.FLOAT_DES_COLS]
+    floats += [(n, getattr(got["res"], n), getattr(want["res"], n))
+               for n in ("start_t", "run_start_t")]
+    worst = 0.0
+    for name, g, w in floats:
+        u = ulp_diff(g, w)
+        if u > ULP_BOUND:
+            fail(f"{label}: float column {name} differs by {u} ulp "
+                 f"(bound {ULP_BOUND})")
+        worst = max(worst, u)
+        finite = torch.isfinite(g) & torch.isfinite(w)
+        if bool(finite.any()):
+            WhileWorst.abs_err = max(WhileWorst.abs_err, float(
+                (g[finite].double() - w[finite].double()).abs().max()))
+    WhileWorst.ulp = max(WhileWorst.ulp, worst)
+    return worst
+
+
+def while_plan(run) -> dict:
+    """The kernel's launch plan for the call of `run`."""
+    st = run["state"]
+    H, ring = int(st.head.shape[1]), int(st.grp_end.shape[1])
+    return while_kernel.launch_plan(
+        H, ring, st.t.dtype == torch.float64,
+        run["call"]["kw"].get("u1") is not None)._asdict()
+
+
+def time_while(run):
+    """The kernel's CUDA-event ms per call on the operands of `run`'s call
+    (each launch from a fresh initial state), warm, the bound of the same
+    work and ns per lane step. Launches made here are taken off the
+    wrapper's count again."""
+    args, kw = run["call"]["args"], dict(run["call"]["kw"], impl="cuda")
+    st = run["state"]
+    T, H = (int(x) for x in st.head.shape)
+    ring, L = int(st.grp_end.shape[1]), int(st.log_key.shape[1])
+    dtype, dev = st.t.dtype, st.t.device
+    M, max_iters = args[10], args[11]
+    fresh = [des.initial_des_state(H, ring, L, T, M, dtype, dev)
+             for _ in range(4)]
+    before = while_ops.packet_while.launches
+    times = []
+    for i, state in enumerate(fresh):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        while_ops.packet_while(*args[:9], state, M, max_iters, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:                           # the first launch warms up
+            times.append(start.elapsed_time(stop))
+    while_ops.packet_while.launches = before
+    for name, g, w in zip(des.DesState._fields, fresh[-1], st):
+        if not torch.equal(g, w):
+            fail(f"time_while: a timed launch's {name} differs from the "
+                 f"main run's")
+    # bytes: the tables, lane parameters and chaos streams read once, the
+    # state columns read once and written once, the group log written
+    # once; operations: per lane step a ring scan (3 a slot), the type
+    # pass (about 14 a type) and about 40 scalar ones, for the steps this
+    # run's lanes took
+    prefw, tsub, submit, jtype = args[:4]
+    fsz = st.t.element_size()
+    tables = sum(x.numel() * x.element_size()
+                 for x in (prefw, tsub, submit, jtype))
+    params = sum(x.numel() * x.element_size() for x in args[4:9])
+    streams = sum(x.numel() * x.element_size()
+                  for x in (kw.get("u1"), kw.get("u2"))
+                  if x is not None)
+    if kw.get("chaos_params") is not None:
+        streams += 5 * T * fsz
+    log_cols = ("log_key", "log_t", "log_m", "log_headw")
+    state_bytes = sum(c.numel() * c.element_size()
+                      for n, c in zip(des.DesState._fields, st)
+                      if n not in log_cols)
+    log_bytes = sum(getattr(st, n).numel() * getattr(st, n).element_size()
+                    for n in log_cols)
+    nbytes = tables + params + streams + 2 * state_bytes + log_bytes
+    # each lane's outer iterations plus formations: its dependent chain
+    steps = st.iters.long() + st.n_groups.long()
+    ops = (3 * ring + 14 * H + 40) * int(steps.sum())
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    ms = min(times)
+    return dict(ms=ms, ms_runs=times, plan=while_plan(run),
+                lane_steps_max=int(steps.max()),
+                lane_steps_total=int(steps.sum()),
+                ns_per_lane_step=1e6 * ms / int(steps.max()),
+                bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def cut_workload():
+    """homog0.85's generator cut to WHILE_CUT_JOBS jobs over the same share
+    of its horizon, so that its jobs keep their sizes."""
+    p = WorkloadParams(nodes=100, load=0.85, homogeneous=True, seed=1,
+                       daily_amplitude=0.3)
+    return generate_workload(dataclasses.replace(
+        p, n_jobs=WHILE_CUT_JOBS,
+        horizon=p.horizon * WHILE_CUT_JOBS / p.n_jobs))
+
+
+def phase_while_kernel():
+    """The while-loop kernel against its plain version through
+    `simulate_packet`, on the paper's 222 (k, s) lanes of a cut workload:
+    chaos in float32 and float64 with the lanes' columns in shared memory;
+    columns past the shared-memory opt-in (the device-memory
+    instantiation) in float32 and in float64 under chaos; and a
+    `max_iters` that exhausts some lanes (float64, device memory). With
+    the paper's two flows in `seq_path` (float32 and float64, shared
+    memory, chaos off) that is seven of the eight instantiations."""
+    wl = cut_workload()
+    cases = []
+    for dtype, with_chaos, past_optin, exhaust in (
+            (np.float32, True, False, False),
+            (np.float64, True, False, False),
+            (np.float32, False, True, False),
+            (np.float64, True, True, False),
+            (np.float64, False, True, True)):
+        d = Dispatch(wl, dtype, with_chaos, seed=17)
+        kw, label_ring = {}, d.ring
+        if with_chaos:
+            kw = dict(chaos=des.ChaosConfig(max_requeues=d.N, **CHAOS),
+                      u1=d.kw["u1"], u2=d.kw["u2"])
+        if past_optin:
+            # the shortest ring whose lane columns exceed the opt-in
+            label_ring = next(
+                r for r in range(1, 1 << 20)
+                if while_kernel.lane_smem_bytes(
+                    r, d.H, dtype == np.float64, with_chaos)
+                > while_kernel.SMEM_OPTIN)
+            kw["ring"] = label_ring
+        if exhaust:
+            # half the lanes end before their loops do
+            free = while_runs(d.pw, d.k[0], d.s[0], d.M, ("cuda",), **kw)
+            kw["max_iters"] = int(
+                free[0]["state"].iters.double().median())
+        runs = while_runs(d.pw, d.k[0], d.s[0], d.M, ("cuda", "torch"),
+                          **kw)
+        kernel, plain = runs
+        label = (f"N={d.N} M={d.M} ring={label_ring} T={d.T} "
+                 f"{np.dtype(dtype).name} "
+                 f"chaos={'on' if with_chaos else 'off'}"
+                 + (f" max_iters={kw['max_iters']}" if "max_iters" in kw
+                    else ""))
+        worst = compare_while(kernel, plain, f"while_kernel {label}")
+        exhausted = int(kernel["res"].budget_exhausted.sum())
+        if exhaust and not 0 < exhausted < d.T:
+            fail(f"while_kernel {label}: {exhausted} of {d.T} lanes "
+                 f"exhausted, expected some and not all")
+        if with_chaos and int(kernel["res"].requeues.sum()) < 1:
+            fail(f"while_kernel {label}: chaos injected no fault")
+        if not exhaust and not bool(kernel["res"].ok.all()):
+            fail(f"while_kernel {label}: a lane is not ok")
+        plan = while_plan(kernel)
+        if past_optin == plan["ring_in_smem"]:
+            fail(f"while_kernel {label}: launch plan {plan}")
+        cases.append(label)
+        emit("while_kernel", shape=label, plan=plan,
+             groups=int(kernel["res"].n_groups.sum()),
+             requeues=int(kernel["res"].requeues.sum()),
+             failures=int(kernel["res"].failures.sum()),
+             lanes_exhausted=exhausted,
+             kernel_wrapper_seconds=kernel["wrapper_seconds"],
+             plain_wrapper_seconds=plain["wrapper_seconds"],
+             plain_lockstep_formations=plain["stats"]["inner"],
+             max_ulp=worst, ulp_bound=ULP_BOUND, ok=True)
+    return cases
+
+
 def phase_seq_path(flows, fused):
-    """The while-loop engine, `simulate_packet`, over all 222 lanes of
-    each paper flow in one call (a select-kernel launch per lockstep group
-    formation), then `run_packet_grid` with mode="seq" (step_impl="torch":
-    the same engine, one cell per call) on three cells and the legacy
-    vmap_k / vmap_s layouts on the whole homog0.85 grid; every result
-    against the fused grid of `phase_main_path`. Returns the select
-    kernel's launches in this path."""
+    """The while-loop engine on the card. `simulate_packet` over all 222
+    lanes of each paper flow in one call: the kernel (the normal entry
+    point, one launch a call) and the plain lockstep engine (impl="torch",
+    one select-kernel launch per lockstep formation) in turns, kernel,
+    plain, plain, kernel (the second plain run only where the first took
+    under PLAIN_TURN_SECONDS); their final states held against each other
+    and the kernel's metrics against the fused grid of `phase_main_path`.
+    Then `run_packet_grid(mode="seq")` (step_impl="torch": the same entry
+    point, one cell a call, one kernel launch a cell) on three cells and
+    the legacy vmap_k / vmap_s layouts on the whole homog0.85 grid.
+    Returns the select and packet_while launches of this path and the
+    kernel's times."""
     select_ops.fused_packet_select.launches = 0
+    while_ops.packet_while.launches = 0
     step_ops.packet_event_steps.launches = 0
     K, S = len(sweep.PAPER_SCALE_RATIOS), len(sweep.PAPER_INIT_PROPS)
-    formations = 0
+    formations = kernel_calls = 0
+    times = {}
     for flow, dtype in (("homog0.85", np.float32), ("hetero0.85", np.float64)):
         wl, want = flows[flow], fused[flow]
         d = Dispatch(wl, dtype, False)      # the grid's lanes, k major
-        M = d.M
-        stats = {}
-        before = select_ops.fused_packet_select.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pw = des.pack_workload(wl, dtype)
-        res = des.simulate_packet(pw, d.k[0], d.s[0], M, stats=stats)
-        m = efficiency_metrics(pw.submit, res, M, pw.t_last_submit)
+        runs = while_runs(d.pw, d.k[0], d.s[0], d.M,
+                          ("cuda", "torch", "torch", "cuda"),
+                          plain_limit=PLAIN_TURN_SECONDS)
+        kernel_runs = [r for r in runs if r["impl"] == "cuda"]
+        plain_runs = [r for r in runs if r["impl"] == "torch"]
+        kernel_calls += len(kernel_runs)
+        formations += sum(r["select_launches"] for r in plain_runs)
+        worst = max(compare_while(k_, plain_runs[0], f"seq_path {flow}")
+                    for k_ in kernel_runs)
+        m = efficiency_metrics(d.pw.submit, kernel_runs[0]["res"], d.M,
+                               d.pw.t_last_submit)
         got = Metrics(*(x.cpu().numpy().reshape((K, S)) for x in m))
-        wall = time.perf_counter() - t0
-        launched = select_ops.fused_packet_select.launches - before
-        if launched != stats["inner"]:
-            fail(f"seq_path {flow}: {launched} select launches for "
-                 f"{stats['inner']} group formations")
-        formations += stats["inner"]
         rel = check_grid(got, want, SEQ_RTOL[np.dtype(dtype)],
                          f"seq_path {flow}")
+        kst, pst = kernel_runs[0]["stats"], plain_runs[0]["stats"]
+        t = time_while(kernel_runs[0])
+        t.update(shape=f"{flow} N={d.N} M={d.M} ring={d.ring} T={d.T} "
+                       f"{np.dtype(dtype).name}",
+                 plain_ms=1e3 * min(r["wrapper_seconds"]
+                                    for r in plain_runs),
+                 simulate_packet_seconds=min(r["seconds"]
+                                             for r in kernel_runs),
+                 plain_simulate_packet_seconds=min(r["seconds"]
+                                                   for r in plain_runs))
+        times[flow] = t
         emit("seq_path", run="simulate_packet", flow=flow,
              dtype=str(np.dtype(dtype)), lanes=K * S, n_jobs=wl.n_jobs,
-             ring=d.ring, wall_seconds=wall,
-             outer_iterations=stats["outer"],
-             inner_iterations=stats["inner"], select_launches=launched,
-             host_syncs=stats["syncs"],
+             ring=d.ring, run_order=[r["impl"] for r in runs],
+             wall_seconds_runs={i: [r["seconds"] for r in runs
+                                    if r["impl"] == i]
+                                for i in ("cuda", "torch")},
+             wall_seconds=t["simulate_packet_seconds"],
+             plain_wall_seconds=t["plain_simulate_packet_seconds"],
+             kernel_ms=t["ms"], kernel_ms_runs=t["ms_runs"],
+             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+             bound_by=t["bound_by"], ns_per_lane_step=t["ns_per_lane_step"],
+             lane_steps_max=t["lane_steps_max"], plan=t["plan"],
+             kernel_stats=kst, packet_while_launches=[
+                 r["while_launches"] for r in kernel_runs],
+             plain_outer_iterations=pst["outer"],
+             plain_inner_iterations=pst["inner"],
+             plain_select_launches=plain_runs[0]["select_launches"],
+             plain_host_syncs=pst["syncs"],
              groups_formed=int(got.n_groups.sum()),
+             kernel_vs_plain_max_ulp=worst, ulp_bound=ULP_BOUND,
              max_rel_dev_vs_fused=float(rel),
              rtol=SEQ_RTOL[np.dtype(dtype)], ok=True)
 
     wl, want = flows["homog0.85"], fused["homog0.85"]
     ks = [sweep.PAPER_SCALE_RATIOS[i] for i in SEQ_CELLS]
-    before = select_ops.fused_packet_select.launches
+    sel0 = select_ops.fused_packet_select.launches
+    while0 = while_ops.packet_while.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = sweep.run_packet_grid(wl, ks=ks, s_props=[0.05], mode="seq",
                                 step_impl="torch")
     wall = time.perf_counter() - t0
-    launched = select_ops.fused_packet_select.launches - before
-    # one lane a call: each lockstep formation forms exactly one group
-    if launched != int(got.n_groups.sum()):
-        fail(f"seq_path seq cells: {launched} select launches for "
-             f"{int(got.n_groups.sum())} groups")
-    formations += launched
+    launched = while_ops.packet_while.launches - while0
+    sel = select_ops.fused_packet_select.launches - sel0
+    # one cell a call, one kernel launch a cell, no decision launch
+    if (launched, sel) != (len(ks), 0):
+        fail(f"seq_path seq cells: {launched} packet_while and {sel} "
+             f"select launches for {len(ks)} cells")
+    kernel_calls += launched
     cells = Metrics(*(np.asarray(x)[list(SEQ_CELLS)][:, :1] for x in want))
     rel = check_grid(got, cells, SEQ_RTOL[np.dtype(np.float32)],
                      "seq_path seq cells")
     emit("seq_path", run="run_packet_grid(mode='seq', step_impl='torch')",
          flow="homog0.85", dtype="float32", ks=ks, s_prop=0.05,
-         wall_seconds=wall, select_launches=launched,
-         max_rel_dev_vs_fused=float(rel), ok=True)
+         wall_seconds=wall, packet_while_launches=launched,
+         select_launches=sel, max_rel_dev_vs_fused=float(rel), ok=True)
 
     for flag in ("vmap_k", "vmap_s"):
         before = step_ops.packet_event_steps.launches
@@ -875,11 +1218,15 @@ def phase_seq_path(flows, fused):
              dispatches=S if flag == "vmap_k" else K, wall_seconds=wall,
              event_step_launches=launched, max_rel_dev_vs_fused=float(rel),
              ok=True)
-    launches = select_ops.fused_packet_select.launches
-    if launches != formations or launches < 1:
-        fail(f"seq_path: {launches} select launches for {formations} "
-             f"group formations")
-    return launches
+    select_launches = select_ops.fused_packet_select.launches
+    while_launches = while_ops.packet_while.launches
+    if select_launches != formations or select_launches < 1:
+        fail(f"seq_path: {select_launches} select launches for "
+             f"{formations} lockstep formations of the plain runs")
+    if while_launches != kernel_calls or while_launches < 1:
+        fail(f"seq_path: {while_launches} packet_while launches for "
+             f"{kernel_calls} kernel calls")
+    return select_launches, while_launches, times
 
 
 # --------------------------------------------------------------------------
@@ -1575,7 +1922,8 @@ def time_lru():
 
 
 def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
-                  train_launches, select_times, select_launches, attn_build):
+                  train_launches, select_times, select_launches, attn_build,
+                  while_launches, while_times, while_build):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -1671,7 +2019,8 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
         "library_ms": None,
         "stream_ms": sel["stream_ms"],
         "unit": f"one launch = one group-formation decision for every "
-                f"lane; {sel['shape']} (the 222-lane seq_path); ms from a "
+                f"lane; {sel['shape']} (the 222-lane plain while engine, "
+                f"impl='torch', of seq_path); ms from a "
                 f"CUDA graph of {SELECT_GRAPH_LAUNCHES} launches, "
                 f"stream_ms per wrapper call back to back; no single "
                 f"PyTorch call computes this decision",
@@ -1679,6 +2028,35 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": sel,
         "other_shapes": select_times[1:],
+    })
+    wt = while_times["homog0.85"]
+    line["kernels"].append({
+        "name": "packet_while",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/packet_while.cu",
+        "replaces": "src/repro/kernels/packet_select/kernel.py:24 (the "
+                    "decision, inlined) and the while loop of "
+                    "src/repro/core/des.py:595",
+        "launches": while_launches,
+        "max_abs_err": WhileWorst.abs_err,
+        "max_ulp": WhileWorst.ulp,
+        "ms": wt["ms"],
+        "plain_ms": wt["plain_ms"],
+        "bound_ms": wt["bound_ms"],
+        "bound_by": wt["bound_by"],
+        "library_ms": None,
+        "ns_per_lane_step": wt["ns_per_lane_step"],
+        "unit": f"one launch = one simulate_packet call over the 222 "
+                f"lanes of {wt['shape']}, every lane run to its end; ms by "
+                f"CUDA events, warm; plain_ms the plain lockstep engine "
+                f"(impl='torch') on the same operands, host clock ended by "
+                f"a synchronize; no single PyTorch call computes this loop",
+        "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
+                        "ops_per_s": FP32_OPS_PER_S},
+        "main_shape": wt,
+        "other_shapes": [while_times["hetero0.85"]],
+        "build_seconds": while_build[0],
+        "instantiations": while_instantiations(while_build[1]),
     })
     print(json.dumps(line), flush=True)
 
@@ -1716,7 +2094,12 @@ def main(argv=None):
         timed("build packet_select, wait", phase_build, select_kernel,
               builds[select_kernel])
         select_times = timed("select_kernel", phase_select_kernel)
-        select_launches = timed("seq_path", phase_seq_path, flows, fused)
+        while_build = timed("build packet_while, wait", phase_build,
+                            while_kernel, builds[while_kernel],
+                            while_instantiations)
+        timed("while_kernel", phase_while_kernel)
+        select_launches, while_launches, while_times = timed(
+            "seq_path", phase_seq_path, flows, fused)
         attn_build = timed("build flash_attention, wait", phase_build,
                            attn_kernel, builds[attn_kernel])
         timed("build rglru_scan, wait", phase_build, lru_kernel,
@@ -1731,7 +2114,7 @@ def main(argv=None):
         timed("train_profile", profile_training)
     timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches,
           attn_grad, train_launches, select_times, select_launches,
-          attn_build)
+          attn_build, while_launches, while_times, while_build)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

@@ -36,8 +36,8 @@ for i, k in enumerate(ks):
           f"{grid.useful_util[i, 0]:7.3f} | {grid.avg_wait[i, 1]:14.1f}")
 
 # the first three cells again, one per call, through the while-loop engine
-# (mode="seq"; on the GPU each group formation is one launch of the
-# hand-written decision kernel): a dispatch layout, not a policy
+# (mode="seq"; on the GPU each cell is one launch of the hand-written
+# while-loop kernel): a dispatch layout, not a policy
 seq = run_packet_grid(wl, ks=ks[:3], s_props=[0.05], mode="seq",
                       step_impl="torch", device=device)
 assert (seq.n_groups[:, 0] == grid.n_groups[:3, 0]).all()

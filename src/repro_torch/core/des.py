@@ -9,10 +9,13 @@ time s) experiment over the same packed workload. Four engines:
     ring rows as ``[ring, T]``), the layout of the reference's event-step
     kernel, so neighbouring GPU threads touch neighbouring addresses.
   * `simulate_packet` — the reference's while-loop engine (an event loop
-    with a nested group-formation loop), run over lanes in lockstep with
-    lane-major ``[T, ...]`` state; each group formation takes its decision
-    in one launch of the select kernel (`kernels/packet_select`). This is
-    the sweep's ``mode="seq"`` path with ``step_impl="torch"``.
+    with a nested group-formation loop) with lane-major ``[T, ...]``
+    state. On the card it is ONE launch of the while-loop kernel
+    (`kernels/packet_while`), each lane a warp that runs its own loops
+    with the group-formation decision inlined; its plain version runs the
+    lanes in lockstep, each group formation taking its decision in one
+    call of the select kernel (`kernels/packet_select`). This is the
+    sweep's ``mode="seq"`` path with ``step_impl="torch"``.
   * `simulate_packet_scan` — one lane of the scan engine.
   * `simulate_packet_reference` — the reference's seed oracle, one lane,
     eager O(N) writes per group; an independent check, off the main path.
@@ -51,6 +54,7 @@ import torch
 
 from repro_torch.core import packet, precision
 from repro_torch.device import resolve_device
+from repro_torch.kernels.routing import resolve_impl
 from repro_torch.workload.lublin import Workload
 
 INF = float("inf")
@@ -655,6 +659,12 @@ class DesState(NamedTuple):
     requeued_jobs: torch.Tensor
 
 
+#: which DesState columns hold floats (the rest are int32)
+FLOAT_DES_COLS = ("t", "grp_end", "log_t", "log_headw", "qlen_int",
+                  "busy_ns", "useful_ns", "pool_w", "pool_oldest",
+                  "grp_rem_w", "grp_rem_oldest", "lost_work")
+
+
 def initial_des_state(n_types: int, ring: int, log_cap: int, n_lanes: int,
                       m_nodes: int, dtype: torch.dtype, device) -> DesState:
     """The empty-cluster state of `n_lanes` lanes of the while engine."""
@@ -691,40 +701,50 @@ def simulate_packet(pw: PackedWorkload, k, s_init, m_nodes, priority=None,
                     t_max=None, max_iters: int | None = None,
                     ring: int | None = None,
                     chaos: ChaosConfig | None = None, u1=None, u2=None,
-                    device=None, stats: dict | None = None) -> DesResult:
+                    device=None, stats: dict | None = None,
+                    impl: str | None = None) -> DesResult:
     """The Packet DES as the reference's while-loop engine, over lanes.
 
     An outer loop takes one event per iteration (the earlier of the next
     submission and the first running group's end); after each event an
     inner loop forms groups (paper Steps 1-5) until the lane is blocked.
     `k` and `s_init` are scalars or ``[T]`` lanes (a scalar broadcasts);
-    the lanes run in lockstep, each loop stopping when no lane is active,
-    and every update is masked so that a lane that is done or blocked is
-    untouched: lane t gives the reference's `simulate_packet` with
-    ``(k[t], s_init[t])``. With scalar `k` and `s_init` the lane axis is
-    squeezed from the result.
+    a lane's result does not depend on its companions: lane t gives the
+    reference's `simulate_packet` with ``(k[t], s_init[t])``. With scalar
+    `k` and `s_init` the lane axis is squeezed from the result.
 
-    Every inner iteration takes its decision (queue weights, argmax, node
-    count, duration) in ONE call of `fused_packet_select` over all lanes:
-    on CUDA tensors the hand-written kernel, on CPU tensors its plain
-    version. The job times come from `_reconstruct_job_times` over the
-    ``[T, N + R]`` group log. `device=None` means the CUDA card and must
-    be where `pw` lives.
+    The loops run in `repro_torch.kernels.packet_while.ops.packet_while`.
+    `impl` is ``"cuda"`` (the default on CUDA tensors): ONE launch of the
+    hand-written kernel, each lane a warp that runs its own loop with the
+    group-formation decision inlined. ``"torch"`` (the default on CPU
+    tensors) is the plain version: the lanes in lockstep, each loop
+    stopping when no lane is active, every update masked, and every inner
+    iteration taking its decision in ONE call of `fused_packet_select`
+    over all lanes (on CUDA tensors the decision kernel, on CPU tensors
+    its plain version). ``"cuda"`` on CPU tensors raises. The job times
+    come from `_reconstruct_job_times` over the ``[T, N + R]`` group log,
+    in PyTorch on the engine's device. `device=None` means the CUDA card
+    and must be where `pw` lives.
 
     `chaos` as in `simulate_packet_scan_lanes`: the uniform streams `u1`
     and `u2` (``[N + R, T]``) are operands, row g consumed by the g-th
     group a lane forms. `max_iters` caps each lane's outer iterations
     (default ``4N + 64 + 2R``; a lane that hits it reports
-    `budget_exhausted`). If `stats` is a dict, it receives the lockstep
-    iteration counts (``outer``, ``inner``) and the host syncs
-    (``syncs``, one boolean read per loop test) of this call.
+    `budget_exhausted`). If `stats` is a dict, it receives the counts of
+    this call. The plain version's: ``outer`` and ``inner``, its lockstep
+    iterations, and ``syncs``, its host reads (one boolean read per loop
+    test). The kernel's: ``launches`` (1), ``outer_max`` and
+    ``inner_max``, the largest outer iterations and group formations of
+    a lane, and ``syncs`` (1: the read of those two maxima, made only
+    when `stats` is asked for).
     """
-    from repro_torch.kernels.packet_select.ops import fused_packet_select
+    from repro_torch.kernels.packet_while import ops as _while_ops  # cycle
 
     dev = resolve_device(device)
     if pw.submit.device != dev:
         raise ValueError(f"packed workload lives on {pw.submit.device}, "
                          f"engine was asked to run on {dev}")
+    impl = resolve_impl(impl, dev)
     H, N = pw.n_types, pw.n_jobs
     ring = resolve_ring(m_nodes, N, ring)
     R = resolve_max_requeues(chaos, N)
@@ -742,221 +762,56 @@ def simulate_packet(pw: PackedWorkload, k, s_init, m_nodes, priority=None,
     k = k.expand(T).contiguous()
     s = s.expand(T).contiguous()
     p_j = (torch.ones((H,), dtype=dtype, device=dev) if priority is None
-           else _lane_tensor(priority, dtype, dev))
+           else _lane_tensor(priority, dtype, dev)).expand(H).contiguous()
     tmax_j = (torch.full((H,), 3600.0, dtype=dtype, device=dev)
-              if t_max is None else _lane_tensor(t_max, dtype, dev))
+              if t_max is None else _lane_tensor(t_max, dtype, dev)
+              ).expand(H).contiguous()
     if max_iters is None:
         max_iters = 4 * N + 64 + 2 * R
     has_chaos = chaos is not None
     u1, u2 = _chaos_streams(chaos, u1, u2, L, T, dtype, dev)
-    if has_chaos:
-        cp = ChaosParams(*(c[0] for c in
-                           chaos_param_columns(chaos, T, dtype, dev)))
+    cp = (ChaosParams(*(c[0] for c in
+                        chaos_param_columns(chaos, T, dtype, dev)))
+          if has_chaos else None)
+    st = initial_des_state(H, ring, L, T, int(m_nodes), dtype, dev)
 
-    prefw, tsub, t_end = pw.tj_prefw, pw.tj_submit, pw.t_last_submit
-    lanes = torch.arange(T, device=dev)
-    w_off = torch.arange(H, device=dev) * (N + 1)   # flat rows of tj_prefw
-    s_off = torch.arange(H, device=dev) * N         # flat rows of tj_submit
-    # the decision's per-type operands that do not change
-    s_rows = s[:, None].expand(T, H).contiguous()
-    p_rows = p_j.expand(T, H).contiguous()
-    tmax_rows = tmax_j.expand(T, H).contiguous()
-    zero_f = torch.zeros((), dtype=dtype, device=dev)
-    inf_f = torch.full((), INF, dtype=dtype, device=dev)
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    i32 = torch.int32
-    m_nodes = int(m_nodes)
-    st = initial_des_state(H, ring, L, T, m_nodes, dtype, dev)
+    st, counts = _while_ops.packet_while(
+        pw.tj_prefw, pw.tj_submit, pw.submit, pw.jtype, k, s, p_j, tmax_j,
+        pw.t_last_submit, st, int(m_nodes), int(max_iters), u1=u1, u2=u2,
+        chaos_params=cp, r_cap=R, impl=impl)
+    if stats is not None and impl == "cuda":
+        outer_max, inner_max = torch.stack(
+            (st.iters.max(), st.n_groups.max())).tolist()
+        counts = dict(counts, outer_max=outer_max, inner_max=inner_max,
+                      syncs=counts["syncs"] + 1)
 
-    def more():
-        """[T]: the outer loop's condition per lane. A group holds at least
-        one node until its end, so "a group is running" is m_free < M."""
-        return (((st.next_sub < N) | (st.m_free < m_nodes)) &
-                (st.iters < max_iters))
+    res = des_result(pw, st, s, has_chaos)
+    if stats is not None:
+        stats.update(counts)
+    return DesResult(*(x[0] for x in res)) if squeeze else res
 
-    def finish_remnant(slot, do_fin):
-        """Chaos at a group's end: merge the stashed requeue into the
-        type's pool (the deferred credit walk), clear the slot's stash."""
-        j_f = st.grp_jtype[lanes, slot]
-        jf = j_f.long()
-        cnt, rem_w, rem_old, rem_lo, rem_hi, walk = _resolve_remnant(
-            prefw, tsub, N, j_f, st.grp_rem_cnt[lanes, slot],
-            st.grp_rem_w[lanes, slot], st.grp_rem_oldest[lanes, slot])
-        pool_code = st.pool_code[lanes, jf]
-        old_cnt, old_lo, old_frag = _pool_decode(pool_code, N)
-        inc = cnt > 0
-        was_empty = old_cnt == 0
-        # the remnant span abuts the live window only if no formation of
-        # this type ran while the group held it
-        contig = rem_hi == st.head[lanes, jf]
-        frag = torch.where(inc, old_frag | ~walk | ~was_empty | ~contig,
-                           old_frag)
-        new_lo = torch.where(was_empty, rem_lo,
-                             torch.minimum(old_lo, rem_lo))
-        new_code = (new_lo * 2 + frag.to(i32)) * (N + 1) + old_cnt + cnt
-        st.pool_w[lanes, jf] = st.pool_w[lanes, jf] + torch.where(
-            do_fin, rem_w, zero_f)
-        st.pool_oldest[lanes, jf] = torch.minimum(
-            st.pool_oldest[lanes, jf], torch.where(do_fin, rem_old, inf_f))
-        st.pool_code[lanes, jf] = torch.where(do_fin & inc, new_code,
-                                              pool_code)
-        st.grp_rem_w[lanes, slot] = torch.where(
-            do_fin, zero_f, st.grp_rem_w[lanes, slot])
-        st.grp_rem_cnt[lanes, slot] = torch.where(
-            do_fin, zero_i, st.grp_rem_cnt[lanes, slot])
-        st.grp_rem_oldest[lanes, slot] = torch.where(
-            do_fin, inf_f, st.grp_rem_oldest[lanes, slot])
-        st.requeued_jobs.add_(torch.where(do_fin, cnt, zero_i))
 
-    def event(act):
-        """One event in every lane of `act`: a submission or a finish."""
-        sub_idx = torch.clamp(st.next_sub, max=N - 1).long()
-        t_sub = torch.where(st.next_sub < N, pw.submit[sub_idx], inf_f)
-        slot = torch.argmin(st.grp_end, dim=1)
-        t_fin = st.grp_end[lanes, slot]
-        take_sub = t_sub <= t_fin
-        t_new = torch.where(take_sub, t_sub, t_fin)
-        # queue-length integral over the elapsed interval (clipped)
-        qlen = torch.sum(st.tail - st.head, dim=1).to(dtype)
-        if has_chaos:
-            qlen = qlen + torch.sum(st.pool_code % (N + 1), dim=1).to(dtype)
-        q_inc = qlen * _window_overlap(st.t, t_new, t_end)
-        st.qlen_int.copy_(torch.where(act, st.qlen_int + q_inc,
-                                      st.qlen_int))
-        st.t.copy_(torch.where(act, t_new, st.t))
-        do_sub = act & take_sub
-        do_fin = act & ~take_sub
-        st.tail.index_put_((lanes, pw.jtype[sub_idx].long()),
-                           do_sub.to(i32), accumulate=True)
-        st.next_sub.add_(do_sub)
-        if has_chaos:
-            finish_remnant(slot, do_fin)
-        st.m_free.add_(torch.where(do_fin, st.grp_m[lanes, slot], zero_i))
-        st.grp_end[lanes, slot] = torch.where(do_fin, inf_f, t_fin)
-        st.grp_m[lanes, slot] = torch.where(do_fin, zero_i,
-                                            st.grp_m[lanes, slot])
-        st.iters.add_(act)
-
-    def form(sched, nonempty, free):
-        """One group in every lane of `sched` (paper Steps 1-5); `free`
-        marks the free ring slots."""
-        sum_w = (torch.take(prefw, st.tail + w_off) -
-                 torch.take(prefw, st.head + w_off))
-        oldest = torch.take(tsub, torch.clamp(st.head, max=N - 1) + s_off)
-        if has_chaos:
-            # requeued remainder counts toward weight / age / emptiness
-            sum_w = sum_w + st.pool_w
-            oldest = torch.minimum(oldest, st.pool_oldest)
-        j, m, dur, work = fused_packet_select(
-            sum_w, s_rows, p_rows, oldest, tmax_rows, nonempty, st.t, k,
-            st.m_free)
-        jl = j.long()
-        m_grp = m.to(i32)
-        slot = torch.argmax(free.to(torch.int8), dim=1)   # first free
-        gslot = torch.clamp(st.n_groups, max=L - 1).long()
-        head_j = st.head[lanes, jl]
-        tail_j = st.tail[lanes, jl]
-        head_w = prefw[jl, head_j.long()]
-        if not has_chaos:
-            t_fin = st.t + dur
-            useful_end = t_fin
-        else:
-            out = _chaos_outcome(cp, u1[gslot, lanes], u2[gslot, lanes],
-                                 st.requeues < R, s, work, m_grp, dur)
-            t_fin = st.t + out.dur
-            useful_end = torch.where(out.failed, st.t + s + out.ckpt_done,
-                                     t_fin)
-            requeued = out.failed | out.killed
-            # stash the requeue span for the finish (see finish_remnant)
-            p_cnt, p_lo, p_frag = _pool_decode(st.pool_code[lanes, jl], N)
-            has_pool = p_cnt > 0
-            qlo = torch.where(has_pool, p_lo, head_j)
-            res0 = torch.where(has_pool, torch.maximum(
-                head_w - prefw[jl, qlo.long()] - st.pool_w[lanes, jl],
-                zero_f), zero_f)
-            walk_ok = ~(has_pool & p_frag)
-            span_code = 1 + qlo * (N + 1) + tail_j
-            rem_agg = work - out.credit
-            a_has = requeued & (rem_agg > CREDIT_EPS)
-            a_cnt = (tail_j - head_j) + p_cnt
-            code = torch.where(requeued & walk_ok, span_code,
-                               torch.where(a_has, -a_cnt, zero_i))
-            stash_w = torch.where(
-                requeued & walk_ok, res0 + out.credit,
-                torch.where(a_has, torch.maximum(rem_agg, zero_f), zero_f))
-            stash_old = torch.where(a_has & ~walk_ok, oldest[lanes, jl],
-                                    inf_f)
-            for col, val in ((st.grp_jtype, j), (st.grp_rem_w, stash_w),
-                             (st.grp_rem_cnt, code),
-                             (st.grp_rem_oldest, stash_old)):
-                col[lanes, slot] = torch.where(sched, val, col[lanes, slot])
-            for col, val in ((st.pool_w, zero_f), (st.pool_oldest, inf_f),
-                             (st.pool_code, zero_i)):
-                col[lanes, jl] = torch.where(sched, val, col[lanes, jl])
-            st.lost_work.add_(torch.where(sched, out.lost, zero_f))
-            st.failures.add_(sched & out.failed)
-            st.straggler_kills.add_(sched & out.killed & ~out.failed)
-            st.requeues.add_(sched & requeued)
-        m_f = m_grp.to(dtype)
-        busy_inc = m_f * _window_overlap(st.t, t_fin, t_end)
-        useful_inc = m_f * _window_overlap(st.t + s, useful_end, t_end)
-        # O(1) group-log append; job times reconstructed after the loop
-        for col, val in ((st.log_key, j * (N + 1) + tail_j),
-                         (st.log_t, st.t), (st.log_m, m_grp),
-                         (st.log_headw, head_w)):
-            col[lanes, gslot] = torch.where(sched, val, col[lanes, gslot])
-        st.head[lanes, jl] = torch.where(sched, tail_j, head_j)  # drain all
-        st.m_free.sub_(torch.where(sched, m_grp, zero_i))
-        st.grp_end[lanes, slot] = torch.where(sched, t_fin,
-                                              st.grp_end[lanes, slot])
-        st.grp_m[lanes, slot] = torch.where(sched, m_grp,
-                                            st.grp_m[lanes, slot])
-        st.busy_ns.add_(torch.where(sched, busy_inc, zero_f))
-        st.useful_ns.add_(torch.where(sched, useful_inc, zero_f))
-        st.n_groups.add_(sched)
-
-    counts = {"outer": 0, "inner": 0, "syncs": 1}
-    act = more()
-    go = bool(act.any())
-    while go:
-        counts["outer"] += 1
-        event(act)
-        while True:
-            nonempty = st.tail > st.head
-            if has_chaos:
-                nonempty = nonempty | (st.pool_code > 0)
-            free = st.grp_end == INF
-            sched = (act & (st.m_free > 0) & torch.any(nonempty, dim=1) &
-                     torch.any(free, dim=1))
-            # the outer test rides on the inner test's sync; it is read
-            # only once no lane forms a group, when the state is final
-            nxt = more()
-            any_sched, go = torch.stack((sched.any(), nxt.any())).tolist()
-            counts["syncs"] += 1
-            if not any_sched:
-                break
-            counts["inner"] += 1
-            form(sched, nonempty, free)
-        act = nxt
-
+def des_result(pw: PackedWorkload, st: DesState, s, has_chaos: bool
+               ) -> DesResult:
+    """The while engine's post-pass over a final `DesState`: the job times
+    from the ``[T, L]`` group log (`_reconstruct_job_times`, `s` the
+    ``[T]`` init times) and the drain test, in PyTorch on the state's
+    device."""
     start_t, run_start_t = _reconstruct_job_times(
         pw, st.log_key, st.log_t, st.log_m, st.log_headw, s)
-    drained = ((st.next_sub >= N) &
+    drained = ((st.next_sub >= pw.n_jobs) &
                torch.all(torch.isinf(st.grp_end), dim=1) &
                torch.all(st.head == st.tail, dim=1))
     if has_chaos:
         drained = drained & torch.all(st.pool_code == 0, dim=1)
     ok = drained & torch.all(torch.isfinite(start_t), dim=1)
-    res = DesResult(start_t=start_t, run_start_t=run_start_t,
-                    qlen_int=st.qlen_int, busy_ns=st.busy_ns,
-                    useful_ns=st.useful_ns, n_groups=st.n_groups,
-                    makespan=st.t, ok=ok, budget_exhausted=~drained,
-                    lost_work=st.lost_work, failures=st.failures,
-                    straggler_kills=st.straggler_kills,
-                    requeues=st.requeues, requeued_jobs=st.requeued_jobs)
-    if stats is not None:
-        stats.update(counts)
-    return DesResult(*(x[0] for x in res)) if squeeze else res
+    return DesResult(start_t=start_t, run_start_t=run_start_t,
+                     qlen_int=st.qlen_int, busy_ns=st.busy_ns,
+                     useful_ns=st.useful_ns, n_groups=st.n_groups,
+                     makespan=st.t, ok=ok, budget_exhausted=~drained,
+                     lost_work=st.lost_work, failures=st.failures,
+                     straggler_kills=st.straggler_kills,
+                     requeues=st.requeues, requeued_jobs=st.requeued_jobs)
 
 
 # --------------------------------------------------------------------------

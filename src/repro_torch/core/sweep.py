@@ -17,11 +17,11 @@ its dispatch companions), which the tests pin exactly. Three more layouts
 run one part of the grid per call, as the reference's do:
 
   * ``"seq"``     — one cell per call. ``step_impl="torch"`` runs the
-    while-loop engine (`simulate_packet`, one lane; its group-formation
-    decision is the select kernel on the card, its plain version on the
-    CPU), the reference's ``"xla"`` path; ``step_impl="cuda"`` runs one
-    lane of the scan engine through the event-step kernel, the
-    reference's ``"pallas"`` path.
+    while-loop engine (`simulate_packet`, one lane, with its default
+    implementation: one launch of the while-loop kernel on the card, the
+    plain lockstep version on the CPU), the reference's ``"xla"`` path;
+    ``step_impl="cuda"`` runs one lane of the scan engine through the
+    event-step kernel, the reference's ``"pallas"`` path.
   * ``vmap_k=True`` / ``vmap_s=True`` (legacy) — one init-proportion
     column, or one scale-ratio row, per dispatch of the scan engine.
 

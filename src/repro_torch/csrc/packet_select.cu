@@ -6,9 +6,11 @@
 // W_h = (sum_w / s) * P * (1 + max(now - oldest, 0) / T_max), -inf for an
 // empty queue, the first-index argmax j, the node count
 // m = max(min(int32(max(ceil(work / (k * s_j)), 1)), m_free), 0) and the
-// group's duration s_j + work / max(m, 1). The DES while-loop engine
-// (repro_torch/core/des.py :: simulate_packet) calls it once per group
-// formation over all of its lanes.
+// group's duration s_j + work / max(m, 1). The plain version of the DES
+// while-loop engine (repro_torch/kernels/packet_while/ref.py, what
+// `simulate_packet(..., impl="torch")` runs) calls it once per lockstep
+// group formation over all of its lanes; on the card the engine itself
+// runs csrc/packet_while.cu, which has this decision inlined.
 //
 // What bounds it on this card: latency. At the engine's shape (222 lanes x
 // 8 types) a launch moves about 50 KB and does a few thousand operations,
@@ -22,8 +24,9 @@
 // iterations hit in L1. There is no padding of H to 128 (that was the
 // TPU's lane width). What it does not do: split a row across a warp for
 // large H, fuse the gathers that build its operands, or run inside the
-// engine's event loop; fewer launches, not a faster one, are what the
-// engine needs (PERF.md).
+// engine's event loop. Fewer launches, not a faster one, were what the
+// engine needed (PERF.md): csrc/packet_while.cu runs the whole loop, this
+// decision inside it, in one launch.
 //
 // Semantics: those of the policy functions (repro_torch/core/packet.py)
 // and of the plain version (kernels/packet_select/ref.py), where the TPU

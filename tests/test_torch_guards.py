@@ -36,6 +36,8 @@ CUDA_SOURCES = [("packet_step.cu", "event_step_kernel",
                 ("rglru_scan.cu", "_lru_kernel",
                  "src/repro/kernels/rglru_scan/kernel.py"),
                 ("packet_select.cu", "_select_kernel",
+                 "src/repro/kernels/packet_select/kernel.py"),
+                ("packet_while.cu", "_select_kernel",
                  "src/repro/kernels/packet_select/kernel.py")]
 
 
@@ -73,7 +75,8 @@ def test_package_layout_mirrors_the_reference():
                  "models.hybrid", "configs.recurrentgemma_2b", "train.data",
                  "train.loss", "train.optim", "train.step", "launch.train",
                  "kernels.packet_select.ref", "kernels.packet_select.kernel",
-                 "kernels.packet_select.ops"):
+                 "kernels.packet_select.ops", "kernels.packet_while.ref",
+                 "kernels.packet_while.kernel", "kernels.packet_while.ops"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()
