@@ -72,7 +72,9 @@ Tolerances of the kernel-vs-plain comparisons:
   another order, FMA, CUDA's `expf`); bfloat16 inputs: rtol 2e-2 and atol
   2e-2 times the RMS of the plain output, as for attention (outputs
   rounded once to bf16). A float32 / bfloat16 pair is held at the bound
-  of each output's type. The recurrent layers captured on the training
+  of each output's type. The cases with decays near 1, which keep a carry
+  across every tile and block edge, draw b and dh at the scale the model's
+  gates give them, so that the outputs stay of unit size (`lru_inputs`). The recurrent layers captured on the training
   path are held at the float32 bound with atol the smaller of 2e-5 and
   2e-4 times the plain output's RMS: their gradients are those of a mean
   over 8192 tokens, far below unit size (so that a fixed 2e-5 would pass
@@ -176,16 +178,28 @@ SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 2048, 32, 0
 LRU_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 LRU_CASES = [
-    # B, S, D, with_h0
-    (2, 64, 128, False),        # tests/test_kernels.py:64-70
-    (1, 128, 256, True),
-    (2, 50, 100, True),         # S and D not multiples of the block
-    (1, 8, 512, False),
-    (2, 4096, 2560, False),     # recurrentgemma-2b, main-path size
-    (2, 4096, 2560, True),
+    # B, S, D, with_h0, decays near 1 (see `lru_inputs`)
+    (2, 64, 128, False, False),     # tests/test_kernels.py:64-70
+    (1, 128, 256, True, False),
+    (2, 50, 100, True, False),      # S and D not multiples of the block
+    (1, 8, 512, False, False),
+    (2, 4096, 2560, False, False),  # recurrentgemma-2b, main-path size
+    (2, 4096, 2560, True, False),
+    # each below also with one mixed pair (`lru_runs`): carries a tile or
+    # block edge must not lose, under decays that keep them
+    (2, 4096, 2560, True, True),    # the trained gates' regime
+    (2, 1, 2560, True, True),       # S shorter than one tile
+    (2, 8, 2560, False, True),
+    (2, 4095, 2560, True, True),    # S one off a tile multiple
+    (1, 4097, 2560, False, True),
+    (2, 4096, 8, True, True),       # D a quarter of a column
+    (2, 4096, 100, False, True),    # D a ragged last column
+    (1, 300, 37, True, True),       # D odd
+    (8, 4097, 530, True, True),     # 136 columns, the last ragged
 ]
 LRU_MAIN = LRU_CASES[4]
 LRU_MIXED_CASE = LRU_CASES[2]   # log_a and b of different types
+LRU_EDGE_CASES = LRU_CASES[6:]  # each in both types and one mixed pair
 TRAIN_PLAIN_GATE = {"loss": 5e-5, "grad_norm": 5e-4}
 TRAIN_ARCH = "recurrentgemma-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SEED = 2, 4096, 3, 0
@@ -1552,29 +1566,44 @@ class LruWorst:
 
 def lru_inputs(case, a_dtype, b_dtype, seed):
     """log_a (in `a_dtype`), b (in `b_dtype`), h0 (float32 or None) and
-    the reverse's dh (in `b_dtype`), dh_last on the card, from a seed;
-    log_a as tests/test_kernels.py draws it (decays in about
-    [0.72, 0.99])."""
-    B, S, D, with_h0 = case
+    the reverse's dh (in `b_dtype`), dh_last on the card, from a seed.
+    log_a as tests/test_kernels.py draws it (decays in about [0.72, 0.99],
+    so a carry fades within a few dozen steps), or, for a case with decays
+    near 1, as the trained gates of models/hybrid.py :: rglru_gates make
+    it: log_a = -1e-4 exp(z / 2), a carry that lasts the whole sequence,
+    and b and dh scaled as that function scales its input, by
+    sqrt(1 - a^2), which keeps h and g of unit size as the float32 bound
+    assumes. (Unscaled, h grows to about sqrt(S) = 64 and the plain
+    version's own float32 error, some 1e-3, exceeds the bound's 2e-5 where
+    h crosses zero, against float64 and against any other order.)"""
+    B, S, D, with_h0, near_one = case
     gen = torch.Generator(device=Dispatch.device).manual_seed(seed)
     draw = lambda *shape: torch.randn(shape, generator=gen,
                                       device=Dispatch.device)
-    log_a = (-torch.exp(draw(B, S, D) * 0.5) * 0.1).to(a_dtype)
-    b = draw(B, S, D).to(b_dtype)
+    log_a = -torch.exp(draw(B, S, D) * 0.5) * (1e-4 if near_one else 0.1)
+    a = torch.exp(log_a)
+    scale = (torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) if near_one
+             else 1.0)
+    b = (draw(B, S, D) * scale).to(b_dtype)
     h0 = draw(B, D) if with_h0 else None
-    return log_a, b, h0, draw(B, S, D).to(b_dtype), draw(B, D)
+    dh = (draw(B, S, D) * scale).to(b_dtype)
+    return log_a.to(a_dtype), b, h0, dh, draw(B, D)
 
 
 def lru_runs():
     """(seed, case, log_a's type, b's type) of every `lru_kernel` check:
     every listed shape in float32 and in bf16, then one shape with each
-    mixed pair."""
+    mixed pair, then every edge case with one mixed pair, the pairs in
+    turn."""
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
         for i, case in enumerate(LRU_CASES):
             yield i, case, dtype, dtype
-    for a_dtype, b_dtype in ((bf16, f32), (f32, bf16)):
-        yield len(LRU_CASES), LRU_MIXED_CASE, a_dtype, b_dtype
+    pairs = ((bf16, f32), (f32, bf16))
+    for a_dtype, b_dtype in pairs:
+        yield 6, LRU_MIXED_CASE, a_dtype, b_dtype
+    for i, case in enumerate(LRU_EDGE_CASES):
+        yield 100 + i, case, *pairs[i % 2]
 
 
 def phase_lru_kernel():
@@ -1588,7 +1617,8 @@ def phase_lru_kernel():
         types = (name_of(b_dtype) if a_dtype == b_dtype else
                  f"log_a {name_of(a_dtype)} b {name_of(b_dtype)}")
         label = (f"B={case[0]} S={case[1]} D={case[2]} "
-                 f"h0={'yes' if case[3] else 'no'} {types}")
+                 f"h0={'yes' if case[3] else 'no'} "
+                 f"decays={'near 1' if case[4] else 'wide'} {types}")
         got = lru_ops.lru_forward(log_a, b, h0, impl="cuda")
         want = lru_ops.lru_forward(log_a, b, h0, impl="torch")
         h = want[0]
@@ -1877,53 +1907,107 @@ def profile_training():
     torch.cuda.empty_cache()
 
 
-def time_lru():
-    """Kernel and plain version, forward and reverse, at the main path's
-    shape (float32, as the model runs them), in turns; and what bounds the
-    same work."""
-    log_a, b, _, dh, dh_last = lru_inputs(LRU_MAIN, torch.float32,
-                                          torch.float32, seed=300)
-    h, _ = lru_ops.lru_forward(log_a, b, impl="torch")
-    fns = {
-        "forward": lambda: lru_ops.lru_forward(log_a, b, impl="cuda"),
-        "plain_forward": lambda: lru_ops.lru_forward(log_a, b, impl="torch"),
-        "reverse": lambda: lru_ops.lru_reverse(log_a, dh, h, None, dh_last,
-                                               impl="cuda"),
-        "plain_reverse": lambda: lru_ops.lru_reverse(log_a, dh, h, None,
-                                                     dh_last, impl="torch"),
-    }
-    order = ("forward", "plain_forward", "reverse", "plain_reverse",
-             "plain_reverse", "reverse", "plain_forward", "forward")
-    runs = {k: [] for k in fns}
-    for name in order:
-        runs[name].append(cuda_ms(fns[name], 5 if "plain" in name else 50))
-    B, S, D, _ = LRU_MAIN
-    n = B * S * D
-    # bytes: forward reads log_a, b and writes h (+ h_last); reverse reads
-    # log_a, dh, h, dh_last and writes db, dlog_a, dh0; float32 throughout.
-    # operations: one exp and one FMA an element forward, one exp, one FMA
-    # and two multiplies reverse
-    fwd_bytes, rev_bytes = 4 * (3 * n + B * D), 4 * (5 * n + 2 * B * D)
+def lru_bounds(B, S, D, dtype):
+    """Bytes, operations and the least time of one forward and one reverse
+    launch over [B, S, D] with no h0. Bytes: the forward reads log_a and b
+    and writes h and h_last; the reverse reads log_a, dh, h and dh_last
+    (float32) and writes db, dlog_a and dh0; each once. Operations: one exp
+    and one FMA an element forward, one exp, one add and two multiplies
+    reverse."""
+    n, e = B * S * D, torch.finfo(dtype).bits // 8
     bounds = {}
-    for name, nbytes, ops in (("forward", fwd_bytes, 2 * n),
-                              ("reverse", rev_bytes, 4 * n)):
+    for name, nbytes, ops in (("forward", e * (3 * n + B * D), 2 * n),
+                              ("reverse", e * (5 * n + B * D) + 4 * B * D,
+                               4 * n)):
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * ops / FP32_OPS_PER_S
         bounds[name] = dict(bytes=nbytes, ops=ops,
                             bound_ms=max(t_bytes, t_ops),
                             bound_by="bytes" if t_bytes >= t_ops
                             else "operations")
-    return dict(shape=f"B={B} S={S} D={D} float32, no h0",
-                ms=min(runs["forward"]), reverse_ms=min(runs["reverse"]),
-                plain_ms=min(runs["plain_forward"]),
-                reverse_plain_ms=min(runs["plain_reverse"]), runs_ms=runs,
-                run_order=", ".join(order), bounds=bounds)
+    return bounds
 
+
+def time_lru():
+    """At the main path's shape in float32, as the model runs it: the
+    kernel, the plain version and a copy of the forward's bytes
+    (`torch.add(log_a, b, out=h)`, a yardstick of the rate the card
+    reaches, not a library computing the recurrence), forward and reverse,
+    in turns. The kernel alone in bf16 at that shape, and in float32 at
+    batch 1 (80 blocks for 132 SMs). And what bounds the same work."""
+    _, S, D = LRU_MAIN[:3]
+    out = {}
+    for name, B, dtype in (("float32", 2, torch.float32),
+                           ("bfloat16", 2, torch.bfloat16),
+                           ("float32_batch_1", 1, torch.float32)):
+        log_a, b, _, dh, dh_last = lru_inputs((B, S, D, False, False),
+                                              dtype, dtype, seed=300)
+        h, _ = lru_ops.lru_forward(log_a, b, impl="torch")
+        plan = lru_kernel.launch_plan(B, S, D, dtype == torch.bfloat16,
+                                      False)
+        copy_out = torch.empty_like(b)
+        fns = {"forward": lambda: lru_ops.lru_forward(log_a, b,
+                                                      impl="cuda"),
+               "reverse": lambda: lru_ops.lru_reverse(
+                   log_a, dh, h, None, dh_last, impl="cuda")}
+        order = ["forward", "reverse"]
+        if name == "float32":
+            fns.update(
+                plain_forward=lambda: lru_ops.lru_forward(log_a, b,
+                                                          impl="torch"),
+                plain_reverse=lambda: lru_ops.lru_reverse(
+                    log_a, dh, h, None, dh_last, impl="torch"),
+                copy=lambda: torch.add(log_a, b, out=copy_out))
+            order += ["plain_forward", "plain_reverse", "copy"]
+        order += order[::-1]
+        runs = {k: [] for k in fns}
+        for fn_name in order:
+            runs[fn_name].append(cuda_ms(fns[fn_name], 5 if "plain" in
+                                         fn_name else 50))
+        bounds = lru_bounds(B, S, D, dtype)
+        best = {k: min(v) for k, v in runs.items()}
+        out[name] = dict(
+            shape=f"B={B} S={S} D={D} {str(dtype)[6:]}, no h0",
+            launch_plan=plan._asdict(), ms=best["forward"],
+            reverse_ms=best["reverse"],
+            plain_ms=best.get("plain_forward"),
+            reverse_plain_ms=best.get("plain_reverse"),
+            copy_yardstick_ms=best.get("copy"),
+            bound_share=bounds["forward"]["bound_ms"] / best["forward"],
+            reverse_bound_share=(bounds["reverse"]["bound_ms"]
+                                 / best["reverse"]),
+            runs_ms=runs, run_order=", ".join(order), bounds=bounds)
+        del log_a, b, dh, dh_last, h, copy_out
+    return out
+
+
+def lru_instantiations(log: str) -> list:
+    """Registers, spills and shared bytes of each RG-LRU kernel
+    instantiation, read from the ptxas lines of its build log."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            dt, rev = re.search(r"lru_kernelI(f|13__nv_bfloat16)Lb([01])E",
+                                entry.group(1)).groups()
+            cur = dict(dtype="float32" if dt == "f" else "bfloat16",
+                       direction="reverse" if rev == "1" else "forward")
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", ln).groups()
+            cur.update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return sorted(rows, key=lambda r: (r["dtype"], r["direction"]))
 
 
 def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
-                  while_launches, while_times, while_build):
+                  while_launches, while_times, while_build, lru_build):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -1976,7 +2060,8 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
         "build_seconds": attn_build[0],
         "instantiations": attention_instantiations(attn_build[1]),
     })
-    lru = time_lru()
+    lru_all = time_lru()
+    lru = lru_all["float32"]
     line["kernels"].append({
         "name": "lru_scan",
         "route": "cuda",
@@ -1995,13 +2080,23 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
         "reverse_ms": lru["reverse_ms"],
         "reverse_plain_ms": lru["reverse_plain_ms"],
         "reverse_bound_ms": lru["bounds"]["reverse"]["bound_ms"],
+        "bound_share": lru["bound_share"],
+        "reverse_bound_share": lru["reverse_bound_share"],
+        "copy_yardstick_ms": lru["copy_yardstick_ms"],
+        "launch_plan": lru["launch_plan"],
         "unit": f"one forward launch (ms, plain_ms, bound_ms) and one "
                 f"reverse launch (reverse_*) over one recurrent layer; "
-                f"{lru['shape']}; no single PyTorch call computes this "
-                f"recurrence",
+                f"{lru['shape']}; copy_yardstick_ms is "
+                f"torch.add(log_a, b, out=h), the forward's bytes, a "
+                f"yardstick of the card's rate and not a library computing "
+                f"the recurrence: no single PyTorch call computes it",
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": lru,
+        "bfloat16_main_shape": lru_all["bfloat16"],
+        "float32_batch_1": lru_all["float32_batch_1"],
+        "build_seconds": lru_build[0],
+        "instantiations": lru_instantiations(lru_build[1]),
     })
     sel = select_times[0]           # (222, 8) float32: the engine's shape
     line["kernels"].append({
@@ -2102,8 +2197,8 @@ def main(argv=None):
             "seq_path", phase_seq_path, flows, fused)
         attn_build = timed("build flash_attention, wait", phase_build,
                            attn_kernel, builds[attn_kernel])
-        timed("build rglru_scan, wait", phase_build, lru_kernel,
-              builds[lru_kernel])
+        lru_build = timed("build rglru_scan, wait", phase_build, lru_kernel,
+                          builds[lru_kernel], lru_instantiations)
     timed("attention_kernel", phase_attention_kernel)
     attn_launches = timed("serve_path", phase_serve_path, args.profile)
     timed("lru_kernel", phase_lru_kernel)
@@ -2114,7 +2209,7 @@ def main(argv=None):
         timed("train_profile", profile_training)
     timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches,
           attn_grad, train_launches, select_times, select_launches,
-          attn_build, while_launches, while_times, while_build)
+          attn_build, while_launches, while_times, while_build, lru_build)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

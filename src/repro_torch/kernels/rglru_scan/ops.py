@@ -28,7 +28,6 @@ from repro_torch.kernels.routing import resolve_impl
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_DTYPES = KERNEL_DTYPES + (torch.float64,)
 A_FLOOR = 1e-37          # the reference's clamp before the log (ops.py:18)
-MAX_GRID_Y = 65535       # B is the grid's second dimension
 
 
 def _check(log_a, b, h0):
@@ -65,10 +64,9 @@ def _launch(reverse: bool, log_a, x, c0=None, h0=None, h_fwd=None):
             raise ValueError(f"the CUDA kernel takes {KERNEL_DTYPES}; "
                              f"{name} is {t.dtype}")
     B, S, D = x.shape
-    if B > MAX_GRID_Y:
-        raise ValueError(f"B = {B} exceeds the grid's {MAX_GRID_Y}")
     a_dtype, x_dtype = log_a.dtype, x.dtype
     dt = x_dtype if a_dtype == x_dtype else torch.float32
+    plan = _kernel.launch_plan(B, S, D, dt == torch.bfloat16, reverse)
     log_a, x = log_a.to(dt).contiguous(), x.to(dt).contiguous()
     f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
     c0, h0 = f32(c0), f32(h0)
@@ -83,7 +81,7 @@ def _launch(reverse: bool, log_a, x, c0=None, h0=None, h_fwd=None):
         err = _kernel.launch(
             dt == torch.bfloat16, reverse, addr(log_a), addr(x), addr(c0),
             addr(h0), addr(h_fwd), addr(out), addr(dlog_a), addr(last),
-            (B, S, D), stream)
+            (B, S, D), plan, stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: "
                            f"cudaGetLastError() = {err}")

@@ -20,6 +20,14 @@ Both run `scan`, which is vectorised so that it takes milliseconds, not a
 4 096-step loop, at full width on the card: a walk of `CHUNK` steps inside
 every chunk at once, from a zero state, then one pass over the chunks'
 carries, ``h = h_local + (product of the decays so far) * carry``.
+
+`lru_tiled(log_a, x, c0, h0, h_fwd, plan=..., reverse=...)` is neither
+wrapper's plain version: it walks the CUDA kernel's own decomposition of
+the same functions (`kernel.launch_plan`: tiles of warps x steps, a walk
+from a zero state per warp chunk, the carries warp by warp and tile by
+tile, a second walk from each carry; the reverse as a recurrence in
+``q_t = a_t g_t`` with ``h_{t-1}`` shifted across every edge), so that the
+tests can hold that decomposition against the reference on the CPU.
 """
 from __future__ import annotations
 
@@ -94,3 +102,58 @@ def lru_reverse_ref(log_a, dh, h, h0=None, dh_last=None):
     h_prev = torch.cat([first, h[:, :-1].to(wt)], dim=1)
     dlog_a = g * a * h_prev
     return g.to(dh.dtype), dlog_a.to(log_a.dtype), a[:, 0] * g[:, 0]
+
+
+def lru_tiled(log_a, x, c0=None, h0=None, h_fwd=None, *, plan,
+              reverse: bool = False):
+    """The kernel's decomposition of `lru_ref` (forward: x = b, c0 = h0;
+    returns (h, h_last)) or of `lru_reverse_ref` (reverse: x = dh, c0 =
+    dh_last, h0 and h_fwd the forward's; returns (db, dlog_a, dh0)), in
+    the work dtype. `plan` gives ``warps``, ``steps`` and ``tiles``. The
+    carry enters each tile from the one before it, as the block that walks
+    the column keeps it."""
+    wt = work_dtype(log_a, x, c0, h0, h_fwd)
+    B, S, D = x.shape
+    W, c, n = plan.warps, plan.steps, plan.tiles
+    pad = n * W * c - S
+    la, xs = log_a.to(wt), x.to(wt)
+    if reverse:     # walk order is t = S-1 .. 0; h_{t-1} rides with step t
+        first = (h0.to(wt)[:, None] if h0 is not None
+                 else torch.zeros_like(la[:, :1]))
+        hp = torch.cat([first, h_fwd.to(wt)[:, :-1]], dim=1).flip(1)
+        hp = F.pad(hp, (0, 0, 0, pad)).reshape(B, n, W, c, D)
+        la, xs = la.flip(1), xs.flip(1)
+    # past the end log a = 0 and x = 0 carry the state unchanged
+    a = torch.exp(F.pad(la, (0, 0, 0, pad))).reshape(B, n, W, c, D)
+    xs = F.pad(xs, (0, 0, 0, pad)).reshape(B, n, W, c, D)
+    # walk 1, every warp chunk from a zero state: end = A * carry + H
+    A = torch.ones((B, n, W, D), dtype=wt)
+    H = torch.zeros((B, n, W, D), dtype=wt)
+    for u in range(c):
+        au, xu = a[:, :, :, u], xs[:, :, :, u]
+        H = au * (xu + H) if reverse else au * H + xu
+        A = A * au
+    # the carries, warp by warp within a tile and tile by tile
+    carry = (c0.to(wt) if c0 is not None
+             else torch.zeros((B, D), dtype=wt))
+    starts = torch.empty((B, n, W, D), dtype=wt)
+    for k in range(n):
+        for w in range(W):
+            starts[:, k, w] = carry
+            carry = A[:, k, w] * carry + H[:, k, w]
+    # walk 2 from each chunk's carry
+    out = torch.empty_like(xs)
+    dla = torch.empty_like(xs) if reverse else None
+    cc = starts
+    for u in range(c):
+        if reverse:
+            g = xs[:, :, :, u] + cc
+            cc = a[:, :, :, u] * g
+            out[:, :, :, u], dla[:, :, :, u] = g, cc * hp[:, :, :, u]
+        else:
+            cc = a[:, :, :, u] * cc + xs[:, :, :, u]
+            out[:, :, :, u] = cc
+    unpad = lambda t: t.reshape(B, n * W * c, D)[:, :S]
+    if reverse:
+        return unpad(out).flip(1), unpad(dla).flip(1), carry
+    return unpad(out), carry
