@@ -5,10 +5,26 @@
 Builds the five CUDA kernels from the sources in this checkout (one `nvcc`
 per source, started together; the attention and RG-LRU builds go on while
 the DES phases run), holds each against its plain PyTorch version on the
-card, drives the port's four paths and prints one JSON line per phase:
+card, drives the port's paths and prints one JSON line per phase:
 
 - the DES grid: the paper's 37 x 6 grid of 5000-job workloads through
   `run_packet_grid` (event-step kernel);
+- the chaos axis: the same grid with launch/service.py's 3-cell fault
+  axis, 37 x 6 x 3 = 666 lanes, each drawing its own threefry stream on
+  the card (event-step kernel, chaos instantiations, float32 homog0.85
+  and float64 hetero0.85); fused = chunked, `mode="seq"` on six flat
+  lanes and an inert ChaosConfig against the fault-free grid held
+  exactly, the card's streams bitwise the CPU's;
+- the streaming service: `repro_torch.launch.service.main` at its
+  defaults (intensity_step, 2000 jobs, windows of 250), fault-free,
+  `--chaos` and `--float64`, each tick's oracle one dispatch of the
+  event-step kernel; every tick's decisions equal those of the same
+  service on the CPU over the trace's first 5 windows (a cut, the CPU's
+  chaos run being ~25 s at 2000 jobs); one tick's [K, C] oracle block
+  bitwise the chaos grid's column;
+- the paper's sim driver: `repro_torch.launch.sim.main` at its defaults
+  (homog0.85 as the reference's sim.py draws it, 5000 jobs, S = 0.05),
+  its threshold held against the fused grid's column of that workload;
 - the DES while-loop engine: `simulate_packet` over the same 222 lanes of
   both flows in one call each, one launch of the while-loop kernel a call
   (the group-formation decision inlined), beside its plain lockstep
@@ -43,7 +59,11 @@ Tolerances of the kernel-vs-plain comparisons:
   most 2 ulp apart (the build uses -fmad=false and no fast math, so each
   operation rounds as PyTorch's elementwise ops do and the expected
   difference is 0; 2 ulp leaves room for a libm `log` that differs in its
-  last bit);
+  last bit); under the chaos axis, on a 1000-job cut, the engine's
+  results the same way (integers equal, floats within 2 ulp);
+- the chaos streams: bitwise (integer arithmetic); the service on the
+  card against the CPU: decisions equal, waits / lost work / weights
+  within rtol 1e-5 (float32) / 1e-12 (float64), as `seq_path`;
 - group-formation decision: `j` and `m` equal; `dur` and `work` at most
   2 ulp apart (built like the event step, so the expected difference is
   0);
@@ -125,7 +145,8 @@ from repro_torch.kernels.packet_while import kernel as while_kernel
 from repro_torch.kernels.packet_while import ops as while_ops
 from repro_torch.kernels.rglru_scan import kernel as lru_kernel
 from repro_torch.kernels.rglru_scan import ops as lru_ops
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve, sim, train
+from repro_torch.launch import service as service_launch
 from repro_torch.models import hybrid, layers, lm
 from repro_torch.models.layers import unembed
 from repro_torch.serve.engine import generate, make_serve_step
@@ -133,8 +154,11 @@ from repro_torch.sharding.policy import single_device_policy
 from repro_torch.train import data as train_data
 from repro_torch.train.optim import AdamWConfig, global_norm, tree_leaves
 from repro_torch.train.step import init_state, make_loss_fn, make_train_step
+from repro_torch.service import ServiceConfig, run_service
 from repro_torch.workload.lublin import (WorkloadParams, generate_workload,
                                          paper_workloads)
+from repro_torch.workload.windows import (drift_scenarios, iter_windows,
+                                          slice_window, WindowSpec)
 
 ULP_BOUND = 2.0
 SEG = des.SCAN_SEG
@@ -219,6 +243,18 @@ PLAIN_TURN_SECONDS = 20.0       # a second plain while-engine run below this
 WHILE_CUT_JOBS = 1000           # the cut workload of `while_kernel`
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_metrics.json")
+# the chaos grid: launch/service.py's 3-cell fault axis over the paper grid
+CHAOS_SEQ_LANES = (0, 1, 200, 443, 664, 665)   # flat lanes run by mode=seq
+CHAOS_STREAM_LANES = (0, 1, 665)   # streams held against the CPU's draw
+CHAOS_CUT_KS = (50.0, 200.0, 1000.0)   # k rows of the kernel-vs-plain cut
+# the service: launch/service.py's defaults (intensity_step, 2000 jobs on
+# 100 nodes, 8 segments, windows of 250, s_prop 0.05, risk lambda 0.1)
+SERVICE_RUNS = (("fault-free", []), ("chaos", ["--chaos"]),
+                ("float64", ["--float64"]))
+SERVICE_TRACE = dict(n_jobs=2000, nodes=100, n_segments=8)
+SERVICE_WINDOW = 250
+SERVICE_CPU_WINDOWS = 5    # the CPU side's cut: the trace's first 5 windows
+SERVICE_ORACLE_WINDOW = 4  # the window whose [K, C] block is held to the grid
 
 
 def emit(phase: str, **fields):
@@ -1244,6 +1280,344 @@ def phase_seq_path(flows, fused):
 
 
 # --------------------------------------------------------------------------
+# the chaos axis, the streaming service and the paper's sim driver
+# --------------------------------------------------------------------------
+
+def stream_bits(u: torch.Tensor) -> torch.Tensor:
+    return u.view(torch.int32 if u.dtype == torch.float32 else torch.int64)
+
+
+def compare_results(got, want, label):
+    """Two DesResults of one dispatch, kernel against plain step: integer
+    fields equal, float fields at most ULP_BOUND apart. Returns the worst
+    ulp."""
+    worst = 0.0
+    for name, g, w in zip(des.DesResult._fields, got, want):
+        if g.dtype.is_floating_point:
+            u = ulp_diff(g, w)
+            if u > ULP_BOUND:
+                fail(f"{label}: {name} differs by {u} ulp (bound "
+                     f"{ULP_BOUND})")
+            worst = max(worst, u)
+            finite = torch.isfinite(g) & torch.isfinite(w)
+            if bool(finite.any()):
+                Worst.abs_err = max(Worst.abs_err, float(
+                    (g[finite].double() - w[finite].double()).abs().max()))
+        elif not torch.equal(g, w):
+            fail(f"{label}: {name} differs")
+    Worst.ulp = max(Worst.ulp, worst)
+    return worst
+
+
+def chaos_cut_check():
+    """The event-step kernel against its plain version under the chaos
+    axis, through the scan engine on the card: `cut_workload()` (1000
+    jobs), the k rows CHAOS_CUT_KS at S = 0.05, x C = 3 cells, each lane
+    drawing its own stream (large k's: few groups, so the plain step,
+    some 3 ms an event under chaos on the card, drains in seconds).
+    Returns (label, worst ulp)."""
+    wl = cut_workload()
+    dev = Dispatch.device
+    chaos = des.ChaosConfig(**service_launch.SERVICE_CHAOS)
+    K, C = len(CHAOS_CUT_KS), sweep.chaos_axis_len(chaos)
+    lanes, _ = sweep.chaos_lane_grid(chaos, K, np.float32)
+    pw = des.pack_workload(wl, np.float32, dev)
+    ks = np.repeat(np.asarray(CHAOS_CUT_KS, np.float32), C)
+    ss = np.full(K * C, wl.init_time_for_proportion(0.05), np.float32)
+    M = int(wl.params.nodes)
+    got = des.simulate_packet_scan_lanes(pw, ks, ss, M, chaos=lanes,
+                                         step_impl="cuda")
+    want = des.simulate_packet_scan_lanes(pw, ks, ss, M, chaos=lanes,
+                                          step_impl="torch")
+    torch.cuda.synchronize()
+    label = (f"cut N={pw.n_jobs} M={M} T={K * C} float32 chaos "
+             f"(k {list(CHAOS_CUT_KS)} x {C} cells)")
+    if int(got.requeues.sum()) < 1:
+        fail(f"chaos_grid {label}: no fault injected")
+    return label, compare_results(got, want, f"chaos_grid {label}")
+
+
+def phase_chaos_grid(flows, fused):
+    """`run_packet_grid` with launch/service.py's 3-cell chaos axis on the
+    paper's two flows, uncut: 37 x 6 x 3 = 666 lanes, each drawing its own
+    threefry stream on the card. Gates: chunked = fused exactly; mode="seq"
+    on CHAOS_SEQ_LANES equals the fused grid's lanes exactly; an inert
+    ChaosConfig() gives main_path's fault-free fused grid exactly; faults
+    really injected; the card's streams for CHAOS_STREAM_LANES bitwise
+    those of the same generator on the CPU; the event-step kernel against
+    its plain version under chaos on a cut (`chaos_cut_check`). Returns
+    the event-step launches of the two grids as a user calls them
+    (mode="auto")."""
+    K, S = len(sweep.PAPER_SCALE_RATIOS), len(sweep.PAPER_INIT_PROPS)
+    path_launches = 0
+    for flow, dtype in (("homog0.85", np.float32), ("hetero0.85", np.float64)):
+        wl = flows[flow]
+        chaos = des.ChaosConfig(**service_launch.SERVICE_CHAOS)
+        C = sweep.chaos_axis_len(chaos)
+        step_ops.packet_event_steps.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = sweep.run_packet_grid(wl, dtype=dtype, chaos=chaos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = step_ops.packet_event_steps.launches
+        path_launches += launched
+        label = f"chaos_grid {flow}"
+        if grid.avg_wait.shape != (K, S, C):
+            fail(f"{label}: grid shape {grid.avg_wait.shape}")
+        if not grid.ok.all() or grid.budget_exhausted.any():
+            fail(f"{label}: a lane is not ok")
+        for f_ in SCALAR_METRIC_FIELDS + ("lost_work",):
+            if not np.isfinite(getattr(grid, f_)).all():
+                fail(f"{label}: {f_} is not finite")
+        if grid.failures.sum() < 1 or grid.requeues.sum() < 1:
+            fail(f"{label}: chaos injected no failure or requeue")
+        if launched < 1:
+            fail(f"{label}: the CUDA kernel never ran")
+        t0 = time.perf_counter()
+        chunked = sweep.run_packet_grid(wl, dtype=dtype, chaos=chaos,
+                                        mode="chunked")
+        chunked_wall = time.perf_counter() - t0
+        for f_ in grid._fields:
+            if not np.array_equal(getattr(grid, f_), getattr(chunked, f_)):
+                fail(f"{label}: fused and chunked differ in {f_}")
+        # mode="seq" on a few flat lanes: the layout's own code path
+        np_dtype = np.dtype(dtype)
+        ks_arr = np.asarray(sweep.PAPER_SCALE_RATIOS, np_dtype)
+        s_vals = np.asarray([wl.init_time_for_proportion(p)
+                             for p in sweep.PAPER_INIT_PROPS], np_dtype)
+        k_lanes = np.repeat(ks_arr, S * C)
+        s_lanes = np.repeat(np.tile(s_vals, K), C)
+        chaos_l, _ = sweep.chaos_lane_grid(chaos, K * S, np_dtype)
+        idx = np.asarray(CHAOS_SEQ_LANES)
+        pw = des.pack_workload(wl, np_dtype, Dispatch.device)
+        M = int(wl.params.nodes)
+        t0 = time.perf_counter()
+        seq = sweep._run_lanes(pw, k_lanes[idx], s_lanes[idx], M,
+                               des.resolve_ring(M, pw.n_jobs), "seq", None,
+                               "cuda", Dispatch.device,
+                               sweep._chaos_take(chaos_l, idx))
+        seq_wall = time.perf_counter() - t0
+        flat = Metrics(*(x.reshape((K * S * C,) + x.shape[3:])
+                         for x in grid))
+        for f_ in grid._fields:
+            if not np.array_equal(getattr(seq, f_), getattr(flat, f_)[idx]):
+                fail(f"{label}: mode=seq lanes {CHAOS_SEQ_LANES} differ from "
+                     f"the fused grid in {f_}")
+        inert = sweep.run_packet_grid(wl, dtype=dtype,
+                                      chaos=des.ChaosConfig())
+        for f_ in grid._fields:
+            if not np.array_equal(getattr(inert, f_),
+                                  getattr(fused[flow], f_)):
+                fail(f"{label}: an inert ChaosConfig differs from the "
+                     f"fault-free grid in {f_}")
+        # the streams of a few lanes: the card's draw against the CPU's
+        R = des.resolve_max_requeues(chaos, pw.n_jobs)
+        cap = pw.n_jobs + R
+        probe = des.ChaosConfig(seed=chaos.seed,
+                                lane=np.asarray(CHAOS_STREAM_LANES))
+        on_card = des.chaos_uniforms(probe, np_dtype, cap, Dispatch.device)
+        on_cpu = des.chaos_uniforms(probe, np_dtype, cap, "cpu")
+        if not torch.equal(stream_bits(on_card.cpu()), stream_bits(on_cpu)):
+            fail(f"{label}: the card's streams differ from the CPU's for "
+                 f"lanes {CHAOS_STREAM_LANES}")
+        everyone = des.ChaosConfig(seed=chaos.seed,
+                                   lane=np.arange(K * S * C))
+        streams_ms = cuda_ms(lambda: des.chaos_uniforms(
+            everyone, np_dtype, cap, Dispatch.device), 3)
+        events = int((wl.n_jobs + 2 * grid.n_groups.astype(np.int64)).sum())
+        emit("chaos_grid", flow=flow, n_jobs=wl.n_jobs, m_nodes=M,
+             dtype=str(np_dtype), lanes=K * S * C, chaos_cells=C,
+             chaos=dict(seed=chaos.seed, mtbf_chip_hours=[25, 100, 800],
+                        ckpt_period=300, straggler_prob=0.1,
+                        straggler_factor=[4, 1.5, 1.5]),
+             mode="fused", wall_seconds=wall,
+             chunked_wall_seconds=chunked_wall,
+             seq_lanes=list(CHAOS_SEQ_LANES), seq_wall_seconds=seq_wall,
+             launches=launched, events=events, events_per_second=events / wall,
+             failures=int(grid.failures.sum()),
+             straggler_kills=int(grid.straggler_kills.sum()),
+             requeues=int(grid.requeues.sum()),
+             requeued_jobs=int(grid.requeued_jobs.sum()),
+             stream_rows=cap, stream_bytes=2 * cap * K * S * C *
+             np_dtype.itemsize, streams_ms=streams_ms,
+             stream_lanes_equal_cpu=list(CHAOS_STREAM_LANES),
+             fused_equals_chunked=True, seq_equals_fused=True,
+             inert_equals_fault_free=True, ok=True)
+    t0 = time.perf_counter()
+    label, worst = chaos_cut_check()
+    emit("chaos_grid", run="kernel against the plain step", shape=label,
+         seconds=time.perf_counter() - t0, max_ulp=worst,
+         ulp_bound=ULP_BOUND, ok=True)
+    return path_launches
+
+
+def service_trace():
+    return drift_scenarios(**SERVICE_TRACE)["intensity_step"]
+
+
+def service_config(argv, device) -> ServiceConfig:
+    """The ServiceConfig launch/service.py builds for `argv` at its
+    defaults, on `device`."""
+    return ServiceConfig(
+        window_jobs=SERVICE_WINDOW, s_prop=0.05, mode="auto",
+        dtype="float64" if "--float64" in argv else "float32",
+        chaos=(des.ChaosConfig(**service_launch.SERVICE_CHAOS)
+               if "--chaos" in argv else None),
+        risk_lambda=0.1, device=device)
+
+
+def compare_ticks(got, want, rtol, label):
+    """The card's ticks against the CPU's: best and plateau k, each
+    controller's realized and committed k, moves and reasons equal;
+    best waits, lost work and regime weights within rtol."""
+    def close(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return bool(np.all(np.abs(a - b) <= rtol * np.abs(b) + 1e-9))
+
+    for tg, tw in zip(got, want):
+        t = tg["tick"]
+        for key in ("best_k", "plateau_k"):
+            if tg[key] != tw[key]:
+                fail(f"{label} tick {t}: {key} {tg[key]} != {tw[key]}")
+        if not close(tg["best_wait"], tw["best_wait"]):
+            fail(f"{label} tick {t}: best_wait beyond rtol {rtol}")
+        for name, cw in tw["controllers"].items():
+            cg = tg["controllers"][name]
+            for key in ("realized_k", "committed_k", "moved", "reason"):
+                if cg[key] != cw[key]:
+                    fail(f"{label} tick {t} {name}: {key} {cg[key]} != "
+                         f"{cw[key]}")
+            for key in ("realized_lost", "weights"):
+                if key in cw and not close(cg[key], cw[key]):
+                    fail(f"{label} tick {t} {name}: {key} beyond rtol "
+                         f"{rtol}")
+
+
+def switches(ticks, name) -> int:
+    return sum(1 for t in ticks if t["controllers"][name]["moved"]
+               and t["controllers"][name]["reason"] != "bootstrap")
+
+
+def phase_service_path():
+    """`repro_torch.launch.service.main` at its defaults, run fault-free,
+    with --chaos and with --float64, on the card (each tick's oracle one
+    fused dispatch of the event-step kernel). Gates: every tick's best and
+    plateau k and every controller's realized / committed k and switch
+    count equal those of `run_service` on the CPU (device="cpu"), which
+    runs the first SERVICE_CPU_WINDOWS windows of the same trace (a cut:
+    ticks depend only on earlier windows; at 2000 jobs the CPU's chaos
+    run alone takes ~25 s); waits, lost work and weights within SEQ_RTOL.
+    Then the oracle's [K, C] block on one window against the chaos grid's
+    column, bitwise. Returns the event-step launches of the three runs."""
+    wl = service_trace()
+    cut = slice_window(wl, 0, SERVICE_CPU_WINDOWS * SERVICE_WINDOW,
+                       rebase=False)
+    total = 0
+    for name, argv in SERVICE_RUNS:
+        config = service_config(argv, Dispatch.device)
+        step_ops.packet_event_steps.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = service_launch.main(argv)
+        wall = time.perf_counter() - t0
+        launched = step_ops.packet_event_steps.launches
+        total += launched
+        label = f"service_path {name}"
+        if out["n_ticks"] != SERVICE_TRACE["n_jobs"] // SERVICE_WINDOW:
+            fail(f"{label}: {out['n_ticks']} ticks")
+        cfg = out["config"]
+        if (cfg["dtype"] != config.dtype or cfg["window_jobs"]
+                != config.window_jobs or cfg["s_prop"] != config.s_prop
+                or ("chaos" in cfg) != (config.chaos is not None)):
+            fail(f"{label}: the launcher's config is not the one compared")
+        if launched < out["n_ticks"]:
+            fail(f"{label}: {launched} event-step launches for "
+                 f"{out['n_ticks']} ticks")
+        for t in out["ticks"]:
+            if not np.isfinite(t["best_wait"]):
+                fail(f"{label} tick {t['tick']}: best_wait not finite")
+        t0 = time.perf_counter()
+        cpu = run_service(cut, dataclasses.replace(config, device="cpu"))
+        cpu_wall = time.perf_counter() - t0
+        rtol = SEQ_RTOL[np.dtype(config.dtype)]
+        head = out["ticks"][:SERVICE_CPU_WINDOWS]
+        compare_ticks(head, cpu["ticks"], rtol, label)
+        sw = {n: switches(head, n) for n in out["controllers"]}
+        if sw != {n: s["switches"] for n, s in cpu["controllers"].items()}:
+            fail(f"{label}: switch counts differ from the CPU's")
+        ms = np.asarray(out["oracle"]["oracle_ms"])
+        emit("service_path", run=name, argv=argv, scenario="intensity_step",
+             n_jobs=SERVICE_TRACE["n_jobs"], window_jobs=SERVICE_WINDOW,
+             candidates=len(config.ks), chaos_cells=config.n_chaos_cells,
+             dtype=config.dtype, ticks=out["n_ticks"], wall_seconds=wall,
+             oracle_ms_median=float(np.median(ms)),
+             oracle_ms_max=float(ms.max()), oracle_ms=ms.tolist(),
+             event_step_launches=launched,
+             launches_per_tick=launched / out["n_ticks"],
+             switches={n: s["switches"]
+                       for n, s in out["controllers"].items()},
+             k_trajectory={n: s["k_trajectory"]
+                           for n, s in out["controllers"].items()},
+             cpu_cut_windows=SERVICE_CPU_WINDOWS, cpu_wall_seconds=cpu_wall,
+             cpu_ticks_equal=True, rtol=rtol, ok=True)
+    # one tick's [K, C] block against the grid driver's chaos column
+    win = next(w for i, (_, _, w) in enumerate(
+        iter_windows(wl, WindowSpec(SERVICE_WINDOW)))
+        if i == SERVICE_ORACLE_WINDOW)
+    chaos = des.ChaosConfig(**service_launch.SERVICE_CHAOS)
+    ks = sweep.PAPER_SCALE_RATIOS
+    for dtype in (np.float32, np.float64):
+        pw = des.pack_workload(win, dtype, Dispatch.device)
+        block = sweep.run_window_oracle(
+            pw, ks, win.init_time_for_proportion(0.05), win.params.nodes,
+            chaos=chaos)
+        column = sweep.run_packet_grid(win, ks=ks, s_props=[0.05],
+                                       dtype=dtype, chaos=chaos)
+        for f_ in block._fields:
+            if not np.array_equal(getattr(block, f_),
+                                  getattr(column, f_)[:, 0, :]):
+                fail(f"service_path oracle block {np.dtype(dtype).name}: "
+                     f"{f_} differs from the chaos grid's column")
+    emit("service_path", run="oracle block vs grid column",
+         window=SERVICE_ORACLE_WINDOW, shape=[len(ks), 3],
+         dtypes=["float32", "float64"], bitwise=True, ok=True)
+    return total
+
+
+def phase_sim_path():
+    """`repro_torch.launch.sim.main` at its defaults (homog0.85, 5000 jobs,
+    init proportion 0.05): 37 lanes, one fused dispatch. Its workload is
+    the reference sim.py's, drawn with the generator's default daily
+    amplitude (0.6), not paper_workloads' homog0.85 (0.3) that main_path
+    runs, so the gate holds its threshold against `plateau_threshold` over
+    column 0 of the fused 37 x 6 grid of the same workload (and the
+    column's waits bitwise against the sweep's)."""
+    step_ops.packet_event_steps.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, thr = sim.main([])
+    wall = time.perf_counter() - t0
+    launched = step_ops.packet_event_steps.launches
+    if launched < 1:
+        fail("sim_path: the CUDA kernel never ran")
+    wl = generate_workload(WorkloadParams(n_jobs=5000, nodes=100, load=0.85,
+                                          homogeneous=True, seed=1))
+    full = sweep.run_packet_grid(wl, mode="fused")
+    ks = np.asarray(sweep.PAPER_SCALE_RATIOS)
+    want = sweep.plateau_threshold(ks, full.avg_wait[:, 0])
+    if not np.array_equal(grid.avg_wait[:, 0], full.avg_wait[:, 0]):
+        fail("sim_path: the sweep's waits differ from the grid's column")
+    if (thr.threshold, thr.plateau) != (want.threshold, want.plateau):
+        fail(f"sim_path: threshold {thr} != {want}")
+    emit("sim_path", workload="homog0.85", n_jobs=5000, init_prop=0.05,
+         lanes=len(ks), wall_seconds=wall, event_step_launches=launched,
+         plateau_k=thr.threshold, plateau_wait=thr.plateau,
+         threshold_equals_grid_column=True, ok=True)
+    return launched
+
+
+# --------------------------------------------------------------------------
 # flash attention and the serving path
 # --------------------------------------------------------------------------
 
@@ -2005,7 +2379,7 @@ def lru_instantiations(log: str) -> list:
     return sorted(rows, key=lambda r: (r["dtype"], r["direction"]))
 
 
-def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
+def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
@@ -2016,7 +2390,8 @@ def phase_kernels(flows, launches, plain_ms, attn_launches, attn_grad,
         "route": "cuda",
         "source": "src/repro_torch/csrc/packet_step.cu",
         "replaces": "src/repro/kernels/packet_step/kernel.py:41",
-        "launches": launches,
+        "launches": sum(des_launches.values()),
+        "launches_by_path": des_launches,
         "max_abs_err": Worst.abs_err,
         "max_ulp": Worst.ulp,
         "ms": main["ms"],
@@ -2195,6 +2570,12 @@ def main(argv=None):
         timed("while_kernel", phase_while_kernel)
         select_launches, while_launches, while_times = timed(
             "seq_path", phase_seq_path, flows, fused)
+        des_launches = {
+            "main_path": launches,
+            "chaos_grid": timed("chaos_grid", phase_chaos_grid, flows,
+                                fused),
+            "service_path": timed("service_path", phase_service_path),
+            "sim_path": timed("sim_path", phase_sim_path)}
         attn_build = timed("build flash_attention, wait", phase_build,
                            attn_kernel, builds[attn_kernel])
         lru_build = timed("build rglru_scan, wait", phase_build, lru_kernel,
@@ -2207,9 +2588,10 @@ def main(argv=None):
     timed("train_plain_kernels", phase_train_plain_kernels)
     if args.profile:
         timed("train_profile", profile_training)
-    timed("kernels", phase_kernels, flows, launches, plain_ms, attn_launches,
-          attn_grad, train_launches, select_times, select_launches,
-          attn_build, while_launches, while_times, while_build, lru_build)
+    timed("kernels", phase_kernels, flows, des_launches, plain_ms,
+          attn_launches, attn_grad, train_launches, select_times,
+          select_launches, attn_build, while_launches, while_times,
+          while_build, lru_build)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

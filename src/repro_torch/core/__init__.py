@@ -3,7 +3,7 @@ and the grid sweep (see `repro.core` for the reference)."""
 from repro_torch.core import packet, precision
 from repro_torch.core.des import (ChaosConfig, DesResult, DesState,
                                   PackedWorkload, ScanState, chaos_is_inert,
-                                  event_budget, pack_workload,
+                                  chaos_uniforms, event_budget, pack_workload,
                                   packed_from_numpy, resolve_max_requeues,
                                   resolve_ring, scan_state_from_numpy,
                                   simulate_packet, simulate_packet_host,
@@ -12,18 +12,21 @@ from repro_torch.core.des import (ChaosConfig, DesResult, DesState,
                                   simulate_packet_scan_lanes)
 from repro_torch.core.metrics import Metrics, efficiency_metrics
 from repro_torch.core.sweep import (PAPER_INIT_PROPS, PAPER_SCALE_RATIOS,
-                                    PlateauResult, plateau_threshold,
+                                    PlateauResult, chaos_axis_len,
+                                    chaos_lane_grid, plateau_threshold,
                                     resolve_mode, run_packet_grid,
-                                    sweep_plan)
+                                    run_window_oracle, sweep_plan)
 
 __all__ = [
     "packet", "precision", "ChaosConfig", "DesResult", "DesState",
-    "PackedWorkload", "ScanState", "chaos_is_inert", "event_budget",
+    "PackedWorkload", "ScanState", "chaos_is_inert", "chaos_uniforms",
+    "event_budget",
     "pack_workload", "packed_from_numpy", "resolve_max_requeues",
     "resolve_ring", "scan_state_from_numpy", "simulate_packet",
     "simulate_packet_host", "simulate_packet_reference",
     "simulate_packet_scan", "simulate_packet_scan_lanes", "Metrics",
     "efficiency_metrics", "PAPER_INIT_PROPS", "PAPER_SCALE_RATIOS",
-    "PlateauResult", "plateau_threshold", "resolve_mode",
-    "run_packet_grid", "sweep_plan",
+    "PlateauResult", "chaos_axis_len", "chaos_lane_grid",
+    "plateau_threshold", "resolve_mode", "run_packet_grid",
+    "run_window_oracle", "sweep_plan",
 ]

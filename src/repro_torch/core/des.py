@@ -36,13 +36,15 @@ injection) semantics are documented in `repro.core.des`; the arithmetic
 here keeps that module's order of operations so schedules and integer
 counters agree exactly.
 
-Chaos operands
---------------
-The reference draws its per-lane uniform streams from `jax.random`
-(threefry), which torch cannot reproduce. The engine therefore takes the
-streams as operands: ``u1`` (straggler draw) and ``u2`` (failure draw) of
-shape ``[L_cap, T]`` with ``L_cap = N + R``, row g being consumed by the
-g-th group formed in a lane.
+Chaos streams
+-------------
+Under chaos a lane consumes one uniform stream: ``u1`` (straggler draw)
+and ``u2`` (failure draw), row g taken by the g-th group the lane forms.
+`chaos_uniforms` draws them as the reference does, with threefry keyed by
+``fold_in(PRNGKey(chaos.seed), chaos.lane)`` (`repro_torch.core.prng`,
+bitwise `jax.random`), on the engine's device. The engines draw them
+themselves when no streams are given; ``u1`` / ``u2`` of shape
+``[L_cap, T]`` (``L_cap = N + R``) may still be passed as operands.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import packet, precision
+from repro_torch.core import packet, precision, prng
 from repro_torch.device import resolve_device
 from repro_torch.kernels.routing import resolve_impl
 from repro_torch.workload.lublin import Workload
@@ -177,11 +179,12 @@ def pack_workload(wl: Workload, dtype=np.float32,
 class ChaosConfig:
     """Fault-injection operand of the engine (see `repro.core.des`).
 
-    The five fault parameters are scalars or ``[T]`` lane arrays. `lane`
-    and `seed` identify the reference's per-lane uniform stream and are
-    carried for provenance only: this engine takes the streams as the
-    operands ``u1``/``u2``. ``max_requeues=None`` resolves to the job
-    count N at simulation time.
+    The five fault parameters are scalars or ``[T]`` lane arrays. `seed`
+    and `lane` (a scalar or ``[T]`` lane ids) key each lane's uniform
+    stream, ``fold_in(PRNGKey(seed), lane)`` (`chaos_uniforms`); the
+    sweep sets `lane` to the flat grid index, so a lane's draws do not
+    depend on its dispatch layout. ``max_requeues=None`` resolves to the
+    job count N at simulation time.
     """
     mtbf_chip_hours: object = 0.0     # 0 = no failures
     ckpt_period: object = 300.0
@@ -200,6 +203,22 @@ def resolve_max_requeues(chaos: ChaosConfig | None, n_jobs: int) -> int:
     if chaos.max_requeues is None:
         return max(1, int(n_jobs))
     return max(0, int(chaos.max_requeues))
+
+
+def chaos_uniforms(chaos: ChaosConfig, dtype, n_groups_cap: int,
+                   device=None) -> torch.Tensor:
+    """The per-lane uniform streams of `repro.core.des.chaos_uniforms`, bit
+    for bit: ``uniform(fold_in(PRNGKey(chaos.seed), lane), (cap, 2))``
+    with ``cap = max(1, n_groups_cap)``, row g = (straggler draw, failure
+    draw) of the g-th group a lane forms. Returns ``lane.shape + [cap, 2]``
+    on `device` (None = the CUDA card): ``[cap, 2]`` for a scalar
+    ``chaos.lane``, ``[T, cap, 2]`` for ``[T]`` lane ids. A float64 draw
+    keys the seed as the reference's 64-bit scope does."""
+    dev = resolve_device(device)
+    tdt = precision.torch_dtype(dtype)
+    key = prng.PRNGKey(chaos.seed, x64=tdt == torch.float64, device=dev)
+    return prng.uniform(prng.fold_in(key, chaos.lane),
+                        (max(1, int(n_groups_cap)), 2), tdt)
 
 
 def chaos_is_inert(chaos: ChaosConfig | None) -> bool:
@@ -502,18 +521,25 @@ def _lane_tensor(x, dtype, device):
 
 
 def _chaos_streams(chaos, u1, u2, L_cap: int, T: int, dtype, device):
-    """The ``[L_cap, T]`` uniform streams on `device`: required with a
-    ChaosConfig, refused without one."""
+    """The ``[L_cap, T]`` uniform streams on `device`: given as operands,
+    or (with neither given) drawn from ``chaos.seed`` and ``chaos.lane``
+    by `chaos_uniforms`; refused without a ChaosConfig or one without the
+    other."""
     if chaos is None:
         if u1 is not None or u2 is not None:
             raise ValueError("u1/u2 were given without a ChaosConfig")
         return None, None
+    if u1 is None and u2 is None:
+        lane = chaos.lane
+        lanes = (torch.broadcast_to(lane, (T,)) if isinstance(
+            lane, torch.Tensor) else np.broadcast_to(np.asarray(lane), (T,)))
+        u = chaos_uniforms(dataclasses.replace(chaos, lane=lanes), dtype,
+                           L_cap, device)
+        return (u[:, :, 0].t().contiguous(), u[:, :, 1].t().contiguous())
     if u1 is None or u2 is None:
-        raise ValueError(
-            "a ChaosConfig needs the uniform streams u1 and u2 "
-            f"([{L_cap}, {T}]) as operands: the port has no stream "
-            "generator of its own yet (ROADMAP.md Queue 1, chaos axis "
-            "with a threefry generator)")
+        raise ValueError("pass both uniform streams u1 and u2, or neither "
+                         "(then the engine draws them from chaos.seed and "
+                         "chaos.lane)")
     u1, u2 = ((u if isinstance(u, torch.Tensor) else torch.tensor(
         np.asarray(u))).to(device=device, dtype=dtype).contiguous()
               for u in (u1, u2))
@@ -535,9 +561,11 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
     """A whole dispatch of (k, s) lanes through the scan engine.
 
     `k` and `s_init` are ``[T]`` lane arrays (tensors or numpy); `chaos`
-    (optional) carries scalar or ``[T]`` fault parameters and then `u1` /
-    `u2`, the ``[N + R, T]`` uniform streams, are required. Returns a
-    DesResult whose every field has a leading lane axis.
+    (optional) carries scalar or ``[T]`` fault parameters and lane ids.
+    Its ``[N + R, T]`` uniform streams are drawn on the device from
+    ``chaos.seed`` and ``chaos.lane`` (`chaos_uniforms`, as the reference
+    draws them), unless both `u1` and `u2` are given. Returns a DesResult
+    whose every field has a leading lane axis.
 
     `device=None` means the CUDA card and must be where `pw` lives; only
     ``device="cpu"`` runs on the CPU. `step_impl` is ``"cuda"`` (the
@@ -726,9 +754,10 @@ def simulate_packet(pw: PackedWorkload, k, s_init, m_nodes, priority=None,
     in PyTorch on the engine's device. `device=None` means the CUDA card
     and must be where `pw` lives.
 
-    `chaos` as in `simulate_packet_scan_lanes`: the uniform streams `u1`
-    and `u2` (``[N + R, T]``) are operands, row g consumed by the g-th
-    group a lane forms. `max_iters` caps each lane's outer iterations
+    `chaos` as in `simulate_packet_scan_lanes`: lane t draws its stream
+    from ``chaos.seed`` and its lane id (``[N + R]`` rows, row g consumed
+    by the g-th group it forms) unless `u1` and `u2` (``[N + R, T]``) are
+    given. `max_iters` caps each lane's outer iterations
     (default ``4N + 64 + 2R``; a lane that hits it reports
     `budget_exhausted`). If `stats` is a dict, it receives the counts of
     this call. The plain version's: ``outer`` and ``inner``, its lockstep
@@ -831,8 +860,9 @@ def simulate_packet_scan(pw: PackedWorkload, k, s_init, m_nodes,
                          step_impl: str | None = None, u1=None, u2=None,
                          device=None) -> DesResult:
     """One (k, s) experiment through the scan engine: a one-lane dispatch
-    of `simulate_packet_scan_lanes` with the lane axis squeezed. `u1` and
-    `u2` are the lane's ``[N + R]`` streams under chaos."""
+    of `simulate_packet_scan_lanes` with the lane axis squeezed. Under
+    chaos the lane draws its stream unless `u1` and `u2`, its ``[N + R]``
+    streams, are given."""
     u1, u2 = (None if u is None else torch.as_tensor(np.asarray(u) if not
               isinstance(u, torch.Tensor) else u).reshape(-1, 1)
               for u in (u1, u2))

@@ -8,6 +8,13 @@
 All metrics are measured over the window [0, last submit]; the simulation
 itself runs to drain. Every metric inherits the simulation dtype and stays
 on the device of the `DesResult` it is computed from.
+
+The means over the job axis are sums in a fixed pairwise tree
+(`_sum_last`), not `torch.mean`: a CUDA reduction picks its order from
+the tensor's shape, so a lane's mean would depend on how many lanes share
+its dispatch (one in `mode="seq"`, 666 in a fused chaos grid). The tree's
+order depends only on the job count, so every layout, and the CPU, give a
+lane the same bits.
 """
 from __future__ import annotations
 
@@ -42,6 +49,25 @@ class Metrics(NamedTuple):
     budget_exhausted: object  # event budget hit: truncated run
 
 
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a pairwise tree of elementwise adds: the
+    axis zero-padded to a power of two, then halves added until one
+    column is left. The order of the adds depends only on the axis
+    length."""
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _mean_last(x: torch.Tensor) -> torch.Tensor:
+    return _sum_last(x) / x.shape[-1]
+
+
 def _median_last(x: torch.Tensor) -> torch.Tensor:
     """Median over the last axis as the midpoint of the two middle values
     (`torch.median` returns the lower one for an even count). +inf entries
@@ -66,12 +92,12 @@ def efficiency_metrics(submit, result, m_nodes, t_last_submit) -> Metrics:
     wait = torch.clamp(result.start_t - submit, min=0.0)
     run_wait = torch.clamp(result.run_start_t - submit, min=0.0)
     return Metrics(
-        avg_wait=wait.mean(dim=-1),
+        avg_wait=_mean_last(wait),
         med_wait=_median_last(wait),
         avg_qlen=result.qlen_int / window,
         full_util=result.busy_ns / denom,
         useful_util=result.useful_ns / denom,
-        avg_run_wait=run_wait.mean(dim=-1),
+        avg_run_wait=_mean_last(run_wait),
         n_groups=result.n_groups,
         ok=result.ok,
         lost_work=result.lost_work,

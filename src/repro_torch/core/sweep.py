@@ -21,16 +21,23 @@ run one part of the grid per call, as the reference's do:
     implementation: one launch of the while-loop kernel on the card, the
     plain lockstep version on the CPU), the reference's ``"xla"`` path;
     ``step_impl="cuda"`` runs one lane of the scan engine through the
-    event-step kernel, the reference's ``"pallas"`` path.
+    event-step kernel, the reference's ``"pallas"`` path. Under chaos
+    every cell is one lane of the scan engine, whatever `step_impl`, as
+    in the reference: only a shared engine makes seq, chunked and fused
+    agree bitwise.
   * ``vmap_k=True`` / ``vmap_s=True`` (legacy) — one init-proportion
     column, or one scale-ratio row, per dispatch of the scan engine.
 
-Not ported yet, and raising `NotImplementedError` rather than running
-something else: a non-inert `chaos` operand of `run_packet_grid` (the
-chaos axis needs a uniform-stream generator); see ROADMAP.md, Queue 1.
+The chaos axis: a `ChaosConfig` whose fault parameters are C-long arrays
+(`chaos_axis_len`) makes C lanes of every (k, s) cell (`chaos_lane_grid`:
+grid-major, chaos-minor, lane ids the flat index in grid order, assigned
+before any chunk sorting), and the grid's leaves ``[K, S, C]``.
+`run_window_oracle` is one control tick of the streaming service: all
+candidate k's (times the chaos axis) on one packed window.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import warnings
 from typing import NamedTuple, Sequence
@@ -39,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import precision
-from repro_torch.core.des import (ChaosConfig, chaos_is_inert, pack_workload,
+from repro_torch.core.des import (ChaosConfig, PackedWorkload,
+                                  chaos_is_inert, pack_workload,
                                   resolve_ring, simulate_packet,
                                   simulate_packet_scan,
                                   simulate_packet_scan_lanes)
@@ -72,22 +80,31 @@ FLOAT32_AVG_WAIT_RTOL = 0.031
 _BUDGET_CELLS_SHOWN = 8    # exhausted cells named per message
 
 
-def _format_budget_cells(bad: np.ndarray, ks=None, s_props=None) -> str:
-    """Name the exhausted cells: (i_k, i_s) grid indices for a ``[K, S]``
-    mask, a flat lane index for a ``[L]`` one, plus the actual k / s_prop
-    values when the caller's axes are known. Truncated after
-    `_BUDGET_CELLS_SHOWN` entries."""
-    shown = []
+def _format_budget_cells(bad: np.ndarray, ks=None, s_props=None,
+                         axis_names=None) -> str:
+    """Name the exhausted cells: indices along the metric axes
+    ((i_k, i_s[, i_chaos]) for a grid, a flat lane index for an ``[L]``
+    mask) plus the actual k / s_prop values when the caller's axes are
+    known. `axis_names` overrides the axis labels (the window oracle's
+    second axis is the chaos cell). Truncated after `_BUDGET_CELLS_SHOWN`
+    entries."""
+    if bad.ndim == 0:
+        return "the single experiment"
     idx = np.argwhere(bad)
+    if axis_names is not None:
+        names = tuple(axis_names)[:bad.ndim]
+    else:
+        names = (("i_k", "i_s", "i_chaos")[:bad.ndim] if bad.ndim <= 3
+                 else tuple(f"i{d}" for d in range(bad.ndim)))
+    shown = []
     for cell in idx[:_BUDGET_CELLS_SHOWN]:
         cell = tuple(int(v) for v in cell)
-        if bad.ndim == 1:
-            parts = [f"lane={cell[0]}"]
-        else:
-            parts = [f"{n}={v}" for n, v in zip(("i_k", "i_s"), cell)]
-            if ks is not None:
+        parts = ([f"lane={cell[0]}"] if bad.ndim == 1 else
+                 [f"{n}={v}" for n, v in zip(names, cell)])
+        if bad.ndim >= 2:
+            if ks is not None and cell[0] < len(ks):
                 parts.append(f"k={float(ks[cell[0]]):g}")
-            if s_props is not None:
+            if s_props is not None and cell[1] < len(s_props):
                 parts.append(f"s_prop={float(s_props[cell[1]]):g}")
         shown.append("(" + ", ".join(parts) + ")")
     more = len(idx) - len(shown)
@@ -95,7 +112,7 @@ def _format_budget_cells(bad: np.ndarray, ks=None, s_props=None) -> str:
 
 
 def _enforce_budget(metrics, policy: str, label: str,
-                    ks=None, s_props=None):
+                    ks=None, s_props=None, axis_names=None):
     """raise / warn / ignore when any lane hit its event budget.
 
     A truncated lane means its schedule (and every metric) stops early, so
@@ -109,9 +126,9 @@ def _enforce_budget(metrics, policy: str, label: str,
     n_bad = int(bad.sum())
     if n_bad:
         msg = (f"{label}: {n_bad} lane(s) exhausted the event budget at "
-               f"[{_format_budget_cells(bad, ks, s_props)}] — schedules "
-               f"are truncated; raise the budget or pass "
-               f"on_budget_exhausted='ignore' to keep them")
+               f"[{_format_budget_cells(bad, ks, s_props, axis_names)}] — "
+               f"schedules are truncated; raise max_requeues/budget or "
+               f"pass on_budget_exhausted='ignore' to keep them")
         if policy == "raise":
             raise RuntimeError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=3)
@@ -133,9 +150,11 @@ def lane_order(k_lanes, s_lanes) -> np.ndarray:
 
 
 def _not_ported(what: str, item: str):
+    """The error for a path of the reference the port does not have yet:
+    `item` names its ROADMAP.md Queue 1 entry, e.g. ``"item 7"``."""
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1: "
-        f"{item}); no other layout is substituted for it")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+        f"{item}); no other path is substituted for it")
 
 
 def resolve_mode(mode: str, n_lanes: int) -> str:
@@ -176,24 +195,93 @@ def sweep_plan(mode: str, n_lanes: int, dtype=np.float32,
     }
 
 
-def _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring, step_impl, device):
+#: the ChaosConfig fields that may carry a chaos lane axis
+CHAOS_AXIS_FIELDS = ("mtbf_chip_hours", "ckpt_period", "straggler_prob",
+                     "straggler_factor", "straggler_deadline")
+
+
+def chaos_axis_len(chaos: ChaosConfig | None) -> int:
+    """Length C of the chaos lane axis: 1 for a scalar ChaosConfig, else the
+    shared leading dim of its array-valued fault parameters.
+
+    Scalar/array mixes are legal (scalars broadcast over the axis), but
+    every array-valued parameter must share ONE length and be 1-D; both
+    violations raise here, naming the offending fields."""
+    if chaos is None:
+        return 1
+    sizes: dict[str, int] = {}
+    for name in CHAOS_AXIS_FIELDS:
+        x = getattr(chaos, name)
+        nd = np.ndim(x)
+        if nd > 1:
+            raise ValueError(
+                f"ChaosConfig.{name} must be a scalar or a 1-D chaos axis, "
+                f"got shape {np.shape(x)}")
+        if nd:
+            sizes[name] = int(np.shape(x)[0])
+    arrays = {n: s for n, s in sizes.items() if s != 1}
+    uniq = sorted(set(arrays.values()))
+    if len(uniq) > 1:
+        detail = ", ".join(f"{n}[{s}]" for n, s in sorted(arrays.items()))
+        raise ValueError(
+            f"ChaosConfig fault parameters have mismatched chaos-axis "
+            f"lengths: {detail}; array-valued parameters must share one "
+            f"leading length (scalars broadcast)")
+    return uniq[0] if uniq else 1
+
+
+_CHAOS_LANE_FIELDS = CHAOS_AXIS_FIELDS + ("lane",)
+
+
+def chaos_lane_grid(chaos: ChaosConfig, n_grid: int, dtype) -> tuple:
+    """Broadcast a ChaosConfig over the flat (k, s) lane axis.
+
+    Returns ``(chaos_lanes, C)``: every fault parameter becomes an
+    ``[n_grid * C]`` numpy array in the simulation dtype (grid-major,
+    chaos-minor: cell i owns the C consecutive lanes from ``i * C``) and
+    `lane` the flat lane index, assigned in GRID order before any chunk
+    sorting, so a lane's stream is the same in every dispatch layout."""
+    C = chaos_axis_len(chaos)
+    np_dtype = precision.canonical_dtype(dtype)
+
+    def tile(x):
+        return np.tile(np.broadcast_to(np.asarray(x, np_dtype), (C,)),
+                       n_grid)
+
+    lanes = dataclasses.replace(
+        chaos, **{f: tile(getattr(chaos, f)) for f in CHAOS_AXIS_FIELDS},
+        lane=np.arange(n_grid * C, dtype=np.int32))
+    return lanes, C
+
+
+def _chaos_take(chaos_lanes: ChaosConfig | None, idx) -> ChaosConfig | None:
+    """The lanes `idx` (an index array, or one index for the scalar
+    ChaosConfig of one cell) of a `chaos_lane_grid` output."""
+    if chaos_lanes is None:
+        return None
+    return dataclasses.replace(chaos_lanes, **{
+        f: getattr(chaos_lanes, f)[idx] for f in _CHAOS_LANE_FIELDS})
+
+
+def _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring, step_impl, device,
+                  chaos=None):
     """One dispatch: engine + metrics, returned as numpy leaves [L]."""
     res = simulate_packet_scan_lanes(pw, k_lanes, s_lanes, m_nodes,
-                                     ring=ring, step_impl=step_impl,
-                                     device=device)
+                                     ring=ring, chaos=chaos,
+                                     step_impl=step_impl, device=device)
     m = efficiency_metrics(pw.submit, res, m_nodes, pw.t_last_submit)
     return Metrics(*(x.cpu().numpy() for x in m))
 
 
 def _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring, chunk: int,
-                     step_impl, device) -> Metrics:
+                     step_impl, device, chaos=None) -> Metrics:
     """Sorted equal-width chunks through the engine, then unsort.
 
     The requested `chunk` width only sets the number of dispatches
     (ceil(L / chunk)); the actual width is balanced to ceil(L / n_chunks)
     (222 lanes at width 64 -> 4 dispatches of 56). The last chunk is
-    padded to that width by repeating its last lane; the inverse
-    permutation restores grid order."""
+    padded to that width by repeating its last lane (its lane id and
+    fault parameters too); the inverse permutation restores grid order."""
     L = int(k_lanes.shape[0])
     n_chunks = max(1, -(-L // max(1, chunk)))
     width = -(-L // n_chunks)
@@ -205,7 +293,7 @@ def _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring, chunk: int,
         if pad:
             idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
         out = _lane_metrics(pw, k_lanes[idx], s_lanes[idx], m_nodes, ring,
-                            step_impl, device)
+                            step_impl, device, _chaos_take(chaos, idx))
         chunks.append(Metrics(*(x[:width - pad] for x in out)))
     gathered = Metrics(*(np.concatenate(x, axis=0) for x in zip(*chunks)))
     inv = np.empty_like(order)
@@ -213,21 +301,42 @@ def _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring, chunk: int,
     return Metrics(*(x[inv] for x in gathered))
 
 
-def _cell_metrics(pw, k, s, m_nodes, ring, step_impl, device):
+def _cell_metrics(pw, k, s, m_nodes, ring, step_impl, device, chaos=None):
     """One cell of mode='seq', as numpy leaves of shape []: the while
     engine for ``step_impl="torch"``, one scan-engine lane through the
-    event-step kernel for ``"cuda"``."""
-    if step_impl == "torch":
+    event-step kernel for ``"cuda"``. A cell under chaos is always one
+    scan-engine lane (with `step_impl`'s step), the engine of the batched
+    layouts, so that its draws and roundings are theirs exactly."""
+    if step_impl == "torch" and chaos is None:
         res = simulate_packet(pw, k, s, m_nodes, ring=ring, device=device)
     else:
         res = simulate_packet_scan(pw, k, s, m_nodes, ring=ring,
-                                   step_impl=step_impl, device=device)
+                                   chaos=chaos, step_impl=step_impl,
+                                   device=device)
     m = efficiency_metrics(pw.submit, res, m_nodes, pw.t_last_submit)
     return Metrics(*(x.cpu().numpy() for x in m))
 
 
 def _stack(parts, axis: int) -> Metrics:
     return Metrics(*(np.stack(x, axis=axis) for x in zip(*parts)))
+
+
+def _run_lanes(pw, k_lanes, s_lanes, m_nodes, ring, mode: str,
+               chunk_lanes, step_impl, device, chaos_l) -> Metrics:
+    """A flat lane axis in one of the layouts seq / chunked / fused, as
+    numpy leaves ``[L]``; `chaos_l` is None or a `chaos_lane_grid`
+    output aligned with the lanes."""
+    if mode == "seq":
+        return _stack([_cell_metrics(pw, k_lanes[i], s_lanes[i], m_nodes,
+                                     ring, step_impl, device,
+                                     _chaos_take(chaos_l, i))
+                       for i in range(len(k_lanes))], axis=0)
+    if mode == "chunked":
+        return _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring,
+                                max(1, int(chunk_lanes or CHUNK_LANES)),
+                                step_impl, device, chaos_l)
+    return _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring, step_impl,
+                         device, chaos_l)
 
 
 def run_packet_grid(wl: Workload,
@@ -245,17 +354,17 @@ def run_packet_grid(wl: Workload,
     """Metrics over the (scale ratio x init proportion) grid of one workload.
 
     Returns a Metrics tuple of numpy arrays of shape
-    ``[len(ks), len(s_props)]``. `device=None` runs on the CUDA card (and
-    raises without one); ``device="cpu"`` runs the plain PyTorch versions
-    on the CPU. `step_impl` is ``"cuda"`` | ``"torch"`` (default by
-    device). `mode` is one of SWEEP_MODES (see the module docstring); the
-    legacy ``vmap_k=True`` / ``vmap_s=True`` flags select the column and
-    row layouts and exclude each other, `mode` and `chaos`, as in the
-    reference. `on_budget_exhausted` ("raise" | "warn" | "ignore") governs
-    lanes whose schedules were truncated by the event budget.
-    `chunk_lanes` overrides the chunked-mode dispatch width.
-
-    A non-inert `chaos` raises NotImplementedError (no fault grid yet).
+    ``[len(ks), len(s_props)]``, or ``[len(ks), len(s_props), C]`` when
+    `chaos` carries a C-long fault-parameter axis (`chaos_axis_len`; an
+    inert config runs the fault-free program). `device=None` runs on the
+    CUDA card (and raises without one); ``device="cpu"`` runs the plain
+    PyTorch versions on the CPU. `step_impl` is ``"cuda"`` | ``"torch"``
+    (default by device). `mode` is one of SWEEP_MODES (see the module
+    docstring); the legacy ``vmap_k=True`` / ``vmap_s=True`` flags select
+    the column and row layouts and exclude each other, `mode` and
+    `chaos`, as in the reference. `on_budget_exhausted` ("raise" | "warn"
+    | "ignore") governs lanes whose schedules were truncated by the event
+    budget. `chunk_lanes` overrides the chunked-mode dispatch width.
     """
     if vmap_k and vmap_s:
         raise ValueError("vmap_k=True and vmap_s=True are mutually "
@@ -267,13 +376,12 @@ def run_packet_grid(wl: Workload,
     if chaos is not None and (vmap_k or vmap_s):
         raise ValueError("chaos sweeps have no vmap_k/vmap_s layout; use "
                          "mode='seq'/'chunked'/'fused'")
-    if not chaos_is_inert(chaos):
-        raise _not_ported(
-            "a non-inert chaos operand of run_packet_grid",
-            "chaos axis of `run_packet_grid` with a threefry generator")
+    if chaos_is_inert(chaos):
+        chaos = None        # zero-rate config: the fault-free program
     K, S = len(ks), len(s_props)
+    C = chaos_axis_len(chaos)
     mode = ("vmap_k" if vmap_k else "vmap_s" if vmap_s
-            else resolve_mode(mode, K * S))
+            else resolve_mode(mode, K * S * C))
     dev = resolve_device(device)
     step_impl = resolve_step_impl(step_impl, dev)
     np_dtype = precision.canonical_dtype(dtype)
@@ -284,12 +392,7 @@ def run_packet_grid(wl: Workload,
     s_vals = np.asarray([wl.init_time_for_proportion(p) for p in s_props],
                         np_dtype)
     ks_arr = np.asarray(ks, np_dtype)
-    if mode == "seq":
-        cells = _stack([_cell_metrics(pw, k, s, m_nodes, ring, step_impl,
-                                      dev)
-                        for k in ks_arr for s in s_vals], axis=0)
-        out = Metrics(*(x.reshape((K, S) + x.shape[1:]) for x in cells))
-    elif mode == "vmap_k":      # one init-proportion column per dispatch
+    if mode == "vmap_k":        # one init-proportion column per dispatch
         out = _stack([_lane_metrics(pw, ks_arr, np.full(K, s, np_dtype),
                                     m_nodes, ring, step_impl, dev)
                       for s in s_vals], axis=1)
@@ -298,17 +401,69 @@ def run_packet_grid(wl: Workload,
                                     m_nodes, ring, step_impl, dev)
                       for k in ks_arr], axis=0)
     else:
-        k_lanes = np.repeat(ks_arr, S)
-        s_lanes = np.tile(s_vals, K)
-        if mode == "chunked":
-            lanes = _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring,
-                                     max(1, int(chunk_lanes or CHUNK_LANES)),
-                                     step_impl, dev)
-        else:                   # fused
-            lanes = _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring,
-                                  step_impl, dev)
-        out = Metrics(*(x.reshape((K, S) + x.shape[1:]) for x in lanes))
+        chaos_l = (None if chaos is None
+                   else chaos_lane_grid(chaos, K * S, np_dtype)[0])
+        lanes = _run_lanes(pw, np.repeat(ks_arr, S * C),
+                           np.repeat(np.tile(s_vals, K), C), m_nodes, ring,
+                           mode, chunk_lanes, step_impl, dev, chaos_l)
+        shape = (K, S) if C == 1 else (K, S, C)
+        out = Metrics(*(x.reshape(shape + x.shape[1:]) for x in lanes))
     _enforce_budget(out, on_budget_exhausted, "run_packet_grid", ks, s_props)
+    return out
+
+
+def run_window_oracle(pw: PackedWorkload,
+                      ks: Sequence[float],
+                      s_init: float,
+                      m_nodes: int,
+                      ring: int | None = None,
+                      mode: str = "auto",
+                      chunk_lanes: int | None = None,
+                      chaos: ChaosConfig | None = None,
+                      on_budget_exhausted: str = "raise",
+                      step_impl: str | None = None,
+                      device=None) -> Metrics:
+    """One control tick of the streaming service: all candidate scale
+    ratios on a pre-packed workload window, as one batched lane dispatch.
+
+    `run_packet_grid` re-cut for the monitor -> decide -> actuate loop of
+    `repro_torch.service`: the caller packs the window (`pack_workload`
+    on a `slice_window` output, on `device`) and passes ONE init time
+    `s_init` in seconds, so the returned leaves are ``[len(ks)]``, the
+    tick's tuning curve. A `chaos` config with a C-long fault axis
+    expands the tick to ``K * C`` lanes and the leaves to
+    ``[len(ks), C]``, with the lane ids `chaos_lane_grid` gives (k-major,
+    chaos-minor), exactly those of ``run_packet_grid(ks, s_props=[s],
+    chaos=...)``: the block is bitwise that grid's ``[:, 0, :]``. An
+    inert config runs the fault-free program; a scalar active one keeps
+    ``[K]`` leaves. The dtype is the packed window's. Modes as in
+    `run_packet_grid` minus the vmap layouts (``"auto"`` is ``"fused"``).
+    """
+    K = len(ks)
+    if K < 1:
+        raise ValueError("run_window_oracle needs at least one candidate k")
+    if chaos_is_inert(chaos):
+        chaos = None        # zero-rate config: the fault-free program
+    C = chaos_axis_len(chaos)
+    resolved = resolve_mode(mode, K * C)
+    if resolved in ("vmap_k", "vmap_s"):
+        raise ValueError(
+            f"mode={resolved!r} is a grid layout; the window oracle has a "
+            "single lane axis — use 'auto', 'seq', 'chunked' or 'fused'")
+    dev = resolve_device(device)
+    step_impl = resolve_step_impl(step_impl, dev)
+    np_dtype = precision.canonical_dtype(pw.submit.dtype)
+    m_nodes = int(m_nodes)
+    ring = resolve_ring(m_nodes, pw.n_jobs) if ring is None else int(ring)
+    chaos_l = (None if chaos is None
+               else chaos_lane_grid(chaos, K, np_dtype)[0])
+    lanes = _run_lanes(pw, np.repeat(np.asarray(ks, np_dtype), C),
+                       np.full(K * C, s_init, np_dtype), m_nodes, ring,
+                       resolved, chunk_lanes, step_impl, dev, chaos_l)
+    shape = (K,) if C == 1 else (K, C)
+    out = Metrics(*(x.reshape(shape + x.shape[1:]) for x in lanes))
+    _enforce_budget(out, on_budget_exhausted, "run_window_oracle", ks,
+                    axis_names=("i_k", "i_chaos"))
     return out
 
 

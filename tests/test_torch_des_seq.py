@@ -471,6 +471,11 @@ def test_inert_chaos_is_the_fault_free_schedule(ref):
                              u1=u[0], u2=u[1], device="cpu")
     for f in tdes.DesResult._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+    # without streams the engine draws its own: still the fault-free run
+    c = tdes.simulate_packet(pw, 2.0, s, m, chaos=tdes.ChaosConfig(),
+                             device="cpu")
+    for f in tdes.DesResult._fields:
+        assert torch.equal(getattr(a, f), getattr(c, f)), f
     with pytest.raises(ValueError, match="u1 and u2"):
         tdes.simulate_packet(pw, 2.0, s, m, chaos=tdes.ChaosConfig(),
-                             device="cpu")
+                             u1=u[0], device="cpu")

@@ -23,6 +23,7 @@ from repro_torch.kernels.packet_select import ops as tselect
 from repro_torch.kernels.rglru_scan import ops as tlru
 from repro_torch.launch import train as tlaunch_train
 from repro_torch.workload.lublin import WorkloadParams, generate_workload
+from test_torch_reference import load_reference
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -76,7 +77,10 @@ def test_package_layout_mirrors_the_reference():
                  "train.loss", "train.optim", "train.step", "launch.train",
                  "kernels.packet_select.ref", "kernels.packet_select.kernel",
                  "kernels.packet_select.ops", "kernels.packet_while.ref",
-                 "kernels.packet_while.kernel", "kernels.packet_while.ops"):
+                 "kernels.packet_while.kernel", "kernels.packet_while.ops",
+                 "core.prng", "workload.windows", "service",
+                 "service.monitor", "service.controller", "service.driver",
+                 "launch.sim", "launch.service"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()
@@ -190,9 +194,10 @@ class TestKernelImpl:
 
 
 class TestUnportedPathsRaise:
-    """What is not ported raises by name; the layouts that once raised here
-    (`seq`, `vmap_k`, `vmap_s`) now run, on the CPU, and give `fused`'s
-    grid."""
+    """What is not ported raises by name; the paths that once raised here
+    (the `seq`, `vmap_k` and `vmap_s` layouts, a non-inert chaos axis, an
+    engine under chaos without streams) now run, on the CPU, and give
+    `fused`'s grid or the reference's streams."""
     GRID = dict(ks=[0.5, 1.0, 9.0], s_props=[0.1, 0.4], device="cpu")
 
     def assert_equals_fused(self, wl, grid):
@@ -215,10 +220,17 @@ class TestUnportedPathsRaise:
         self.assert_equals_fused(wl, grid)
 
     def test_non_inert_chaos(self, wl):
-        chaos = tdes.ChaosConfig(mtbf_chip_hours=5.0)
-        with pytest.raises(NotImplementedError, match="threefry"):
-            tsweep.run_packet_grid(wl, ks=[1.0], s_props=[0.1], chaos=chaos,
-                                   device="cpu")
+        """A fault grid runs, and its seq and chunked layouts give the
+        fused one bitwise."""
+        chaos = tdes.ChaosConfig(mtbf_chip_hours=np.array([5.0, 50.0]),
+                                 straggler_prob=0.2, seed=3)
+        kw = dict(ks=[1.0, 9.0], s_props=[0.1], chaos=chaos, device="cpu")
+        fused = tsweep.run_packet_grid(wl, mode="fused", **kw)
+        assert fused.avg_wait.shape == (2, 1, 2) and fused.ok.all()
+        assert fused.failures.sum() > 0
+        for mode in ("seq", "chunked"):
+            grid = tsweep.run_packet_grid(wl, mode=mode, chunk_lanes=3, **kw)
+            assert all(np.array_equal(a, b) for a, b in zip(grid, fused))
 
     def test_inert_chaos_is_the_fault_free_program(self, wl):
         a = tsweep.run_packet_grid(wl, ks=[2.0], s_props=[0.1], device="cpu",
@@ -232,11 +244,25 @@ class TestUnportedPathsRaise:
                                    device="cpu")
 
     def test_engine_chaos_needs_its_streams(self, wl):
+        """Without streams the engine draws the reference's own (here
+        given back to it as operands: the same result); streams without a
+        ChaosConfig, or one stream without the other, still raise."""
+        ref = load_reference()
         pw = tdes.pack_workload(wl, device="cpu")
-        with pytest.raises(ValueError, match="u1 and u2"):
+        chaos = tdes.ChaosConfig(mtbf_chip_hours=5.0, seed=4, lane=9)
+        u = np.asarray(ref.des.chaos_uniforms(
+            ref.des.ChaosConfig(seed=4, lane=9), np.float32, 240))
+        own = tdes.simulate_packet_scan_lanes(pw, [1.0], [50.0], 20,
+                                              device="cpu", chaos=chaos)
+        given = tdes.simulate_packet_scan_lanes(
+            pw, [1.0], [50.0], 20, device="cpu", chaos=chaos,
+            u1=u[:, :1].copy(), u2=u[:, 1:].copy())
+        assert int(own.failures[0]) > 0
+        assert all(torch.equal(a, b) for a, b in zip(own, given))
+        with pytest.raises(ValueError, match="u1 and u2, or neither"):
             tdes.simulate_packet_scan_lanes(
-                pw, [1.0], [50.0], 20, device="cpu",
-                chaos=tdes.ChaosConfig(mtbf_chip_hours=5.0))
+                pw, [1.0], [50.0], 20, device="cpu", chaos=chaos,
+                u1=torch.ones((240, 1)))
         with pytest.raises(ValueError, match="without a ChaosConfig"):
             tdes.simulate_packet_scan_lanes(
                 pw, [1.0], [50.0], 20, device="cpu", u1=torch.ones((240, 1)))

@@ -73,7 +73,10 @@ def load_reference() -> types.SimpleNamespace:
     (repro.kernels.flash_attention.ops / .ref); the training slice:
     `hybrid` (repro.models.hybrid), `train_step`, `train_loss`,
     `train_optim`, `train_data` (repro.train.*), `lru_kernel` and `lru_ref`
-    (repro.kernels.rglru_scan.kernel / .ref).
+    (repro.kernels.rglru_scan.kernel / .ref); the streaming service:
+    `windows` (repro.workload.windows), `service` (repro.service),
+    `service_driver` (repro.service.driver), and the paper's drivers
+    `launch_sim` and `launch_service` (repro.launch.sim / .service).
     """
     global _REF
     if _REF is not None:
@@ -99,6 +102,11 @@ def load_reference() -> types.SimpleNamespace:
     from repro.train import loss as train_loss
     from repro.train import optim as train_optim
     from repro.train import step as train_step
+    from repro.workload import windows
+    import repro.service as service
+    from repro.service import driver as service_driver
+    from repro.launch import service as launch_service
+    from repro.launch import sim as launch_sim
     _REF = types.SimpleNamespace(
         jax=jax, jnp=jnp, core=core, des=des, packet=packet,
         metrics=metrics, sweep=sweep, precision=precision, lublin=lublin,
@@ -107,7 +115,9 @@ def load_reference() -> types.SimpleNamespace:
         launch_serve=launch_serve, attn_ops=attn_ops, attn_ref=attn_ref,
         hybrid=hybrid, train_step=train_step, train_loss=train_loss,
         train_optim=train_optim, train_data=train_data,
-        lru_kernel=lru_kernel, lru_ref=lru_ref)
+        lru_kernel=lru_kernel, lru_ref=lru_ref, windows=windows,
+        service=service, service_driver=service_driver,
+        launch_sim=launch_sim, launch_service=launch_service)
     return _REF
 
 
