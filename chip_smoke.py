@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the five CUDA kernels from the sources in this checkout (one `nvcc`
+Builds the six CUDA kernels from the sources in this checkout (one `nvcc`
 per source, started together; the attention and RG-LRU builds go on while
 the DES phases run), holds each against its plain PyTorch version on the
 card, drives the port's paths and prints one JSON line per phase:
@@ -25,6 +25,21 @@ card, drives the port's paths and prints one JSON line per phase:
 - the paper's sim driver: `repro_torch.launch.sim.main` at its defaults
   (homog0.85 as the reference's sim.py draws it, 5000 jobs, S = 0.05),
   its threshold held against the fused grid's column of that workload;
+- the paper's whole study: its six flows as the two cohorts of
+  paper_sweep.py's dtype policy (3 x 222 = 666 lanes each) through
+  `run_cohort_grid`, one event-step launch a segment for all the lanes of
+  a cohort, every member bitwise its own fused `run_packet_grid`, in the
+  fused, chunked and seq layouts and under paper_sweep.py's 8-cell fault
+  axis (5 328 lanes a cohort; the largest difference from the checked-in
+  paper_chaos_grid.json printed, not gated); then the rigid FCFS and
+  EASY-backfill baselines of every flow through `run_baselines` and
+  `launch.sim.main(["--baselines"])`, one launch of the baselines kernel a
+  policy a call, held against the plain version on homog0.85 and
+  hetero0.85 uncut at the six init proportions and against the golden
+  file's fcfs / backfill blocks; the event step's workload axis is held
+  against the plain step at both cohorts' widths, fault-free (666 lanes)
+  and under the fault axis (5 328 lanes), in `kernel_step` and
+  `kernel_run`;
 - the DES while-loop engine: `simulate_packet` over the same 222 lanes of
   both flows in one call each, one launch of the while-loop kernel a call
   (the group-formation decision inlined), beside its plain lockstep
@@ -67,6 +82,11 @@ Tolerances of the kernel-vs-plain comparisons:
 - group-formation decision: `j` and `m` equal; `dur` and `work` at most
   2 ulp apart (built like the event step, so the expected difference is
   0);
+- baselines: job start times, run-start times and the makespan bitwise
+  (0 ulp); jobs started, `ok` and `budget_exhausted` equal; the queue,
+  busy and useful integrals at most 2 ulp apart (built like the event
+  step; expected 0); the golden fcfs / backfill blocks within rtol 1e-9
+  in float64; the cohorts: every field bitwise the members' own grids;
 - while-loop engine: the final state's integer columns (group-log keys
   and node counts, counters, iterations), `n_groups`, `ok` and
   `budget_exhausted` equal; every float column of the final state, the
@@ -128,10 +148,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import des, sweep
+from repro_torch.core import cohort as cohort_mod
+from repro_torch.core import des, schedulers, sweep
 from repro_torch.core.metrics import (SCALAR_METRIC_FIELDS, Metrics,
                                       efficiency_metrics)
 from repro_torch.kernels import build
+from repro_torch.kernels.baselines import kernel as base_kernel
+from repro_torch.kernels.baselines import ops as base_ops
 from repro_torch.kernels.flash_attention import kernel as attn_kernel
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -233,6 +256,7 @@ PLAIN_COMPARE_LAYERS = 5        # one (rec, rec, attn) repeat + the tail
 CHAOS = dict(mtbf_chip_hours=50.0, ckpt_period=300.0, straggler_prob=0.05,
              straggler_factor=1.5, straggler_deadline=2.0)
 PLAIN_RUN_SECONDS = 150.0       # per plain whole-dispatch run, then a prefix
+COHORT_CHAOS_PLAIN_SECONDS = 30.0   # the 5 328-lane fault cohort's prefix
 SELECT_SHAPES = [(T, H) for T in (1, 222, 4096) for H in (1, 8, 130)]
 SELECT_TIMED = [(222, 8, torch.float32), (222, 8, torch.float64),
                 (1 << 20, 8, torch.float32)]
@@ -255,6 +279,18 @@ SERVICE_TRACE = dict(n_jobs=2000, nodes=100, n_segments=8)
 SERVICE_WINDOW = 250
 SERVICE_CPU_WINDOWS = 5    # the CPU side's cut: the trace's first 5 windows
 SERVICE_ORACLE_WINDOW = 4  # the window whose [K, C] block is held to the grid
+# the fault axis of benchmarks/paper_sweep.py :: chaos_grid_config(seed=0):
+# MTBF (50, 200 h) x checkpoint period (120, 600 s) x straggler factor
+# (1.5, 4.0), 8 cells, the checked-in paper_chaos_grid.json's axis
+PAPER_CHAOS = dict(mtbf_chip_hours=np.repeat([50.0, 200.0], 4),
+                   ckpt_period=np.tile(np.repeat([120.0, 600.0], 2), 2),
+                   straggler_prob=0.1,
+                   straggler_factor=np.tile([1.5, 4.0], 4),
+                   straggler_deadline=2.0, seed=0)
+CHAOS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "benchmarks", "results", "paper_chaos_grid.json")
+BASELINE_WORKSPACE_RING = 10_000    # 24 B a slot in float64: past 227 KB
+BASELINE_CAP_ITERS = 2500       # events a lane on the workspace case: a cap
 
 
 def emit(phase: str, **fields):
@@ -285,7 +321,7 @@ class Dispatch:
     def __init__(self, wl, dtype, with_chaos: bool, seed: int = 0,
                  ring: int | None = None):
         dev = self.device
-        self.wl, self.with_chaos = wl, with_chaos
+        self.wl, self.with_chaos, self.W = wl, with_chaos, 1
         self.pw = des.pack_workload(wl, dtype, dev)
         self.tdt = self.pw.submit.dtype
         self.N, self.H = self.pw.n_jobs, self.pw.n_types
@@ -351,6 +387,53 @@ class Dispatch:
         a block, one warp a lane."""
         return dict(lanes_per_block=1, **step_kernel.launch_plan(
             self.H, self.ring, self.tdt == torch.float64)._asdict())
+
+
+class CohortDispatch(Dispatch):
+    """The operands of one cohort dispatch as `run_cohort_grid` gives them:
+    W members of 222 lanes each, W * 222 lanes over the stacked tables;
+    with `chaos` (a fault axis of C cells), 222 * C lanes a member, the
+    streams (drawn as the engine draws them) and the fault columns
+    ``[*, L]`` shared by the members."""
+
+    def __init__(self, cohort, chaos: des.ChaosConfig | None = None):
+        dev = self.device
+        self.wl, self.with_chaos, self.W = None, chaos is not None, \
+            cohort.n_workloads
+        self.cohort = cohort
+        self.pw = cohort.pack(dev)
+        self.tdt = self.pw.submit.dtype
+        self.N, self.H = self.pw.n_jobs, self.pw.n_types
+        self.M, self.ring = cohort.m_nodes, cohort.ring
+        K, S = len(sweep.PAPER_SCALE_RATIOS), len(sweep.PAPER_INIT_PROPS)
+        C = sweep.chaos_axis_len(chaos)
+        ks = np.repeat(np.asarray(sweep.PAPER_SCALE_RATIOS, cohort.dtype),
+                       S * C)
+        ss = [np.repeat(np.tile(np.asarray(
+            [wl.init_time_for_proportion(p) for p in sweep.PAPER_INIT_PROPS],
+            cohort.dtype), K), C) for wl in cohort.workloads]
+        self.L = len(ks)
+        self.T = self.W * self.L
+        self.k = torch.tensor(np.tile(ks, self.W), device=dev).reshape(1, -1)
+        self.s = torch.tensor(np.concatenate(ss), device=dev).reshape(1, -1)
+        self.p_j = torch.ones((self.H,), dtype=self.tdt, device=dev)
+        self.tmax_j = torch.full((self.H,), 3600.0, dtype=self.tdt,
+                                 device=dev)
+        self.t_last = self.pw.t_last_submit.reshape(self.W, 1)
+        self.R, self.kw = des.resolve_max_requeues(chaos, self.N), {}
+        if chaos is not None:
+            lanes = sweep.chaos_lane_grid(chaos, K * S, cohort.dtype)[0]
+            u1, u2 = des._chaos_streams(lanes, None, None, self.N + self.R,
+                                        self.L, self.tdt, dev)
+            self.kw = dict(u1=u1, u2=u2, chaos_params=des.chaos_param_columns(
+                lanes, self.L, self.tdt, dev))
+        self.budget = des.event_budget(self.N, self.R)
+        self.n_segs = -(-self.budget // SEG)
+
+    def label(self):
+        return (f"cohort {self.cohort.label} W={self.W} x {self.L} lanes, "
+                f"T={self.T}, ring={self.ring} "
+                f"chaos={'on' if self.with_chaos else 'off'}")
 
 
 def clone_state(state):
@@ -425,7 +508,7 @@ def start_builds(pool):
         return time.perf_counter() - t0
     return {m: pool.submit(timed_load, m)
             for m in (step_kernel, attn_kernel, lru_kernel, select_kernel,
-                      while_kernel)}
+                      while_kernel, base_kernel)}
 
 
 def phase_build(mod, built, describe=None):
@@ -519,74 +602,103 @@ def step_shapes(flows):
     return shapes
 
 
+def paper_cohorts(flows):
+    """The paper's six flows as benchmarks/paper_sweep.py groups them."""
+    return cohort_mod.group_workloads(
+        flows, {name: paper_dtype(wl) for name, wl in flows.items()})
+
+
+def step_check(d: Dispatch):
+    """n_steps = 1 against the plain step, from the initial state and from
+    states the kernel reached after 3, 700, 2500 and 9000 steps."""
+    state = d.initial_state()
+    worst, at = 0.0, []
+    done = 0
+    for warm in (0, 3, 700, 2500, 9000):
+        if warm > done:     # advance with the kernel itself
+            d.steps(state, warm - done, "cuda")
+            done = warm
+        a, b = clone_state(state), clone_state(state)
+        _, la = d.steps(a, 1, "cuda")
+        _, lb = d.steps(b, 1, "torch")
+        torch.cuda.synchronize()
+        worst = max(worst, compare(a, la, b, lb, f"kernel_step {d.label()} "
+                                                 f"after {warm} steps"))
+        at.append(warm)
+    emit("kernel_step", shape=d.label(), plan=d.plan(),
+         states_after_steps=at, max_ulp=worst, ulp_bound=ULP_BOUND, ok=True)
+
+
 def phase_kernel_step(flows):
     """n_steps = 1 from the initial state and from states taken mid-run,
     all eight instantiations (float32/float64 x chaos off/on x the ring in
     shared or device memory), the paper's rings and the shapes of
-    `step_shapes`."""
+    `step_shapes`; then the workload axis at the widths the cohort study
+    gives it: both paper cohorts, 3 x 222 = 666 lanes fault-free and
+    3 x 1 776 = 5 328 lanes under paper_sweep.py's 8-cell fault axis (the
+    streams and fault columns shared by the members, read at lane % L)."""
     for wl, dtype, ring in step_shapes(flows):
         for with_chaos in (False, True):
-            d = Dispatch(wl, dtype, with_chaos, ring=ring)
-            state = d.initial_state()
-            worst, at = 0.0, []
-            done = 0
-            for warm in (0, 3, 700, 2500, 9000):
-                if warm > done:     # advance with the kernel itself
-                    d.steps(state, warm - done, "cuda")
-                    done = warm
-                a, b = clone_state(state), clone_state(state)
-                _, la = d.steps(a, 1, "cuda")
-                _, lb = d.steps(b, 1, "torch")
-                torch.cuda.synchronize()
-                worst = max(worst, compare(a, la, b, lb,
-                                           f"kernel_step {d.label()} "
-                                           f"after {warm} steps"))
-                at.append(warm)
-            emit("kernel_step", shape=d.label(), plan=d.plan(),
-                 states_after_steps=at, max_ulp=worst, ulp_bound=ULP_BOUND,
-                 ok=True)
+            step_check(Dispatch(wl, dtype, with_chaos, ring=ring))
+    chaos = des.ChaosConfig(**PAPER_CHAOS)
+    for c in paper_cohorts(flows):
+        for axis in (None, chaos):
+            step_check(CohortDispatch(c, axis))
+
+
+def run_check(d: Dispatch, max_seconds: float):
+    """The dispatch from its initial state, kernel against plain version,
+    segment by segment, until every lane drained or the plain version's
+    time passed `max_seconds`. Returns the plain version's ms a segment."""
+    a, b = d.initial_state(), d.initial_state()
+    la, lb = d.new_logs(d.n_segs * SEG), d.new_logs(d.n_segs * SEG)
+    worst, segs, plain_s = 0.0, 0, 0.0
+    while segs < d.n_segs and d.any_active(a):
+        d.steps(a, SEG, "cuda", la, segs * SEG)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.steps(b, SEG, "torch", lb, segs * SEG)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        rows = slice(segs * SEG, (segs + 1) * SEG)
+        worst = max(worst, compare(
+            a, tuple(x[rows] for x in la), b, tuple(x[rows] for x in lb),
+            f"kernel_run {d.label()} segment {segs}"))
+        segs += 1
+        if plain_s > max_seconds:
+            break
+    whole = not d.any_active(a)
+    emit("kernel_run", shape=d.label(), segments=segs,
+         steps_compared=segs * SEG, budget=d.budget, whole_dispatch=whole,
+         note=("every lane drained" if whole else
+               "compared on a prefix of the budget at full width: the "
+               "plain version's time limit was reached"),
+         n_groups_total=int(a.n_groups.sum()),
+         requeues_total=int(a.requeues.sum()),
+         plain_seconds=plain_s, max_ulp=worst, ulp_bound=ULP_BOUND, ok=True)
+    return 1e3 * plain_s / segs
 
 
 def phase_kernel_run(flows):
     """A whole dispatch at full width, kernel against plain version, segment
     by segment: homog0.85 float32 chaos off, then on, then hetero0.85
-    float64 (ring 500). Returns the plain version's ms per segment (homog,
-    chaos off), for the kernels line."""
+    float64 (ring 500); then the cohorts: M100-N5000-float32 fault-free
+    (666 lanes) to its end, M500-N5000-float64 under the 8-cell fault axis
+    (5 328 lanes) on a prefix. Returns the plain version's ms per segment
+    (homog, chaos off), for the kernels line."""
     plain_ms = None
     for flow, dtype, with_chaos in (("homog0.85", np.float32, False),
                                     ("homog0.85", np.float32, True),
                                     ("hetero0.85", np.float64, False)):
-        d = Dispatch(flows[flow], dtype, with_chaos)
-        a, b = d.initial_state(), d.initial_state()
-        la, lb = d.new_logs(d.n_segs * SEG), d.new_logs(d.n_segs * SEG)
-        worst, segs, plain_s = 0.0, 0, 0.0
-        while segs < d.n_segs and d.any_active(a):
-            d.steps(a, SEG, "cuda", la, segs * SEG)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            d.steps(b, SEG, "torch", lb, segs * SEG)
-            torch.cuda.synchronize()
-            plain_s += time.perf_counter() - t0
-            rows = slice(segs * SEG, (segs + 1) * SEG)
-            worst = max(worst, compare(
-                a, tuple(x[rows] for x in la), b, tuple(x[rows] for x in lb),
-                f"kernel_run {d.label()} segment {segs}"))
-            segs += 1
-            if plain_s > PLAIN_RUN_SECONDS:
-                break
-        whole = not d.any_active(a)
-        if plain_ms is None:
-            plain_ms = 1e3 * plain_s / segs
-        emit("kernel_run", shape=d.label(), segments=segs,
-             steps_compared=segs * SEG, budget=d.budget,
-             whole_dispatch=whole,
-             note=("every lane drained" if whole else
-                   "compared on a prefix of the budget at full width: the "
-                   "plain version's time limit was reached"),
-             n_groups_total=int(a.n_groups.sum()),
-             requeues_total=int(a.requeues.sum()),
-             plain_seconds=plain_s, max_ulp=worst, ulp_bound=ULP_BOUND,
-             ok=True)
+        ms = run_check(Dispatch(flows[flow], dtype, with_chaos),
+                       PLAIN_RUN_SECONDS)
+        plain_ms = ms if plain_ms is None else plain_ms
+    cohorts = {c.label: c for c in paper_cohorts(flows)}
+    run_check(CohortDispatch(cohorts["M100-N5000-float32"]),
+              PLAIN_RUN_SECONDS)
+    run_check(CohortDispatch(cohorts["M500-N5000-float64"],
+                             des.ChaosConfig(**PAPER_CHAOS)),
+              COHORT_CHAOS_PLAIN_SECONDS)
     return plain_ms
 
 
@@ -730,7 +842,7 @@ def time_kernel(d: Dispatch):
     # bound: every operand read once, every output written once per launch;
     # operations counted for the events this run's data needed
     fsz = 8 if d.tdt == torch.float64 else 4
-    tables = (d.H * (d.N + 1) + d.H * d.N + d.N) * fsz + d.N * 4
+    tables = d.W * ((d.H * (d.N + 1) + d.H * d.N + d.N) * fsz + d.N * 4)
     lane_params = (2 * d.T + 2 * d.H + 1) * fsz
     state_bytes = sum(c.numel() * c.element_size() for c in state)
     log_bytes = SEG * d.T * (2 * 4 + 2 * fsz)
@@ -741,7 +853,8 @@ def time_kernel(d: Dispatch):
     ops_per_launch = ops_per_event * events / segs
     t_bytes = 1e3 * bytes_per_launch / HBM_BYTES_PER_S
     t_ops = 1e3 * ops_per_launch / FP32_OPS_PER_S
-    return dict(shape=d.label(), plan=d.plan(), segments=segs, events=events,
+    return dict(shape=d.label(), plan=d.plan(), lanes=d.T,
+                segments=segs, events=events,
                 ms=min(times), ms_runs=times,
                 ns_per_lane_step=1e6 * min(times) / SEG,
                 ns_per_event=1e6 * min(times) * segs / events,
@@ -1393,10 +1506,12 @@ def phase_chaos_grid(flows, fused):
         pw = des.pack_workload(wl, np_dtype, Dispatch.device)
         M = int(wl.params.nodes)
         t0 = time.perf_counter()
-        seq = sweep._run_lanes(pw, k_lanes[idx], s_lanes[idx], M,
+        seq = sweep._run_lanes(des.as_cohort(pw), k_lanes[idx][None],
+                               s_lanes[idx][None], M,
                                des.resolve_ring(M, pw.n_jobs), "seq", None,
                                "cuda", Dispatch.device,
                                sweep._chaos_take(chaos_l, idx))
+        seq = Metrics(*(x[0] for x in seq))
         seq_wall = time.perf_counter() - t0
         flat = Metrics(*(x.reshape((K * S * C,) + x.shape[3:])
                          for x in grid))
@@ -1615,6 +1730,436 @@ def phase_sim_path():
          plateau_k=thr.threshold, plateau_wait=thr.plateau,
          threshold_equals_grid_column=True, ok=True)
     return launched
+
+
+# --------------------------------------------------------------------------
+# the paper's whole study: the cohorts and the rigid baselines
+# --------------------------------------------------------------------------
+
+def paper_dtype(wl):
+    """benchmarks/paper_sweep.py's precision policy: heterogeneous flows
+    in float64, homogeneous ones in float32."""
+    return np.float32 if wl.params.homogeneous else np.float64
+
+
+def grids_equal(got: Metrics, want: Metrics, label: str):
+    for f_ in want._fields:
+        g, w = np.asarray(getattr(got, f_)), np.asarray(getattr(want, f_))
+        if g.shape != w.shape or g.dtype != w.dtype or not np.array_equal(
+                g, w):
+            fail(f"{label}: {f_} differs")
+
+
+def timed_call(fn, *a, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def chaos_golden_deviation(grids: dict) -> dict:
+    """The largest relative difference of each float field of the chaos
+    cohort grids from benchmarks/results/paper_chaos_grid.json (written by
+    the reference on a CPU with an older JAX, whose threefry bits may
+    differ), and the number of cells whose integer fields differ.
+    Printed, not gated."""
+    with open(CHAOS_GOLDEN) as f:
+        gold = json.load(f)["workloads"]
+    out = {}
+    for name, grid in grids.items():
+        row = {}
+        for f_ in grid._fields:
+            g = np.asarray(getattr(grid, f_))
+            w = np.asarray(gold[name][f_], g.dtype)
+            if g.dtype.kind == "f":
+                rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-3)
+                row[f_] = float(np.max(np.where(g == w, 0.0, rel)))
+            else:
+                row[f_] = int(np.sum(g != w))
+        out[name] = row
+    return out
+
+
+def phase_cohort_grid(flows):
+    """The paper's six flows as the two cohorts of paper_sweep.py's dtype
+    policy (M500-N5000-float64, M100-N5000-float32), each 3 x 222 = 666
+    lanes, through `run_cohort_grid` as a user calls it. Gates: every
+    member's grid bitwise its own fused `run_packet_grid`; one event-step
+    launch a segment for the whole cohort (the launches of a study equal
+    those of its longest member's grid); chunked = fused; `mode="seq"` on
+    SEQ_CELLS (S = 0.05) bitwise the fused cells with the scan engine's
+    lane and, with step_impl="torch", one `packet_while` launch a cell,
+    bitwise `run_packet_grid(mode="seq")` and within SEQ_RTOL of the
+    fused cells; a one-member cohort bitwise `run_packet_grid`. Then the
+    same under paper_sweep.py's 8-cell fault axis (1 776 lanes a member,
+    5 328 a cohort), bitwise the members' fused fault grids, with the
+    largest difference from the checked-in paper_chaos_grid.json printed.
+    Returns the event-step launches of the cohort studies and the kernel's
+    times at the cohorts' width."""
+    cohorts = paper_cohorts(flows)
+    if [c.n_workloads for c in cohorts] != [3, 3]:
+        fail(f"cohort_grid: {len(cohorts)} cohorts of "
+             f"{[c.n_workloads for c in cohorts]} flows, not 2 of 3")
+    K, S = len(sweep.PAPER_SCALE_RATIOS), len(sweep.PAPER_INIT_PROPS)
+    seq_ks = [sweep.PAPER_SCALE_RATIOS[i] for i in SEQ_CELLS]
+    path_launches, times = 0, {}
+    for c in cohorts:
+        label = f"cohort_grid {c.label}"
+        walls, launched = [], []
+        for _ in range(2):                  # cold, then warm
+            step_ops.packet_event_steps.launches = 0
+            grids, wall = timed_call(sweep.run_cohort_grid, c)
+            walls.append(wall)
+            launched.append(step_ops.packet_event_steps.launches)
+        path_launches += sum(launched)
+        member_walls, member_launches, fused = {}, {}, {}
+        for name, wl in zip(c.names, c.workloads):
+            before = step_ops.packet_event_steps.launches
+            want, member_walls[name] = timed_call(
+                sweep.run_packet_grid, wl, dtype=c.dtype)
+            member_launches[name] = (step_ops.packet_event_steps.launches
+                                     - before)
+            grids_equal(grids[name], want, f"{label} {name} vs its fused "
+                        f"run_packet_grid")
+            if not want.ok.all():
+                fail(f"{label} {name}: a cell is not ok")
+            fused[name] = want
+        if launched[0] != launched[1] or launched[1] != max(
+                member_launches.values()):
+            fail(f"{label}: {launched} launches a study, not one a segment "
+                 f"of the longest member ({member_launches})")
+        chunked, chunked_wall = timed_call(sweep.run_cohort_grid, c,
+                                           mode="chunked")
+        for name in c.names:
+            grids_equal(chunked[name], fused[name], f"{label} chunked")
+        seq, seq_wall = timed_call(sweep.run_cohort_grid, c, ks=seq_ks,
+                                   s_props=[0.05], mode="seq")
+        while0 = while_ops.packet_while.launches
+        seq_while, seq_while_wall = timed_call(
+            sweep.run_cohort_grid, c, ks=seq_ks, s_props=[0.05],
+            mode="seq", step_impl="torch")
+        while_launched = while_ops.packet_while.launches - while0
+        if while_launched != len(seq_ks) * c.n_workloads:
+            fail(f"{label} seq: {while_launched} packet_while launches for "
+                 f"{len(seq_ks)} cells x {c.n_workloads} members")
+        worst_seq = 0.0
+        for name, wl in zip(c.names, c.workloads):
+            cells = Metrics(*(np.asarray(x)[list(SEQ_CELLS)][:, :1]
+                              for x in fused[name]))
+            grids_equal(seq[name], cells, f"{label} seq {name}")
+            grids_equal(seq_while[name], sweep.run_packet_grid(
+                wl, ks=seq_ks, s_props=[0.05], dtype=c.dtype, mode="seq",
+                step_impl="torch"), f"{label} seq (while kernel) {name}")
+            worst_seq = max(worst_seq, check_grid(
+                seq_while[name], cells, SEQ_RTOL[c.dtype],
+                f"{label} seq (while kernel) {name}"))
+        first = c.names[0]
+        one = cohort_mod.group_workloads({first: c.workloads[0]},
+                                         c.dtype)[0]
+        grids_equal(sweep.run_cohort_grid(one)[first], fused[first],
+                    f"{label} W=1")
+        t = time_kernel(CohortDispatch(c))
+        if t["segments"] != launched[1]:
+            fail(f"{label}: {t['segments']} timed segments, {launched[1]} "
+                 f"launches in the study")
+        times[c.label] = t
+        emit("cohort_grid", cohort=c.label, members=list(c.names),
+             lanes=c.n_workloads * K * S,
+             plan=sweep.sweep_plan("auto", K * S, c.dtype,
+                                   n_workloads=c.n_workloads),
+             wall_seconds_cold=walls[0], wall_seconds=walls[1],
+             member_wall_seconds=member_walls,
+             members_wall_seconds_sum=sum(member_walls.values()),
+             launches=launched[1], member_launches=member_launches,
+             kernel_ms=t["ms"], kernel_ms_runs=t["ms_runs"],
+             ns_per_lane_step=t["ns_per_lane_step"],
+             ns_per_event=t["ns_per_event"], events=t["events"],
+             chunked_wall_seconds=chunked_wall, seq_cells=seq_ks,
+             seq_wall_seconds=seq_wall,
+             seq_while_kernel_wall_seconds=seq_while_wall,
+             seq_while_kernel_launches=while_launched,
+             seq_while_max_rel_dev_vs_fused=worst_seq,
+             members_equal_fused=True, chunked_equal=True, seq_equal=True,
+             one_member_equal=True, one_launch_a_segment=True, ok=True)
+
+    chaos = des.ChaosConfig(**PAPER_CHAOS)
+    C = sweep.chaos_axis_len(chaos)
+    chaos_grids = {}
+    for c in cohorts:
+        label = f"cohort_grid {c.label} chaos"
+        step_ops.packet_event_steps.launches = 0
+        grids, wall = timed_call(sweep.run_cohort_grid, c, chaos=chaos)
+        launched = step_ops.packet_event_steps.launches
+        path_launches += launched
+        member_walls, member_launches = {}, {}
+        for name, wl in zip(c.names, c.workloads):
+            before = step_ops.packet_event_steps.launches
+            want, member_walls[name] = timed_call(
+                sweep.run_packet_grid, wl, dtype=c.dtype, chaos=chaos)
+            member_launches[name] = (step_ops.packet_event_steps.launches
+                                     - before)
+            if grids[name].avg_wait.shape != (K, S, C):
+                fail(f"{label} {name}: grid shape "
+                     f"{grids[name].avg_wait.shape}")
+            grids_equal(grids[name], want, f"{label} {name} vs its fused "
+                        f"run_packet_grid")
+            if not want.ok.all() or want.failures.sum() < 1:
+                fail(f"{label} {name}: a lane is not ok, or no failure")
+            chaos_grids[name] = grids[name]
+        if launched != max(member_launches.values()):
+            fail(f"{label}: {launched} launches, not one a segment of the "
+                 f"longest member ({member_launches})")
+        R = des.resolve_max_requeues(chaos, c.n_jobs)
+        rows = -(-des.event_budget(c.n_jobs, R) // SEG) * SEG
+        emit("cohort_grid", cohort=c.label, chaos_cells=C,
+             lanes=c.n_workloads * K * S * C, wall_seconds=wall,
+             member_wall_seconds=member_walls,
+             members_wall_seconds_sum=sum(member_walls.values()),
+             launches=launched, member_launches=member_launches,
+             log_bytes=rows * c.n_workloads * K * S * C * (
+                 8 + 2 * c.dtype.itemsize),
+             failures=int(sum(g.failures.sum() for g in grids.values())),
+             requeues=int(sum(g.requeues.sum() for g in grids.values())),
+             members_equal_fused=True, one_launch_a_segment=True, ok=True)
+    emit("cohort_grid", run="chaos grids against paper_chaos_grid.json "
+         "(not gated)", max_rel_dev_or_cells_differing=(
+             chaos_golden_deviation(chaos_grids)))
+    return path_launches, times
+
+
+def baseline_instantiations(log: str) -> list:
+    """Registers and spills of each baselines-kernel instantiation, read
+    from the ptxas lines of its build log, with the lane bytes its launch
+    plan gives the paper's flows (N = 5000, 64 candidates; ring 100 in
+    float32, ring 500 in float64)."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            f, bf = re.search(r"baselines_kernelI([fd])Lb([01])E",
+                              entry.group(1)).groups()
+            is_f64, backfill = f == "d", bf == "1"
+            ring = 500 if is_f64 else 100
+            plan = base_kernel.launch_plan(5000, ring, 64, is_f64, backfill)
+            cur = dict(dtype="float64" if is_f64 else "float32",
+                       policy="backfill" if backfill else "fcfs",
+                       smem_bytes=plan.lane_bytes if plan.lane_in_smem
+                       else 0, smem_shape=f"N 5000, ring {ring}, 64 "
+                       f"candidates")
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", ln).groups()
+            cur.update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    return sorted(rows, key=lambda r: (r["dtype"], r["policy"]))
+
+
+def baseline_operands(wl, dtype, s_props):
+    pw = des.pack_workload(wl, dtype, Dispatch.device)
+    s = torch.tensor([wl.init_time_for_proportion(p) for p in s_props],
+                     dtype=pw.submit.dtype, device=Dispatch.device)
+    return pw, s
+
+
+def time_baselines(wl, dtype, policy):
+    """CUDA-event ms of one `baselines` launch over the paper's six init
+    proportions of `wl`, uncut, and what bounds the same work."""
+    pw, s = baseline_operands(wl, dtype, sweep.PAPER_INIT_PROPS)
+    M, N = int(wl.params.nodes), pw.n_jobs
+    ring = des.resolve_ring(M, N)
+
+    def call():
+        return base_ops.baselines(pw.submit, pw.runtime, pw.nodes,
+                                  pw.t_last_submit, s, M, policy=policy,
+                                  max_iters=4 * N + 64, ring=ring)
+    out = call()
+    runs = [cuda_ms(call, 3) for _ in range(3)]
+    events = int(out.iters.long().sum())
+    starts = int(out.n_started.long().sum())
+    T, fsz = int(s.shape[0]), pw.submit.element_size()
+    # bytes: submit, runtime, nodes read once, the job times and the lane
+    # scalars written once; operations: 16 an event and 24 a job start,
+    # this run's counts (backfill's candidate tests and reservation sums,
+    # which depend on the queue, are not counted: a lower bound)
+    nbytes = N * (2 * fsz + 4) + T * fsz + T * N * 2 * fsz + T * (
+        4 * fsz + 9)
+    ops = 16 * events + 24 * starts
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    plan = base_kernel.launch_plan(N, ring, 64, dtype == np.float64,
+                                   policy == "backfill")
+    return dict(shape=f"N={N} M={M} ring={ring} T={T} "
+                      f"{np.dtype(dtype).name} {policy}",
+                ms=min(runs), ms_runs=runs, events=events,
+                ns_per_event=1e6 * min(runs) / (events / T),
+                bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                plan=plan._asdict())
+
+
+def compare_baselines(got, want, label):
+    """Kernel against plain version: job times bitwise, counts and flags
+    equal, the float integrals within ULP_BOUND. Returns the worst ulp."""
+    for name in ("start_t", "run_start_t", "makespan"):
+        g, w = getattr(got, name), getattr(want, name)
+        if not torch.equal(g, w):
+            fail(f"{label}: {name} differs (gate: 0 ulp)")
+    for name in ("n_groups", "ok", "budget_exhausted"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            fail(f"{label}: {name} differs")
+    worst = 0.0
+    for name in ("qlen_int", "busy_ns", "useful_ns"):
+        g, w = getattr(got, name), getattr(want, name)
+        u = ulp_diff(g, w)
+        if u > ULP_BOUND:
+            fail(f"{label}: {name} differs by {u} ulp (bound {ULP_BOUND})")
+        worst = max(worst, u)
+        BaseWorst.abs_err = max(BaseWorst.abs_err, float(
+            (g.double() - w.double()).abs().max()))
+    BaseWorst.ulp = max(BaseWorst.ulp, worst)
+    return worst
+
+
+class BaseWorst:
+    """Largest kernel-vs-plain baselines difference seen so far."""
+    ulp = 0.0
+    abs_err = 0.0
+
+
+def phase_baselines(flows):
+    """`run_baselines` on all six paper flows, uncut, each in its policy
+    dtype (6 init proportions x FCFS and backfill), and `launch.sim.main
+    (["--baselines"])`, as a user calls them: one `baselines` launch a
+    policy a call (gated). Then the kernel against its plain version
+    (lanes in lockstep) on homog0.85 (float32) and hetero0.85 (float64),
+    uncut, at the six init proportions, every lane to its end (job times
+    at 0 ulp, counts and flags equal, integrals within 2 ulp; once more
+    with a ring too long for shared memory, the workspace path, capped at
+    BASELINE_CAP_ITERS events a lane), the golden file's
+    fcfs / backfill blocks in float64 within rtol 1e-9, and each policy's
+    kernel time on the uncut flows. Returns the path's launches, the
+    timings and the plain version's ms."""
+    base_ops.baselines.launches = 0
+    calls = 0
+    for name, wl in flows.items():
+        dtype = paper_dtype(wl)
+        bl, wall = timed_call(sweep.run_baselines, wl, dtype=dtype)
+        calls += 1
+        if list(bl) != ["backfill", "fcfs"]:
+            fail(f"baselines {name}: policies {list(bl)}")
+        for policy, m in bl.items():
+            label = f"baselines {name} {policy}"
+            if m.avg_wait.shape != (len(sweep.PAPER_INIT_PROPS),):
+                fail(f"{label}: shape {m.avg_wait.shape}")
+            if not m.ok.all() or (m.n_groups != wl.n_jobs).any():
+                fail(f"{label}: not every job started")
+            for f_ in SCALAR_METRIC_FIELDS:
+                if not np.isfinite(getattr(m, f_)).all():
+                    fail(f"{label}: {f_} is not finite")
+            if m.full_util.max() > 1.0 or m.useful_util.min() < 0.0:
+                fail(f"{label}: utilization outside [0, 1]")
+        emit("baselines", flow=name, n_jobs=wl.n_jobs,
+             dtype=np.dtype(dtype).name, wall_seconds=wall,
+             avg_wait={p: m.avg_wait.tolist() for p, m in bl.items()},
+             useful_util={p: m.useful_util.tolist() for p, m in bl.items()},
+             ok=True)
+    before = base_ops.baselines.launches
+    out, sim_wall = timed_call(sim.main, ["--baselines"])
+    calls += 1
+    if len(out) != 3 or base_ops.baselines.launches - before != 2 or \
+            not all(m.ok.all() for m in out[2].values()):
+        fail("baselines: sim --baselines did not run both policies once")
+    launches = base_ops.baselines.launches
+    if launches != 2 * calls:
+        fail(f"baselines: {launches} launches for {calls} calls of two "
+             f"policies")
+    emit("baselines", run="launch.sim.main(['--baselines'])",
+         wall_seconds=sim_wall,
+         baselines={p: dict(avg_wait=float(m.avg_wait[0]),
+                            useful_util=float(m.useful_util[0]))
+                    for p, m in out[2].items()},
+         launches_on_path=launches, calls=calls, ok=True)
+
+    plain_ms = {}
+    # the main path's shapes: N = 5000, the six init proportions, the
+    # policy dtype's ring; every lane to its end. The last case, a ring of
+    # BASELINE_WORKSPACE_RING slots, takes the device-memory workspace in
+    # place of shared memory (launch plan) and stops every lane at
+    # BASELINE_CAP_ITERS events (budget_exhausted in both versions)
+    for flow, policy, ring, cap in (
+            ("homog0.85", "fcfs", None, None),
+            ("homog0.85", "backfill", None, None),
+            ("hetero0.85", "fcfs", None, None),
+            ("hetero0.85", "backfill", None, None),
+            ("hetero0.85", "backfill", BASELINE_WORKSPACE_RING,
+             BASELINE_CAP_ITERS)):
+        wl = flows[flow]
+        dtype = paper_dtype(wl)
+        pw, s = baseline_operands(wl, dtype, sweep.PAPER_INIT_PROPS)
+        M, N = int(wl.params.nodes), pw.n_jobs
+        fn = (schedulers.simulate_fcfs if policy == "fcfs"
+              else schedulers.simulate_backfill)
+        plan = base_kernel.launch_plan(
+            N, des.resolve_ring(M, N, ring), 64, dtype == np.float64,
+            policy == "backfill")
+        if plan.lane_in_smem == (ring is not None):
+            fail(f"baselines vs plain: ring {ring} gave the plan {plan}")
+        label = f"baselines vs plain {flow} {policy} ring {ring}"
+        got = fn(pw, s, M, ring=ring, max_iters=cap)
+        want, plain_s = timed_call(fn, pw, s, M, ring=ring, max_iters=cap,
+                                   impl="torch")
+        worst = compare_baselines(got, want, label)
+        exhausted = bool(got.budget_exhausted.all())
+        if exhausted != (cap is not None) or bool(
+                got.budget_exhausted.any()) != exhausted:
+            fail(f"{label}: budget_exhausted {got.budget_exhausted.tolist()}"
+                 f" with a cap of {cap} events")
+        if cap is None:
+            plain_ms[f"{flow} {policy}"] = 1e3 * plain_s
+            if not bool((got.n_groups == N).all()):
+                fail(f"{label}: not every job started")
+        emit("baselines", run="kernel against the plain version",
+             flow=flow, policy=policy, n_jobs=N,
+             s_props=list(sweep.PAPER_INIT_PROPS),
+             ring=des.resolve_ring(M, N, ring),
+             max_iters=4 * N + 64 if cap is None else cap,
+             plan=plan._asdict(), dtype=np.dtype(dtype).name,
+             plain_seconds=plain_s, n_groups=got.n_groups.tolist(),
+             budget_exhausted=exhausted, start_t_ulp=0.0, max_ulp=worst,
+             ulp_bound=ULP_BOUND, ok=True)
+
+    with open(GOLDEN) as f:
+        gold = json.load(f)
+    spec, worst_gold = gold["spec"], 0.0
+    for name, params in spec["workloads"].items():
+        bl = sweep.run_baselines(generate_workload(WorkloadParams(**params)),
+                                 spec["s_props"], dtype=np.float64)
+        for policy in ("fcfs", "backfill"):
+            want = gold["grids"][name][policy]
+            for f_ in SCALAR_METRIC_FIELDS:
+                g = np.asarray(getattr(bl[policy], f_))
+                w = np.asarray(want[f_])
+                floor = {"avg_qlen": 1e-6, "full_util": 1e-6,
+                         "useful_util": 1e-6}.get(f_, 1e-3)
+                rel = float(np.max(np.abs(g - w) / np.maximum(np.abs(w),
+                                                              floor)))
+                if not rel <= 1e-9:
+                    fail(f"baselines golden {name}/{policy}/{f_}: rel "
+                         f"deviation {rel} > 1e-9")
+                worst_gold = max(worst_gold, rel)
+    times = {f"{flow} {policy}": time_baselines(flows[flow],
+                                                paper_dtype(flows[flow]),
+                                                policy)
+             for flow in ("homog0.85", "hetero0.85")
+             for policy in ("fcfs", "backfill")}
+    emit("baselines", run="goldens and kernel times",
+         golden_max_rel_dev=worst_gold, golden_rtol=1e-9, kernel=times,
+         ok=True)
+    return launches, times, plain_ms
 
 
 # --------------------------------------------------------------------------
@@ -2381,7 +2926,9 @@ def lru_instantiations(log: str) -> list:
 
 def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
-                  while_launches, while_times, while_build, lru_build):
+                  while_launches, while_times, while_build, lru_build,
+                  cohort_times, base_launches, base_times, base_plain_ms,
+                  base_build):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -2408,6 +2955,7 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": main,
         "other_shapes": others,
+        "cohort_shapes": cohort_times,
     }]}
     attn = time_attention()
     line["kernels"].append({
@@ -2528,6 +3076,39 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "build_seconds": while_build[0],
         "instantiations": while_instantiations(while_build[1]),
     })
+    bt = base_times["hetero0.85 backfill"]
+    line["kernels"].append({
+        "name": "baselines",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/baselines.cu",
+        "replaces": "src/repro/core/schedulers.py:66 (the while loop of "
+                    "simulate_fcfs / simulate_backfill, run by "
+                    "run_baselines at src/repro/core/sweep.py:1002; not a "
+                    "Pallas kernel)",
+        "launches": base_launches,
+        "max_abs_err": BaseWorst.abs_err,
+        "max_ulp": BaseWorst.ulp,
+        "ms": bt["ms"],
+        "plain_ms": base_plain_ms["hetero0.85 backfill"],
+        "bound_ms": bt["bound_ms"],
+        "bound_by": bt["bound_by"],
+        "library_ms": None,
+        "ns_per_event": bt["ns_per_event"],
+        "unit": f"one launch = one policy over the six init proportions "
+                f"of a paper flow, every lane to its end; {bt['shape']}; "
+                f"ms by CUDA events, warm; plain_ms the plain lockstep "
+                f"version (impl='torch') on the same operands, host clock "
+                f"ended by a synchronize; no single PyTorch call computes "
+                f"this loop",
+        "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
+                        "ops_per_s": FP32_OPS_PER_S},
+        "main_shape": bt,
+        "other_shapes": [t for k, t in base_times.items()
+                         if k != "hetero0.85 backfill"],
+        "plain_ms_shapes": base_plain_ms,
+        "build_seconds": base_build[0],
+        "instantiations": baseline_instantiations(base_build[1]),
+    })
     print(json.dumps(line), flush=True)
 
 
@@ -2576,6 +3157,12 @@ def main(argv=None):
                                 fused),
             "service_path": timed("service_path", phase_service_path),
             "sim_path": timed("sim_path", phase_sim_path)}
+        des_launches["cohort_grid"], cohort_times = timed(
+            "cohort_grid", phase_cohort_grid, flows)
+        base_build = timed("build baselines, wait", phase_build, base_kernel,
+                           builds[base_kernel], baseline_instantiations)
+        base_launches, base_times, base_plain_ms = timed(
+            "baselines", phase_baselines, flows)
         attn_build = timed("build flash_attention, wait", phase_build,
                            attn_kernel, builds[attn_kernel])
         lru_build = timed("build rglru_scan, wait", phase_build, lru_kernel,
@@ -2591,7 +3178,8 @@ def main(argv=None):
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
-          while_build, lru_build)
+          while_build, lru_build, cohort_times, base_launches, base_times,
+          base_plain_ms, base_build)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

@@ -31,6 +31,12 @@ the hand-written kernel with the event loop inside it. The host reads one
 boolean per segment. Extra segments past a lane's drain point are masked
 no-ops, so a lane's result does not depend on its companions.
 
+A cohort (`repro_torch.core.cohort`) is one dispatch too: a PackedWorkload
+stacked along a leading ``[W]`` axis with ``[W, L]`` lanes runs as
+``T = W * L`` lanes, each reading its member's tables, one launch and one
+boolean read per segment for the whole cohort; the job times and the
+drain masks are then taken per member.
+
 Why the simulation vectorizes, the group log and the chaos (fault
 injection) semantics are documented in `repro.core.des`; the arithmetic
 here keeps that module's order of operations so schedules and integer
@@ -96,6 +102,20 @@ class PackedWorkload(NamedTuple):
 _PW_FLOAT_FIELDS = ("submit", "work", "cumw", "runtime", "tj_submit",
                     "tj_prefw", "t_last_submit")
 _PW_INT_FIELDS = ("jtype", "rank", "nodes")
+
+
+def member_workload(pw: PackedWorkload, w: int) -> PackedWorkload:
+    """Member `w` of a stacked PackedWorkload (tensors ``[W, ...]``), as
+    views."""
+    return PackedWorkload(*(x[w] for x in pw[:-2]), n_types=pw.n_types,
+                          n_jobs=pw.n_jobs)
+
+
+def as_cohort(pw: PackedWorkload) -> PackedWorkload:
+    """One workload as a stacked PackedWorkload of one member (views with
+    a leading ``[1]`` axis)."""
+    return PackedWorkload(*(x.unsqueeze(0) for x in pw[:-2]),
+                          n_types=pw.n_types, n_jobs=pw.n_jobs)
 
 
 def packed_from_numpy(fields: dict, device) -> PackedWorkload:
@@ -567,6 +587,14 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
     draws them), unless both `u1` and `u2` are given. Returns a DesResult
     whose every field has a leading lane axis.
 
+    A cohort: `pw` stacked along a leading ``[W]`` axis
+    (`repro_torch.core.cohort.stack_workloads`) takes ``[W, L]`` lane
+    arrays and runs the ``W * L`` lanes as one dispatch; `chaos`, `u1`
+    and `u2` then describe the ``L`` lanes of one member and are shared
+    by all W (the reference's common random numbers), and every field of
+    the result has the leading axes ``[W, L]``. Lane (w, l) gives what
+    lane l of member w alone gives, bit for bit.
+
     `device=None` means the CUDA card and must be where `pw` lives; only
     ``device="cpu"`` runs on the CPU. `step_impl` is ``"cuda"`` (the
     hand-written kernel, the default on a CUDA device) or ``"torch"`` (the
@@ -593,12 +621,21 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
     n_segs = -(-budget // seg)
     budget = n_segs * seg               # segments tile the log exactly
     dtype = pw.submit.dtype
+    stacked = pw.submit.dim() == 2
+    if not stacked:                     # one workload: a cohort of one
+        pw = as_cohort(pw)
+    W = int(pw.submit.shape[0])
     k = _lane_tensor(k, dtype, dev)
     s = _lane_tensor(s_init, dtype, dev)
-    T = int(k.shape[0])
-    if s.shape != k.shape:
-        raise ValueError(f"k and s_init must be equal-length lane arrays, "
-                         f"got {tuple(k.shape)} and {tuple(s.shape)}")
+    if s.shape != k.shape or k.dim() != (2 if stacked else 1) or (
+            stacked and int(k.shape[0]) != W):
+        want = f"[{W}, L]" if stacked else "[T]"
+        raise ValueError(f"k and s_init must be equal-length {want} lane "
+                         f"arrays, got {tuple(k.shape)} and "
+                         f"{tuple(s.shape)}")
+    k, s = k.reshape(W, -1), s.reshape(W, -1)
+    L = int(k.shape[1])
+    T = W * L
     m_nodes = int(m_nodes)
     p_j = (torch.ones((H,), dtype=dtype, device=dev) if priority is None
            else _lane_tensor(priority, dtype, dev))
@@ -606,13 +643,13 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
               if t_max is None else _lane_tensor(t_max, dtype, dev))
 
     has_chaos = chaos is not None
-    u1, u2 = _chaos_streams(chaos, u1, u2, L_cap, T, dtype, dev)
-    chaos_params = (chaos_param_columns(chaos, T, dtype, dev) if has_chaos
+    u1, u2 = _chaos_streams(chaos, u1, u2, L_cap, L, dtype, dev)
+    chaos_params = (chaos_param_columns(chaos, L, dtype, dev) if has_chaos
                     else None)
 
     k_col = k.reshape(1, T).contiguous()
     s_col = s.reshape(1, T).contiguous()
-    t_last = pw.t_last_submit.reshape(1, 1)
+    t_last = pw.t_last_submit.reshape(W, 1)
 
     cols = initial_scan_state(H, ring, T, m_nodes, dtype, dev)
     logs = (torch.full((budget, T), KEY_PAD, dtype=torch.int32, device=dev),
@@ -631,22 +668,31 @@ def simulate_packet_scan_lanes(pw: PackedWorkload, k, s_init, m_nodes,
 
     # rows past the last segment run are still pads: leave them out
     rows = max(1, s_idx * seg)
-    lane_logs = tuple(buf[:rows].t().contiguous() for buf in logs)
-    start_t, run_start_t = _reconstruct_job_times(pw, *lane_logs, s)
     drained = ((cols.next_sub[0] >= N) &
                torch.all(torch.isinf(cols.grp_end), dim=0) &
                torch.all(cols.head == cols.tail, dim=0))
     if has_chaos:
         drained = drained & torch.all(cols.pool_code == 0, dim=0)
-    ok = drained & torch.all(torch.isfinite(start_t), dim=1)
-    return DesResult(start_t=start_t, run_start_t=run_start_t,
-                     qlen_int=cols.qlen_int[0], busy_ns=cols.busy_ns[0],
-                     useful_ns=cols.useful_ns[0], n_groups=cols.n_groups[0],
-                     makespan=cols.t[0], ok=ok, budget_exhausted=~drained,
-                     lost_work=cols.lost_work[0], failures=cols.failures[0],
-                     straggler_kills=cols.straggler_kills[0],
-                     requeues=cols.requeues[0],
-                     requeued_jobs=cols.requeued_jobs[0])
+    # the post-pass member by member, each on its own slice of the logs
+    times = [_reconstruct_job_times(
+        member_workload(pw, w),
+        *(buf[:rows, w * L:(w + 1) * L].t().contiguous() for buf in logs),
+        s[w]) for w in range(W)]
+    start_t, run_start_t = (torch.stack(x) for x in zip(*times))
+    lane = lambda col: col[0].reshape(W, L)
+    drained = drained.reshape(W, L)
+    ok = drained & torch.all(torch.isfinite(start_t), dim=-1)
+    res = DesResult(start_t=start_t, run_start_t=run_start_t,
+                    qlen_int=lane(cols.qlen_int), busy_ns=lane(cols.busy_ns),
+                    useful_ns=lane(cols.useful_ns),
+                    n_groups=lane(cols.n_groups), makespan=lane(cols.t),
+                    ok=ok, budget_exhausted=~drained,
+                    lost_work=lane(cols.lost_work),
+                    failures=lane(cols.failures),
+                    straggler_kills=lane(cols.straggler_kills),
+                    requeues=lane(cols.requeues),
+                    requeued_jobs=lane(cols.requeued_jobs))
+    return res if stacked else DesResult(*(x[0] for x in res))
 
 
 # --------------------------------------------------------------------------

@@ -34,6 +34,13 @@ grid-major, chaos-minor, lane ids the flat index in grid order, assigned
 before any chunk sorting), and the grid's leaves ``[K, S, C]``.
 `run_window_oracle` is one control tick of the streaming service: all
 candidate k's (times the chaos axis) on one packed window.
+
+The workload axis: `run_cohort_grid` runs the grids of a `WorkloadCohort`
+(`repro_torch.core.cohort`) as ONE study, ``[W, L]`` lanes through the
+scan engine's cohort dispatch (one launch per segment for all W * L lanes
+on the card), each member's grid bitwise the one `run_packet_grid` gives
+it. `run_baselines` runs the rigid FCFS and EASY-backfill baselines
+(`repro_torch.core.schedulers`) over the init-proportion axis.
 """
 from __future__ import annotations
 
@@ -46,12 +53,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import precision
-from repro_torch.core.des import (ChaosConfig, PackedWorkload,
-                                  chaos_is_inert, pack_workload,
-                                  resolve_ring, simulate_packet,
-                                  simulate_packet_scan,
+from repro_torch.core.des import (ChaosConfig, DesResult, PackedWorkload,
+                                  as_cohort, chaos_is_inert, member_workload,
+                                  pack_workload, resolve_ring,
+                                  simulate_packet, simulate_packet_scan,
                                   simulate_packet_scan_lanes)
 from repro_torch.core.metrics import Metrics, efficiency_metrics
+from repro_torch.core.schedulers import simulate_backfill, simulate_fcfs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packet_step.ops import resolve_step_impl
 from repro_torch.workload.lublin import Workload
@@ -149,15 +157,7 @@ def lane_order(k_lanes, s_lanes) -> np.ndarray:
     return np.argsort(-predicted_lane_events(k_lanes, s_lanes), kind="stable")
 
 
-def _not_ported(what: str, item: str):
-    """The error for a path of the reference the port does not have yet:
-    `item` names its ROADMAP.md Queue 1 entry, e.g. ``"item 7"``."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        f"{item}); no other path is substituted for it")
-
-
-def resolve_mode(mode: str, n_lanes: int) -> str:
+def resolve_mode(mode: str, n_lanes: int, n_workloads: int = 1) -> str:
     """Resolve mode='auto' to the concrete dispatch layout; validate others.
 
     ``"auto"`` is ``"fused"`` at every lane count: one warp runs one
@@ -165,23 +165,30 @@ def resolve_mode(mode: str, n_lanes: int) -> str:
     side, and sorted chunks dispatched one after the other measured
     slower on an H100 (PERF.md, Findings). The reference's thresholds
     (`CHUNKED_MIN_LANES`, the device count) were measured for XLA on a
-    CPU and are not carried over. `n_lanes` is validated only. Unknown
-    strings raise ValueError."""
+    CPU and are not carried over. `n_lanes` (lanes per workload) and
+    `n_workloads` (a cohort's members, `run_cohort_grid`) are validated
+    only. Unknown strings raise ValueError."""
     if mode not in SWEEP_MODES:
         raise ValueError(
             f"unknown sweep mode {mode!r}; available: {SWEEP_MODES}")
     if int(n_lanes) < 1:
         raise ValueError(f"a sweep needs at least one lane, got {n_lanes}")
+    if int(n_workloads) < 1:
+        raise ValueError(f"a sweep needs at least one workload, got "
+                         f"{n_workloads}")
     return "fused" if mode == "auto" else mode
 
 
 def sweep_plan(mode: str, n_lanes: int, dtype=np.float32,
-               step_impl: str | None = None, device=None) -> dict:
+               step_impl: str | None = None, device=None,
+               n_workloads: int = 1) -> dict:
     """The resolve_mode decision plus its inputs, for provenance: which
     layout ran, which event-step implementation, on which device and in
-    which dtype."""
+    which dtype. ``n_workloads > 1`` describes a cohort study: the plan
+    then reports the ``[W, lanes]`` layout `run_cohort_grid` runs."""
     dev = resolve_device(device)
-    resolved = resolve_mode(mode, int(n_lanes))
+    resolved = resolve_mode(mode, int(n_lanes), int(n_workloads))
+    W = int(n_workloads)
     return {
         "requested_mode": mode,
         "mode": resolved,
@@ -191,6 +198,9 @@ def sweep_plan(mode: str, n_lanes: int, dtype=np.float32,
                         if dev.type == "cuda" else "cpu"),
         "dtype": str(precision.canonical_dtype(dtype)),
         "n_lanes": int(n_lanes),
+        "n_workloads": W,
+        "total_experiments": W * int(n_lanes),
+        "layout": [W, int(n_lanes)],
         "chunk_lanes": CHUNK_LANES if resolved == "chunked" else None,
     }
 
@@ -263,42 +273,56 @@ def _chaos_take(chaos_lanes: ChaosConfig | None, idx) -> ChaosConfig | None:
         f: getattr(chaos_lanes, f)[idx] for f in _CHAOS_LANE_FIELDS})
 
 
-def _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring, step_impl, device,
-                  chaos=None):
-    """One dispatch: engine + metrics, returned as numpy leaves [L]."""
-    res = simulate_packet_scan_lanes(pw, k_lanes, s_lanes, m_nodes,
-                                     ring=ring, chaos=chaos,
-                                     step_impl=step_impl, device=device)
-    m = efficiency_metrics(pw.submit, res, m_nodes, pw.t_last_submit)
-    return Metrics(*(x.cpu().numpy() for x in m))
+def _lane_metrics(spw, k_l2, s_l2, m_nodes, ring, step_impl, device,
+                  chaos=None) -> Metrics:
+    """One dispatch of ``[W, L]`` lanes over a stacked workload (W = 1 for
+    one workload): engine + metrics, as numpy leaves ``[W, L]``. The
+    metrics are taken member by member on ``[L]`` lanes, the shapes a
+    member's own dispatch gives them, so that no reduction's order depends
+    on the cohort's width."""
+    res = simulate_packet_scan_lanes(spw, k_l2, s_l2, m_nodes, ring=ring,
+                                     chaos=chaos, step_impl=step_impl,
+                                     device=device)
+    rows = []
+    for w in range(int(spw.submit.shape[0])):
+        pw_w = member_workload(spw, w)
+        m = efficiency_metrics(pw_w.submit, DesResult(*(x[w] for x in res)),
+                               m_nodes, pw_w.t_last_submit)
+        rows.append(Metrics(*(x.cpu().numpy() for x in m)))
+    return _stack(rows, axis=0)
 
 
-def _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring, chunk: int,
+def _run_lane_chunks(spw, k_l2, s_l2, m_nodes, ring, chunk: int,
                      step_impl, device, chaos=None) -> Metrics:
-    """Sorted equal-width chunks through the engine, then unsort.
+    """Sorted equal-width ``[W, width]`` chunks through the engine, then
+    unsort.
 
     The requested `chunk` width only sets the number of dispatches
     (ceil(L / chunk)); the actual width is balanced to ceil(L / n_chunks)
-    (222 lanes at width 64 -> 4 dispatches of 56). The last chunk is
-    padded to that width by repeating its last lane (its lane id and
-    fault parameters too); the inverse permutation restores grid order."""
-    L = int(k_lanes.shape[0])
+    (222 lanes at width 64 -> 4 dispatches of 56). The lane order is
+    computed once, from the first member's (k, s) row (`lane_order`), and
+    shared: the k grid is the same for every member and the init times
+    differ only by a positive per-workload factor, so k * s sorts every
+    row alike. The last chunk is padded to that width by repeating its
+    last lane (its lane id and fault parameters too); the inverse
+    permutation restores grid order."""
+    L = int(k_l2.shape[1])
     n_chunks = max(1, -(-L // max(1, chunk)))
     width = -(-L // n_chunks)
-    order = lane_order(k_lanes, s_lanes)
+    order = lane_order(k_l2[0], s_l2[0])
     chunks = []
     for c in range(0, L, width):
         idx = order[c:c + width]
         pad = width - len(idx)
         if pad:
             idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
-        out = _lane_metrics(pw, k_lanes[idx], s_lanes[idx], m_nodes, ring,
+        out = _lane_metrics(spw, k_l2[:, idx], s_l2[:, idx], m_nodes, ring,
                             step_impl, device, _chaos_take(chaos, idx))
-        chunks.append(Metrics(*(x[:width - pad] for x in out)))
-    gathered = Metrics(*(np.concatenate(x, axis=0) for x in zip(*chunks)))
+        chunks.append(Metrics(*(x[:, :width - pad] for x in out)))
+    gathered = Metrics(*(np.concatenate(x, axis=1) for x in zip(*chunks)))
     inv = np.empty_like(order)
     inv[order] = np.arange(L)
-    return Metrics(*(x[inv] for x in gathered))
+    return Metrics(*(x[:, inv] for x in gathered))
 
 
 def _cell_metrics(pw, k, s, m_nodes, ring, step_impl, device, chaos=None):
@@ -321,22 +345,23 @@ def _stack(parts, axis: int) -> Metrics:
     return Metrics(*(np.stack(x, axis=axis) for x in zip(*parts)))
 
 
-def _run_lanes(pw, k_lanes, s_lanes, m_nodes, ring, mode: str,
+def _run_lanes(spw, k_l2, s_l2, m_nodes, ring, mode: str,
                chunk_lanes, step_impl, device, chaos_l) -> Metrics:
-    """A flat lane axis in one of the layouts seq / chunked / fused, as
-    numpy leaves ``[L]``; `chaos_l` is None or a `chaos_lane_grid`
-    output aligned with the lanes."""
+    """``[W, L]`` lanes over a stacked workload in one of the layouts seq
+    / chunked / fused, as numpy leaves ``[W, L]``; `chaos_l` is None or a
+    `chaos_lane_grid` output aligned with the L lanes of a member."""
     if mode == "seq":
-        return _stack([_cell_metrics(pw, k_lanes[i], s_lanes[i], m_nodes,
-                                     ring, step_impl, device,
-                                     _chaos_take(chaos_l, i))
-                       for i in range(len(k_lanes))], axis=0)
+        return _stack([_stack([_cell_metrics(
+            member_workload(spw, w), k_l2[w, i], s_l2[w, i], m_nodes, ring,
+            step_impl, device, _chaos_take(chaos_l, i))
+            for i in range(k_l2.shape[1])], axis=0)
+            for w in range(k_l2.shape[0])], axis=0)
     if mode == "chunked":
-        return _run_lane_chunks(pw, k_lanes, s_lanes, m_nodes, ring,
+        return _run_lane_chunks(spw, k_l2, s_l2, m_nodes, ring,
                                 max(1, int(chunk_lanes or CHUNK_LANES)),
                                 step_impl, device, chaos_l)
-    return _lane_metrics(pw, k_lanes, s_lanes, m_nodes, ring, step_impl,
-                         device, chaos_l)
+    return _lane_metrics(spw, k_l2, s_l2, m_nodes, ring, step_impl, device,
+                         chaos_l)
 
 
 def run_packet_grid(wl: Workload,
@@ -386,29 +411,106 @@ def run_packet_grid(wl: Workload,
     step_impl = resolve_step_impl(step_impl, dev)
     np_dtype = precision.canonical_dtype(dtype)
 
-    pw = pack_workload(wl, np_dtype, dev)
+    spw = as_cohort(pack_workload(wl, np_dtype, dev))
     m_nodes = int(wl.params.nodes)
-    ring = resolve_ring(m_nodes, pw.n_jobs)
+    ring = resolve_ring(m_nodes, spw.n_jobs)
     s_vals = np.asarray([wl.init_time_for_proportion(p) for p in s_props],
                         np_dtype)
     ks_arr = np.asarray(ks, np_dtype)
     if mode == "vmap_k":        # one init-proportion column per dispatch
-        out = _stack([_lane_metrics(pw, ks_arr, np.full(K, s, np_dtype),
-                                    m_nodes, ring, step_impl, dev)
-                      for s in s_vals], axis=1)
+        out = _stack([_lane_metrics(spw, ks_arr[None],
+                                    np.full((1, K), s, np_dtype), m_nodes,
+                                    ring, step_impl, dev)
+                      for s in s_vals], axis=2)
     elif mode == "vmap_s":      # one scale-ratio row per dispatch
-        out = _stack([_lane_metrics(pw, np.full(S, k, np_dtype), s_vals,
-                                    m_nodes, ring, step_impl, dev)
-                      for k in ks_arr], axis=0)
+        out = _stack([_lane_metrics(spw, np.full((1, S), k, np_dtype),
+                                    s_vals[None], m_nodes, ring, step_impl,
+                                    dev)
+                      for k in ks_arr], axis=1)
     else:
         chaos_l = (None if chaos is None
                    else chaos_lane_grid(chaos, K * S, np_dtype)[0])
-        lanes = _run_lanes(pw, np.repeat(ks_arr, S * C),
-                           np.repeat(np.tile(s_vals, K), C), m_nodes, ring,
-                           mode, chunk_lanes, step_impl, dev, chaos_l)
-        shape = (K, S) if C == 1 else (K, S, C)
-        out = Metrics(*(x.reshape(shape + x.shape[1:]) for x in lanes))
+        out = _run_lanes(spw, np.repeat(ks_arr, S * C)[None],
+                         np.repeat(np.tile(s_vals, K), C)[None], m_nodes,
+                         ring, mode, chunk_lanes, step_impl, dev, chaos_l)
+    shape = (K, S) if C == 1 else (K, S, C)
+    out = Metrics(*(x[0].reshape(shape) for x in out))
     _enforce_budget(out, on_budget_exhausted, "run_packet_grid", ks, s_props)
+    return out
+
+
+# --------------------------------------------------------------------------
+# The workload axis (repro_torch.core.cohort).
+# --------------------------------------------------------------------------
+
+def run_cohort_grid(cohort, ks: Sequence[float] = PAPER_SCALE_RATIOS,
+                    s_props: Sequence[float] = PAPER_INIT_PROPS,
+                    mode: str = "auto",
+                    chunk_lanes: int | None = None,
+                    chaos: ChaosConfig | None = None,
+                    on_budget_exhausted: str = "raise",
+                    step_impl: str | None = None,
+                    device=None) -> dict:
+    """Per-workload ``[K, S]`` Metrics for every member of a
+    `WorkloadCohort`, computed as ONE batched study over the stacked
+    workload axis.
+
+    Returns ``{name: Metrics}`` of numpy leaves ``[len(ks), len(s_props)]``
+    (``[K, S, C]`` when `chaos` carries a C-long fault axis), each equal,
+    bit for bit, to ``run_packet_grid(wl, ks, s_props, dtype=cohort.dtype,
+    mode=mode)``: a lane does not depend on what shares its dispatch. The
+    chaos lane ids are assigned per grid cell, not per member, so every
+    member draws the same streams (common random numbers).
+
+    Modes: ``"fused"`` (``"auto"``) is one cohort dispatch of all W * L
+    lanes; ``"chunked"`` runs sorted ``[W, width]`` chunks of them;
+    ``"seq"`` delegates to ``run_packet_grid(mode="seq")`` member by member
+    (with ``step_impl="torch"`` and no chaos, the while-loop engine: one
+    launch of its kernel a cell on the card); the legacy vmap layouts have
+    no cohort form and raise. Init proportions are converted per member
+    (s depends on each workload's mean runtime), so the ``[W, S]`` init
+    times differ across the workload axis. `device`, `step_impl` and
+    `on_budget_exhausted` as in `run_packet_grid`; a budget-exhausted lane
+    is reported under its member's name.
+    """
+    if chaos_is_inert(chaos):
+        chaos = None        # zero-rate config: the fault-free program
+    K, S = len(ks), len(s_props)
+    W = cohort.n_workloads
+    C = chaos_axis_len(chaos)
+    resolved = resolve_mode(mode, K * S * C, W)
+    if resolved in ("vmap_k", "vmap_s"):
+        raise ValueError(
+            f"mode {resolved!r} has no cohort layout; use run_packet_grid "
+            f"per workload for the legacy column/row batchings")
+    if resolved == "seq":
+        return {name: run_packet_grid(wl, ks, s_props, dtype=cohort.dtype,
+                                      mode="seq", chaos=chaos,
+                                      on_budget_exhausted=on_budget_exhausted,
+                                      step_impl=step_impl, device=device)
+                for name, wl in zip(cohort.names, cohort.workloads)}
+
+    dev = resolve_device(device)
+    step_impl = resolve_step_impl(step_impl, dev)
+    np_dtype = cohort.dtype
+    spw = cohort.pack(dev)
+    m_nodes, ring = cohort.m_nodes, cohort.ring
+    ks_arr = np.asarray(ks, np_dtype)
+    s_mat = np.stack([np.asarray([wl.init_time_for_proportion(p)
+                                  for p in s_props], np_dtype)
+                      for wl in cohort.workloads])                  # [W, S]
+    k_l2 = np.broadcast_to(np.repeat(ks_arr, S * C), (W, K * S * C))
+    s_l2 = np.repeat(np.tile(s_mat, (1, K)), C, axis=1)
+    chaos_l = (None if chaos is None
+               else chaos_lane_grid(chaos, K * S, np_dtype)[0])
+    lanes = _run_lanes(spw, k_l2, s_l2, m_nodes, ring, resolved,
+                       chunk_lanes, step_impl, dev, chaos_l)
+    shape = (K, S) if C == 1 else (K, S, C)
+    out = {name: Metrics(*(x[w].reshape(shape) for x in lanes))
+           for w, name in enumerate(cohort.names)}
+    for name, m in out.items():
+        _enforce_budget(m, on_budget_exhausted, f"run_cohort_grid[{name}]",
+                        ks, s_props)
     return out
 
 
@@ -457,13 +559,40 @@ def run_window_oracle(pw: PackedWorkload,
     ring = resolve_ring(m_nodes, pw.n_jobs) if ring is None else int(ring)
     chaos_l = (None if chaos is None
                else chaos_lane_grid(chaos, K, np_dtype)[0])
-    lanes = _run_lanes(pw, np.repeat(np.asarray(ks, np_dtype), C),
-                       np.full(K * C, s_init, np_dtype), m_nodes, ring,
+    lanes = _run_lanes(as_cohort(pw), np.repeat(np.asarray(ks, np_dtype),
+                                                C)[None],
+                       np.full((1, K * C), s_init, np_dtype), m_nodes, ring,
                        resolved, chunk_lanes, step_impl, dev, chaos_l)
     shape = (K,) if C == 1 else (K, C)
-    out = Metrics(*(x.reshape(shape + x.shape[1:]) for x in lanes))
+    out = Metrics(*(x[0].reshape(shape) for x in lanes))
     _enforce_budget(out, on_budget_exhausted, "run_window_oracle", ks,
                     axis_names=("i_k", "i_chaos"))
+    return out
+
+
+def run_baselines(wl: Workload, s_props: Sequence[float] = PAPER_INIT_PROPS,
+                  dtype=np.float32, device=None) -> dict[str, Metrics]:
+    """FCFS and EASY-backfill metrics per init proportion (rigid jobs).
+
+    Returns ``{"backfill": Metrics, "fcfs": Metrics}`` (the reference's
+    key order) of numpy leaves ``[len(s_props)]`` in `dtype`. Each policy
+    runs all init proportions
+    as one lane dispatch (`repro_torch.core.schedulers`): on the card one
+    launch of the baselines kernel a policy, on the CPU (``device="cpu"``)
+    its plain version.
+    """
+    dev = resolve_device(device)
+    np_dtype = precision.canonical_dtype(dtype)
+    pw = pack_workload(wl, np_dtype, dev)
+    m_nodes = int(wl.params.nodes)
+    s_vals = np.asarray([wl.init_time_for_proportion(p) for p in s_props],
+                        np_dtype)
+    out = {}
+    for name, simulate in (("backfill", simulate_backfill),
+                           ("fcfs", simulate_fcfs)):
+        res = simulate(pw, s_vals, m_nodes)
+        m = efficiency_metrics(pw.submit, res, m_nodes, pw.t_last_submit)
+        out[name] = Metrics(*(x.cpu().numpy() for x in m))
     return out
 
 

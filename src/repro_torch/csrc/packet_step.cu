@@ -44,10 +44,21 @@
 // [H, N+1] tables, warp reductions (redux.sync, shuffles, votes), two
 // divides per type in parallel and the scalar update with its divides:
 // 1.0 µs (float32, ring 100) to 1.6 µs (float64, ring 500) a lane step on
-// an H100 80GB HBM3 at 700 W (PERF.md). What it does not do: batch several
-// workloads into one launch (the cohort axis), so 222 warps leave most of
-// each SM's issue slots idle; and a launch of few steps still pays for
-// staging the ring.
+// an H100 80GB HBM3 at 700 W (PERF.md). What it does not do: keep the type
+// tables in shared memory (every event gathers them from L2), or stop a
+// dispatch on the card (the host reads one boolean a segment); and a
+// launch of few steps still pays for staging the ring.
+//
+// The workload axis (a cohort): the T lanes of a launch may be W members
+// of L = T / W lanes each, lane `blockIdx.x` belonging to member
+// w = lane / L. It reads that member's tables (prefw, tsub, submit, jtype
+// at the member's offsets) and t_last[w]; its own lane parameters and state
+// columns stay at index `lane` of the [*, T] operands. The chaos streams
+// u1 / u2 [L_cap, L] and the five fault columns [1, L] are shared by the
+// members (common random numbers) and read at the lane's index within its
+// member, lane % L. With W = 1 every address is the one-workload kernel's.
+// The paper's two cohorts are 3 x 222 = 666 lanes a launch (3 x 666 under
+// the chaos axis), where one workload gave 222 warps to 132 SMs.
 //
 // Why the warp reductions equal the serial first-index rules. `grp_end`
 // holds finite times and +inf (a free slot) only, never NaN, so `<` and
@@ -119,20 +130,20 @@ __device__ inline double f_max(double a, double b) { return fmax(a, b); }
 
 template <typename F>
 struct Params {
-  // workload tables and lane parameters (read only)
-  const F* prefw;    // [H, N+1]
-  const F* tsub;     // [H, N]
-  const F* submit;   // [N]
-  const int* jtype;  // [N]
+  // workload tables ([W] leading) and lane parameters (read only)
+  const F* prefw;    // [W, H, N+1]
+  const F* tsub;     // [W, H, N]
+  const F* submit;   // [W, N]
+  const int* jtype;  // [W, N]
   const F* k;        // [1, T]
   const F* s;        // [1, T]
   const F* p_j;      // [H]
   const F* tmax_j;   // [H]
-  const F* t_last;   // [1, 1]
+  const F* t_last;   // [W, 1]
   // chaos operands (null when HAS_CHAOS is false)
-  const F* u1;       // [L_cap, T]
-  const F* u2;       // [L_cap, T]
-  const F* mtbf;     // [1, T]
+  const F* u1;       // [L_cap, L], shared by the W members
+  const F* u2;       // [L_cap, L]
+  const F* mtbf;     // [1, L]
   const F* ckpt;
   const F* prob;
   const F* factor;
@@ -147,7 +158,7 @@ struct Params {
   int* requeued_jobs;
   // group-log buffers [rows, T]
   int* log_key; F* log_t; int* log_m; F* log_hw;
-  int T, H, N, ring, r_cap, L_cap, cut_steps, log_offset, n_steps;
+  int T, H, N, ring, r_cap, L_cap, cut_steps, log_offset, n_steps, W;
 };
 
 // Length of [a, b] clipped to the metric window [0, t_end].
@@ -222,6 +233,14 @@ packet_step_kernel(const Params<F> p) {
   const int lane = blockIdx.x;
   const int T = p.T, H = p.H, N = p.N, ring = p.ring;
   const int N1 = N + 1;
+  // the lane's member of the cohort and its index there
+  const int L = T / p.W;
+  const int w = lane / L;
+  const int il = lane - w * L;
+  const F* prefw = p.prefw + (long long)w * H * N1;
+  const F* tsub = p.tsub + (long long)w * H * N;
+  const F* submit = p.submit + (long long)w * N;
+  const int* jtype = p.jtype + (long long)w * N;
   const F INF = Lim<F>::inf();
   const F EPS9 = F(1e-9);
   const bool lead = lid == 0;
@@ -247,7 +266,7 @@ packet_step_kernel(const Params<F> p) {
   }
 
   // per-lane scalars: the same value in every thread of the warp
-  const F k = p.k[lane], s = p.s[lane], t_last = p.t_last[0];
+  const F k = p.k[lane], s = p.s[lane], t_last = p.t_last[w];
   F t = p.t[lane], qlen_int = p.qlen_int[lane], busy_ns = p.busy_ns[lane],
     useful_ns = p.useful_ns[lane], lost_work = 0;
   F c_mtbf = 0, c_ckpt = 0, c_prob = 0, c_factor = 0, c_dead = 0;
@@ -255,8 +274,8 @@ packet_step_kernel(const Params<F> p) {
       n_groups = p.n_groups[lane], failures = 0, kills = 0, requeues = 0,
       requeued_jobs = 0;
   if (HAS_CHAOS) {
-    c_mtbf = p.mtbf[lane]; c_ckpt = p.ckpt[lane]; c_prob = p.prob[lane];
-    c_factor = p.factor[lane]; c_dead = p.dead[lane];
+    c_mtbf = p.mtbf[il]; c_ckpt = p.ckpt[il]; c_prob = p.prob[il];
+    c_factor = p.factor[il]; c_dead = p.dead[il];
     lost_work = p.lost_work[lane]; failures = p.failures[lane];
     kills = p.straggler_kills[lane]; requeues = p.requeues[lane];
     requeued_jobs = p.requeued_jobs[lane];
@@ -272,8 +291,8 @@ packet_step_kernel(const Params<F> p) {
     // the next submission, loaded now so that its latency hides behind
     // the scans (only a submission event uses it)
     const int sub_idx = min(next_sub, N - 1);
-    const F sub_t = p.submit[sub_idx];
-    const int sub_j = p.jtype[sub_idx];
+    const F sub_t = submit[sub_idx];
+    const int sub_j = jtype[sub_idx];
 
     // ---- the ring: first free slot, first index of the minimum, any busy
     F vmin = INF;
@@ -311,9 +330,9 @@ packet_step_kernel(const Params<F> p) {
         bool ne = tl > hd;
         any_win |= ne;
         qpart += tl - hd;
-        pw_hd = p.prefw[h * N1 + hd];
-        sw = p.prefw[h * N1 + tl] - pw_hd;
-        old = p.tsub[h * N + min(hd, N - 1)];
+        pw_hd = prefw[h * N1 + hd];
+        sw = prefw[h * N1 + tl] - pw_hd;
+        old = tsub[h * N + min(hd, N - 1)];
         if (HAS_CHAOS) {
           pc = p.pool_code[h * T + lane];
           pw = p.pool_w[h * T + lane];
@@ -382,8 +401,8 @@ packet_step_kernel(const Params<F> p) {
         const F tiny = Lim<F>::tiny();
         const bool inject = requeues < p.r_cap;
         const int gslot = min(n_groups, p.L_cap - 1);
-        const F u1v = p.u1[gslot * T + lane];
-        const F u2v = p.u2[gslot * T + lane];
+        const F u1v = p.u1[gslot * L + il];
+        const F u2v = p.u2[gslot * L + il];
         const bool stretched = inject && (u1v < c_prob);
         const F dur_s = stretched ? s + (work / m_f) * c_factor : dur;
         const F deadline = c_dead * dur;
@@ -413,7 +432,7 @@ packet_step_kernel(const Params<F> p) {
         const bool has_pool = p_cnt > 0;
         const int qlo = has_pool ? p_lo : head_j;
         const F res0 =
-            has_pool ? f_max((head_w - p.prefw[j * N1 + qlo]) - pool_w_j,
+            has_pool ? f_max((head_w - prefw[j * N1 + qlo]) - pool_w_j,
                              F(0))
                      : F(0);
         const bool walk_ok = !(has_pool && p_frag);
@@ -483,7 +502,7 @@ packet_step_kernel(const Params<F> p) {
           const int code = p.grp_rem_cnt[eslot * T + lane];
           const F stored_w = p.grp_rem_w[eslot * T + lane];
           const F stored_old = p.grp_rem_oldest[eslot * T + lane];
-          const F* row_w = p.prefw + j_f * N1;
+          const F* row_w = prefw + j_f * N1;
           const bool walk = code > 0;
           const int span = max(code - 1, 0);
           const int qlo = span / N1;
@@ -503,7 +522,7 @@ packet_step_kernel(const Params<F> p) {
           const F m_res = f_max(stored_w - (cut_w - qlo_w), F(0));
           const F m_w = f_max((hi_w - cut_w) - m_res, F(0));
           const int m_cnt = hi - cut;
-          const F m_old = p.tsub[j_f * N + min(cut, N - 1)];
+          const F m_old = tsub[j_f * N + min(cut, N - 1)];
           cnt_r = walk ? m_cnt : -code;
           const F rem_w_r = walk ? m_w : stored_w;
           const F rem_old_r = (walk && m_cnt > 0) ? m_old : stored_old;
@@ -609,7 +628,7 @@ int launch(const void* const* in, void* const* st, void* const* logs,
   p.log_m = (int*)logs[2]; p.log_hw = (F*)logs[3];
   p.T = dims[0]; p.H = dims[1]; p.N = dims[2]; p.ring = dims[3];
   p.r_cap = dims[4]; p.L_cap = dims[5]; p.cut_steps = dims[6];
-  p.log_offset = dims[7]; p.n_steps = dims[8];
+  p.log_offset = dims[7]; p.n_steps = dims[8]; p.W = dims[9];
   const long long smem = plan[0];
   const bool ring_in_smem = plan[1] != 0;
   // a plan that does not hold what the shared-memory ring touches is
@@ -618,6 +637,7 @@ int launch(const void* const* in, void* const* st, void* const* logs,
       (long long)p.ring * sizeof(F) + 2LL * p.H * sizeof(int);
   if ((ring_in_smem && smem < need) || (!ring_in_smem && smem != 0))
     return (int)cudaErrorInvalidValue;
+  if (p.W < 1 || p.T % p.W != 0) return (int)cudaErrorInvalidValue;
   if (ring_in_smem) return launch_variant<F, HAS_CHAOS, true>(p, smem, stream);
   return launch_variant<F, HAS_CHAOS, false>(p, 0, stream);
 }
@@ -628,7 +648,8 @@ int launch(const void* const* in, void* const* st, void* const* logs,
 //   in[16]:  the 9 read-only operands, then the 7 chaos operands (or null)
 //   st[23]:  the state columns in ScanState order
 //   logs[4]: key, t, m, head_w
-//   dims[9]: T, H, N, ring, r_cap, L_cap, cut_steps, log_offset, n_steps
+//   dims[10]: T, H, N, ring, r_cap, L_cap, cut_steps, log_offset, n_steps,
+//            W (the cohort's members; T lanes = W x L)
 //   plan[2]: dynamic shared bytes of the block, ring in shared memory (1)
 //            or device memory (0); kernel.py :: launch_plan makes it
 // Launches T blocks of one warp (one lane each) on `stream`, does not

@@ -5,8 +5,9 @@ eight instantiations (float32/float64 x chaos off/on x the ring in shared
 or in device memory), behind one plain C function `packet_step_launch`.
 The library is built with `nvcc` at the first launch (see
 `repro_torch.kernels.build`), never at import. A launch is T blocks of one
-warp, one lane each; `launch_plan` says where the ring lives and how much
-shared memory a block takes.
+warp, one lane each; the lanes may belong to the W workloads of a cohort,
+lane t reading the tables of member ``t // (T / W)``. `launch_plan` says
+where the ring lives and how much shared memory a block takes.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ FLAGS = build.NVCC_FLAGS
 N_INPUTS = 16       # 9 read-only operands + 7 chaos operands (or null)
 N_STATE_COLS = 23
 N_LOGS = 4
-N_DIMS = 9          # T, H, N, ring, r_cap, L_cap, cut_steps, log_offset, n_steps
+N_DIMS = 10         # T, H, N, ring, r_cap, L_cap, cut_steps, log_offset,
+                    # n_steps, W
 N_PLAN = 2          # dynamic shared bytes, ring in shared memory
 SMEM_OPTIN = 232_448      # dynamic shared bytes a block may opt into, sm_90
 
@@ -75,7 +77,7 @@ def launch(is_f64: bool, has_chaos: bool, inputs, state, logs, dims,
            plan: LaunchPlan, stream: int) -> int:
     """Enqueue one launch on `stream`. `inputs`, `state` and `logs` are
     sequences of device pointers (Python ints, 0 for an absent chaos
-    operand), `dims` the nine integers the C function documents, `plan`
+    operand), `dims` the ten integers the C function documents, `plan`
     from `launch_plan`. Returns the launch's `cudaGetLastError()`."""
     if (len(inputs), len(state), len(logs), len(dims)) != (
             N_INPUTS, N_STATE_COLS, N_LOGS, N_DIMS):

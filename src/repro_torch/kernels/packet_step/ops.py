@@ -4,7 +4,10 @@
 events: the 23 ``[rows, T]`` state columns are UPDATED IN PLACE and rows
 ``log_offset .. log_offset + n_steps - 1`` of the four group-log buffers
 are written. With ``n_steps = 1`` it is the function of the reference's
-`repro.kernels.packet_step.ops.fused_packet_step`.
+`repro.kernels.packet_step.ops.fused_packet_step`. The tables may carry a
+leading workload axis ``[W]`` (a cohort): the T lanes are then W members
+of L lanes each, every lane reading its member's tables, and the chaos
+operands, ``[*, L]``, are shared by the members (see `ref.py`).
 
 On CUDA tensors it launches the hand-written kernel
 (`repro_torch/csrc/packet_step.cu`) or raises; there is no path from a
@@ -50,10 +53,12 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
     """Advance every lane by `n_steps` events.
 
     Operands: ``tj_prefw [H, N+1]``, ``tj_submit [H, N]``, ``submit [N]``,
-    ``jtype [N]`` int32, ``k``/``s`` ``[1, T]``, ``p_j``/``tmax_j``
-    ``[H]``, ``t_last [1, 1]``, `state` a `ScanState` of ``[rows, T]``
-    columns; under chaos ``u1``/``u2`` ``[L_cap, T]`` and `chaos_params`,
-    the five ``[1, T]`` fault columns (all three or none). `logs` is the
+    ``jtype [N]`` int32 (one workload), or the same with a leading ``[W]``
+    axis (a cohort of W members, ``T = W * L``); ``k``/``s`` ``[1, T]``,
+    ``p_j``/``tmax_j`` ``[H]``, ``t_last [W, 1]``, `state` a `ScanState`
+    of ``[rows, T]`` columns; under chaos ``u1``/``u2`` ``[L_cap, L]`` and
+    `chaos_params`, the five ``[1, L]`` fault columns (all three or none),
+    shared by the members (``L = T`` for one workload). `logs` is the
     4-tuple ``(key, t, m, head_w)`` of ``[rows, T]`` buffers; when None,
     ``[n_steps, T]`` buffers are allocated. Returns ``(state, logs)`` with
     `state` the same tensors, updated in place.
@@ -63,14 +68,21 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
     step_impl = resolve_step_impl(step_impl, device)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"state must be float32 or float64, got {dtype}")
-    if tj_prefw.dim() != 2 or state.t.dim() != 2:
-        raise ValueError("tj_prefw must be [H, N+1] and state.t [1, T]")
-    H, N = int(tj_prefw.shape[0]), int(tj_prefw.shape[1]) - 1
+    if tj_prefw.dim() not in (2, 3) or state.t.dim() != 2:
+        raise ValueError("tj_prefw must be [H, N+1] or [W, H, N+1] and "
+                         "state.t [1, T]")
+    lead = tuple(tj_prefw.shape[:-2])          # () or (W,)
+    W = lead[0] if lead else 1
+    H, N = int(tj_prefw.shape[-2]), int(tj_prefw.shape[-1]) - 1
     T = int(state.t.shape[1])
     ring = int(state.grp_end.shape[0])
     n_steps, log_offset, r_cap = int(n_steps), int(log_offset), int(r_cap)
-    if N < 1 or H < 1 or T < 1 or ring < 1 or n_steps < 1:
-        raise ValueError("N, H, T, ring and n_steps must all be >= 1")
+    if min(N, H, T, W, ring, n_steps) < 1:
+        raise ValueError("N, H, T, W, ring and n_steps must all be >= 1")
+    if T % W:
+        raise ValueError(f"{T} lanes do not split into {W} members of "
+                         f"equal width")
+    L = T // W
     if 2 * N * (N + 1) >= 2 ** 31:
         raise ValueError(
             f"n_jobs={N} overflows the int32 packed codes j*(N+1)+tail and "
@@ -81,12 +93,13 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
 
     i32 = torch.int32
     for name, x, shape, dt in (
-            ("tj_prefw", tj_prefw, (H, N + 1), dtype),
-            ("tj_submit", tj_submit, (H, N), dtype),
-            ("submit", submit, (N,), dtype), ("jtype", jtype, (N,), i32),
+            ("tj_prefw", tj_prefw, lead + (H, N + 1), dtype),
+            ("tj_submit", tj_submit, lead + (H, N), dtype),
+            ("submit", submit, lead + (N,), dtype),
+            ("jtype", jtype, lead + (N,), i32),
             ("k", k, (1, T), dtype), ("s", s, (1, T), dtype),
             ("p_j", p_j, (H,), dtype), ("tmax_j", tmax_j, (H,), dtype),
-            ("t_last", t_last, (1, 1), dtype)):
+            ("t_last", t_last, (W, 1), dtype)):
         check_operand(name, x, shape, dt, device)
     if len(state) != N_STATE_COLS:
         raise ValueError(f"state must have {N_STATE_COLS} columns")
@@ -100,12 +113,12 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
     L_cap = 1
     if has_chaos:
         L_cap = int(u1.shape[0])
-        check_operand("u1", u1, (L_cap, T), dtype, device)
-        check_operand("u2", u2, (L_cap, T), dtype, device)
+        check_operand("u1", u1, (L_cap, L), dtype, device)
+        check_operand("u2", u2, (L_cap, L), dtype, device)
         if len(chaos_params) != len(ChaosParams._fields):
             raise ValueError("chaos_params must hold the five fault columns")
         for name, x in zip(ChaosParams._fields, chaos_params):
-            check_operand(f"chaos_params.{name}", x, (1, T), dtype, device)
+            check_operand(f"chaos_params.{name}", x, (1, L), dtype, device)
     if logs is None:
         if log_offset != 0:
             raise ValueError("log_offset needs caller-owned log buffers")
@@ -135,7 +148,7 @@ def packet_event_steps(tj_prefw, tj_submit, submit, jtype, k, s, p_j,
     inputs = [tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j, t_last]
     inputs += [u1, u2, *chaos_params] if has_chaos else [None] * 7
     dims = (T, H, N, ring, r_cap, L_cap, max(N.bit_length(), 1), log_offset,
-            n_steps)
+            n_steps, W)
     is_f64 = dtype == torch.float64
     plan = _kernel.launch_plan(H, ring, is_f64)
     stream = torch.cuda.current_stream(device).cuda_stream

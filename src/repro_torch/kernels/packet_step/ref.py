@@ -8,6 +8,14 @@ indexed writes. `packet_steps_ref` loops it for `n_steps` events and
 writes the group-log rows, which is what one launch of the CUDA kernel
 (`repro_torch/csrc/packet_step.cu`) computes.
 
+The workload axis: the tables may carry a leading ``[W]`` axis (a cohort,
+`repro_torch.core.cohort.stack_workloads`), with ``T = W * L`` lanes, lane
+t belonging to member ``t // L``. A lane then reads its member's tables
+and ``t_last[member]``; the chaos streams ``[L_cap, L]`` and the fault
+columns ``[1, L]`` are shared by the members and read at the lane's index
+within its member, ``t % L``. Tables without the leading axis are one
+workload (W = 1).
+
 It is used by the CPU tests, by the comparison phases of `chip_smoke.py`,
 and by nothing on the main path when a card is present.
 """
@@ -28,11 +36,23 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
     returns ``(new_state, (key, t, m, head_w))`` with ``[1, T]`` records
     and leaves `state` untouched."""
     has_chaos = u1 is not None
-    N = int(submit.shape[0])
-    prefw, tsub = tj_prefw, tj_submit
+    W = 1 if tj_prefw.dim() == 2 else int(tj_prefw.shape[0])
+    H, N = int(tj_prefw.shape[-2]), int(tj_prefw.shape[-1]) - 1
+    T = int(state.t.shape[1])
+    L = T // W
+    dev = state.t.device
+    lanes = torch.arange(T, device=dev)
+    member = lanes // L
+    il = lanes - member * L        # the lane's index within its member
+    # the members' tables as rows (member, type) of one [W * H, ...] table
+    prefw = tj_prefw.reshape(W * H, N + 1)
+    tsub = tj_submit.reshape(W * H, N)
+    rows = member[None, :] * H + torch.arange(H, device=dev)[:, None]
+    submit = submit.reshape(W * N)
+    jtype = jtype.reshape(W * N)
     k = k[0]
     s = s[0]
-    t_last = t_last.reshape(())
+    t_last = t_last.reshape(W)[member]
 
     t = state.t[0]
     next_sub = state.next_sub[0]
@@ -47,9 +67,6 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
     n_groups = state.n_groups[0]
 
     dtype = t.dtype
-    dev = t.device
-    T = t.shape[0]
-    lanes = torch.arange(T, device=dev)
     zero_f = torch.zeros((), dtype=dtype, device=dev)
     inf_f = torch.full((), INF, dtype=dtype, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
@@ -70,9 +87,8 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
     do_event = active & ~can_sched
 
     # greedy scheduling pass (paper Steps 1-5), masked unless do_sched
-    sum_w = (torch.gather(prefw, 1, tail.long()) -
-             torch.gather(prefw, 1, head.long()))            # [H, T]
-    oldest = torch.gather(tsub, 1, torch.clamp(head, max=N - 1).long())
+    sum_w = prefw[rows, tail.long()] - prefw[rows, head.long()]   # [H, T]
+    oldest = tsub[rows, torch.clamp(head, max=N - 1).long()]
     if has_chaos:
         sum_w = sum_w + pool_w
         oldest = torch.minimum(oldest, pool_oldest)
@@ -80,6 +96,7 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
                              tmax_j[:, None], nonempty)
     j = torch.argmax(w, dim=0)                               # [T] int64
     j32 = j.to(torch.int32)
+    row_j = member * H + j                                   # table row
     work = sum_w[j, lanes]
     m_grp = packet.group_nodes(work, k, s, m_free)
     dur = packet.group_duration(work, s, m_grp)
@@ -87,15 +104,15 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
     sslot = torch.argmax(free_mask.to(torch.int8), dim=0)
     head_j = head[j, lanes]
     tail_j = tail[j, lanes]
-    head_w = prefw[j, head_j.long()]
+    head_w = prefw[row_j, head_j.long()]
     if not has_chaos:
         t_gfin = t + dur
         useful_end = t_gfin
     else:
-        chaos = ChaosParams(*(c[0] for c in chaos_params))
+        chaos = ChaosParams(*(c[0][il] for c in chaos_params))
         L_cap = u1.shape[0]
         gslot = torch.clamp(n_groups, max=L_cap - 1).long()
-        out_c = _chaos_outcome(chaos, u1[gslot, lanes], u2[gslot, lanes],
+        out_c = _chaos_outcome(chaos, u1[gslot, il], u2[gslot, il],
                                requeues < r_cap, s, work, m_grp, dur)
         t_gfin = t + out_c.dur
         useful_end = torch.where(out_c.failed,
@@ -105,7 +122,7 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
         has_pool = p_cnt > 0
         qlo = torch.where(has_pool, p_lo, head_j)
         res0 = torch.where(has_pool, torch.maximum(
-            head_w - prefw[j, qlo.long()] - pool_w[j, lanes], zero_f),
+            head_w - prefw[row_j, qlo.long()] - pool_w[j, lanes], zero_f),
             zero_f)
         walk_ok = ~(has_pool & p_frag)
         avail = res0 + out_c.credit
@@ -123,7 +140,7 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
     useful_inc = m_grp.to(dtype) * _window_overlap(t + s, useful_end, t_last)
 
     # event step (submission or completion), masked unless do_event
-    sub_idx = torch.clamp(next_sub, max=N - 1).long()
+    sub_idx = member * N + torch.clamp(next_sub, max=N - 1).long()
     t_sub = torch.where(next_sub < N, submit[sub_idx], inf_f)
     eslot = torch.argmin(grp_end, dim=0)
     t_efin = grp_end[eslot, lanes]
@@ -168,8 +185,9 @@ def packet_step_ref(tj_prefw, tj_submit, submit, jtype, k, s, p_j, tmax_j,
         # deferred credit walk) and merges it back into the per-type pool
         j_f = grp_jtype[eslot, lanes]
         jf = j_f.long()
+        row_f = member.to(torch.int32) * H + j_f            # table row
         cnt_r, rem_w_r, rem_old_r, rem_lo_r, rem_hi_r, walk_r = (
-            _resolve_remnant(prefw, tsub, N, j_f, grp_rem_cnt[eslot, lanes],
+            _resolve_remnant(prefw, tsub, N, row_f, grp_rem_cnt[eslot, lanes],
                              grp_rem_w[eslot, lanes],
                              grp_rem_oldest[eslot, lanes]))
         old_cnt, old_lo, old_frag = _pool_decode(pool_code[jf, lanes], N)

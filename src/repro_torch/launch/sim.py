@@ -10,8 +10,10 @@ drawn as the reference draws it (the generator's defaults, seed
 ``--seed + 1`` for homogeneous flows), and the 37 lanes run as one fused
 `run_packet_grid` dispatch: on the card the event-step kernel, on the CPU
 (``--device cpu``) its plain version. With no ``--device`` it runs on the
-CUDA card and raises without one. ``--baselines`` (FCFS / EASY backfill)
-is not ported yet and raises before any simulation.
+CUDA card and raises without one. ``--baselines`` adds the FCFS and EASY
+backfill baselines at the same init proportion (`run_baselines`: one
+launch of the baselines kernel a policy on the card, its plain version on
+the CPU) and prints the reference's two lines for them.
 """
 from __future__ import annotations
 
@@ -19,14 +21,16 @@ import argparse
 
 import numpy as np
 
-from repro_torch.core.sweep import (PAPER_SCALE_RATIOS, _not_ported,
-                                    plateau_threshold, run_packet_grid)
+from repro_torch.core.sweep import (PAPER_SCALE_RATIOS, plateau_threshold,
+                                    run_baselines, run_packet_grid)
 from repro_torch.device import resolve_device
 from repro_torch.workload.lublin import WorkloadParams, generate_workload
 
 
 def main(argv=None):
-    """Runs the sweep and prints it; returns ``(grid, PlateauResult)``."""
+    """Runs the sweep and prints it; returns ``(grid, PlateauResult)``, and
+    with ``--baselines`` ``(grid, PlateauResult, baselines)``, the last
+    `run_baselines`' ``{"backfill": Metrics, "fcfs": Metrics}``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="homog0.85",
                     help="hetero|homog + load, e.g. homog0.90")
@@ -34,13 +38,10 @@ def main(argv=None):
     ap.add_argument("--init-prop", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--baselines", action="store_true",
-                    help="FCFS / EASY-backfill baselines (not ported yet)")
+                    help="also the FCFS / EASY-backfill baselines")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain path")
     args = ap.parse_args(argv)
-    if args.baselines:
-        raise _not_ported("run_baselines (sim --baselines)",
-                          "item 7, baselines")
     dev = resolve_device(args.device)
 
     homog = args.workload.startswith("homog")
@@ -66,7 +67,14 @@ def main(argv=None):
     thr = plateau_threshold(ks, aw)
     print(f"[sim] queue-time plateau threshold: k >= {thr.threshold} "
           f"(plateau {thr.plateau:.1f}s)")
-    return grid, thr
+    if not args.baselines:
+        return grid, thr
+    bl = run_baselines(wl, s_props=[args.init_prop], device=dev)
+    for name, m in bl.items():
+        print(f"[sim] baseline {name}: avg_wait="
+              f"{float(np.asarray(m.avg_wait)[0]):.1f}s "
+              f"useful={float(np.asarray(m.useful_util)[0]):.3f}")
+    return grid, thr, bl
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import Mapping
 
 import numpy as np
 
@@ -116,8 +117,8 @@ def _node_counts(rng: np.random.Generator, shape, max_nodes: int,
                  homogeneous: bool) -> np.ndarray:
     """Lublin two-stage log-uniform with power-of-two bias.
 
-    `shape` may be an int (one workload) or a tuple ``(R, n)`` of R
-    independent rows.
+    `shape` may be an int (one workload) or a tuple ``(R, n)`` (R replica
+    workloads drawn in one vectorized pass — see `generate_workload_batch`).
     """
     uhi = np.log2(max_nodes)
     umed = (uhi - ULOW) * 0.625 + ULOW      # Lublin: medium point
@@ -191,6 +192,76 @@ def generate_workload(params: WorkloadParams) -> Workload:
     work = runtime * nodes
     return Workload(submit=submit, runtime=runtime, nodes=nodes.astype(np.int64),
                     work=work, jtype=jtype, params=params)
+
+
+def generate_workload_batch(params: WorkloadParams,
+                            n_replicas: int,
+                            name_fmt: str = "rep{r:03d}") -> dict[str, Workload]:
+    """R replica workloads of one parameter set, drawn in ONE vectorized pass.
+
+    Every distribution is drawn once with shape ``(R, n_jobs)`` from a
+    single stream seeded by ``params.seed``, then split row-wise. All
+    replicas share every static — ``(nodes, n_jobs, n_types)`` — by
+    construction, so the whole batch lands in one sweep cohort
+    (`repro_torch.core.cohort.group_workloads`).
+
+    Replica r is NOT the same stream as ``generate_workload(seed=...)`` for
+    any seed; determinism is per ``(params.seed, n_replicas)`` batch, and
+    the digests equal the reference's batch for the same arguments.
+    """
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    rng = np.random.default_rng(params.seed)
+    shape = (n_replicas, params.n_jobs)
+
+    nodes = _node_counts(rng, shape, params.nodes, params.homogeneous)
+    ln_rt = _hyper_gamma_ln_runtime(rng, np.log2(nodes.astype(np.float64)))
+    if params.homogeneous:
+        mu = ln_rt.mean(axis=-1, keepdims=True)
+        ln_rt = mu + (ln_rt - mu) * params.homog_shrink
+    runtime = np.clip(np.exp(ln_rt), 1.0, 2 * DAY)
+
+    submit = _arrivals(rng, shape, params.horizon, params.daily_amplitude)
+
+    type_weights = 1.0 / np.arange(1, params.n_types + 1)
+    type_weights /= type_weights.sum()
+    jtype = rng.choice(params.n_types, size=shape,
+                       p=type_weights).astype(np.int64)
+
+    # per-replica load calibration, exactly as in generate_workload
+    raw_load = (runtime * nodes).sum(axis=-1, keepdims=True) / \
+        (params.nodes * params.horizon)
+    runtime = runtime * (params.load / raw_load)
+
+    out = {}
+    for r in range(n_replicas):
+        order = np.argsort(submit[r], kind="stable")
+        sub_r, rt_r = submit[r][order], runtime[r][order]
+        nd_r, jt_r = nodes[r][order], jtype[r][order]
+        out[name_fmt.format(r=r)] = Workload(
+            submit=sub_r, runtime=rt_r, nodes=nd_r.astype(np.int64),
+            work=rt_r * nd_r, jtype=jt_r, params=params)
+    return out
+
+
+def workload_statics(wl: Workload) -> tuple[int, int, int]:
+    """The static signature that decides batch compatibility: two workloads
+    can share one stacked sweep dispatch iff these (plus the simulation
+    dtype and ring, which `repro_torch.core.cohort.cohort_key` adds) all
+    match."""
+    return (int(wl.params.nodes), wl.n_jobs, int(wl.params.n_types))
+
+
+def group_by_statics(flows: Mapping[str, Workload]) -> dict[tuple, list[str]]:
+    """Workload names grouped by `workload_statics`, insertion-ordered.
+
+    The workload-level half of cohort grouping: `repro_torch.core.cohort`
+    refines these groups with the simulation dtype to build
+    `WorkloadCohort`s."""
+    groups: dict[tuple, list[str]] = {}
+    for name, wl in flows.items():
+        groups.setdefault(workload_statics(wl), []).append(name)
+    return groups
 
 
 def paper_workloads(seed: int = 0) -> dict[str, Workload]:

@@ -39,7 +39,9 @@ CUDA_SOURCES = [("packet_step.cu", "event_step_kernel",
                 ("packet_select.cu", "_select_kernel",
                  "src/repro/kernels/packet_select/kernel.py"),
                 ("packet_while.cu", "_select_kernel",
-                 "src/repro/kernels/packet_select/kernel.py")]
+                 "src/repro/kernels/packet_select/kernel.py"),
+                ("baselines.cu", "simulate_backfill",
+                 "src/repro/core/schedulers.py")]
 
 
 @pytest.fixture()
@@ -80,7 +82,9 @@ def test_package_layout_mirrors_the_reference():
                  "kernels.packet_while.kernel", "kernels.packet_while.ops",
                  "core.prng", "workload.windows", "service",
                  "service.monitor", "service.controller", "service.driver",
-                 "launch.sim", "launch.service"):
+                 "launch.sim", "launch.service", "core.cohort",
+                 "core.schedulers", "kernels.baselines.ref",
+                 "kernels.baselines.kernel", "kernels.baselines.ops"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()

@@ -1,11 +1,11 @@
 """The paper's two entry points in the port: `repro_torch.launch.sim` and
 `repro_torch.launch.service`, on the CPU by name.
 
-`sim` prints the reference driver's plateau threshold for the same flags;
-`service` completes fault-free and with ``--chaos`` and returns the
-reference's committed-k trajectories; ``--baselines`` raises, naming its
-ROADMAP item, before any simulation; with no ``--device`` and no card,
-both raise as `resolve_device` does.
+`sim` prints the reference driver's plateau threshold for the same flags,
+and with ``--baselines`` the reference's two baseline lines; `service`
+completes fault-free and with ``--chaos`` and returns the reference's
+committed-k trajectories; with no ``--device`` and no card, both raise as
+`resolve_device` does.
 """
 import contextlib
 import io
@@ -92,10 +92,21 @@ def test_service_unknown_scenario_exits():
                                       "cpu"])
 
 
-def test_baselines_raise_naming_their_item(capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tsim.main(SIM_ARGS + ["--baselines", "--device", "cpu"])
-    assert capsys.readouterr().out == ""     # nothing ran, nothing printed
+@pytest.mark.parametrize("extra", [[], ["--workload", "hetero0.95",
+                                        "--init-prop", "0.2"]],
+                         ids=["homog0.85", "hetero0.95"])
+def test_sim_baselines_print_the_reference_values(ref, extra):
+    flags = SIM_ARGS + extra + ["--baselines"]
+    (grid, thr, bl), lines = printed(tsim.main, flags + ["--device", "cpu"])
+    _, want = printed(ref.launch_sim.main, flags)
+    assert len(lines) == len(want) == 42
+    assert lines[-2:] == want[-2:]
+    assert [ln.split(":")[0] for ln in lines[-2:]] == [
+        "[sim] baseline backfill", "[sim] baseline fcfs"]
+    assert list(bl) == ["backfill", "fcfs"]
+    for m in bl.values():
+        assert m.avg_wait.shape == (1,) and m.ok.all()
+    assert lines[-3] == want[-3]            # the plateau line, unchanged
 
 
 @pytest.mark.parametrize("main,args", [(tsim.main, SIM_ARGS),
