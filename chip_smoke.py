@@ -52,10 +52,26 @@ card, drives the port's paths and prints one JSON line per phase:
   width and depth (40 layers, bf16, random weights from seed 0), 4 prompts
   of 2048 tokens, 32 new tokens each (flash-attention kernel in every
   layer of the prefill);
+- hybrid serving: `repro_torch.launch.serve.main` on recurrentgemma-2b at
+  full width and depth (26 layers, bf16, random weights from seed 0), 4
+  prompts of 2048 tokens replayed one decode step a token (the ring of
+  2048 slots wraps), 32 new tokens; no kernel on the decode path (gated:
+  none launched); one `forward` over the replayed tokens (RG-LRU and
+  attention kernels) against the replay's last 16 positions, reported;
+  gated: (a) the full-width model in float32, B 1, the window cut to 64,
+  96 tokens decoded against one `forward` at every position, and (b) the
+  reduced config on the card against the same port on the CPU;
+- the ML cluster: examples/cluster_scheduling_torch.py's sweep (300 jobs,
+  8 k's, failures and stragglers) with `ClusterSim`'s policy calls on the
+  card, its integer counters equal to a CPU run's;
 - LM training: `repro_torch.launch.train.main` on recurrentgemma-2b at full
   width and depth (26 layers, bf16, random weights from seed 0), 3 AdamW
   steps of 2 x 4096 tokens (RG-LRU kernel forward and reverse in every
-  recurrent layer, flash-attention kernel in every attention layer).
+  recurrent layer, flash-attention kernel in every attention layer);
+- checkpoints: `launch.train.main --ckpt-dir` on reduced
+  recurrentgemma-2b on the card, 4 steps saving every 2, then `--resume`
+  to 6; the same steps in memory saved by the async manager, stepped in
+  place, restored.
 
 `--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
 `torch.profiler` (device time by kind of kernel, idle share), and
@@ -123,6 +139,16 @@ Tolerances of the kernel-vs-plain comparisons:
 - the training step's first loss and gradient norm, kernels against both
   plain versions at reduced depth: relative difference at most
   TRAIN_PLAIN_GATE (a few times the measured gap).
+- hybrid serving: (a) decode against forward in float32 at rtol = atol =
+  2e-2 (tests/test_archs.py's, for the bf16 KV cache both sides keep);
+  (b) card against CPU on the reduced float32 config: every step's logits
+  within 1e-4, and the greedy token equal wherever the CPU's top-2 gap
+  exceeds 1e-3 (float32 matrix products summed in another order).
+- the ML cluster: integer counters equal to the CPU's (the float32 policy
+  calls round alike on both; the float difference is printed).
+- checkpoints: every restored leaf bitwise the saved one, bf16 included;
+  the first resumed step's loss within rtol 2e-5 (the train gate of the
+  tests) of the same step from the state in memory (expected: equal).
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN before anything runs.
@@ -133,11 +159,13 @@ import argparse
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -147,7 +175,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.ckpt import (CheckpointManager, restore_checkpoint,
+                              save_checkpoint)
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import cohort as cohort_mod
 from repro_torch.core import des, schedulers, sweep
 from repro_torch.core.metrics import (SCALAR_METRIC_FIELDS, Metrics,
@@ -223,6 +253,15 @@ PREV_ATTN_ERR = {
 GRANITE_CASE = ATTN_CASES[7]
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 2048, 32, 0
+HYBRID_ARCH = "recurrentgemma-2b"     # served at granite's serve_path shape
+HYBRID_TAIL = 16                # replayed positions held against a forward
+HYBRID_F32_WINDOW, HYBRID_F32_TOKENS = 64, 96   # gate (a): the ring wraps
+HYBRID_FORWARD_TOL = 2e-2       # tests/test_archs.py's rtol = atol
+HYBRID_REDUCED = (2, 40, 8)     # gate (b): batch, prompt, new tokens
+HYBRID_CPU_TOL, HYBRID_GAP = 1e-4, 1e-3
+CKPT_BATCH, CKPT_SEQ, CKPT_SEED = 2, 64, 0
+CKPT_STEPS, CKPT_RESUME_STEPS = 4, 6
+CKPT_LOSS_RTOL = 2e-5           # the train gate of tests/test_torch_train.py
 LRU_TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 LRU_CASES = [
     # B, S, D, with_h0, decays near 1 (see `lru_inputs`)
@@ -770,7 +809,7 @@ def phase_main_path(flows):
             emit("main_path", flow=flow, n_jobs=wl.n_jobs,
                  m_nodes=int(wl.params.nodes), lanes=int(g.ok.size),
                  dtype=str(np.dtype(dtype)), mode=mode,
-                 plan=sweep.sweep_plan(mode, g.ok.size, dtype),
+                 plan=sweep.sweep_plan(mode, g.ok.size, dtype=dtype),
                  run_order="fused, chunked, chunked, fused",
                  wall_seconds_runs=walls[mode], wall_seconds=wall,
                  launches=launched[mode], events=events,
@@ -1866,8 +1905,8 @@ def phase_cohort_grid(flows):
         times[c.label] = t
         emit("cohort_grid", cohort=c.label, members=list(c.names),
              lanes=c.n_workloads * K * S,
-             plan=sweep.sweep_plan("auto", K * S, c.dtype,
-                                   n_workloads=c.n_workloads),
+             plan=sweep.sweep_plan("auto", K * S, c.n_workloads,
+                                   dtype=c.dtype),
              wall_seconds_cold=walls[0], wall_seconds=walls[1],
              member_wall_seconds=member_walls,
              members_wall_seconds_sum=sum(member_walls.values()),
@@ -2350,6 +2389,387 @@ def phase_serve_path(profile: bool):
     if profile:
         profile_serving(cfg, pol, params, prompts)
     return launches
+
+
+# ---------------------------------------------------- hybrid serving
+
+
+def hybrid_argv():
+    return ["--arch", HYBRID_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--max-new", str(SERVE_NEW),
+            "--seed", str(SERVE_SEED)]
+
+
+def kernel_counts() -> dict:
+    return {"lru_forward": lru_ops.lru_forward.launches,
+            "lru_reverse": lru_ops.lru_reverse.launches,
+            "flash_attention": attn_ops.flash_attention.launches}
+
+
+def zero_kernel_counts():
+    lru_ops.lru_forward.launches = 0
+    lru_ops.lru_reverse.launches = 0
+    attn_ops.flash_attention.launches = 0
+
+
+def logit_agreement(got, want) -> dict:
+    """Largest |got - want| over the RMS of `want`, and the share of
+    positions whose argmax agrees (float32 logits [..., V])."""
+    rms = float(want.square().mean().sqrt())
+    return dict(max_abs_diff=float((got - want).abs().max()), want_rms=rms,
+                max_abs_diff_over_rms=float((got - want).abs().max()) / rms,
+                argmax_agreement=float(
+                    (got.argmax(-1) == want.argmax(-1)).float().mean()))
+
+
+def decode_all(cfg, pol, params, tokens):
+    """Logits [B, T, V] of decoding `tokens` [B, T] one step each from a
+    fresh cache of T slots (a ring once T > local_window)."""
+    B, T = tokens.shape
+    cache = hybrid.init_cache(cfg, pol, B, T, device=tokens.device)
+    outs = []
+    for i in range(T):
+        lg, cache = hybrid.decode_step(cfg, pol, params, cache,
+                                       tokens[:, i:i + 1])
+        outs.append(lg[..., :cfg.vocab_size].float())
+    return torch.cat(outs, dim=1)
+
+
+def hybrid_float32_gate():
+    """Gate (a): full-width recurrentgemma-2b in float32, B 1, the window
+    cut to HYBRID_F32_WINDOW so that a HYBRID_F32_TOKENS-token decode wraps
+    its ring: decode logits against one `forward` (both kernels) at every
+    position, rtol = atol = HYBRID_FORWARD_TOL."""
+    cfg = get_config(HYBRID_ARCH).with_(
+        param_dtype="float32", compute_dtype="float32",
+        local_window=HYBRID_F32_WINDOW, attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    gen = torch.Generator(device=Dispatch.device).manual_seed(SERVE_SEED)
+    params = hybrid.init_params(cfg, pol, gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, HYBRID_F32_TOKENS),
+                         generator=gen, device=Dispatch.device)
+    with torch.inference_mode():
+        dec = decode_all(cfg, pol, params, toks)
+        hidden, _ = hybrid.forward(cfg, pol, params, toks)
+        full = unembed(cfg, pol, hidden, params["embed"])[
+            ..., :cfg.vocab_size].float()
+    tol = HYBRID_FORWARD_TOL
+    excess = float(((dec - full).abs() - tol - tol * full.abs()).max())
+    out = dict(dtype="float32", batch=1, tokens=HYBRID_F32_TOKENS,
+               local_window=HYBRID_F32_WINDOW, rtol=tol, atol=tol,
+               excess=excess, **logit_agreement(dec, full))
+    del params, hidden, dec, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not excess <= 0:
+        fail(f"hybrid_serve_path: float32 decode differs from forward "
+             f"beyond rtol = atol = {tol}: {out}")
+    return out
+
+
+def hybrid_reduced_gate():
+    """Gate (b): the reduced config on the card against the same port on
+    the CPU, the same parameters and tokens (the prompt, then the CPU's
+    greedy continuation, fed to both): every decode step's logits within
+    HYBRID_CPU_TOL, and the greedy token equal wherever the CPU's top-2
+    gap exceeds HYBRID_GAP."""
+    cfg = smoke_config(HYBRID_ARCH).with_(attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    B, S, new = HYBRID_REDUCED
+    cpu_params = hybrid.init_params(cfg, pol,
+                                    torch.Generator().manual_seed(SERVE_SEED))
+    card_params = tree_map(lambda t: t.to(Dispatch.device), cpu_params)
+    prompts = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (B, S)))
+    cpu_out = generate(cfg, pol, cpu_params, prompts, max_new=new)
+    card_out = generate(cfg, pol, card_params, prompts, max_new=new)
+    seq = torch.cat([prompts, torch.from_numpy(cpu_out[:, 1:]).long()], 1)
+    with torch.inference_mode():
+        want = decode_all(cfg, pol, cpu_params, seq)
+        got = decode_all(cfg, pol, card_params,
+                         seq.to(Dispatch.device)).cpu()
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > HYBRID_GAP
+    agree = got.argmax(-1) == want.argmax(-1)
+    out = dict(batch=B, prompt_len=S, max_new=new,
+               window=cfg.local_window, positions=int(seq.shape[1]),
+               tol=HYBRID_CPU_TOL, top2_gap=HYBRID_GAP,
+               near_ties=int((~clear).sum()),
+               clear_argmax_agreement=float(agree[clear].float().mean()),
+               generate_tokens_equal=bool(np.array_equal(cpu_out, card_out)),
+               **logit_agreement(got, want))
+    if not out["max_abs_diff"] <= HYBRID_CPU_TOL:
+        fail(f"hybrid_serve_path: reduced decode on the card differs from "
+             f"the CPU's by more than {HYBRID_CPU_TOL}: {out}")
+    if not bool(agree[clear].all()):
+        fail(f"hybrid_serve_path: a greedy token with a top-2 gap above "
+             f"{HYBRID_GAP} differs between the card and the CPU: {out}")
+    return out
+
+
+def tree_map(fn, tree):
+    """`fn` of every tensor of a nested dict / list, in its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def phase_hybrid_serve_path():
+    """`launch.serve.main` on full-width recurrentgemma-2b (bf16, the prompt
+    replayed token by token; its ring of 2048 slots wraps), then one
+    `forward` over the same tokens against the last HYBRID_TAIL replayed
+    positions (reported, not gated), and the two gates. The kernel counts
+    are zeroed here and read at the end: the decode path launches none,
+    each forward launches the RG-LRU kernel once a recurrent layer and the
+    attention kernel once an attention layer."""
+    cfg = get_config(HYBRID_ARCH)
+    _, n_rec, n_attn = hybrid._counts(cfg)
+    S, V = SERVE_PROMPT, cfg.vocab_size
+    keep = range(S - 1 - HYBRID_TAIL, S - 1)     # the replay's last calls
+    capture = Capture(hybrid.decode_step, keep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    stats = {}
+    hybrid.decode_step = capture
+    try:
+        t0 = time.perf_counter()
+        out = serve.main(hybrid_argv(), stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hybrid.decode_step = capture.fn
+    peak = torch.cuda.max_memory_allocated()
+    serve_launches = kernel_counts()
+    if any(serve_launches.values()):
+        fail(f"hybrid_serve_path: the decode path launched kernels: "
+             f"{serve_launches}")
+    if capture.calls != (S - 1) + (SERVE_NEW - 1):
+        fail(f"hybrid_serve_path: {capture.calls} decode steps, expected "
+             f"{S - 1} replayed + {SERVE_NEW - 1} generated")
+    if out.shape != (SERVE_BATCH, SERVE_NEW):
+        fail(f"hybrid_serve_path: tokens have shape {out.shape}")
+    if out.min() < 0 or out.max() >= V:
+        fail("hybrid_serve_path: a token lies outside [0, vocab)")
+
+    # the same parameters and prompts: one forward over the replayed tokens
+    cfg, pol, params, prompts = serve.setup(HYBRID_ARCH, False, SERVE_BATCH,
+                                            S, SERVE_SEED, None)
+    if not np.array_equal(out[:, 0], prompts[:, -1].cpu().numpy()):
+        fail("hybrid_serve_path: the first column is not the prompt's last "
+             "token")
+    replay = torch.cat([capture.kept[i][2][0] for i in keep], 1)[
+        ..., :V].float()
+    capture.kept.clear()
+    if not bool(torch.isfinite(replay).all()):
+        fail("hybrid_serve_path: the replay's logits are not finite")
+    with torch.inference_mode():
+        hidden, _ = hybrid.forward(cfg, pol, params, prompts[:, :S - 1])
+        full = unembed(cfg, pol, hidden[:, -HYBRID_TAIL:], params["embed"])[
+            ..., :V].float()
+    forward_check = logit_agreement(replay, full)
+    del params, hidden, full, replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    float32_gate = hybrid_float32_gate()
+    reduced_gate = hybrid_reduced_gate()
+    launches = kernel_counts()
+    want = {"lru_forward": 2 * n_rec, "lru_reverse": 0,
+            "flash_attention": 2 * n_attn}
+    if launches != want:
+        fail(f"hybrid_serve_path: {launches} launches in the two forward "
+             f"checks, expected {want}")
+    generated = SERVE_BATCH * (SERVE_NEW - 1)
+    emit("hybrid_serve_path", arch=HYBRID_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, d_rnn=cfg.d_rnn, window=cfg.local_window,
+         heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", dtype=cfg.param_dtype,
+         batch=SERVE_BATCH, prompt_len=S, max_new=SERVE_NEW,
+         replay_seconds=stats["replay_seconds"],
+         replay_ms_per_step=1e3 * stats["replay_seconds"] / (S - 1),
+         decode_seconds=stats["decode_seconds"],
+         decode_ms_per_step=1e3 * stats["decode_seconds"] / (SERVE_NEW - 1),
+         generated_tokens=generated,
+         tokens_per_second=generated / (stats["replay_seconds"]
+                                        + stats["decode_seconds"]),
+         decode_tokens_per_second=generated / stats["decode_seconds"],
+         main_wall_seconds=wall, peak_memory_bytes=peak,
+         serve_launches=serve_launches, launches=launches,
+         replay_tail_against_forward=dict(
+             positions=HYBRID_TAIL, **forward_check,
+             note="not gated: bf16 through 26 layers, the replay's "
+                  "one-token steps against the forward's kernels"),
+         float32_gate=float32_gate, reduced_card_against_cpu=reduced_gate,
+         sample=out[0][:8].tolist(), ok=True)
+    return launches
+
+
+# ------------------------------------------------------- the ML cluster
+
+
+def load_example(name: str):
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CLUSTER_INT_METRICS = ("jobs", "unfinished", "groups", "failures",
+                       "straggler_kills", "requeues", "requeued_jobs")
+
+
+def phase_cluster_path():
+    """examples/cluster_scheduling_torch.py's sweep, uncut (300 jobs, 8 k's,
+    failures and stragglers), with `ClusterSim`'s policy calls on the card,
+    then on the CPU: the integer counters equal, the largest relative
+    difference of the float metrics printed."""
+    ex = load_example("cluster_scheduling_torch")
+    card, cpu, seconds = {}, {}, {}
+    for k in ex.KS:
+        t0 = time.perf_counter()
+        card[k] = ex.run(k)
+        seconds[k] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for k in ex.KS:
+        cpu[k] = ex.run(k, device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    worst = 0.0
+    for k in ex.KS:
+        for name in CLUSTER_INT_METRICS:
+            if card[k][name] != cpu[k][name]:
+                fail(f"cluster_path k={k}: {name} {card[k][name]} on the "
+                     f"card, {cpu[k][name]} on the CPU")
+        for name in set(cpu[k]) - set(CLUSTER_INT_METRICS):
+            a, b = card[k][name], cpu[k][name]
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-300))
+    emit("cluster_path", jobs=ex.JOBS, ks=list(ex.KS), n_chips=1024,
+         seconds_per_k={str(k): s for k, s in seconds.items()},
+         seconds=sum(seconds.values()), cpu_seconds=cpu_seconds,
+         float_max_rel_diff=worst,
+         groups={str(k): card[k]["groups"] for k in ex.KS},
+         failures={str(k): card[k]["failures"] for k in ex.KS},
+         avg_wait={str(k): card[k]["avg_wait"] for k in ex.KS}, ok=True)
+
+
+# ----------------------------------------------------------- checkpoints
+
+
+def state_leaves(state) -> list:
+    return tree_leaves([state.params, state.opt.m, state.opt.v])
+
+
+def phase_ckpt_path():
+    """`launch.train.main` on reduced recurrentgemma-2b on the card with
+    --ckpt-dir: CKPT_STEPS steps saving every --ckpt-every, then --resume to
+    CKPT_RESUME_STEPS. Beside it, the same steps held in memory: their
+    state saved by the async manager, stepped in place, restored, every
+    leaf bitwise the state at the save; the first resumed step's loss
+    against the same step from the state in memory; the parameters in
+    bf16 saved and restored bitwise. Returns the kernel counts."""
+    cfg = smoke_config(TRAIN_ARCH).with_(attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--batch", str(CKPT_BATCH),
+            "--seq", str(CKPT_SEQ), "--seed", str(CKPT_SEED),
+            "--ckpt-every", "2", "--log-every", "1"]
+    zero_kernel_counts()
+    with tempfile.TemporaryDirectory() as root:
+        main_dir, mem_dir, bf16_dir = (os.path.join(root, d)
+                                       for d in ("main", "mem", "bf16"))
+        first, resumed = {}, {}
+        train.main(argv + ["--ckpt-dir", main_dir, "--steps",
+                           str(CKPT_STEPS)], stats=first)
+        train.main(argv + ["--ckpt-dir", main_dir, "--steps",
+                           str(CKPT_RESUME_STEPS), "--resume"],
+                   stats=resumed)
+        launches = kernel_counts()
+        files = sorted(os.listdir(main_dir))
+        if resumed["start"] != CKPT_STEPS:
+            fail(f"ckpt_path: resumed at step {resumed['start']}, expected "
+                 f"{CKPT_STEPS}")
+        want_files = [f"ckpt_{s:08d}.npz"
+                      for s in range(2, CKPT_RESUME_STEPS + 1, 2)][-3:]
+        if files != want_files:
+            fail(f"ckpt_path: files {files}, expected {want_files}")
+
+        # the same steps in memory, from the same seed and batches
+        ocfg = AdamWConfig(lr=3e-3, warmup_steps=10,
+                           total_steps=CKPT_RESUME_STEPS)
+        gen = torch.Generator(device=Dispatch.device).manual_seed(CKPT_SEED)
+        state = init_state(cfg, pol, gen, ocfg)
+        step_fn = make_train_step(cfg, pol, ocfg)
+        it = train_data.batches(cfg, train_data.DataConfig(
+            batch=CKPT_BATCH, seq=CKPT_SEQ, seed=CKPT_SEED))
+        batches = [{k: torch.from_numpy(v).to(Dispatch.device).long()
+                    for k, v in next(it).items()} for _ in range(CKPT_STEPS)]
+        for b in batches:
+            state, _ = step_fn(state, b)
+        main_file, _ = restore_checkpoint(main_dir, state, step=CKPT_STEPS)
+        main_vs_memory = max(float((a.detach() - b.detach()).abs().max())
+                             for a, b in zip(state_leaves(main_file),
+                                             state_leaves(state)))
+        del main_file
+        saved = [x.detach().clone() for x in state_leaves(state)]
+        mgr = CheckpointManager(mem_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(CKPT_STEPS, state, {"arch": cfg.name})
+        snapshot_s = time.perf_counter() - t0
+        # the resumed run restarted its batches: its first step takes the
+        # first batch
+        state, mets = step_fn(state, batches[0])
+        memory_loss = float(mets["loss"])
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, meta = restore_checkpoint(mem_dir, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = state_leaves(restored)
+        if meta["step"] != CKPT_STEPS or restored.opt.step != CKPT_STEPS:
+            fail(f"ckpt_path: restored step {meta['step']} / "
+                 f"{restored.opt.step}, expected {CKPT_STEPS}")
+        bad = [i for i, (g, w) in enumerate(zip(got, saved))
+               if g.device != w.device or not torch.equal(g, w)]
+        if len(got) != len(saved) or bad:
+            fail(f"ckpt_path: restored leaves {bad} differ from the state "
+                 f"at the save")
+        bf16 = tree_map(lambda t: t.detach().to(torch.bfloat16),
+                        restored.params)
+        save_checkpoint(bf16_dir, CKPT_STEPS, bf16)
+        bf16_back, _ = restore_checkpoint(bf16_dir,
+                                          tree_map(torch.zeros_like, bf16))
+        bf16_bad = [i for i, (g, w) in enumerate(zip(
+            tree_leaves(bf16_back), tree_leaves(bf16)))
+            if g.dtype != torch.bfloat16
+            or not torch.equal(g.view(torch.int16), w.view(torch.int16))]
+        if bf16_bad:
+            fail(f"ckpt_path: bf16 leaves {bf16_bad} restored unlike saved")
+        bytes_on_disk = os.path.getsize(
+            os.path.join(mem_dir, f"ckpt_{CKPT_STEPS:08d}.npz"))
+    resumed_loss = resumed["losses"][0]
+    rel = abs(resumed_loss - memory_loss) / abs(memory_loss)
+    if not rel <= CKPT_LOSS_RTOL:
+        fail(f"ckpt_path: the first resumed loss {resumed_loss} differs from "
+             f"the same step in memory {memory_loss} by {rel} (relative)")
+    emit("ckpt_path", arch=TRAIN_ARCH, reduced=True, batch=CKPT_BATCH,
+         seq=CKPT_SEQ, steps=CKPT_STEPS, resumed_to=CKPT_RESUME_STEPS,
+         files=files, losses=first["losses"], resumed_losses=resumed["losses"],
+         first_resumed_loss=resumed_loss, same_step_in_memory_loss=memory_loss,
+         resumed_loss_equal=resumed_loss == memory_loss,
+         resumed_loss_rel_diff=rel, gate=CKPT_LOSS_RTOL,
+         main_file_vs_memory_max_abs_diff=main_vs_memory,
+         leaves=len(saved), restored_bitwise=True, bf16_restored_bitwise=True,
+         save_snapshot_seconds=snapshot_s, save_write_wait_seconds=wait_s,
+         restore_seconds=restore_s, checkpoint_bytes=bytes_on_disk,
+         launches=launches, ok=True)
+    return launches
+
 
 
 PROFILE_DECODE_STEPS = 8
@@ -2928,7 +3348,7 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build,
                   cohort_times, base_launches, base_times, base_plain_ms,
-                  base_build):
+                  base_build, hybrid_launches, ckpt_launches):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -2977,8 +3397,11 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": BF16_OPS_PER_S},
         "main_shape": attn,
-        "launches_by_path": {"serve_path": attn_launches,
-                             "train_path": train_launches["flash_attention"]},
+        "launches_by_path": {
+            "serve_path": attn_launches,
+            "train_path": train_launches["flash_attention"],
+            "hybrid_serve_path": hybrid_launches["flash_attention"],
+            "ckpt_path": ckpt_launches["flash_attention"]},
         "recurrentgemma_layer": attn_grad,
         "build_seconds": attn_build[0],
         "instantiations": attention_instantiations(attn_build[1]),
@@ -2994,6 +3417,12 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                     + train_launches["lru_reverse"],
         "launches_forward": train_launches["lru_forward"],
         "launches_reverse": train_launches["lru_reverse"],
+        "launches_by_path": {
+            "train_path": train_launches["lru_forward"]
+                          + train_launches["lru_reverse"],
+            "hybrid_serve_path": hybrid_launches["lru_forward"],
+            "ckpt_path": ckpt_launches["lru_forward"]
+                         + ckpt_launches["lru_reverse"]},
         "max_abs_err": LruWorst.abs_err,
         "ms": lru["ms"],
         "plain_ms": lru["plain_ms"],
@@ -3157,6 +3586,7 @@ def main(argv=None):
                                 fused),
             "service_path": timed("service_path", phase_service_path),
             "sim_path": timed("sim_path", phase_sim_path)}
+        timed("cluster_path", phase_cluster_path)
         des_launches["cohort_grid"], cohort_times = timed(
             "cohort_grid", phase_cohort_grid, flows)
         base_build = timed("build baselines, wait", phase_build, base_kernel,
@@ -3169,17 +3599,19 @@ def main(argv=None):
                           builds[lru_kernel], lru_instantiations)
     timed("attention_kernel", phase_attention_kernel)
     attn_launches = timed("serve_path", phase_serve_path, args.profile)
+    hybrid_launches = timed("hybrid_serve_path", phase_hybrid_serve_path)
     timed("lru_kernel", phase_lru_kernel)
     attn_grad = timed("attention_grad", phase_attention_grad)
     train_launches = timed("train_path", phase_train_path)
     timed("train_plain_kernels", phase_train_plain_kernels)
+    ckpt_launches = timed("ckpt_path", phase_ckpt_path)
     if args.profile:
         timed("train_profile", profile_training)
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
           while_build, lru_build, cohort_times, base_launches, base_times,
-          base_plain_ms, base_build)
+          base_plain_ms, base_build, hybrid_launches, ckpt_launches)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

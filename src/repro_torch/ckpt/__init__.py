@@ -1,0 +1,6 @@
+"""Checkpointing in the reference's file format (see `repro.ckpt`)."""
+from repro_torch.ckpt.checkpoint import (CheckpointManager, latest_step,
+                                         restore_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

@@ -61,7 +61,8 @@ from repro_torch.core.des import (ChaosConfig, DesResult, PackedWorkload,
 from repro_torch.core.metrics import Metrics, efficiency_metrics
 from repro_torch.core.schedulers import simulate_backfill, simulate_fcfs
 from repro_torch.device import resolve_device
-from repro_torch.kernels.packet_step.ops import resolve_step_impl
+from repro_torch.kernels.packet_step.ops import (STEP_IMPLS,
+                                                 resolve_step_impl)
 from repro_torch.workload.lublin import Workload
 
 # the paper's 37 scale-ratio values: 0.1..1 step .1, 1..10 step 1,
@@ -157,7 +158,8 @@ def lane_order(k_lanes, s_lanes) -> np.ndarray:
     return np.argsort(-predicted_lane_events(k_lanes, s_lanes), kind="stable")
 
 
-def resolve_mode(mode: str, n_lanes: int, n_workloads: int = 1) -> str:
+def resolve_mode(mode: str, n_lanes: int, n_workloads: int = 1,
+                 step_impl: str | None = None) -> str:
     """Resolve mode='auto' to the concrete dispatch layout; validate others.
 
     ``"auto"`` is ``"fused"`` at every lane count: one warp runs one
@@ -167,10 +169,15 @@ def resolve_mode(mode: str, n_lanes: int, n_workloads: int = 1) -> str:
     (`CHUNKED_MIN_LANES`, the device count) were measured for XLA on a
     CPU and are not carried over. `n_lanes` (lanes per workload) and
     `n_workloads` (a cohort's members, `run_cohort_grid`) are validated
-    only. Unknown strings raise ValueError."""
+    only; so is `step_impl` (None, or one of the event step's
+    ``STEP_IMPLS``), taken fourth as the reference takes it, so that every
+    caller rejects a typo up front. Unknown strings raise ValueError."""
     if mode not in SWEEP_MODES:
         raise ValueError(
             f"unknown sweep mode {mode!r}; available: {SWEEP_MODES}")
+    if step_impl is not None and step_impl not in STEP_IMPLS:
+        raise ValueError(f"unknown step_impl {step_impl!r}; "
+                         f"available: {STEP_IMPLS}")
     if int(n_lanes) < 1:
         raise ValueError(f"a sweep needs at least one lane, got {n_lanes}")
     if int(n_workloads) < 1:
@@ -179,17 +186,26 @@ def resolve_mode(mode: str, n_lanes: int, n_workloads: int = 1) -> str:
     return "fused" if mode == "auto" else mode
 
 
-def sweep_plan(mode: str, n_lanes: int, dtype=np.float32,
-               step_impl: str | None = None, device=None,
-               n_workloads: int = 1) -> dict:
+def sweep_plan(mode: str, n_lanes: int, n_workloads: int = 1,
+               chaos: ChaosConfig | None = None,
+               step_impl: str | None = None, *, dtype=np.float32,
+               device=None) -> dict:
     """The resolve_mode decision plus its inputs, for provenance: which
     layout ran, which event-step implementation, on which device and in
-    which dtype. ``n_workloads > 1`` describes a cohort study: the plan
-    then reports the ``[W, lanes]`` layout `run_cohort_grid` runs."""
+    which dtype. The positional parameters are the reference's.
+    ``n_workloads > 1`` describes a cohort study: the plan then reports the
+    ``[W, lanes]`` layout `run_cohort_grid` runs. A `chaos` config (an
+    inert one counts as none, as in the run_* functions) multiplies the lane
+    axis by its length C and records the fault grid (seed, requeue bound,
+    parameter values) in the reference's ``"chaos"`` block."""
     dev = resolve_device(device)
-    resolved = resolve_mode(mode, int(n_lanes), int(n_workloads))
+    if chaos_is_inert(chaos):
+        chaos = None
+    C = chaos_axis_len(chaos)
+    n_lanes = int(n_lanes) * C
     W = int(n_workloads)
-    return {
+    resolved = resolve_mode(mode, n_lanes, W, step_impl)
+    plan = {
         "requested_mode": mode,
         "mode": resolved,
         "step_impl": resolve_step_impl(step_impl, dev),
@@ -197,12 +213,22 @@ def sweep_plan(mode: str, n_lanes: int, dtype=np.float32,
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
         "dtype": str(precision.canonical_dtype(dtype)),
-        "n_lanes": int(n_lanes),
+        "n_lanes": n_lanes,
         "n_workloads": W,
-        "total_experiments": W * int(n_lanes),
-        "layout": [W, int(n_lanes)],
+        "total_experiments": W * n_lanes,
+        "layout": [W, n_lanes],
         "chunk_lanes": CHUNK_LANES if resolved == "chunked" else None,
     }
+    if chaos is not None:
+        plan["chaos"] = {
+            "axis_len": C,
+            "requeue_credit": "per-member",
+            "seed": int(chaos.seed),
+            "max_requeues": (None if chaos.max_requeues is None
+                             else int(chaos.max_requeues)),
+            **{f: np.asarray(getattr(chaos, f), np.float64).tolist()
+               for f in CHAOS_AXIS_FIELDS}}
+    return plan
 
 
 #: the ChaosConfig fields that may carry a chaos lane axis
@@ -406,7 +432,7 @@ def run_packet_grid(wl: Workload,
     K, S = len(ks), len(s_props)
     C = chaos_axis_len(chaos)
     mode = ("vmap_k" if vmap_k else "vmap_s" if vmap_s
-            else resolve_mode(mode, K * S * C))
+            else resolve_mode(mode, K * S * C, 1, step_impl))
     dev = resolve_device(device)
     step_impl = resolve_step_impl(step_impl, dev)
     np_dtype = precision.canonical_dtype(dtype)
@@ -478,7 +504,7 @@ def run_cohort_grid(cohort, ks: Sequence[float] = PAPER_SCALE_RATIOS,
     K, S = len(ks), len(s_props)
     W = cohort.n_workloads
     C = chaos_axis_len(chaos)
-    resolved = resolve_mode(mode, K * S * C, W)
+    resolved = resolve_mode(mode, K * S * C, W, step_impl)
     if resolved in ("vmap_k", "vmap_s"):
         raise ValueError(
             f"mode {resolved!r} has no cohort layout; use run_packet_grid "
@@ -547,7 +573,7 @@ def run_window_oracle(pw: PackedWorkload,
     if chaos_is_inert(chaos):
         chaos = None        # zero-rate config: the fault-free program
     C = chaos_axis_len(chaos)
-    resolved = resolve_mode(mode, K * C)
+    resolved = resolve_mode(mode, K * C, 1, step_impl)
     if resolved in ("vmap_k", "vmap_s"):
         raise ValueError(
             f"mode={resolved!r} is a grid layout; the window oracle has a "

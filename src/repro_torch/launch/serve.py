@@ -1,15 +1,18 @@
-"""Batched serving from the command line: prefill + greedy decode of
-synthetic requests.
+"""Batched serving from the command line: prefill (or prompt replay) +
+greedy decode of synthetic requests.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --reduced --batch 4 --prompt-len 32 --max-new 16 [--device cpu]
 
 The counterpart of the reference's `repro/launch/serve.py`, for the dense
-family. It serves ``cfg.with_(attention_impl="pallas")``, so that on the
-card the prefill runs the hand-written flash-attention kernel (on the CPU
-its plain version). Parameters and prompts are random, drawn from one
-`torch.Generator` seeded with ``--seed`` on the serving device. With no
-``--device`` it runs on the CUDA card and raises without one.
+family and the hybrid one (recurrentgemma-2b, whose prompt is replayed
+token by token, `serve.engine.generate`). It serves
+``cfg.with_(attention_impl="pallas")``, so that on the card a dense
+prefill runs the hand-written flash-attention kernel (on the CPU its plain
+version); a hybrid decode step runs no kernel. Parameters and prompts are
+random, drawn from one `torch.Generator` seeded with ``--seed`` on the
+serving device. With no ``--device`` it runs on the CUDA card and raises
+without one.
 """
 from __future__ import annotations
 

@@ -24,17 +24,24 @@ non-multiple tail (26 = 8 * 3 + 2) stays unrolled. The reference's
 each repeat runs under `torch.utils.checkpoint` (non-reentrant), as the
 reference wraps its scan body in `jax.checkpoint`; the tail does not.
 
-Serving (`HybridCache`, `init_cache`, `decode_step`) is not ported yet and
-raises, naming `SERVING_ITEM`.
+Serving: `init_cache` holds the RG-LRU states, the conv tails and ring
+KV caches of ``local_window`` slots; `decode_step` runs one token through
+every layer, a recurrent block as one RG-LRU step (``rglru_forward`` with
+``state``: S = 1 takes `lru_scan`, never the kernel, as in the reference)
+and an attention block as `layers.attn_decode` on its ring, writing the
+state in place. `serve.engine.generate` replays a prompt through it token
+by token, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.rglru_scan.ops import chunked_lru
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -44,9 +51,6 @@ LRU_C = 8.0
 #: keys of the parameter tree whose per-repeat list the reference stacks
 #: along a leading axis (its ``[R, ...]`` leaves)
 STACKED_KEYS = ("reps",)
-#: where the serving path stands in ROADMAP.md
-SERVING_ITEM = ("ROADMAP.md Queue 1 item 2 (hybrid serving: init_cache, "
-                "decode_step and the token-by-token replay of generate)")
 
 
 def _pattern(cfg: ModelConfig) -> tuple[str, ...]:
@@ -224,26 +228,80 @@ def forward(cfg: ModelConfig, pol: Policy, params, tokens):
 
 # ------------------------------------------------------------------ decode
 
-def _unserved(what: str):
-    raise NotImplementedError(
-        f"hybrid {what} is not ported yet ({SERVING_ITEM})")
-
-
+@dataclasses.dataclass(frozen=True)
 class HybridCache:
-    """The reference's decode state (RG-LRU states, conv tails, ring KV
-    caches of `local_window` slots, position): not ported yet."""
+    """Decode state: O(window + d_rnn) whatever the position."""
+    h: torch.Tensor       # [n_rec, B, dr] RG-LRU states, float32
+    conv: torch.Tensor    # [n_rec, B, W-1, dr] conv tails, float32
+    k: torch.Tensor       # [n_attn, B, T, KVr, hd] (ring) KV caches
+    v: torch.Tensor
+    pos: int              # absolute position of the next token
 
-    def __init__(self, *args, **kwargs):
-        _unserved("HybridCache")
+
+def _counts(cfg: ModelConfig):
+    pat, reps, tail = _split(cfg)
+    seq = list(pat) * reps + list(tail)
+    return seq, seq.count("rec"), seq.count("attn")
 
 
 def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None):
-    """The reference's `HybridCache` (RG-LRU states, conv tails, ring KV
-    caches): not ported yet."""
-    _unserved("init_cache")
+               dtype=torch.bfloat16, device=None) -> HybridCache:
+    """Zero state at position 0. The KV caches hold ``T = min(max_len,
+    local_window)`` slots, a ring when ``T == local_window``, in `dtype`
+    (bf16 by default whatever the config's dtype, as the reference's).
+    ``device=None`` means the card (raises without one)."""
+    dev = resolve_device(device)
+    _, n_rec, n_attn = _counts(cfg)
+    dr = cfg.d_rnn or cfg.d_model
+    W = cfg.conv_width
+    T = min(max_len, cfg.local_window) if cfg.local_window else max_len
+    kvr = cfg.n_kv_heads * pol.kv_repeat
+    kv = (n_attn, batch, T, kvr, cfg.hd)
+    return HybridCache(
+        h=torch.zeros((n_rec, batch, dr), dtype=torch.float32, device=dev),
+        conv=torch.zeros((n_rec, batch, W - 1, dr), dtype=torch.float32,
+                         device=dev),
+        k=torch.zeros(kv, dtype=dtype, device=dev),
+        v=torch.zeros(kv, dtype=dtype, device=dev),
+        pos=0)
 
 
-def decode_step(cfg: ModelConfig, pol: Policy, params, cache, tokens):
-    """One-token hybrid decode: not ported yet."""
-    _unserved("decode_step")
+def _layers(cfg: ModelConfig, params):
+    """(block parameters, kind) of every layer, in order."""
+    pat, reps, tail = _split(cfg)
+    for bp in params["reps"]:
+        for i, t in enumerate(pat):
+            yield bp[f"b{i}_{t}"], t
+    for i, t in enumerate(tail):
+        yield params["tail"][f"t{i}_{t}"], t
+
+
+def decode_step(cfg: ModelConfig, pol: Policy, params, cache: HybridCache,
+                tokens):
+    """One-token decode. tokens: [B, 1]. Returns (logits [B,1,V], cache):
+    the cache's tensors are updated in place (the reference restacks new
+    ones) and returned with ``pos + 1``. A conv tail is kept in float32,
+    which holds a bf16 tail exactly."""
+    x = params["embed"][tokens].to(cfg.cdtype())
+    ri = ai = 0
+    for p, t in _layers(cfg, params):
+        if t == "rec":
+            y, (h1, c1) = rglru_forward(p["rec"], cfg, pol, x,
+                                        state=(cache.h[ri], cache.conv[ri]),
+                                        return_state=True)
+            cache.h[ri].copy_(h1)
+            cache.conv[ri].copy_(c1)
+            ri += 1
+            x = x + y
+        else:
+            h = L.apply_norm(p["ln1"], x, cfg.norm_eps, cfg.norm_type)
+            a, _, _ = L.attn_decode(p["attn"], cfg, pol, h, cache.k[ai],
+                                    cache.v[ai], cache.pos,
+                                    window=cfg.local_window)
+            ai += 1
+            x = x + a
+        hh = L.apply_norm(p["ln2"], x, cfg.norm_eps, cfg.norm_type)
+        x = x + L.mlp_forward(p["mlp"], cfg, pol, hh)
+    x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
+    logits = L.unembed(cfg, pol, x, params["embed"])
+    return logits, dataclasses.replace(cache, pos=cache.pos + 1)

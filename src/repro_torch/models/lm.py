@@ -40,8 +40,8 @@ class DecodeCache(NamedTuple):
 
 def check_ported(cfg: ModelConfig):
     """Raises unless the port has `cfg`'s family: dense (this module) or
-    hybrid (`models/hybrid.py`, whose serving raises on its own). The
-    port's one refusal of the families it does not have yet."""
+    hybrid (`models/hybrid.py`). The port's one refusal of the families it
+    does not have yet."""
     family = "moe" if cfg.n_experts else cfg.family
     if family in ("dense", "hybrid"):
         return

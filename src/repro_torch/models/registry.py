@@ -6,8 +6,7 @@ The port has two families, each a module that serves as its API:
   init_cache(cfg, pol, batch, max_len)    -> decode state
   decode_step(cfg, pol, params, cache, tokens) -> (logits [B,1,V], cache)
 the dense LM (`models/lm.py`) and the hybrid RG-LRU + local-attention LM
-(`models/hybrid.py`, whose `init_cache` and `decode_step` raise: its
-serving is not ported yet). The other families raise `NotImplementedError`
+(`models/hybrid.py`). The other families raise `NotImplementedError`
 naming their ROADMAP.md item (`lm.check_ported`). The reference's
 `cache_axes` (logical sharding axes of the cache) has no counterpart on one
 card.

@@ -1,13 +1,22 @@
-"""Batched serving engine: prefill + greedy decode, dense family.
+"""Batched serving engine: prefill or prompt replay, then greedy decode.
 
-The counterpart of the reference's `repro/serve/engine.py` (dense branch,
-`engine.py:45-83`). ``serve_step`` is one new token for every sequence of
-the batch against the family's decode state; ``generate`` prefills the
-prompt (which seeds the KV cache), takes the last position's argmax, then
-runs ``max_new - 1`` decode steps. Greedy ties go to the first index, as
-`torch.argmax` and `jnp.argmax` both resolve them. The reference replays a
-recurrent family's prompt token by token from the family's `init_cache`;
-the hybrid family's raises, as its serving is not ported yet.
+The counterpart of the reference's `repro/serve/engine.py` (its dense and
+recurrent branches, `engine.py:45-83`). ``serve_step`` is one new token
+for every sequence of the batch against the family's decode state.
+``generate`` takes one of two branches, as the reference does:
+
+  * dense: prefill the prompt (which seeds the KV cache), take the last
+    position's argmax, then run ``max_new - 1`` decode steps; it returns
+    the ``max_new`` generated tokens;
+  * hybrid (recurrent): replay the prompt's first ``S - 1`` tokens one
+    decode step each from the family's `init_cache`, then decode
+    ``max_new - 1`` steps starting from the prompt's last token; it
+    returns that last prompt token as its first column, followed by the
+    ``max_new - 1`` generated tokens (the reference's output, kept as it
+    is).
+
+Greedy ties go to the first index, as `torch.argmax` and `jnp.argmax`
+both resolve them.
 """
 from __future__ import annotations
 
@@ -48,27 +57,36 @@ def generate(cfg: ModelConfig, pol: Policy, params, prompts,
     """Greedy generation. prompts: [B, S] integer tokens (numpy or a
     tensor); runs where the parameters live. Returns [B, max_new] int32.
 
-    When `stats` is a dict it receives ``prefill_seconds`` and
-    ``decode_seconds`` (host clock, each ended by a device synchronize)
-    and ``prefill_logits``, the last prompt position's logits
-    [B, 1, padded vocab]."""
-    step = make_serve_step(cfg, pol)        # raises for unported families
+    When `stats` is a dict it receives ``decode_seconds`` and, for the
+    dense family, ``prefill_seconds`` and ``prefill_logits`` (the last
+    prompt position's logits [B, 1, padded vocab]), for the hybrid family
+    ``replay_seconds`` (host clock, each stage ended by a device
+    synchronize)."""
+    family = get_family(cfg)
+    step = make_serve_step(cfg, pol)
     device = params["embed"].device
     prompts = torch.as_tensor(prompts, device=device).long()
     B, S = prompts.shape
     max_len = max_len or (S + max_new)
-    if cfg.family != "dense":
-        # the reference replays the prompt token by token from the family's
-        # `init_cache`; the hybrid family's raises (not ported yet)
-        get_family(cfg).init_cache(cfg, pol, B, max_len)
 
     t0 = _clock(device) if stats is not None else 0.0
-    hidden, cache = lm.prefill(cfg, pol, params, prompts, max_len)
-    logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
-    tok = torch.argmax(logits, dim=-1)
-    if stats is not None:
-        t1 = _clock(device)
-        stats.update(prefill_seconds=t1 - t0, prefill_logits=logits)
+    if cfg.family == "dense":
+        hidden, cache = lm.prefill(cfg, pol, params, prompts, max_len)
+        logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
+        tok = torch.argmax(logits, dim=-1)
+        if stats is not None:
+            stats.update(prefill_seconds=_clock(device) - t0,
+                         prefill_logits=logits)
+    else:
+        # recurrent family: replay the prompt token by token
+        cache = family.init_cache(cfg, pol, B, max_len, device=device)
+        for i in range(S - 1):
+            _, cache = family.decode_step(cfg, pol, params, cache,
+                                          prompts[:, i:i + 1])
+        tok = prompts[:, -1:]
+        if stats is not None:
+            stats.update(replay_seconds=_clock(device) - t0)
+    t1 = _clock(device) if stats is not None else 0.0
 
     out = [tok]
     for _ in range(max_new - 1):

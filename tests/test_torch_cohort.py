@@ -436,8 +436,8 @@ def test_budget_is_enforced_per_member(homog_flows, monkeypatch):
 
 
 def test_sweep_plan_reports_the_cohort_layout():
-    plan = tsweep.sweep_plan("auto", 222, np.float64, device="cpu",
-                             n_workloads=3)
+    plan = tsweep.sweep_plan("auto", 222, 3, dtype=np.float64,
+                             device="cpu")
     assert plan["mode"] == "fused" and plan["layout"] == [3, 222]
     assert plan["total_experiments"] == 666 and plan["n_workloads"] == 3
     assert tsweep.resolve_mode("auto", 222, 3) == "fused"

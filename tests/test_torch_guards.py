@@ -29,7 +29,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
     REPO / "examples" / "serve_lm_torch.py",
-    REPO / "examples" / "train_lm_torch.py"]
+    REPO / "examples" / "train_lm_torch.py",
+    REPO / "examples" / "cluster_scheduling_torch.py"]
 CUDA_SOURCES = [("packet_step.cu", "event_step_kernel",
                  "src/repro/kernels/packet_step/kernel.py"),
                 ("flash_attention.cu", "_attn_kernel",
@@ -84,7 +85,8 @@ def test_package_layout_mirrors_the_reference():
                  "service.monitor", "service.controller", "service.driver",
                  "launch.sim", "launch.service", "core.cohort",
                  "core.schedulers", "kernels.baselines.ref",
-                 "kernels.baselines.kernel", "kernels.baselines.ops"):
+                 "kernels.baselines.kernel", "kernels.baselines.ops",
+                 "cluster", "cluster.scheduler", "ckpt", "ckpt.checkpoint"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()

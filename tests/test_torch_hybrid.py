@@ -31,7 +31,6 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as tregistry
 from repro_torch.models.convert import params_from_jax
-from repro_torch.serve import engine as tengine
 from repro_torch.sharding.policy import single_device_policy
 from repro_torch.train import optim as toptim
 from repro_torch.train import step as tstep
@@ -289,27 +288,16 @@ def _clone(tree):
     return tree.detach().clone()
 
 
-class TestServingIsNotPorted:
+class TestFamilyRouting:
     def test_registry_resolves_the_hybrid_module(self):
         fam = tregistry.get_family(smoke_config(ARCH))
         assert fam is thybrid
         assert fam.forward is thybrid.forward
+        assert fam.decode_step is thybrid.decode_step
 
-    def test_init_cache_and_decode_step_raise(self):
+    def test_dense_prefill_refuses_the_hybrid_family(self, carried):
         tc = smoke_config(ARCH)
         pol = single_device_policy(tc)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            thybrid.HybridCache()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            thybrid.init_cache(tc, pol, 1, 8)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            thybrid.decode_step(tc, pol, {}, None, torch.zeros((1, 1)))
-
-    def test_serving_entry_points_refuse_by_name(self, carried):
-        tc = smoke_config(ARCH)
-        pol = single_device_policy(tc)
-        with pytest.raises(NotImplementedError, match="hybrid serving"):
-            tengine.generate(tc, pol, carried[1], np.zeros((1, 4), np.int32))
         with pytest.raises(ValueError, match="runs the dense family"):
             tlm.prefill(tc, pol, carried[1], torch.zeros((1, 4)).long(), 8)
 

@@ -76,7 +76,9 @@ def load_reference() -> types.SimpleNamespace:
     (repro.kernels.rglru_scan.kernel / .ref); the streaming service:
     `windows` (repro.workload.windows), `service` (repro.service),
     `service_driver` (repro.service.driver), and the paper's drivers
-    `launch_sim` and `launch_service` (repro.launch.sim / .service).
+    `launch_sim` and `launch_service` (repro.launch.sim / .service); the
+    ML cluster and checkpointing: `cluster` (repro.cluster.scheduler),
+    `ckpt` (repro.ckpt.checkpoint) and `launch_train` (repro.launch.train).
     """
     global _REF
     if _REF is not None:
@@ -107,6 +109,9 @@ def load_reference() -> types.SimpleNamespace:
     from repro.service import driver as service_driver
     from repro.launch import service as launch_service
     from repro.launch import sim as launch_sim
+    from repro.cluster import scheduler as cluster
+    from repro.ckpt import checkpoint as ckpt
+    from repro.launch import train as launch_train
     _REF = types.SimpleNamespace(
         jax=jax, jnp=jnp, core=core, des=des, packet=packet,
         metrics=metrics, sweep=sweep, precision=precision, lublin=lublin,
@@ -117,7 +122,8 @@ def load_reference() -> types.SimpleNamespace:
         train_optim=train_optim, train_data=train_data,
         lru_kernel=lru_kernel, lru_ref=lru_ref, windows=windows,
         service=service, service_driver=service_driver,
-        launch_sim=launch_sim, launch_service=launch_service)
+        launch_sim=launch_sim, launch_service=launch_service,
+        cluster=cluster, ckpt=ckpt, launch_train=launch_train)
     return _REF
 
 
@@ -168,3 +174,9 @@ def test_reference_tiny_grid_pallas_step(ref, dtype):
 def test_float64_scope_does_not_leak(ref):
     assert not ref.jax.config.jax_enable_x64
     assert ref.jnp.asarray(1.0).dtype == ref.jnp.float32
+
+
+def test_reference_cluster_and_ckpt_import(ref):
+    assert callable(ref.cluster.ClusterSim.run)
+    assert callable(ref.ckpt.save_checkpoint)
+    assert callable(ref.launch_train.main)

@@ -10,7 +10,8 @@ round the KV cache through bf16 at the same places, so the tokens agree
 exactly, not to a tolerance.
 
 Also: the command line on the CPU, its refusal without a card, and
-the unported families.
+the unported families (the hybrid family's serving is held in
+tests/test_torch_hybrid_serve.py).
 """
 import os
 
@@ -106,7 +107,7 @@ class TestLaunch:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.main(["--arch", "granite-3-2b", "--reduced"])
 
-    @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-2b",
+    @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "xlstm-1.3b",
                                       "seamless-m4t-large-v2"])
     def test_unported_arch_raises(self, arch):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -8,7 +8,10 @@
   * against tests/golden/golden_metrics.json (`packet` block, float64,
     rtol 1e-9 over max(|golden|, floor): the tolerance and floors of
     tests/test_golden_metrics.py);
-  * `plateau_threshold` equal to the reference's on the same curve.
+  * `plateau_threshold` equal to the reference's on the same curve;
+  * `sweep_plan` / `resolve_mode` take the reference's arguments, and the
+    plan equals the reference's on the keys they share, chaos block
+    included.
 """
 import json
 import os
@@ -18,6 +21,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import numpy as np
 import pytest
 
+from repro_torch.core import des as tdes
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.metrics import METRIC_REL_FLOORS, SCALAR_METRIC_FIELDS
 from repro_torch.workload.lublin import WorkloadParams, generate_workload
@@ -175,8 +179,57 @@ def test_budget_policies():
 
 
 def test_sweep_plan_records_what_ran():
-    plan = tsweep.sweep_plan("auto", 222, np.float64, device="cpu")
+    plan = tsweep.sweep_plan("auto", 222, dtype=np.float64, device="cpu")
     assert plan["mode"] == "fused" and plan["requested_mode"] == "auto"
     assert plan["step_impl"] == "torch" and plan["device_name"] == "cpu"
     assert plan["dtype"] == "float64" and plan["n_lanes"] == 222
     assert tsweep.sweep_plan("chunked", 8, device="cpu")["chunk_lanes"] == 64
+
+
+# the keys the port's plan shares with the reference's; "step_impl" names
+# another engine on each side, and "auto" resolves to "fused" in the port
+# at every lane count (ROADMAP.md, deliberate differences)
+PLAN_SHARED_KEYS = ("requested_mode", "mode", "n_lanes", "n_workloads",
+                    "total_experiments", "chunk_lanes")
+PLAN_CHAOS = {
+    "none": None,
+    "inert": dict(),
+    "scalar": dict(mtbf_chip_hours=50.0, straggler_prob=0.05, seed=3),
+    # benchmarks/paper_sweep.py's 8-cell fault axis
+    "axis8": dict(mtbf_chip_hours=np.repeat([50.0, 200.0], 4),
+                  straggler_prob=np.tile([0.0, 0.05], 4),
+                  ckpt_period=np.tile([300.0, 300.0, 600.0, 600.0], 2),
+                  seed=11, max_requeues=40),
+}
+
+
+@pytest.mark.parametrize("chaos", list(PLAN_CHAOS), ids=list(PLAN_CHAOS))
+@pytest.mark.parametrize("mode,n_workloads", [("fused", 1), ("chunked", 3)])
+def test_sweep_plan_takes_the_reference_call(ref, chaos, mode, n_workloads):
+    """paper_sweep.py's own call, ``sweep_plan(mode, n_grid, w,
+    chaos=chaos)``, gives the reference's plan on the shared keys and its
+    chaos block (absent for no chaos and for an inert config)."""
+    kw = PLAN_CHAOS[chaos]
+    tchaos = None if kw is None else tdes.ChaosConfig(**kw)
+    jchaos = None if kw is None else ref.des.ChaosConfig(**kw)
+    got = tsweep.sweep_plan(mode, 222, n_workloads, chaos=tchaos,
+                            device="cpu")
+    want = ref.sweep.sweep_plan(mode, 222, n_workloads, chaos=jchaos)
+    assert {k: got[k] for k in PLAN_SHARED_KEYS} == \
+        {k: want[k] for k in PLAN_SHARED_KEYS}
+    assert got.get("chaos") == want.get("chaos")
+    assert ("chaos" in got) == (chaos in ("scalar", "axis8"))
+    assert got["layout"] == [n_workloads, got["n_lanes"]]
+    assert got["n_lanes"] == 222 * (8 if chaos == "axis8" else 1)
+
+
+def test_resolve_mode_takes_step_impl_fourth(ref):
+    assert tsweep.resolve_mode("auto", 222, 1, "cuda") == "fused"
+    assert tsweep.resolve_mode("seq", 222, 3, "torch") == "seq"
+    assert tsweep.resolve_mode("chunked", 8, 1, None) == "chunked"
+    with pytest.raises(ValueError, match="unknown step_impl"):
+        tsweep.resolve_mode("fused", 222, 1, "pallas")
+    with pytest.raises(ValueError, match="unknown step_impl"):
+        tsweep.sweep_plan("fused", 222, 1, None, "xla", device="cpu")
+    # the reference takes the same positions
+    assert ref.sweep.resolve_mode("chunked", 8, 1, "xla") == "chunked"

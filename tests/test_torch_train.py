@@ -278,7 +278,20 @@ class TestLaunch:
                       "--n-micro", "2"], stats=stats)
         assert np.isfinite(stats["losses"]).all()
 
-    @pytest.mark.parametrize("flag", [["--ckpt-dir", "ck"], ["--resume"]])
-    def test_checkpointing_is_not_ported(self, flag):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            tlaunch.main(self.ARGV + flag)
+    @pytest.mark.parametrize("resume", [False, True],
+                             ids=["ckpt-dir", "resume"])
+    def test_checkpoint_flags(self, resume, tmp_path):
+        """Files every --ckpt-every steps and at the end; --resume goes on
+        from the latest (tests/test_torch_ckpt.py holds the losses against
+        the reference's)."""
+        ck = str(tmp_path / "ck")
+        argv = self.ARGV + ["--ckpt-dir", ck, "--ckpt-every", "2"]
+        stats = {}
+        tlaunch.main(argv, stats=stats)
+        assert sorted(os.listdir(ck)) == ["ckpt_00000002.npz",
+                                          "ckpt_00000003.npz"]
+        if resume:
+            tlaunch.main(argv + ["--steps", "5", "--resume"], stats=stats)
+            assert stats["start"] == 3 and len(stats["losses"]) == 2
+            assert sorted(os.listdir(ck)) == [
+                f"ckpt_{s:08d}.npz" for s in (3, 4, 5)]
