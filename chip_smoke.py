@@ -61,6 +61,21 @@ card, drives the port's paths and prints one JSON line per phase:
   gated: (a) the full-width model in float32, B 1, the window cut to 64,
   96 tokens decoded against one `forward` at every position, and (b) the
   reduced config on the card against the same port on the CPU;
+- the MoE and VLM branches of the decoder-only LM: pixtral-12b at full
+  width and depth (40 layers, bf16, ~11.6 B random parameters),
+  `generate` with patch embeddings at the first 1024 positions of 4
+  prompts of 2048 tokens, 32 new tokens; qwen2-moe-a2.7b at full width
+  and depth (24 layers, 60 experts top-4 and a shared expert) through
+  `launch.serve.main` at the same shape, the share of the prefill's token
+  choices dropped at capacity printed; arctic-480b at full width, its
+  depth cut from 35 layers to 1 (128 experts top-2 and a dense residual,
+  a GQA group of 7), one prompt of 2048 tokens, 8 new; each gated on one
+  attention-kernel launch a layer in the prefill; then one qwen2-moe MoE
+  layer at full width in float32 (both dispatches against the per-token
+  dense mixture with capacity for every choice, and against each other
+  under the config's drops), and the reduced pixtral, qwen2-moe and
+  arctic `generate` and the reduced pixtral and qwen2-moe training on the
+  card against the same on the CPU;
 - the ML cluster: examples/cluster_scheduling_torch.py's sweep (300 jobs,
   8 k's, failures and stragglers) with `ClusterSim`'s policy calls on the
   card, its integer counters equal to a CPU run's;
@@ -144,6 +159,12 @@ Tolerances of the kernel-vs-plain comparisons:
   (b) card against CPU on the reduced float32 config: every step's logits
   within 1e-4, and the greedy token equal wherever the CPU's top-2 gap
   exceeds 1e-3 (float32 matrix products summed in another order).
+- the MoE layer in float32: |got - want| <= 2e-5 + 2e-4 * |want|
+  (tests/test_archs.py:127's bound for the same oracle): float32 products
+  summed in another order. The reduced MoE / VLM configs, card against
+  CPU: greedy tokens equal, prefill logits and train losses within 1e-4
+  (float32 throughout, the attention kernel held at 2e-5, the rest summed
+  in another order).
 - the ML cluster: integer counters equal to the CPU's (the float32 policy
   calls round alike on both; the float difference is printed).
 - checkpoints: every restored leaf bitwise the saved one, bf16 included;
@@ -200,13 +221,14 @@ from repro_torch.kernels.rglru_scan import kernel as lru_kernel
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.launch import serve, sim, train
 from repro_torch.launch import service as service_launch
-from repro_torch.models import hybrid, layers, lm
+from repro_torch.models import hybrid, layers, lm, moe
 from repro_torch.models.layers import unembed
 from repro_torch.serve.engine import generate, make_serve_step
 from repro_torch.sharding.policy import single_device_policy
 from repro_torch.train import data as train_data
 from repro_torch.train.optim import AdamWConfig, global_norm, tree_leaves
-from repro_torch.train.step import init_state, make_loss_fn, make_train_step
+from repro_torch.train.step import (init_state, make_loss_fn, make_train_step,
+                                    state_for)
 from repro_torch.service import ServiceConfig, run_service
 from repro_torch.workload.lublin import (WorkloadParams, generate_workload,
                                          paper_workloads)
@@ -235,6 +257,9 @@ ATTN_CASES = [
     (1, 1000, 1000, 10, 1, 256, True, 384, 0.0),  # ragged at hd 256, window
     (1, 40, 300, 10, 1, 256, True, 128, 0.0),   # Sq < 64, prefix, window
     (1, 512, 512, 8, 2, 128, True, 0, 30.0),    # softcap at hd 128
+    (4, 2048, 2048, 32, 8, 128, True, 0, 0.0),  # pixtral-12b, main-path size
+    (4, 2048, 2048, 16, 16, 128, True, 0, 0.0),  # qwen2-moe-a2.7b (MHA)
+    (1, 2048, 2048, 56, 8, 128, True, 0, 0.0),  # arctic-480b: GQA group 7
 ]
 # largest |kernel - plain| of the CUDA-core bfloat16 kernel that the Hopper
 # kernel replaced, on the first nine cases (the float32 kernel is the same
@@ -253,6 +278,17 @@ PREV_ATTN_ERR = {
 GRANITE_CASE = ATTN_CASES[7]
 SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 2048, 32, 0
+VLM_ARCH, MOE_ARCH, ARCTIC_ARCH = "pixtral-12b", "qwen2-moe-a2.7b", \
+    "arctic-480b"
+#: the attention kernel's layer of each served architecture
+LAYER_CASES = {SERVE_ARCH: GRANITE_CASE, VLM_ARCH: ATTN_CASES[14],
+               MOE_ARCH: ATTN_CASES[15], ARCTIC_ARCH: ATTN_CASES[16]}
+ARCTIC_LAYERS, ARCTIC_BATCH, ARCTIC_NEW = 1, 1, 8   # depth cut from 35
+MOE_LAYER_SHAPE = (2, 256)      # the float32 MoE layer gate: B, S
+MOE_LAYER_TOL = (2e-4, 2e-5)    # rtol, atol: tests/test_archs.py:127
+LM_REDUCED = (2, 24, 6)         # reduced card-vs-CPU: batch, prompt, new
+LM_CPU_TOL = 1e-4               # prefill logits and train losses
+LM_TRAIN_STEPS = 2
 HYBRID_ARCH = "recurrentgemma-2b"     # served at granite's serve_path shape
 HYBRID_TAIL = 16                # replayed positions held against a forward
 HYBRID_F32_WINDOW, HYBRID_F32_TOKENS = 64, 96   # gate (a): the ring wraps
@@ -2206,8 +2242,10 @@ def phase_baselines(flows):
 # --------------------------------------------------------------------------
 
 class AttnWorst:
-    """Largest kernel-vs-plain attention difference seen so far."""
+    """Largest kernel-vs-plain attention difference seen so far, and each
+    `phase_attention_kernel` case's, by (case, dtype)."""
     abs_err = 0.0
+    cases = {}
 
 
 def attn_inputs(case, dtype, seed):
@@ -2272,6 +2310,7 @@ def phase_attention_kernel():
                      f"causal={causal} window={window} softcap={softcap} "
                      f"{str(dtype).replace('torch.', '')}")
             err, atol = attn_check(got, want, f"attention_kernel {label}")
+            AttnWorst.cases[case, dtype] = err
             prev = PREV_ATTN_ERR[dtype]
             emit("attention_kernel", shape=label, max_abs_err=err,
                  previous_kernel_max_abs_err=prev[i] if i < len(prev)
@@ -2313,11 +2352,14 @@ def serve_argv():
             "--seed", str(SERVE_SEED)]
 
 
-def phase_serve_path(profile: bool):
-    """`launch.serve.main` on full-width granite-3-2b, once; then the same
-    parameters and prompts through a prefill with the plain attention, for
-    comparison, and with `profile` a profiled warm run."""
-    cfg = get_config(SERVE_ARCH)
+def serve_lm_path(phase, cfg, run, shape):
+    """Drives one serving run `run(stats) -> tokens` of a model of
+    `models/lm.py` with the attention kernel's first and last layers
+    captured, the kernel counts zeroed just before and read just after,
+    and gates: tokens of `shape` inside the vocabulary, finite prefill
+    logits, one kernel launch a layer in the prefill (a decode step
+    launches none), the captured layers against the plain attention.
+    Returns (tokens, stats, fields to emit)."""
     n_layers = cfg.n_layers
     capture = Capture(attn_ops.flash_attention, (0, n_layers - 1))
     stats = {}
@@ -2325,45 +2367,55 @@ def phase_serve_path(profile: bool):
     torch.cuda.reset_peak_memory_stats()
     layers.flash_attention = capture
     try:
-        attn_ops.flash_attention.launches = 0
+        zero_kernel_counts()
         t0 = time.perf_counter()
-        out = serve.main(serve_argv(), stats=stats)
+        out = run(stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = attn_ops.flash_attention.launches
     finally:
         layers.flash_attention = attn_ops.flash_attention
     peak = torch.cuda.max_memory_allocated()
-
-    if out.shape != (SERVE_BATCH, SERVE_NEW):
-        fail(f"serve_path: tokens have shape {out.shape}")
-    if out.min() < 0 or out.max() >= cfg.vocab_size:
-        fail("serve_path: a token lies outside [0, vocab)")
     logits = stats["prefill_logits"][..., :cfg.vocab_size]
+    if out.shape != shape:
+        fail(f"{phase}: tokens have shape {out.shape}, expected {shape}")
+    if out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"{phase}: a token lies outside [0, vocab)")
     if not bool(torch.isfinite(logits).all()):
-        fail("serve_path: the prefill's logits are not finite")
+        fail(f"{phase}: the prefill's logits are not finite")
     if launches != n_layers:
-        fail(f"serve_path: {launches} flash-attention launches in one "
+        fail(f"{phase}: {launches} flash-attention launches in one "
              f"prefill, expected {n_layers}")
     layer_err = {}
     for idx, ((q, k, v), kw, (got,)) in sorted(capture.kept.items()):
-        want = attention_ref(q, k, v, **kw)
         layer_err[f"layer_{idx}"], _ = attn_check(
-            got, want, f"serve_path layer {idx}")
+            got, attention_ref(q, k, v, **kw), f"{phase} layer {idx}")
     capture.kept.clear()
-    new_tokens = SERVE_BATCH * SERVE_NEW
+    B, new = out.shape
     gen_s = stats["prefill_seconds"] + stats["decode_seconds"]
-    emit("serve_path", arch=SERVE_ARCH, n_layers=n_layers,
-         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
-         dtype=cfg.param_dtype, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-         max_new=SERVE_NEW, launches=launches,
-         captured_layers_max_abs_err=layer_err,
-         prefill_seconds=stats["prefill_seconds"],
-         decode_seconds=stats["decode_seconds"],
-         decode_ms_per_step=1e3 * stats["decode_seconds"] / (SERVE_NEW - 1),
-         tokens_per_second=new_tokens / gen_s,
-         main_wall_seconds=wall, peak_memory_bytes=peak,
-         sample=out[0][:8].tolist(), ok=True)
+    fields = dict(
+        arch=cfg.name, n_layers=n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.hd,
+        dtype=cfg.param_dtype, batch=B, max_new=new, launches=launches,
+        captured_layers_max_abs_err=layer_err,
+        prefill_seconds=stats["prefill_seconds"],
+        decode_seconds=stats["decode_seconds"],
+        decode_ms_per_step=1e3 * stats["decode_seconds"] / (new - 1),
+        tokens_per_second=B * new / gen_s, main_wall_seconds=wall,
+        peak_memory_bytes=peak, sample=out[0][:8].tolist())
+    return out, stats, fields
+
+
+def phase_serve_path(profile: bool):
+    """`launch.serve.main` on full-width granite-3-2b, once; then the same
+    parameters and prompts through a prefill with the plain attention, for
+    comparison, and with `profile` a profiled warm run."""
+    cfg = get_config(SERVE_ARCH)
+    out, stats, fields = serve_lm_path(
+        "serve_path", cfg, lambda stats: serve.main(serve_argv(), stats=stats),
+        (SERVE_BATCH, SERVE_NEW))
+    emit("serve_path", prompt_len=SERVE_PROMPT, **fields, ok=True)
+    logits = stats["prefill_logits"][..., :cfg.vocab_size]
 
     # the same parameters and prompts again, through the prefill only (the
     # decode steps run no attention kernel): the plain attention by name
@@ -2388,7 +2440,7 @@ def phase_serve_path(profile: bool):
          note="not gated: bf16 near-ties can flip a greedy token")
     if profile:
         profile_serving(cfg, pol, params, prompts)
-    return launches
+    return fields["launches"]
 
 
 # ---------------------------------------------------- hybrid serving
@@ -2605,6 +2657,260 @@ def phase_hybrid_serve_path():
          float32_gate=float32_gate, reduced_card_against_cpu=reduced_gate,
          sample=out[0][:8].tolist(), ok=True)
     return launches
+
+
+# ------------------------------------------- MoE and VLM serving
+
+
+class DropCount:
+    """Stands in for `moe._route`: passes every call on and, for a call
+    over more than one position (a prefill), keeps on the card the number
+    of choices routed past their expert's capacity (an expert's choices
+    past C are those of rank >= C) and the number of choices."""
+
+    def __init__(self):
+        self.fn, self.dropped, self.choices = moe._route, [], 0
+
+    def __call__(self, p, cfg, x):
+        gate, idx, probs = self.fn(p, cfg, x)
+        B, S, k = idx.shape
+        if S > 1:
+            E = p["router"].shape[-1]
+            C = moe.capacity(S, k, E, cfg.capacity_factor)
+            counts = torch.nn.functional.one_hot(
+                idx.reshape(B, S * k), E).sum(1)              # [B, E]
+            self.dropped.append((counts - C).clamp(min=0).sum())
+            self.choices += idx.numel()
+        return gate, idx, probs
+
+    def share(self) -> float:
+        return float(sum(self.dropped)) / max(self.choices, 1)
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_vlm_serve_path():
+    """pixtral-12b at full width and depth (bf16, random weights from the
+    serving seed): `serve.setup`, then `generate` with patch embeddings for
+    the first `n_prefix` positions of every prompt, drawn on the card x
+    0.02 as train/data.py draws them; 40 kernel launches a prefill."""
+    free_card()
+    cfg, pol, params, prompts = serve.setup(VLM_ARCH, False, SERVE_BATCH,
+                                            SERVE_PROMPT, SERVE_SEED, None)
+    gen = torch.Generator(device=Dispatch.device).manual_seed(SERVE_SEED + 1)
+    embeds = torch.randn((SERVE_BATCH, cfg.n_prefix, cfg.d_model),
+                         generator=gen, device=Dispatch.device) * 0.02
+    out, _, fields = serve_lm_path(
+        "vlm_serve_path", cfg, lambda stats: generate(
+            cfg, pol, params, prompts, max_new=SERVE_NEW, embeds=embeds,
+            stats=stats), (SERVE_BATCH, SERVE_NEW))
+    emit("vlm_serve_path", prompt_len=SERVE_PROMPT, n_prefix=cfg.n_prefix,
+         parameters=sum(t.numel() for t in tree_leaves(params)),
+         **fields, ok=True)
+    return fields["launches"]
+
+
+def moe_serve_argv():
+    return ["--arch", MOE_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--max-new", str(SERVE_NEW),
+            "--seed", str(SERVE_SEED)]
+
+
+def phase_moe_serve_path():
+    """`launch.serve.main` on qwen2-moe-a2.7b at full width and depth (bf16,
+    random weights from the serving seed, the gather dispatch), at
+    granite's serving shape; 24 kernel launches a prefill. Reports the
+    share of the prefill's token choices dropped at capacity (a decode
+    step, C = 1 and one choice an expert a row, drops none)."""
+    free_card()
+    drops = DropCount()
+    moe._route = drops
+    try:
+        out, _, fields = serve_lm_path(
+            "moe_serve_path", get_config(MOE_ARCH),
+            lambda stats: serve.main(moe_serve_argv(), stats=stats),
+            (SERVE_BATCH, SERVE_NEW))
+    finally:
+        moe._route = drops.fn
+    cfg = get_config(MOE_ARCH)
+    emit("moe_serve_path", prompt_len=SERVE_PROMPT,
+         experts=f"{cfg.n_experts} top-{cfg.experts_per_token}",
+         prefill_capacity=moe.capacity(SERVE_PROMPT, cfg.experts_per_token,
+                                       cfg.n_experts, cfg.capacity_factor),
+         prefill_choices=drops.choices,
+         prefill_dropped_share=drops.share(), **fields, ok=True)
+    return fields["launches"]
+
+
+def phase_arctic_serve_path():
+    """arctic-480b at full width, its depth cut from 35 layers to
+    ARCTIC_LAYERS (the whole model is ~960 GB of bf16): one prompt of
+    SERVE_PROMPT tokens, ARCTIC_NEW new tokens; one kernel launch a
+    prefill, at a GQA group of 7."""
+    free_card()
+    cfg = get_config(ARCTIC_ARCH).with_(n_layers=ARCTIC_LAYERS,
+                                        attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    gen = torch.Generator(device=Dispatch.device).manual_seed(SERVE_SEED)
+    params = lm.init_params(cfg, pol, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (ARCTIC_BATCH, SERVE_PROMPT),
+                            generator=gen, device=Dispatch.device)
+    drops = DropCount()
+    moe._route = drops
+    try:
+        out, _, fields = serve_lm_path(
+            "arctic_serve_path", cfg, lambda stats: generate(
+                cfg, pol, params, prompts, max_new=ARCTIC_NEW, stats=stats),
+            (ARCTIC_BATCH, ARCTIC_NEW))
+    finally:
+        moe._route = drops.fn
+    emit("arctic_serve_path", prompt_len=SERVE_PROMPT,
+         depth_cut=f"{ARCTIC_LAYERS} of {get_config(ARCTIC_ARCH).n_layers}",
+         experts=f"{cfg.n_experts} top-{cfg.experts_per_token}",
+         gqa_group=cfg.n_heads // cfg.n_kv_heads,
+         parameters=sum(t.numel() for t in tree_leaves(params)),
+         prefill_dropped_share=drops.share(), **fields, ok=True)
+    return fields["launches"]
+
+
+def moe_mixture(p, cfg, x):
+    """The per-token dense top-k mixture of the reference's oracle
+    (tests/test_archs.py:104-128), computed expert by expert over every
+    token: torch.topk (not the port's stable sort) on float32 logits."""
+    probs = torch.softmax(x.float() @ p["router"], -1)
+    gate, idx = torch.topk(probs, cfg.experts_per_token)
+    gate = gate / gate.sum(-1, keepdim=True)
+    out = torch.zeros_like(x)
+    for e in range(cfg.n_experts):
+        w = (gate * (idx == e)).sum(-1, keepdim=True)       # [B, S, 1]
+        h = torch.nn.functional.silu(x @ p["wg"][e]) * (x @ p["wi"][e])
+        out += w * (h @ p["wo"][e])
+    return out
+
+
+def phase_moe_layer():
+    """One qwen2-moe MoE layer at full width in float32 on the card, B x S
+    = MOE_LAYER_SHAPE: with capacity_factor E / k (C = S: nothing drops)
+    gather and einsum each against the dense mixture; at the config's
+    capacity_factor, gather against einsum under the same drops; both at
+    MOE_LAYER_TOL."""
+    free_card()
+    cfg = get_config(MOE_ARCH).with_(param_dtype="float32",
+                                     compute_dtype="float32")
+    pol = single_device_policy(cfg)
+    gen = torch.Generator(device=Dispatch.device).manual_seed(SERVE_SEED)
+    p = moe.moe_init(gen, cfg, pol)
+    B, S = MOE_LAYER_SHAPE
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device=Dispatch.device) * 0.5
+    rtol, atol = MOE_LAYER_TOL
+    all_cf = cfg.n_experts / cfg.experts_per_token
+    results = {}
+    with torch.inference_mode():
+        want = moe_mixture(p, cfg, x)
+        for impl in ("gather", "einsum"):
+            got, _ = moe.moe_forward(p, cfg.with_(capacity_factor=all_cf),
+                                     pol, x, impl=impl)
+            err, _ = bounded_check(got, want, (rtol, atol),
+                                   f"moe_layer {impl} vs mixture")
+            results[f"{impl}_vs_mixture_max_abs_err"] = err
+        drops = DropCount()
+        moe._route = drops
+        try:
+            g, _ = moe.moe_forward(p, cfg, pol, x, impl="gather")
+        finally:
+            moe._route = drops.fn
+        e, _ = moe.moe_forward(p, cfg, pol, x, impl="einsum")
+        err, _ = bounded_check(g, e, (rtol, atol), "moe_layer gather vs "
+                               "einsum under drops")
+    emit("moe_layer", arch=MOE_ARCH, dtype="float32", batch=B, seq=S,
+         capacity_all=moe.capacity(S, cfg.experts_per_token, cfg.n_experts,
+                                   all_cf),
+         capacity=moe.capacity(S, cfg.experts_per_token, cfg.n_experts,
+                               cfg.capacity_factor),
+         dropped_share=drops.share(), gather_vs_einsum_max_abs_err=err,
+         mixture_rms=float(want.square().mean().sqrt()), rtol=rtol,
+         atol=atol, **results, ok=True)
+
+
+def cpu_drawn_init(cfg, pol, gen, ocfg=None):
+    """`init_state` with the parameters drawn on the CPU from `gen`'s seed
+    and moved to `gen`'s device: the same weights as a CPU run's."""
+    params = lm.init_params(cfg, pol, torch.Generator().manual_seed(
+        gen.initial_seed()))
+    return state_for(tree_map(lambda t: t.to(gen.device), params), ocfg)
+
+
+def lm_reduced_generate(arch) -> dict:
+    """`generate` on the reduced config, the card against the CPU, the
+    same parameters (drawn on the CPU), prompts and embeds: greedy tokens
+    equal, prefill logits within LM_CPU_TOL."""
+    cfg = smoke_config(arch).with_(attention_impl="pallas")
+    pol = single_device_policy(cfg)
+    B, S, new = LM_REDUCED
+    cpu_params = lm.init_params(cfg, pol,
+                                torch.Generator().manual_seed(SERVE_SEED))
+    card_params = tree_map(lambda t: t.to(Dispatch.device), cpu_params)
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (B, S))
+    embeds = None
+    if cfg.embeds_input:
+        embeds = (rng.standard_normal((B, cfg.n_prefix, cfg.d_model))
+                  * 0.02).astype(np.float32)
+    cpu_stats, card_stats = {}, {}
+    cpu_out = generate(cfg, pol, cpu_params, prompts, max_new=new,
+                       embeds=embeds, stats=cpu_stats)
+    card_out = generate(cfg, pol, card_params, prompts, max_new=new,
+                        embeds=embeds, stats=card_stats)
+    diff = float((card_stats["prefill_logits"].cpu()
+                  - cpu_stats["prefill_logits"])[..., :cfg.vocab_size]
+                 .abs().max())
+    out = dict(batch=B, prompt_len=S, max_new=new,
+               embeds=embeds is not None, prefill_logits_max_abs_diff=diff,
+               tokens_equal=bool(np.array_equal(cpu_out, card_out)))
+    if not out["tokens_equal"]:
+        fail(f"lm_reduced: {arch}'s greedy tokens differ between the card "
+             f"and the CPU: {cpu_out.tolist()} against {card_out.tolist()}")
+    if not diff <= LM_CPU_TOL:
+        fail(f"lm_reduced: {arch}'s prefill logits on the card differ from "
+             f"the CPU's by {diff} > {LM_CPU_TOL}")
+    return out
+
+
+def lm_reduced_train(arch) -> dict:
+    """LM_TRAIN_STEPS steps of `launch.train.main --reduced` on the card
+    against the same on the CPU, the card's parameters drawn on the CPU
+    (`cpu_drawn_init`): every loss within LM_CPU_TOL."""
+    argv = ["--arch", arch, "--reduced", "--steps", str(LM_TRAIN_STEPS),
+            "--batch", "2", "--seq", "32", "--seed", str(SERVE_SEED)]
+    cpu, card = {}, {}
+    train.main(argv + ["--device", "cpu"], stats=cpu)
+    train.init_state = cpu_drawn_init
+    try:
+        train.main(argv, stats=card)
+    finally:
+        train.init_state = init_state
+    diff = float(np.abs(np.subtract(card["losses"], cpu["losses"])).max())
+    if not diff <= LM_CPU_TOL:
+        fail(f"lm_reduced: {arch}'s train losses on the card "
+             f"{card['losses']} differ from the CPU's {cpu['losses']} by "
+             f"more than {LM_CPU_TOL}")
+    return dict(steps=LM_TRAIN_STEPS, losses=card["losses"],
+                cpu_losses=cpu["losses"], max_abs_diff=diff)
+
+
+def phase_lm_reduced():
+    """The reduced configs on the card against the CPU: pixtral (with
+    embeds), qwen2-moe and arctic `generate`; pixtral and qwen2-moe
+    training."""
+    gates = {arch: lm_reduced_generate(arch)
+             for arch in (VLM_ARCH, MOE_ARCH, ARCTIC_ARCH)}
+    trains = {arch: lm_reduced_train(arch) for arch in (VLM_ARCH, MOE_ARCH)}
+    emit("lm_reduced", generate=gates, train=trains, tol=LM_CPU_TOL,
+         ok=True)
 
 
 # ------------------------------------------------------- the ML cluster
@@ -2864,11 +3170,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_attention():
-    """Kernel, plain version and SDPA on granite-3-2b's layer at the main
+def time_attention(case):
+    """Kernel, plain version and SDPA on one model's layer at its serving
     path's size (bf16, causal), in turns; and what bounds the same work."""
-    B, Sq, Skv, H, KV, hd, causal, window, softcap = GRANITE_CASE
-    q, k, v = attn_inputs(GRANITE_CASE, torch.bfloat16, seed=100)
+    B, Sq, Skv, H, KV, hd, causal, window, softcap = case
+    q, k, v = attn_inputs(case, torch.bfloat16, seed=100)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda")
     plain = lambda: attn_ops.flash_attention(q, k, v, impl="torch")
@@ -3348,7 +3654,7 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build,
                   cohort_times, base_launches, base_times, base_plain_ms,
-                  base_build, hybrid_launches, ckpt_launches):
+                  base_build, hybrid_launches, ckpt_launches, lm_launches):
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -3377,7 +3683,20 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "other_shapes": others,
         "cohort_shapes": cohort_times,
     }]}
-    attn = time_attention()
+    attn = time_attention(GRANITE_CASE)
+    by_path = {"serve_path": attn_launches,
+               "train_path": train_launches["flash_attention"],
+               "hybrid_serve_path": hybrid_launches["flash_attention"],
+               "ckpt_path": ckpt_launches["flash_attention"]}
+    by_path.update(lm_launches)
+    layer_times = {}
+    for arch, path in ((VLM_ARCH, "vlm_serve_path"),
+                       (MOE_ARCH, "moe_serve_path"),
+                       (ARCTIC_ARCH, "arctic_serve_path")):
+        case = LAYER_CASES[arch]
+        layer_times[arch] = dict(
+            time_attention(case), launches=lm_launches[path], path=path,
+            max_abs_err=AttnWorst.cases[case, torch.bfloat16])
     line["kernels"].append({
         "name": "flash_attention",
         "route": "cuda",
@@ -3397,11 +3716,8 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": BF16_OPS_PER_S},
         "main_shape": attn,
-        "launches_by_path": {
-            "serve_path": attn_launches,
-            "train_path": train_launches["flash_attention"],
-            "hybrid_serve_path": hybrid_launches["flash_attention"],
-            "ckpt_path": ckpt_launches["flash_attention"]},
+        "launches_by_path": by_path,
+        "layers": layer_times,
         "recurrentgemma_layer": attn_grad,
         "build_seconds": attn_build[0],
         "instantiations": attention_instantiations(attn_build[1]),
@@ -3600,6 +3916,13 @@ def main(argv=None):
     timed("attention_kernel", phase_attention_kernel)
     attn_launches = timed("serve_path", phase_serve_path, args.profile)
     hybrid_launches = timed("hybrid_serve_path", phase_hybrid_serve_path)
+    lm_launches = {
+        "vlm_serve_path": timed("vlm_serve_path", phase_vlm_serve_path),
+        "moe_serve_path": timed("moe_serve_path", phase_moe_serve_path),
+        "arctic_serve_path": timed("arctic_serve_path",
+                                   phase_arctic_serve_path)}
+    timed("moe_layer", phase_moe_layer)
+    timed("lm_reduced", phase_lm_reduced)
     timed("lru_kernel", phase_lru_kernel)
     attn_grad = timed("attention_grad", phase_attention_grad)
     train_launches = timed("train_path", phase_train_path)
@@ -3611,7 +3934,8 @@ def main(argv=None):
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
           while_build, lru_build, cohort_times, base_launches, base_times,
-          base_plain_ms, base_build, hybrid_launches, ckpt_launches)
+          base_plain_ms, base_build, hybrid_launches, ckpt_launches,
+          lm_launches)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

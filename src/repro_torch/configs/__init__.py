@@ -1,10 +1,12 @@
 """Configurations of the assigned architectures that the port runs.
 
 ``get_config(arch)`` returns the full-size `ModelConfig` of the reference's
-`repro/configs/` (the four dense ones and recurrentgemma-2b are copied
-here); ``smoke_config``
-the reduced same-family config the tests use. The other architectures of
-``ARCHS`` raise `NotImplementedError` naming their ROADMAP.md item. The
+`repro/configs/` (the four dense ones, the MoE qwen2-moe-a2.7b and
+arctic-480b, the VLM backbone pixtral-12b and the hybrid recurrentgemma-2b
+are copied here); ``smoke_config`` the reduced same-family config the
+tests use. The other two architectures of ``ARCHS`` (xlstm-1.3b,
+seamless-m4t-large-v2) raise `NotImplementedError` naming their ROADMAP.md
+item. The
 reference's ``SHAPES``, ``cells`` and ``input_specs`` describe its TPU
 dry-run and are not ported.
 """
@@ -21,15 +23,12 @@ ARCHS: tuple[str, ...] = (
     "recurrentgemma-2b", "seamless-m4t-large-v2",
 )
 
-#: the architectures whose configs live in this package: the four dense
-#: ones and the hybrid recurrentgemma-2b
+#: the architectures whose configs live in this package
 PORTED_ARCHS = ("yi-6b", "phi3-medium-14b", "granite-3-2b", "starcoder2-7b",
+                "qwen2-moe-a2.7b", "arctic-480b", "pixtral-12b",
                 "recurrentgemma-2b")
 
-_FAMILY_OF_UNPORTED = {
-    "qwen2-moe-a2.7b": "moe", "arctic-480b": "moe", "pixtral-12b": "vlm",
-    "xlstm-1.3b": "ssm", "seamless-m4t-large-v2": "encdec",
-}
+_FAMILY_OF_UNPORTED = {"xlstm-1.3b": "ssm", "seamless-m4t-large-v2": "encdec"}
 
 
 def get_config(arch: str) -> ModelConfig:

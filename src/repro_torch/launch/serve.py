@@ -4,12 +4,15 @@ greedy decode of synthetic requests.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --reduced --batch 4 --prompt-len 32 --max-new 16 [--device cpu]
 
-The counterpart of the reference's `repro/launch/serve.py`, for the dense
-family and the hybrid one (recurrentgemma-2b, whose prompt is replayed
-token by token, `serve.engine.generate`). It serves
-``cfg.with_(attention_impl="pallas")``, so that on the card a dense
-prefill runs the hand-written flash-attention kernel (on the CPU its plain
-version); a hybrid decode step runs no kernel. Parameters and prompts are
+The counterpart of the reference's `repro/launch/serve.py`, for the
+families of `models/lm.py` (dense, moe, vlm) and the hybrid one
+(recurrentgemma-2b, whose prompt is replayed token by token,
+`serve.engine.generate`). It serves ``cfg.with_(attention_impl="pallas")``,
+so that on the card a prefill runs the hand-written flash-attention kernel
+in every layer (on the CPU its plain version); a hybrid decode step runs
+no kernel. As in the reference, it draws no frontend embeddings: a VLM
+backbone (pixtral-12b) serves text only from here, and its patch-embedding
+prefix goes through ``generate(embeds=...)``. Parameters and prompts are
 random, drawn from one `torch.Generator` seeded with ``--seed`` on the
 serving device. With no ``--device`` it runs on the CUDA card and raises
 without one.

@@ -93,7 +93,9 @@ def main(argv=None, stats=None):
 
     t0 = time.time()
     for i in range(start, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev).long()
+        # tokens and labels as integers, a VLM's embeds as float32
+        batch = {k: torch.from_numpy(v).to(dev, torch.float32 if
+                                            k == "embeds" else torch.long)
                  for k, v in next(it).items()}
         _sync(dev)
         ts = time.perf_counter()

@@ -201,9 +201,10 @@ def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
     return params
 
 
-def forward(cfg: ModelConfig, pol: Policy, params, tokens):
+def forward(cfg: ModelConfig, pol: Policy, params, tokens, embeds=None):
     """Full-sequence forward (the training step's). Returns (hidden [B,S,d]
-    post-final-norm, aux_loss = 0)."""
+    post-final-norm, aux_loss = 0). `embeds` is not read, as in the
+    reference: the family has no frontend input."""
     pat, reps, tail = _split(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens].to(cfg.cdtype())

@@ -230,8 +230,12 @@ def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,
 
 # ---------------------------------------------------------------- MLP
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig):
-    d, d_ff, dt = cfg.d_model, cfg.d_ff, cfg.pdtype()
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff=None,
+             d_model=None):
+    """The MLP at widths `d_model` -> `d_ff` -> `d_model` (the config's by
+    default; the MoE layer's parallel branch passes its own `d_ff`)."""
+    d, dt = d_model or cfg.d_model, cfg.pdtype()
+    d_ff = d_ff or cfg.d_ff
     if cfg.mlp_type == "swiglu":
         return {"wi": dense_init(gen, d, d_ff, dt),
                 "wg": dense_init(gen, d, d_ff, dt),

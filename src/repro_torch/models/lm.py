@@ -1,32 +1,38 @@
-"""Decoder-only LM of the dense family (yi-6b, phi3-medium-14b,
-granite-3-2b, starcoder2-7b), in PyTorch.
+"""Decoder-only LM covering the dense, MoE and VLM families, in PyTorch.
 
-The counterpart of the reference's `repro/models/lm.py` for ``n_experts ==
-0``. Parameters are ``{"embed": [Vp, d], "layers": [per-layer dict, ...],
-"norm": {...}}``: the reference's layer-stacked leaves ``[L, ...]`` become
-one dictionary per layer, and its `lax.scan` over layers a Python loop.
-The MoE branch and the other families raise `NotImplementedError` naming
-their ROADMAP.md item (`check_ported`); the hybrid family has its own
-module (`models/hybrid.py`), and this module's functions refuse it
-(`_check_dense`).
+The counterpart of the reference's `repro/models/lm.py`: yi-6b,
+phi3-medium-14b, granite-3-2b, starcoder2-7b (dense GQA), qwen2-moe-a2.7b
+and arctic-480b (MoE, `models/moe.py`; a parallel MLP branch at
+``shared_expert_d_ff``, qwen2-moe's shared expert, or at ``d_ff``,
+arctic's dense residual), and pixtral-12b (the decoder backbone whose
+first ``embeds.shape[1]`` positions take precomputed patch embeddings from
+the stubbed vision frontend). Parameters are ``{"embed": [Vp, d],
+"layers": [per-layer dict, ...], "norm": {...}}``: the reference's
+layer-stacked leaves ``[L, ...]`` become one dictionary per layer, and its
+`lax.scan` over layers a Python loop. The xLSTM and encoder-decoder
+families raise `NotImplementedError` naming their ROADMAP.md item
+(`check_ported`); the hybrid family has its own module
+(`models/hybrid.py`), and this module's functions refuse it (`_check_lm`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import Policy
 
 #: families of the reference that the port does not have yet -> their item
 UNPORTED_FAMILIES = {
-    "moe": "ROADMAP.md Queue 1 item 11 (MoE family)",
-    "vlm": "ROADMAP.md Queue 1 item 12 (VLM backbone)",
     "ssm": "ROADMAP.md Queue 1 item 13 (xLSTM family)",
     "encdec": "ROADMAP.md Queue 1 item 14 (encoder-decoder family)",
 }
+#: the families this module runs (the reference's `registry.FAMILIES`
+#: maps each to `lm`)
+LM_FAMILIES = ("dense", "moe", "vlm")
 #: keys of the parameter tree whose per-layer list the reference stacks
 #: along a leading axis (its ``[L, ...]`` leaves)
 STACKED_KEYS = ("layers",)
@@ -39,93 +45,133 @@ class DecodeCache(NamedTuple):
 
 
 def check_ported(cfg: ModelConfig):
-    """Raises unless the port has `cfg`'s family: dense (this module) or
+    """Raises unless the port has `cfg`'s family: those of this module or
     hybrid (`models/hybrid.py`). The port's one refusal of the families it
     does not have yet."""
-    family = "moe" if cfg.n_experts else cfg.family
-    if family in ("dense", "hybrid"):
+    if cfg.family in LM_FAMILIES + ("hybrid",):
         return
-    if family not in UNPORTED_FAMILIES:
-        raise ValueError(f"unknown model family {family!r}")
+    if cfg.family not in UNPORTED_FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}")
     raise NotImplementedError(
-        f"{cfg.name}: family {family!r} is not ported yet "
-        f"({UNPORTED_FAMILIES[family]})")
+        f"{cfg.name}: family {cfg.family!r} is not ported yet "
+        f"({UNPORTED_FAMILIES[cfg.family]})")
 
 
-def _check_dense(cfg: ModelConfig):
-    """This module's functions run the dense family only."""
+def _check_lm(cfg: ModelConfig):
+    """This module's functions run the families of `LM_FAMILIES` only."""
     check_ported(cfg)
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: models/lm.py runs the dense family, "
-                         f"not {cfg.family!r}; take the family's module from "
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(f"{cfg.name}: models/lm.py runs the dense family "
+                         f"and its moe and vlm branches, not "
+                         f"{cfg.family!r}; take the family's module from "
                          f"models.registry.get_family")
 
 
-def _layer_init(gen: torch.Generator, cfg: ModelConfig):
+def _parallel_ff(cfg: ModelConfig) -> int:
+    """Width of an MoE layer's parallel MLP branch (0: none)."""
+    return cfg.shared_expert_d_ff or (cfg.d_ff if cfg.dense_residual else 0)
+
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, pol: Policy):
     dev = gen.device
-    return {
+    p = {
         "ln1": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type, dev),
         "attn": L.attn_init(gen, cfg),
         "ln2": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type, dev),
-        "mlp": L.mlp_init(gen, cfg),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_lib.moe_init(gen, cfg, pol)
+        if _parallel_ff(cfg):
+            p["mlp"] = L.mlp_init(gen, cfg, d_ff=_parallel_ff(cfg))
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg)
+    return p
 
 
 def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
     """Random parameters on `gen`'s device, drawn from `gen` in a fixed
     order (embedding, then layer by layer)."""
-    _check_dense(cfg)
+    _check_lm(cfg)
     embed = L.embed_init(gen, L.padded_vocab(cfg), cfg.d_model, cfg.pdtype())
     return {
         "embed": embed,
-        "layers": [_layer_init(gen, cfg) for _ in range(cfg.n_layers)],
+        "layers": [_layer_init(gen, cfg, pol) for _ in range(cfg.n_layers)],
         "norm": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type,
                             gen.device),
     }
 
 
+def _ffn(cfg: ModelConfig, pol: Policy, p, h):
+    """The block's feed-forward part: (out, MoE aux loss)."""
+    if not cfg.n_experts:
+        return L.mlp_forward(p["mlp"], cfg, pol, h), 0.0
+    mo, aux = moe_lib.moe_forward(p["moe"], cfg, pol, h, impl=cfg.moe_impl)
+    if "mlp" in p:
+        mo = mo + L.mlp_forward(p["mlp"], cfg, pol, h)
+    return mo, aux
+
+
 def _block(cfg: ModelConfig, pol: Policy, p, x, positions):
-    """One pre-norm transformer block. Returns (x, (k, v))."""
+    """One pre-norm transformer block. Returns (x, aux_loss, (k, v))."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps, cfg.norm_type)
     a, kv = L.attn_forward(p["attn"], cfg, pol, h, positions,
                            window=cfg.local_window)
     x = x + a
     h = L.apply_norm(p["ln2"], x, cfg.norm_eps, cfg.norm_type)
-    return x + L.mlp_forward(p["mlp"], cfg, pol, h), kv
+    f, aux = _ffn(cfg, pol, p, h)
+    return x + f, aux, kv
 
 
-def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens):
-    """Token embedding, in the compute dtype. (The reference's VLM
-    `embeds` input belongs to the VLM backbone, ROADMAP.md Queue 1.)"""
-    return params["embed"][tokens].to(cfg.cdtype())
+def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens,
+                 embeds: Optional[torch.Tensor] = None):
+    """Token embedding, in the compute dtype. For a VLM backbone the first
+    ``embeds.shape[1]`` positions come from the (stubbed) modality
+    frontend instead of the table; `embeds` is cast to the table's dtype
+    first, then with the rest to the compute dtype, as the reference casts
+    it."""
+    x = params["embed"][tokens]
+    if embeds is not None:
+        n = embeds.shape[1]
+        x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
+    return x.to(cfg.cdtype())
 
 
-def forward(cfg: ModelConfig, pol: Policy, params, tokens):
+def forward(cfg: ModelConfig, pol: Policy, params, tokens,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None):
     """Full-sequence forward (train / prefill).
 
-    Returns (hidden [B,S,d] post-final-norm, aux_loss); the aux loss of a
-    dense model is 0.
+    Returns (hidden [B,S,d] post-final-norm, aux_loss): the MoE layers'
+    load-balance losses summed, times ``router_aux_loss / n_layers`` (0
+    for a dense model).
     """
-    _check_dense(cfg)
+    _check_lm(cfg)
     B, S = tokens.shape
-    x = embed_tokens(cfg, pol, params, tokens)
-    positions = torch.arange(S, device=x.device)[None, :]
+    x = embed_tokens(cfg, pol, params, tokens, embeds)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, _ = _block(cfg, pol, lp, x, positions)
+        x, a, _ = _block(cfg, pol, lp, x, positions)
+        aux = aux + a
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux * cfg.router_aux_loss / max(cfg.n_layers, 1)
 
 
 def prefill(cfg: ModelConfig, pol: Policy, params, tokens, max_len: int,
+            embeds: Optional[torch.Tensor] = None,
             cache_dtype=torch.bfloat16):
     """Forward over the prompt, returning (hidden, seeded DecodeCache).
 
     Each layer's K/V, rounded to `cache_dtype`, seed a cache of length
     ``max_len`` (ring-truncated to the local window if the arch has one).
+    An MoE layer routes the prompt at the capacity of its length S, so a
+    prefill may drop choices that a full forward of another length would
+    keep.
     """
-    _check_dense(cfg)
+    _check_lm(cfg)
     B, S = tokens.shape
-    x = embed_tokens(cfg, pol, params, tokens)
+    x = embed_tokens(cfg, pol, params, tokens, embeds)
     positions = torch.arange(S, device=x.device)[None, :]
     cache = init_cache(cfg, pol, B, max_len, cache_dtype, device=x.device)
     T = cache.k.shape[2]
@@ -136,7 +182,7 @@ def prefill(cfg: ModelConfig, pol: Policy, params, tokens, max_len: int,
     else:
         idx = slice(0, take)
     for i, lp in enumerate(params["layers"]):
-        x, (k, v) = _block(cfg, pol, lp, x, positions)
+        x, _, (k, v) = _block(cfg, pol, lp, x, positions)
         cache.k[i][:, idx] = k[:, S - take:].to(cache_dtype)
         cache.v[i][:, idx] = v[:, S - take:].to(cache_dtype)
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
@@ -158,7 +204,7 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: DecodeCache,
     """One decode step. tokens: [B, 1]. Returns (logits [B,1,V], cache):
     the cache's tensors are updated in place and returned with ``pos + 1``.
     """
-    _check_dense(cfg)
+    _check_lm(cfg)
     x = embed_tokens(cfg, pol, params, tokens)
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(lp["ln1"], x, cfg.norm_eps, cfg.norm_type)
@@ -167,7 +213,7 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: DecodeCache,
                                 window=cfg.local_window)
         x = x + a
         h = L.apply_norm(lp["ln2"], x, cfg.norm_eps, cfg.norm_type)
-        x = x + L.mlp_forward(lp["mlp"], cfg, pol, h)
+        x = x + _ffn(cfg, pol, lp, h)[0]
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
     logits = L.unembed(cfg, pol, x, params["embed"])
     return logits, cache._replace(pos=cache.pos + 1)

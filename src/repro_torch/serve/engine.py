@@ -1,19 +1,21 @@
 """Batched serving engine: prefill or prompt replay, then greedy decode.
 
-The counterpart of the reference's `repro/serve/engine.py` (its dense and
-recurrent branches, `engine.py:45-83`). ``serve_step`` is one new token
-for every sequence of the batch against the family's decode state.
-``generate`` takes one of two branches, as the reference does:
+The counterpart of the reference's `repro/serve/engine.py` (its
+decoder-only and recurrent branches, `engine.py:45-83`). ``serve_step`` is
+one new token for every sequence of the batch against the family's decode
+state. ``generate`` takes one of two branches, as the reference does:
 
-  * dense: prefill the prompt (which seeds the KV cache), take the last
-    position's argmax, then run ``max_new - 1`` decode steps; it returns
-    the ``max_new`` generated tokens;
+  * dense, moe and vlm (`models/lm.py`): prefill the prompt (which seeds
+    the KV cache; a VLM backbone's first ``embeds.shape[1]`` positions
+    take `embeds`), take the last position's argmax, then run
+    ``max_new - 1`` decode steps; it returns the ``max_new`` generated
+    tokens;
   * hybrid (recurrent): replay the prompt's first ``S - 1`` tokens one
     decode step each from the family's `init_cache`, then decode
     ``max_new - 1`` steps starting from the prompt's last token; it
     returns that last prompt token as its first column, followed by the
     ``max_new - 1`` generated tokens (the reference's output, kept as it
-    is).
+    is). `embeds` is not read, as the reference does not read it there.
 
 Greedy ties go to the first index, as `torch.argmax` and `jnp.argmax`
 both resolve them.
@@ -53,15 +55,17 @@ def _clock(device: torch.device) -> float:
 @torch.inference_mode()
 def generate(cfg: ModelConfig, pol: Policy, params, prompts,
              max_new: int = 16, max_len: Optional[int] = None,
-             stats: Optional[dict] = None) -> np.ndarray:
+             embeds=None, stats: Optional[dict] = None) -> np.ndarray:
     """Greedy generation. prompts: [B, S] integer tokens (numpy or a
-    tensor); runs where the parameters live. Returns [B, max_new] int32.
+    tensor); `embeds`: [B, n, d] frontend embeddings of a VLM backbone's
+    first n positions, or None; runs where the parameters live. Returns
+    [B, max_new] int32.
 
     When `stats` is a dict it receives ``decode_seconds`` and, for the
-    dense family, ``prefill_seconds`` and ``prefill_logits`` (the last
-    prompt position's logits [B, 1, padded vocab]), for the hybrid family
-    ``replay_seconds`` (host clock, each stage ended by a device
-    synchronize)."""
+    families of `models/lm.py`, ``prefill_seconds`` and ``prefill_logits``
+    (the last prompt position's logits [B, 1, padded vocab]), for the
+    hybrid family ``replay_seconds`` (host clock, each stage ended by a
+    device synchronize)."""
     family = get_family(cfg)
     step = make_serve_step(cfg, pol)
     device = params["embed"].device
@@ -70,8 +74,11 @@ def generate(cfg: ModelConfig, pol: Policy, params, prompts,
     max_len = max_len or (S + max_new)
 
     t0 = _clock(device) if stats is not None else 0.0
-    if cfg.family == "dense":
-        hidden, cache = lm.prefill(cfg, pol, params, prompts, max_len)
+    if cfg.family in lm.LM_FAMILIES:
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds, device=device)
+        hidden, cache = lm.prefill(cfg, pol, params, prompts, max_len,
+                                   embeds=embeds)
         logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
         tok = torch.argmax(logits, dim=-1)
         if stats is not None:

@@ -2,7 +2,8 @@
 
 The counterpart of the reference's `repro/train/step.py` on one card:
 ``make_train_step`` builds a (state, batch) -> (state, metrics) function
-for the ported families (dense and hybrid). With ``n_micro > 1`` the
+for the ported families (dense, moe, vlm and hybrid); a batch's
+``embeds`` (a VLM backbone's frontend embeddings) go to the forward. With ``n_micro > 1`` the
 batch is split into microbatches whose float32 gradients are summed in a
 Python loop (the reference's `lax.scan`), then averaged. The policy is the
 single-card one (`sharding/policy.py`); the reference's mesh resolution
@@ -53,7 +54,8 @@ def make_loss_fn(cfg: ModelConfig, pol: Policy, loss_chunk: int = 512):
     family = get_family(cfg)
 
     def loss_fn(params, batch):
-        hidden, aux = family.forward(cfg, pol, params, batch["tokens"])
+        hidden, aux = family.forward(cfg, pol, params, batch["tokens"],
+                                     batch.get("embeds"))
         loss, mets = chunked_ce(cfg, pol, hidden, params["embed"],
                                 batch["labels"], chunk=loss_chunk)
         return loss + aux.to(loss.dtype), mets

@@ -86,7 +86,9 @@ def test_package_layout_mirrors_the_reference():
                  "launch.sim", "launch.service", "core.cohort",
                  "core.schedulers", "kernels.baselines.ref",
                  "kernels.baselines.kernel", "kernels.baselines.ops",
-                 "cluster", "cluster.scheduler", "ckpt", "ckpt.checkpoint"):
+                 "cluster", "cluster.scheduler", "ckpt", "ckpt.checkpoint",
+                 "models.moe", "configs.qwen2_moe_a2_7b",
+                 "configs.arctic_480b", "configs.pixtral_12b"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()

@@ -1,15 +1,22 @@
-"""The port's dense LM against the reference's `repro.models.lm`.
+"""The port's decoder-only LM against the reference's `repro.models.lm`.
 
 The reference's parameters (its own `init_params` from a fixed key,
 unboxed, as numpy arrays) are carried over with `params_from_jax`, so both
-sides hold the same weights. On the reduced float32 config of every dense
-arch: the prefill's hidden states and bf16 KV cache, then four decode
-steps' logits (each step fed the reference's greedy token).
+sides hold the same weights. On the reduced float32 config of every arch
+of the module (the four dense ones, the MoE qwen2-moe-a2.7b and
+arctic-480b, the VLM backbone pixtral-12b, fed frontend embeddings for its
+first ``n_prefix`` positions, once more with ``head_dim`` 32 so that
+``n_heads * hd != d_model``): the forward's hidden states and aux loss,
+the prefill's hidden states and bf16 KV cache, then four decode steps'
+logits (each step fed the reference's greedy token).
 
 Tolerances: hidden states and logits rtol/atol 1e-4 (float32 through a
-few layers, summed in another order); the bf16 cache may differ by one
-bf16 rounding where a float32 value lands near a rounding boundary, so it
-gets 1e-2 relative, and must agree exactly on at least 99 % of entries.
+few layers, summed in another order); the MoE aux loss 1e-6; the bf16
+cache may differ by one bf16 rounding where a float32 value lands near a
+rounding boundary, so it gets 1e-2 relative, and must agree exactly on at
+least 99 % of entries. The MoE routes of every layer are the reference's
+where the router's top-k margin is wide: a flip at a near tie would show
+as a logit difference, not be hidden by these tolerances.
 """
 import os
 
@@ -30,6 +37,10 @@ from repro_torch.sharding.policy import Policy, single_device_policy
 from test_torch_reference import load_reference
 
 DENSE = ("granite-3-2b", "starcoder2-7b", "yi-6b", "phi3-medium-14b")
+MOE_VLM = ("qwen2-moe-a2.7b", "arctic-480b", "pixtral-12b")
+#: (arch, config overrides) of the MoE / VLM parity cases
+LM_CASES = [(a, {}) for a in MOE_VLM] + [("pixtral-12b", {"head_dim": 32})]
+LM_IDS = list(MOE_VLM) + ["pixtral-12b-hd32"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -54,7 +65,7 @@ def fields(cfg):
 
 
 class TestConfigs:
-    @pytest.mark.parametrize("arch", DENSE + ("recurrentgemma-2b",))
+    @pytest.mark.parametrize("arch", DENSE + ("recurrentgemma-2b",) + MOE_VLM)
     def test_full_and_smoke_configs_equal_the_reference(self, ref, arch):
         assert fields(tconfigs.get_config(arch)) == fields(
             ref.configs.get_config(arch))
@@ -78,11 +89,11 @@ class TestConfigs:
         assert tconfigs.smoke_config("granite-3-2b").pdtype() == torch.float32
         assert cfg.hd == 64 and cfg.with_(head_dim=32).hd == 32
 
-    @pytest.mark.parametrize("arch", [
-        "qwen2-moe-a2.7b", "arctic-480b", "pixtral-12b", "xlstm-1.3b",
-        "seamless-m4t-large-v2"])
+    @pytest.mark.parametrize("arch", ["xlstm-1.3b", "seamless-m4t-large-v2"])
     def test_unported_archs_raise(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        item = {"xlstm-1.3b": 13, "seamless-m4t-large-v2": 14}[arch]
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 item {item}"):
             tconfigs.get_config(arch)
 
     def test_unknown_arch_is_a_value_error(self):
@@ -101,11 +112,31 @@ class TestRegistry:
         fam = tregistry.get_family(tconfigs.smoke_config("yi-6b"))
         assert fam.decode_step is tlm.decode_step
 
-    def test_moe_branch_raises(self):
-        cfg = tconfigs.smoke_config("yi-6b").with_(n_experts=4)
+    @pytest.mark.parametrize("family", ["moe", "vlm"])
+    def test_moe_and_vlm_families_are_the_lm(self, family):
+        """As the reference's `FAMILIES` maps them."""
+        arch = {"moe": "qwen2-moe-a2.7b", "vlm": "pixtral-12b"}[family]
+        cfg = tconfigs.smoke_config(arch)
+        assert cfg.family == family
+        assert tregistry.get_family(cfg) is tlm
+        dense = tconfigs.smoke_config("granite-3-2b").with_(family=family)
+        assert tregistry.get_family(dense) is tlm
+
+    def test_moe_branch_follows_n_experts(self):
+        """A dense config given experts takes the MoE branch, as the
+        reference's `_layer_init` keys it on ``n_experts``; arctic's dense
+        residual and qwen2-moe's shared expert are its parallel MLP."""
         gen = torch.Generator().manual_seed(0)
-        with pytest.raises(NotImplementedError, match="MoE"):
-            tlm.init_params(cfg, single_device_policy(cfg), gen)
+        cfg = tconfigs.smoke_config("yi-6b").with_(
+            n_experts=4, experts_per_token=2, expert_d_ff=32)
+        p = tlm.init_params(cfg, single_device_policy(cfg), gen)
+        assert "moe" in p["layers"][0] and "mlp" not in p["layers"][0]
+        for arch, f in (("qwen2-moe-a2.7b", 64), ("arctic-480b", 128)):
+            cfg = tconfigs.smoke_config(arch)
+            layer = tlm.init_params(cfg, single_device_policy(cfg),
+                                    gen)["layers"][0]
+            assert tuple(layer["mlp"]["wi"].shape) == (64, f)
+            assert tuple(layer["moe"]["wi"].shape) == (4, 64, 64)
 
     def test_policy_is_the_identity(self):
         pol = single_device_policy(tconfigs.smoke_config("yi-6b"))
@@ -228,3 +259,123 @@ def test_windowed_prefill_writes_a_ring(ref):
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
     g, w = tcache.k.float().numpy(), np.asarray(jcache.k, np.float32)
     np.testing.assert_allclose(g, w, rtol=1e-2, atol=1e-2)
+
+
+def prompt_inputs(cfg, B, S, seed):
+    """Tokens [B, S] and, for a VLM backbone, frontend embeddings
+    [B, n_prefix, d] at train/data.py's scale (numpy, from a seed)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    embeds = None
+    if cfg.embeds_input:
+        embeds = (rng.standard_normal((B, cfg.n_prefix, cfg.d_model))
+                  * 0.02).astype(np.float32)
+    return tokens, embeds
+
+
+def both_with(ref, arch, overrides, impl="xla"):
+    jc = ref.configs.smoke_config(arch, attention_impl=impl, **overrides)
+    tc = tconfigs.smoke_config(arch, attention_impl=impl, **overrides)
+    jp = jax_params(ref, jc, seed=1)
+    tp = params_from_jax(tc, numpy_tree(ref, jp), device="cpu")
+    return (jc, ref.policy.single_device_policy(jc), jp,
+            tc, single_device_policy(tc), tp)
+
+
+def as_jax(ref, embeds):
+    return None if embeds is None else ref.jnp.asarray(embeds)
+
+
+def as_torch(embeds):
+    return None if embeds is None else torch.from_numpy(embeds)
+
+
+@pytest.mark.parametrize("arch,overrides", LM_CASES, ids=LM_IDS)
+def test_moe_and_vlm_forward(ref, arch, overrides):
+    """Hidden states and the aux loss (the MoE load-balance term, times
+    router_aux_loss / n_layers; 0 for pixtral)."""
+    jc, jpol, jp, tc, tpol, tp = both_with(ref, arch, overrides)
+    tokens, embeds = prompt_inputs(jc, 2, 11, seed=14)
+    jh, jaux = ref.lm.forward(jc, jpol, jp, ref.jnp.asarray(tokens),
+                              as_jax(ref, embeds))
+    th, taux = tlm.forward(tc, tpol, tp, torch.from_numpy(tokens).long(),
+                           as_torch(embeds))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=0, atol=1e-6)
+    assert (float(taux) > 0) == bool(tc.n_experts)
+    if embeds is not None:      # the prefix is the embeddings, not tokens
+        th2, _ = tlm.forward(tc, tpol, tp, torch.from_numpy(tokens).long())
+        assert not torch.allclose(th, th2)
+
+
+@pytest.mark.parametrize("arch,overrides", LM_CASES, ids=LM_IDS)
+def test_moe_and_vlm_prefill_and_four_decode_steps(ref, arch, overrides):
+    """As test_prefill_and_four_decode_steps, through the attention
+    kernel's path (the reference's Pallas kernel in interpret mode, the
+    port's plain version). The MoE prefill routes at the capacity of the
+    prompt's length, and each decode step at C = 1, on both sides."""
+    jc, jpol, jp, tc, tpol, tp = both_with(ref, arch, overrides, "pallas")
+    assert (tc.n_heads * tc.hd != tc.d_model) == ("head_dim" in overrides)
+    tokens, embeds = prompt_inputs(jc, 2, 9, seed=15)
+    max_len = 9 + 4
+    jh, jcache = ref.lm.prefill(jc, jpol, jp, ref.jnp.asarray(tokens),
+                                max_len, embeds=as_jax(ref, embeds))
+    th, tcache = tlm.prefill(tc, tpol, tp, torch.from_numpy(tokens).long(),
+                             max_len, embeds=as_torch(embeds))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
+    assert tcache.pos == int(jcache.pos) == 9
+    for got, want in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+        assert got.dtype == torch.bfloat16
+        g, w = got.float().numpy(), np.asarray(want, np.float32)
+        np.testing.assert_allclose(g, w, rtol=1e-2, atol=1e-2)
+        assert (g == w).mean() >= 0.99
+
+    tok = np.argmax(np.asarray(ref.layers.unembed(
+        jc, jpol, jh[:, -1:], jp["embed"])), -1).astype(np.int32)
+    for _ in range(4):
+        jl, jcache = ref.lm.decode_step(jc, jpol, jp, jcache,
+                                        ref.jnp.asarray(tok))
+        tl, tcache = tlm.decode_step(tc, tpol, tp, tcache,
+                                     torch.from_numpy(tok).long())
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        tok = np.argmax(np.asarray(jl), -1).astype(np.int32)
+    assert tcache.pos == int(jcache.pos) == 13
+
+
+def test_embeds_cast_to_the_table_dtype_first(ref):
+    """bf16 parameters, float32 compute: the embeddings round to bf16 (the
+    table's dtype) before the compute cast, as the reference's."""
+    jc = ref.configs.smoke_config("pixtral-12b", param_dtype="bfloat16")
+    tc = tconfigs.smoke_config("pixtral-12b", param_dtype="bfloat16")
+    tp = params_from_jax(tc, numpy_tree(ref, jax_params(ref, jc)),
+                         device="cpu")
+    jp = jax_params(ref, jc)
+    tokens, embeds = prompt_inputs(jc, 2, 7, seed=16)
+    want = ref.lm.embed_tokens(jc, ref.policy.single_device_policy(jc), jp,
+                               ref.jnp.asarray(tokens), ref.jnp.asarray(embeds))
+    got = tlm.embed_tokens(tc, single_device_policy(tc), tp,
+                           torch.from_numpy(tokens).long(),
+                           torch.from_numpy(embeds))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got[:, :4].numpy(),
+        torch.from_numpy(embeds).to(torch.bfloat16).float().numpy())
+
+
+def test_params_from_jax_keeps_the_moe_router_float32(ref):
+    """The reference's MoE tree (router float32, experts bf16, stacked
+    [L, ...]) unstacks per layer with its dtypes and values."""
+    jc = ref.configs.smoke_config("qwen2-moe-a2.7b", param_dtype="bfloat16")
+    tc = tconfigs.smoke_config("qwen2-moe-a2.7b", param_dtype="bfloat16")
+    tree = numpy_tree(ref, jax_params(ref, jc))
+    p = params_from_jax(tc, tree, device="cpu")
+    moe = p["layers"][1]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert all(moe[k].dtype == torch.bfloat16 for k in ("wi", "wg", "wo"))
+    np.testing.assert_array_equal(moe["router"].numpy(),
+                                  tree["layers"]["moe"]["router"][1])
+    np.testing.assert_array_equal(
+        moe["wo"].float().numpy(),
+        tree["layers"]["moe"]["wo"][1].astype(np.float32))
+    assert p["layers"][0]["mlp"]["wi"].shape == (64, 64)   # shared expert

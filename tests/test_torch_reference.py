@@ -67,7 +67,7 @@ def load_reference() -> types.SimpleNamespace:
     Fields: `jax`, `jnp`, `core` (repro.core), `des`, `packet`, `metrics`,
     `sweep`, `precision`, `lublin`, `step_ops`
     (repro.kernels.packet_step.ops); the model stack: `configs`
-    (repro.configs), `layers`, `lm`, `registry` (repro.models.*),
+    (repro.configs), `layers`, `lm`, `moe`, `registry` (repro.models.*),
     `policy` (repro.sharding.policy), `engine` (repro.serve.engine),
     `launch_serve` (repro.launch.serve), `attn_ops` and `attn_ref`
     (repro.kernels.flash_attention.ops / .ref); the training slice:
@@ -97,7 +97,7 @@ def load_reference() -> types.SimpleNamespace:
     from repro.kernels.rglru_scan import kernel as lru_kernel
     from repro.kernels.rglru_scan import ref as lru_ref
     from repro.launch import serve as launch_serve
-    from repro.models import hybrid, layers, lm, registry
+    from repro.models import hybrid, layers, lm, moe, registry
     from repro.serve import engine
     from repro.sharding import policy
     from repro.train import data as train_data
@@ -115,7 +115,7 @@ def load_reference() -> types.SimpleNamespace:
     _REF = types.SimpleNamespace(
         jax=jax, jnp=jnp, core=core, des=des, packet=packet,
         metrics=metrics, sweep=sweep, precision=precision, lublin=lublin,
-        step_ops=step_ops, configs=configs, layers=layers, lm=lm,
+        step_ops=step_ops, configs=configs, layers=layers, lm=lm, moe=moe,
         registry=registry, policy=policy, engine=engine,
         launch_serve=launch_serve, attn_ops=attn_ops, attn_ref=attn_ref,
         hybrid=hybrid, train_step=train_step, train_loss=train_loss,

@@ -7,10 +7,14 @@ paths: ``"pallas"`` (the reference's Pallas kernel in interpret mode; the
 port's flash-attention wrapper, which takes its plain version on CPU
 tensors) and ``"xla"`` (the chunked softmax on both sides). Both sides
 round the KV cache through bf16 at the same places, so the tokens agree
-exactly, not to a tolerance.
+exactly, not to a tolerance. The same on the reduced MoE qwen2-moe-a2.7b
+and arctic-480b (their prefill routing at the prompt's capacity, a decode
+step at C = 1, on both sides) and the VLM backbone pixtral-12b, given
+frontend embeddings for its first ``n_prefix`` positions.
 
-Also: the command line on the CPU, its refusal without a card, and
-the unported families (the hybrid family's serving is held in
+Also: the command line on the CPU (the MoE and VLM archs included, text
+only, as the reference's), its refusal without a card, and the unported
+families (the hybrid family's serving is held in
 tests/test_torch_hybrid_serve.py).
 """
 import os
@@ -56,6 +60,34 @@ def test_generate_gives_the_reference_tokens(ref, arch, impl):
     assert got.dtype == np.int32 and got.shape == (2, 6)
     np.testing.assert_array_equal(got, np.asarray(want))
     assert attn_ops.flash_attention.launches == 0     # no kernel on the CPU
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b",
+                                  "pixtral-12b"])
+def test_moe_and_vlm_generate_give_the_reference_tokens(ref, arch):
+    jc, jpol, jp, tc, tpol, tp = setup_both(ref, arch, "pallas")
+    rng = np.random.default_rng(22)
+    prompts = rng.integers(0, jc.vocab_size, (2, 20)).astype(np.int32)
+    embeds = None
+    if jc.embeds_input:
+        embeds = (rng.standard_normal((2, jc.n_prefix, jc.d_model))
+                  * 0.02).astype(np.float32)
+    want = ref.engine.generate(jc, jpol, jp, prompts, max_new=6,
+                               embeds=None if embeds is None
+                               else ref.jnp.asarray(embeds))
+    stats = {}
+    got = tengine.generate(tc, tpol, tp, prompts, max_new=6, embeds=embeds,
+                           stats=stats)
+    assert got.dtype == np.int32 and got.shape == (2, 6)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert tuple(stats["prefill_logits"].shape) == (2, 1, 256)
+    if embeds is not None:      # the embeddings reach the prefill
+        plain = {}
+        text = tengine.generate(tc, tpol, tp, prompts, max_new=1,
+                                stats=plain)
+        assert text.shape == (2, 1)
+        assert not torch.equal(plain["prefill_logits"],
+                               stats["prefill_logits"])
 
 
 def test_serve_step_is_greedy_decode(ref):
@@ -107,8 +139,16 @@ class TestLaunch:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.main(["--arch", "granite-3-2b", "--reduced"])
 
-    @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "xlstm-1.3b",
-                                      "seamless-m4t-large-v2"])
+    @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b",
+                                      "pixtral-12b"])
+    def test_moe_and_vlm_archs_serve_by_name(self, arch, capsys):
+        out = tserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                           "--prompt-len", "8", "--max-new", "3",
+                           "--device", "cpu"])
+        assert out.shape == (2, 3) and (out < 251).all()
+        assert f"[serve] {arch}: generated (2, 3)" in capsys.readouterr().out
+
+    @pytest.mark.parametrize("arch", ["xlstm-1.3b", "seamless-m4t-large-v2"])
     def test_unported_arch_raises(self, arch):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tserve.main(["--arch", arch, "--reduced", "--device", "cpu"])

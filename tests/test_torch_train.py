@@ -46,6 +46,8 @@ from repro_torch.train import step as tstep
 from test_torch_reference import load_reference
 
 ARCHS = ("recurrentgemma-2b", "granite-3-2b")
+#: the MoE (aux loss in the loss) and VLM (embeds, masked prefix) branches
+MOE_VLM = ("qwen2-moe-a2.7b", "pixtral-12b")
 OPT = dict(lr=3e-3, warmup_steps=1, total_steps=10)
 BATCH, SEQ, STEPS = 4, 24, 2
 SCALAR_TOL = dict(rtol=2e-5, atol=0)
@@ -81,7 +83,9 @@ def ref_batches(ref, arch):
 
 
 def torch_batch(b):
-    return {k: torch.from_numpy(v).long() for k, v in b.items()}
+    """Tokens and labels as integers, a VLM's embeds as float32."""
+    return {k: torch.from_numpy(v) if k == "embeds" else
+            torch.from_numpy(v).long() for k, v in b.items()}
 
 
 @pytest.fixture(scope="module")
@@ -143,7 +147,22 @@ def test_train_steps_match_reference(ref, ref_init, ref_runs, arch, n_micro,
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MOE_VLM)
+def test_moe_and_vlm_train_steps_match_reference(ref, ref_init, ref_runs,
+                                                  arch, impl):
+    """As test_train_steps_match_reference, one and two steps, n_micro 1:
+    qwen2-moe's loss carries the router's aux term, pixtral's batches
+    carry embeds for the prefix whose labels are -1."""
+    test_train_steps_match_reference(ref, ref_init, ref_runs, arch, 1, impl)
+    b = ref_batches(ref, arch)[0]
+    assert ("embeds" in b) == (arch == "pixtral-12b")
+    if "embeds" in b:
+        assert (b["labels"][:, :4] == -1).all()
+        assert torch_batch(b)["embeds"].abs().min() > 0
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("arch", ARCHS + MOE_VLM)
 def test_every_gradient_leaf_matches_reference(ref, ref_init, arch, impl):
     jc = ref.configs.smoke_config(arch, attention_impl="xla")
     jpol = ref.policy.single_device_policy(jc)
@@ -277,6 +296,38 @@ class TestLaunch:
                       "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
                       "--n-micro", "2"], stats=stats)
         assert np.isfinite(stats["losses"]).all()
+
+    def test_vlm_trains_on_its_embeds(self, monkeypatch):
+        """pixtral's batches reach the step with their frontend embeddings
+        as float32, equal to the data stream's (an integer cast would
+        make every one 0), and the aux-free loss is finite."""
+        seen = []
+        make = tlaunch.make_train_step
+
+        def recording(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(state, batch):
+                seen.append({k: v.clone() for k, v in batch.items()})
+                return step(state, batch)
+            return run
+
+        monkeypatch.setattr(tlaunch, "make_train_step", recording)
+        stats = {}
+        tlaunch.main(["--arch", "pixtral-12b", "--reduced", "--device",
+                      "cpu", "--steps", "2", "--batch", "2", "--seq", "16"],
+                     stats=stats)
+        it = tdata.batches(smoke_config("pixtral-12b"),
+                           tdata.DataConfig(batch=2, seq=16, seed=0))
+        assert len(seen) == 2 and np.isfinite(stats["losses"]).all()
+        for got in seen:
+            want = next(it)
+            assert got["embeds"].dtype == torch.float32
+            assert got["tokens"].dtype == got["labels"].dtype == torch.long
+            np.testing.assert_array_equal(got["embeds"].numpy(),
+                                          want["embeds"])
+            np.testing.assert_array_equal(got["labels"].numpy(),
+                                          want["labels"])
 
     @pytest.mark.parametrize("resume", [False, True],
                              ids=["ckpt-dir", "resume"])
