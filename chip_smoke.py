@@ -76,6 +76,20 @@ card, drives the port's paths and prints one JSON line per phase:
   under the config's drops), and the reduced pixtral, qwen2-moe and
   arctic `generate` and the reduced pixtral and qwen2-moe training on the
   card against the same on the CPU;
+- the xLSTM and encoder-decoder families: `launch.serve.main` on
+  xlstm-1.3b at full width and depth (48 blocks, 7 mLSTM : 1 sLSTM, bf16,
+  ~1.9 B random parameters), 4 prompts of 512 tokens replayed one decode
+  step a token, 32 new tokens, no kernel launched (gated), one `forward`
+  against the replay's last 16 positions (reported), and gated: the
+  full-width model in float32 cut to one pattern period (8 blocks), 130
+  tokens decoded against one `forward`; then seamless-m4t-large-v2 at full
+  width and depth (24 + 24 layers, bf16, ~1.37 B parameters) with frames
+  [4, 512, 1024] drawn by launch/serve.py: one bidirectional
+  attention-kernel launch an encoder layer and none in the teacher-forced
+  replay or the decode (gated), the first and last encoder layers held
+  against the plain attention, one `forward` against the replay's last
+  16 positions (reported); the reduced xlstm and seamless `generate` and
+  training on the card against the CPU join the MoE / VLM ones;
 - the ML cluster: examples/cluster_scheduling_torch.py's sweep (300 jobs,
   8 k's, failures and stragglers) with `ClusterSim`'s policy calls on the
   card, its integer counters equal to a CPU run's;
@@ -154,8 +168,9 @@ Tolerances of the kernel-vs-plain comparisons:
 - the training step's first loss and gradient norm, kernels against both
   plain versions at reduced depth: relative difference at most
   TRAIN_PLAIN_GATE (a few times the measured gap).
-- hybrid serving: (a) decode against forward in float32 at rtol = atol =
-  2e-2 (tests/test_archs.py's, for the bf16 KV cache both sides keep);
+- hybrid and xLSTM serving: (a) decode against forward in float32 at rtol
+  = atol = 2e-2 (tests/test_archs.py's, for the bf16 KV cache both sides
+  keep, and the xLSTM's one-token steps against its chunks of 64);
   (b) card against CPU on the reduced float32 config: every step's logits
   within 1e-4, and the greedy token equal wherever the CPU's top-2 gap
   exceeds 1e-3 (float32 matrix products summed in another order).
@@ -221,8 +236,9 @@ from repro_torch.kernels.rglru_scan import kernel as lru_kernel
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.launch import serve, sim, train
 from repro_torch.launch import service as service_launch
-from repro_torch.models import hybrid, layers, lm, moe
+from repro_torch.models import encdec, hybrid, layers, lm, moe, xlstm
 from repro_torch.models.layers import unembed
+from repro_torch.models.registry import get_family
 from repro_torch.serve.engine import generate, make_serve_step
 from repro_torch.sharding.policy import single_device_policy
 from repro_torch.train import data as train_data
@@ -260,6 +276,8 @@ ATTN_CASES = [
     (4, 2048, 2048, 32, 8, 128, True, 0, 0.0),  # pixtral-12b, main-path size
     (4, 2048, 2048, 16, 16, 128, True, 0, 0.0),  # qwen2-moe-a2.7b (MHA)
     (1, 2048, 2048, 56, 8, 128, True, 0, 0.0),  # arctic-480b: GQA group 7
+    (4, 3072, 3072, 16, 16, 64, False, 0, 0.0),  # seamless encoder, MEMORY_LEN
+    (4, 512, 512, 16, 16, 64, False, 0, 0.0),   # seamless encoder, its path
 ]
 # largest |kernel - plain| of the CUDA-core bfloat16 kernel that the Hopper
 # kernel replaced, on the first nine cases (the float32 kernel is the same
@@ -280,9 +298,13 @@ SERVE_ARCH = "granite-3-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 4, 2048, 32, 0
 VLM_ARCH, MOE_ARCH, ARCTIC_ARCH = "pixtral-12b", "qwen2-moe-a2.7b", \
     "arctic-480b"
-#: the attention kernel's layer of each served architecture
+XLSTM_ARCH, ENCDEC_ARCH = "xlstm-1.3b", "seamless-m4t-large-v2"
+#: the attention kernel's layer of each served architecture (seamless's
+#: encoder at the reference's MEMORY_LEN frames)
 LAYER_CASES = {SERVE_ARCH: GRANITE_CASE, VLM_ARCH: ATTN_CASES[14],
-               MOE_ARCH: ATTN_CASES[15], ARCTIC_ARCH: ATTN_CASES[16]}
+               MOE_ARCH: ATTN_CASES[15], ARCTIC_ARCH: ATTN_CASES[16],
+               ENCDEC_ARCH: ATTN_CASES[17]}
+ENCDEC_PATH_CASE = ATTN_CASES[18]   # the encoder layer of encdec_serve_path
 ARCTIC_LAYERS, ARCTIC_BATCH, ARCTIC_NEW = 1, 1, 8   # depth cut from 35
 MOE_LAYER_SHAPE = (2, 256)      # the float32 MoE layer gate: B, S
 MOE_LAYER_TOL = (2e-4, 2e-5)    # rtol, atol: tests/test_archs.py:127
@@ -295,6 +317,10 @@ HYBRID_F32_WINDOW, HYBRID_F32_TOKENS = 64, 96   # gate (a): the ring wraps
 HYBRID_FORWARD_TOL = 2e-2       # tests/test_archs.py's rtol = atol
 HYBRID_REDUCED = (2, 40, 8)     # gate (b): batch, prompt, new tokens
 HYBRID_CPU_TOL, HYBRID_GAP = 1e-4, 1e-3
+# the xLSTM and encoder-decoder serving paths: prompts of 512 tokens, a cut
+# from granite's 2048 (each prompt token is one eager decode step)
+RECUR_PROMPT = 512
+XLSTM_F32_TOKENS = 130          # float32 gate: chunks of 64, the last padded
 CKPT_BATCH, CKPT_SEQ, CKPT_SEED = 2, 64, 0
 CKPT_STEPS, CKPT_RESUME_STEPS = 4, 6
 CKPT_LOSS_RTOL = 2e-5           # the train gate of tests/test_torch_train.py
@@ -2419,8 +2445,8 @@ def phase_serve_path(profile: bool):
 
     # the same parameters and prompts again, through the prefill only (the
     # decode steps run no attention kernel): the plain attention by name
-    cfg, pol, params, prompts = serve.setup(SERVE_ARCH, False, SERVE_BATCH,
-                                            SERVE_PROMPT, SERVE_SEED, None)
+    cfg, pol, params, prompts, _ = serve.setup(
+        SERVE_ARCH, False, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED, None)
     plain_stats = {}
     layers.flash_attention = functools.partial(attn_ops.flash_attention,
                                                impl="torch")
@@ -2446,12 +2472,6 @@ def phase_serve_path(profile: bool):
 # ---------------------------------------------------- hybrid serving
 
 
-def hybrid_argv():
-    return ["--arch", HYBRID_ARCH, "--batch", str(SERVE_BATCH),
-            "--prompt-len", str(SERVE_PROMPT), "--max-new", str(SERVE_NEW),
-            "--seed", str(SERVE_SEED)]
-
-
 def kernel_counts() -> dict:
     return {"lru_forward": lru_ops.lru_forward.launches,
             "lru_reverse": lru_ops.lru_reverse.launches,
@@ -2474,14 +2494,15 @@ def logit_agreement(got, want) -> dict:
                     (got.argmax(-1) == want.argmax(-1)).float().mean()))
 
 
-def decode_all(cfg, pol, params, tokens):
-    """Logits [B, T, V] of decoding `tokens` [B, T] one step each from a
-    fresh cache of T slots (a ring once T > local_window)."""
+def decode_all(cfg, pol, params, tokens, family=hybrid):
+    """Logits [B, T, V] of decoding `tokens` [B, T] one step each through
+    a recurrent `family` from a fresh cache of T slots (for the hybrid, a
+    ring once T > local_window)."""
     B, T = tokens.shape
-    cache = hybrid.init_cache(cfg, pol, B, T, device=tokens.device)
+    cache = family.init_cache(cfg, pol, B, T, device=tokens.device)
     outs = []
     for i in range(T):
-        lg, cache = hybrid.decode_step(cfg, pol, params, cache,
+        lg, cache = family.decode_step(cfg, pol, params, cache,
                                        tokens[:, i:i + 1])
         outs.append(lg[..., :cfg.vocab_size].float())
     return torch.cat(outs, dim=1)
@@ -2568,94 +2589,123 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replay_argv(arch, prompt_len):
+    return ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
+            str(prompt_len), "--max-new", str(SERVE_NEW), "--seed",
+            str(SERVE_SEED)]
+
+
+def replay_run(phase, arch, module, prompt_len):
+    """`launch.serve.main` on `arch` at full width and depth, prompts of
+    `prompt_len` tokens replayed one decode step a token, with
+    `module.decode_step` captured over the replay's last HYBRID_TAIL calls,
+    the kernel counts zeroed just before and read just after. Gates the
+    number of decode steps, the tokens' shape and vocabulary and finite
+    replayed logits. Returns (tokens, stats, replayed logits [B,
+    HYBRID_TAIL, V] float32, launches, fields to emit)."""
+    cfg = get_config(arch)
+    S, V = prompt_len, cfg.vocab_size
+    keep = range(S - 1 - HYBRID_TAIL, S - 1)     # the replay's last calls
+    capture = Capture(module.decode_step, keep)
+    free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    module.decode_step = capture
+    try:
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        out = serve.main(replay_argv(arch, S), stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+    finally:
+        module.decode_step = capture.fn
+    peak = torch.cuda.max_memory_allocated()
+    if capture.calls != (S - 1) + (SERVE_NEW - 1):
+        fail(f"{phase}: {capture.calls} decode steps, expected {S - 1} "
+             f"replayed + {SERVE_NEW - 1} generated")
+    if out.shape != (SERVE_BATCH, SERVE_NEW):
+        fail(f"{phase}: tokens have shape {out.shape}")
+    if out.min() < 0 or out.max() >= V:
+        fail(f"{phase}: a token lies outside [0, vocab)")
+    replay = torch.cat([capture.kept[i][2][0] for i in keep], 1)[
+        ..., :V].float()
+    capture.kept.clear()
+    if not bool(torch.isfinite(replay).all()):
+        fail(f"{phase}: the replay's logits are not finite")
+    generated = SERVE_BATCH * (SERVE_NEW - 1)
+    seconds = stats["replay_seconds"] + stats["decode_seconds"] + \
+        stats.get("encode_seconds", 0.0)
+    fields = dict(
+        arch=arch, dtype=cfg.param_dtype, batch=SERVE_BATCH, prompt_len=S,
+        max_new=SERVE_NEW, replay_seconds=stats["replay_seconds"],
+        replay_ms_per_step=1e3 * stats["replay_seconds"] / (S - 1),
+        decode_seconds=stats["decode_seconds"],
+        decode_ms_per_step=1e3 * stats["decode_seconds"] / (SERVE_NEW - 1),
+        generated_tokens=generated, tokens_per_second=generated / seconds,
+        decode_tokens_per_second=generated / stats["decode_seconds"],
+        main_wall_seconds=wall, peak_memory_bytes=peak,
+        sample=out[0][:8].tolist())
+    return out, stats, replay, launches, fields
+
+
+def check_first_column(phase, out, prompts):
+    if not np.array_equal(out[:, 0], prompts[:, -1].cpu().numpy()):
+        fail(f"{phase}: the first column is not the prompt's last token")
+
+
 def phase_hybrid_serve_path():
     """`launch.serve.main` on full-width recurrentgemma-2b (bf16, the prompt
     replayed token by token; its ring of 2048 slots wraps), then one
     `forward` over the same tokens against the last HYBRID_TAIL replayed
     positions (reported, not gated), and the two gates. The kernel counts
-    are zeroed here and read at the end: the decode path launches none,
-    each forward launches the RG-LRU kernel once a recurrent layer and the
-    attention kernel once an attention layer."""
-    cfg = get_config(HYBRID_ARCH)
-    _, n_rec, n_attn = hybrid._counts(cfg)
-    S, V = SERVE_PROMPT, cfg.vocab_size
-    keep = range(S - 1 - HYBRID_TAIL, S - 1)     # the replay's last calls
-    capture = Capture(hybrid.decode_step, keep)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_kernel_counts()
-    stats = {}
-    hybrid.decode_step = capture
-    try:
-        t0 = time.perf_counter()
-        out = serve.main(hybrid_argv(), stats=stats)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        hybrid.decode_step = capture.fn
-    peak = torch.cuda.max_memory_allocated()
-    serve_launches = kernel_counts()
+    are zeroed before the serving run and read after it and at the end:
+    the decode path launches none, each forward launches the RG-LRU kernel
+    once a recurrent layer and the attention kernel once an attention
+    layer."""
+    phase = "hybrid_serve_path"
+    out, _, replay, serve_launches, fields = replay_run(
+        phase, HYBRID_ARCH, hybrid, SERVE_PROMPT)
     if any(serve_launches.values()):
-        fail(f"hybrid_serve_path: the decode path launched kernels: "
-             f"{serve_launches}")
-    if capture.calls != (S - 1) + (SERVE_NEW - 1):
-        fail(f"hybrid_serve_path: {capture.calls} decode steps, expected "
-             f"{S - 1} replayed + {SERVE_NEW - 1} generated")
-    if out.shape != (SERVE_BATCH, SERVE_NEW):
-        fail(f"hybrid_serve_path: tokens have shape {out.shape}")
-    if out.min() < 0 or out.max() >= V:
-        fail("hybrid_serve_path: a token lies outside [0, vocab)")
-
+        fail(f"{phase}: the decode path launched kernels: {serve_launches}")
     # the same parameters and prompts: one forward over the replayed tokens
-    cfg, pol, params, prompts = serve.setup(HYBRID_ARCH, False, SERVE_BATCH,
-                                            S, SERVE_SEED, None)
-    if not np.array_equal(out[:, 0], prompts[:, -1].cpu().numpy()):
-        fail("hybrid_serve_path: the first column is not the prompt's last "
-             "token")
-    replay = torch.cat([capture.kept[i][2][0] for i in keep], 1)[
-        ..., :V].float()
-    capture.kept.clear()
-    if not bool(torch.isfinite(replay).all()):
-        fail("hybrid_serve_path: the replay's logits are not finite")
+    S = SERVE_PROMPT
+    cfg, pol, params, prompts, _ = serve.setup(HYBRID_ARCH, False,
+                                               SERVE_BATCH, S, SERVE_SEED,
+                                               None)
+    check_first_column(phase, out, prompts)
+    _, n_rec, n_attn = hybrid._counts(cfg)
     with torch.inference_mode():
         hidden, _ = hybrid.forward(cfg, pol, params, prompts[:, :S - 1])
         full = unembed(cfg, pol, hidden[:, -HYBRID_TAIL:], params["embed"])[
-            ..., :V].float()
+            ..., :cfg.vocab_size].float()
     forward_check = logit_agreement(replay, full)
     del params, hidden, full, replay
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
     float32_gate = hybrid_float32_gate()
     reduced_gate = hybrid_reduced_gate()
     launches = kernel_counts()
     want = {"lru_forward": 2 * n_rec, "lru_reverse": 0,
             "flash_attention": 2 * n_attn}
     if launches != want:
-        fail(f"hybrid_serve_path: {launches} launches in the two forward "
-             f"checks, expected {want}")
-    generated = SERVE_BATCH * (SERVE_NEW - 1)
-    emit("hybrid_serve_path", arch=HYBRID_ARCH, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, d_rnn=cfg.d_rnn, window=cfg.local_window,
-         heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", dtype=cfg.param_dtype,
-         batch=SERVE_BATCH, prompt_len=S, max_new=SERVE_NEW,
-         replay_seconds=stats["replay_seconds"],
-         replay_ms_per_step=1e3 * stats["replay_seconds"] / (S - 1),
-         decode_seconds=stats["decode_seconds"],
-         decode_ms_per_step=1e3 * stats["decode_seconds"] / (SERVE_NEW - 1),
-         generated_tokens=generated,
-         tokens_per_second=generated / (stats["replay_seconds"]
-                                        + stats["decode_seconds"]),
-         decode_tokens_per_second=generated / stats["decode_seconds"],
-         main_wall_seconds=wall, peak_memory_bytes=peak,
+        fail(f"{phase}: {launches} launches in the two forward checks, "
+             f"expected {want}")
+    emit(phase, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         d_rnn=cfg.d_rnn, window=cfg.local_window,
+         heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", **fields,
          serve_launches=serve_launches, launches=launches,
          replay_tail_against_forward=dict(
              positions=HYBRID_TAIL, **forward_check,
              note="not gated: bf16 through 26 layers, the replay's "
                   "one-token steps against the forward's kernels"),
          float32_gate=float32_gate, reduced_card_against_cpu=reduced_gate,
-         sample=out[0][:8].tolist(), ok=True)
+         ok=True)
     return launches
 
 
@@ -2687,19 +2737,14 @@ class DropCount:
         return float(sum(self.dropped)) / max(self.choices, 1)
 
 
-def free_card():
-    gc.collect()
-    torch.cuda.empty_cache()
-
-
 def phase_vlm_serve_path():
     """pixtral-12b at full width and depth (bf16, random weights from the
     serving seed): `serve.setup`, then `generate` with patch embeddings for
     the first `n_prefix` positions of every prompt, drawn on the card x
     0.02 as train/data.py draws them; 40 kernel launches a prefill."""
     free_card()
-    cfg, pol, params, prompts = serve.setup(VLM_ARCH, False, SERVE_BATCH,
-                                            SERVE_PROMPT, SERVE_SEED, None)
+    cfg, pol, params, prompts, _ = serve.setup(
+        VLM_ARCH, False, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED, None)
     gen = torch.Generator(device=Dispatch.device).manual_seed(SERVE_SEED + 1)
     embeds = torch.randn((SERVE_BATCH, cfg.n_prefix, cfg.d_model),
                          generator=gen, device=Dispatch.device) * 0.02
@@ -2776,6 +2821,156 @@ def phase_arctic_serve_path():
     return fields["launches"]
 
 
+# ------------------------------------- xLSTM and encoder-decoder serving
+
+
+def phase_xlstm_gate():
+    """Full-width xlstm-1.3b in float32, cut to one pattern period (7 mLSTM
+    + 1 sLSTM blocks), B 1, XLSTM_F32_TOKENS tokens (the forward's chunks
+    of 64 carry their state twice and end padded): decode logits against
+    one `forward` at every position, rtol = atol = HYBRID_FORWARD_TOL
+    (tests/test_archs.py's); no kernel launched."""
+    free_card()
+    zero_kernel_counts()
+    full_cfg = get_config(XLSTM_ARCH)
+    cfg = full_cfg.with_(param_dtype="float32", compute_dtype="float32",
+                         n_layers=len(full_cfg.xlstm_pattern))
+    pol = single_device_policy(cfg)
+    gen = torch.Generator(device=Dispatch.device).manual_seed(SERVE_SEED)
+    params = xlstm.init_params(cfg, pol, gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, XLSTM_F32_TOKENS),
+                         generator=gen, device=Dispatch.device)
+    with torch.inference_mode():
+        dec = decode_all(cfg, pol, params, toks, family=xlstm)
+        hidden, _ = xlstm.forward(cfg, pol, params, toks)
+        full = unembed(cfg, pol, hidden, params["embed"])[
+            ..., :cfg.vocab_size].float()
+    tol = HYBRID_FORWARD_TOL
+    excess = float(((dec - full).abs() - tol - tol * full.abs()).max())
+    out = dict(dtype="float32", n_layers=cfg.n_layers, batch=1,
+               tokens=XLSTM_F32_TOKENS, chunk=cfg.mlstm_chunk, rtol=tol,
+               atol=tol, excess=excess, **logit_agreement(dec, full))
+    del params, hidden, dec, full
+    free_card()
+    if not excess <= 0:
+        fail(f"xlstm_gate: float32 decode differs from forward beyond "
+             f"rtol = atol = {tol}: {out}")
+    if any(kernel_counts().values()):
+        fail(f"xlstm_gate: kernels launched: {kernel_counts()}")
+    emit("xlstm_gate", arch=XLSTM_ARCH, d_model=cfg.d_model, **out, ok=True)
+
+
+def phase_xlstm_serve_path():
+    """`launch.serve.main` on full-width xlstm-1.3b (bf16, 48 blocks, the
+    prompt replayed token by token through `models/xlstm.py::decode_step`):
+    no kernel launched, gated. Then one `forward` over the replayed tokens
+    against the replay's last HYBRID_TAIL positions (reported, not gated);
+    gated: none launched there either. Returns the attention kernel's
+    launches (0)."""
+    phase = "xlstm_serve_path"
+    out, _, replay, serve_launches, fields = replay_run(
+        phase, XLSTM_ARCH, xlstm, RECUR_PROMPT)
+    if any(serve_launches.values()):
+        fail(f"{phase}: the xLSTM path launched kernels: {serve_launches}")
+    cfg, pol, params, prompts, _ = serve.setup(
+        XLSTM_ARCH, False, SERVE_BATCH, RECUR_PROMPT, SERVE_SEED, None)
+    check_first_column(phase, out, prompts)
+    tail = lambda c, p, h: unembed(c, pol, h[:, -HYBRID_TAIL:], p["embed"])[
+        ..., :c.vocab_size].float()
+    with torch.inference_mode():
+        hidden, _ = xlstm.forward(cfg, pol, params,
+                                  prompts[:, :RECUR_PROMPT - 1])
+        full = tail(cfg, params, hidden)
+        # the same weights and tokens in float32: how far bf16 alone moves
+        # the forward's logits through 48 random blocks
+        cfg32 = cfg.with_(param_dtype="float32", compute_dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        del hidden
+        hidden, _ = xlstm.forward(cfg32, pol, params32,
+                                  prompts[:, :RECUR_PROMPT - 1])
+        full32 = tail(cfg32, params32, hidden)
+    forward_check = logit_agreement(replay, full)
+    bf16_check = logit_agreement(full, full32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params, params32, hidden, full, full32, replay
+    free_card()
+    launches = kernel_counts()
+    if any(launches.values()):
+        fail(f"{phase}: the forward checks launched kernels: {launches}")
+    emit(phase, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=cfg.n_heads, mlstm_head_dim=2 * cfg.d_model // cfg.n_heads,
+         pattern="".join(cfg.xlstm_pattern), parameters=n_params, **fields,
+         serve_launches=serve_launches, launches=launches,
+         replay_tail_against_forward=dict(
+             positions=HYBRID_TAIL, **forward_check,
+             note="not gated: bf16 through 48 blocks, the replay's "
+                  "one-token steps against the forward's chunks of 64"),
+         bf16_forward_against_float32_forward=dict(
+             positions=HYBRID_TAIL, **bf16_check,
+             note="not gated: the same weights (bf16 values) and tokens, "
+                  "the forward in float32"),
+         ok=True)
+    return launches["flash_attention"]
+
+
+def phase_encdec_serve_path():
+    """`launch.serve.main` on full-width seamless-m4t-large-v2 (bf16, 24 +
+    24 layers, frames [B, RECUR_PROMPT, d] from the serving seed): gated,
+    one attention-kernel launch a layer of the encoder, bidirectional, and
+    none in the teacher-forced replay or the decode; the first and last
+    encoder layers' kernel outputs against the plain attention. Then one
+    `forward` over the same frames and replayed tokens (the encoder and
+    the decoder's causal layers on the kernel) against the replay's last
+    HYBRID_TAIL positions, reported. Returns the launches a generate."""
+    phase = "encdec_serve_path"
+    cfg = get_config(ENCDEC_ARCH)
+    n_enc = cfg.n_enc_layers
+    capture = Capture(attn_ops.flash_attention, (0, n_enc - 1))
+    layers.flash_attention = capture
+    try:
+        out, stats, replay, launches, fields = replay_run(
+            phase, ENCDEC_ARCH, encdec, RECUR_PROMPT)
+    finally:
+        layers.flash_attention = attn_ops.flash_attention
+    want = {"lru_forward": 0, "lru_reverse": 0, "flash_attention": n_enc}
+    if launches != want:
+        fail(f"{phase}: {launches} kernel launches in one generate, "
+             f"expected {want}")
+    layer_err = {}
+    for idx, ((q, k, v), kw, (got,)) in sorted(capture.kept.items()):
+        if kw.get("causal", True) or q.shape[1] != RECUR_PROMPT:
+            fail(f"{phase}: encoder layer {idx} called the kernel with "
+                 f"{kw} at S {q.shape[1]}")
+        layer_err[f"encoder_layer_{idx}"], _ = attn_check(
+            got, attention_ref(q, k, v, **kw), f"{phase} layer {idx}")
+    capture.kept.clear()
+    cfg, pol, params, prompts, embeds = serve.setup(
+        ENCDEC_ARCH, False, SERVE_BATCH, RECUR_PROMPT, SERVE_SEED, None)
+    check_first_column(phase, out, prompts)
+    with torch.inference_mode():
+        hidden, _ = encdec.forward(cfg, pol, params,
+                                   prompts[:, :RECUR_PROMPT - 1], embeds)
+        full = unembed(cfg, pol, hidden[:, -HYBRID_TAIL:], params["embed"])[
+            ..., :cfg.vocab_size].float()
+    forward_check = logit_agreement(replay, full)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params, hidden, full, replay, embeds
+    free_card()
+    emit(phase, n_enc_layers=n_enc, n_dec_layers=cfg.n_dec_layers,
+         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+         head_dim=cfg.hd, d_ff=cfg.d_ff, frames=RECUR_PROMPT,
+         parameters=n_params, encode_seconds=stats["encode_seconds"],
+         **fields, launches=launches["flash_attention"],
+         captured_layers_max_abs_err=layer_err,
+         replay_tail_against_forward=dict(
+             positions=HYBRID_TAIL, **forward_check,
+             note="not gated: bf16 through 24 + 24 layers, the replay's "
+                  "one-token steps (bf16 KV cache) against decode_train's "
+                  "causal kernel"),
+         ok=True)
+    return launches["flash_attention"]
+
+
 def moe_mixture(p, cfg, x):
     """The per-token dense top-k mixture of the reference's oracle
     (tests/test_archs.py:104-128), computed expert by expert over every
@@ -2839,43 +3034,61 @@ def phase_moe_layer():
 def cpu_drawn_init(cfg, pol, gen, ocfg=None):
     """`init_state` with the parameters drawn on the CPU from `gen`'s seed
     and moved to `gen`'s device: the same weights as a CPU run's."""
-    params = lm.init_params(cfg, pol, torch.Generator().manual_seed(
-        gen.initial_seed()))
+    params = get_family(cfg).init_params(cfg, pol, torch.Generator(
+    ).manual_seed(gen.initial_seed()))
     return state_for(tree_map(lambda t: t.to(gen.device), params), ocfg)
 
 
-def lm_reduced_generate(arch) -> dict:
+def reduced_generate(arch) -> dict:
     """`generate` on the reduced config, the card against the CPU, the
-    same parameters (drawn on the CPU), prompts and embeds: greedy tokens
-    equal, prefill logits within LM_CPU_TOL."""
+    same parameters (drawn on the CPU), prompts and embeds (patch
+    embeddings, or an encoder-decoder's frames): greedy tokens equal, and
+    within LM_CPU_TOL the prefill's logits (families of `models/lm.py`) or
+    the last decode step's (the recurrent families and encdec, whose
+    prompt is replayed)."""
     cfg = smoke_config(arch).with_(attention_impl="pallas")
     pol = single_device_policy(cfg)
+    family = get_family(cfg)
     B, S, new = LM_REDUCED
-    cpu_params = lm.init_params(cfg, pol,
-                                torch.Generator().manual_seed(SERVE_SEED))
+    cpu_params = family.init_params(cfg, pol,
+                                    torch.Generator().manual_seed(SERVE_SEED))
     card_params = tree_map(lambda t: t.to(Dispatch.device), cpu_params)
     rng = np.random.default_rng(SERVE_SEED)
     prompts = rng.integers(0, cfg.vocab_size, (B, S))
+    n = S if cfg.family == "encdec" else cfg.n_prefix
     embeds = None
     if cfg.embeds_input:
-        embeds = (rng.standard_normal((B, cfg.n_prefix, cfg.d_model))
+        embeds = (rng.standard_normal((B, n, cfg.d_model))
                   * 0.02).astype(np.float32)
-    cpu_stats, card_stats = {}, {}
-    cpu_out = generate(cfg, pol, cpu_params, prompts, max_new=new,
-                       embeds=embeds, stats=cpu_stats)
-    card_out = generate(cfg, pol, card_params, prompts, max_new=new,
-                        embeds=embeds, stats=card_stats)
-    diff = float((card_stats["prefill_logits"].cpu()
-                  - cpu_stats["prefill_logits"])[..., :cfg.vocab_size]
-                 .abs().max())
+    prefill = cfg.family in lm.LM_FAMILIES
+    last = (S - 1) + (new - 1) - 1          # the last replayed-or-decoded step
+
+    def run(params):
+        stats = {}
+        capture = Capture(family.decode_step, () if prefill else (last,))
+        family.decode_step = capture
+        try:
+            out = generate(cfg, pol, params, prompts, max_new=new,
+                           embeds=embeds, stats=stats)
+        finally:
+            family.decode_step = capture.fn
+        logits = stats["prefill_logits"] if prefill else \
+            capture.kept[last][2][0]
+        return out, logits[..., :cfg.vocab_size].float().cpu()
+
+    cpu_out, cpu_logits = run(cpu_params)
+    card_out, card_logits = run(card_params)
+    diff = float((card_logits - cpu_logits).abs().max())
+    which = "prefill" if prefill else "last_step"
     out = dict(batch=B, prompt_len=S, max_new=new,
-               embeds=embeds is not None, prefill_logits_max_abs_diff=diff,
+               embeds=embeds is not None, logits=which,
+               logits_max_abs_diff=diff,
                tokens_equal=bool(np.array_equal(cpu_out, card_out)))
     if not out["tokens_equal"]:
         fail(f"lm_reduced: {arch}'s greedy tokens differ between the card "
              f"and the CPU: {cpu_out.tolist()} against {card_out.tolist()}")
     if not diff <= LM_CPU_TOL:
-        fail(f"lm_reduced: {arch}'s prefill logits on the card differ from "
+        fail(f"lm_reduced: {arch}'s {which} logits on the card differ from "
              f"the CPU's by {diff} > {LM_CPU_TOL}")
     return out
 
@@ -2904,11 +3117,12 @@ def lm_reduced_train(arch) -> dict:
 
 def phase_lm_reduced():
     """The reduced configs on the card against the CPU: pixtral (with
-    embeds), qwen2-moe and arctic `generate`; pixtral and qwen2-moe
-    training."""
-    gates = {arch: lm_reduced_generate(arch)
-             for arch in (VLM_ARCH, MOE_ARCH, ARCTIC_ARCH)}
-    trains = {arch: lm_reduced_train(arch) for arch in (VLM_ARCH, MOE_ARCH)}
+    embeds), qwen2-moe, arctic, xlstm and seamless (with frames)
+    `generate`; pixtral, qwen2-moe, xlstm and seamless training."""
+    gates = {arch: reduced_generate(arch) for arch in (
+        VLM_ARCH, MOE_ARCH, ARCTIC_ARCH, XLSTM_ARCH, ENCDEC_ARCH)}
+    trains = {arch: lm_reduced_train(arch)
+              for arch in (VLM_ARCH, MOE_ARCH, XLSTM_ARCH, ENCDEC_ARCH)}
     emit("lm_reduced", generate=gates, train=trains, tol=LM_CPU_TOL,
          ok=True)
 
@@ -3172,26 +3386,30 @@ def cuda_ms(fn, reps: int) -> float:
 
 def time_attention(case):
     """Kernel, plain version and SDPA on one model's layer at its serving
-    path's size (bf16, causal), in turns; and what bounds the same work."""
+    path's size (bf16, causal or bidirectional as the case says), in
+    turns; and what bounds the same work."""
     B, Sq, Skv, H, KV, hd, causal, window, softcap = case
     q, k, v = attn_inputs(case, torch.bfloat16, seed=100)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda")
-    plain = lambda: attn_ops.flash_attention(q, k, v, impl="torch")
+    kw = dict(causal=causal)
+    kernel = lambda: attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
+    plain = lambda: attn_ops.flash_attention(q, k, v, impl="torch", **kw)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
     runs = {"kernel": [], "plain": [], "library": []}
     for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
         fn = {"kernel": kernel, "plain": plain, "library": library}[name]
         runs[name].append(cuda_ms(fn, 3 if name == "plain" else 20))
     lib_err = float((library().transpose(1, 2).float()
                      - plain().float()).abs().max())
-    pairs = Sq * (Sq + 1) // 2           # causal, Sq == Skv: visible pairs
+    # visible (query, key) pairs: causal cases have Sq == Skv
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
     flops = 4 * B * H * hd * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, k, v, o
     t_ops = 1e3 * flops / BF16_OPS_PER_S
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    return dict(shape=f"B={B} S={Sq} H={H} KV={KV} hd={hd} causal bf16",
+    mask = "causal" if causal else "bidirectional"
+    return dict(shape=f"B={B} S={Sq} H={H} KV={KV} hd={hd} {mask} bf16",
                 ms=min(runs["kernel"]), plain_ms=min(runs["plain"]),
                 library_ms=min(runs["library"]), runs_ms=runs,
                 run_order="kernel, plain, library, library, plain, kernel",
@@ -3690,11 +3908,14 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                "ckpt_path": ckpt_launches["flash_attention"]}
     by_path.update(lm_launches)
     layer_times = {}
-    for arch, path in ((VLM_ARCH, "vlm_serve_path"),
-                       (MOE_ARCH, "moe_serve_path"),
-                       (ARCTIC_ARCH, "arctic_serve_path")):
-        case = LAYER_CASES[arch]
-        layer_times[arch] = dict(
+    for name, case, path in (
+            (VLM_ARCH, LAYER_CASES[VLM_ARCH], "vlm_serve_path"),
+            (MOE_ARCH, LAYER_CASES[MOE_ARCH], "moe_serve_path"),
+            (ARCTIC_ARCH, LAYER_CASES[ARCTIC_ARCH], "arctic_serve_path"),
+            (ENCDEC_ARCH, LAYER_CASES[ENCDEC_ARCH], "encdec_serve_path"),
+            (f"{ENCDEC_ARCH} at {RECUR_PROMPT} frames", ENCDEC_PATH_CASE,
+             "encdec_serve_path")):
+        layer_times[name] = dict(
             time_attention(case), launches=lm_launches[path], path=path,
             max_abs_err=AttnWorst.cases[case, torch.bfloat16])
     line["kernels"].append({
@@ -3710,8 +3931,8 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "bound_by": attn["bound_by"],
         "library_ms": attn["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
-                   "is_causal=True, enable_gqa=True), timed as the "
-                   "yardstick only",
+                   "is_causal=<the layer's mask>, enable_gqa=True), timed "
+                   "as the yardstick only",
         "unit": f"one launch = one layer's attention; {attn['shape']}",
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": BF16_OPS_PER_S},
@@ -3920,7 +4141,12 @@ def main(argv=None):
         "vlm_serve_path": timed("vlm_serve_path", phase_vlm_serve_path),
         "moe_serve_path": timed("moe_serve_path", phase_moe_serve_path),
         "arctic_serve_path": timed("arctic_serve_path",
-                                   phase_arctic_serve_path)}
+                                   phase_arctic_serve_path),
+        "xlstm_serve_path": timed("xlstm_serve_path",
+                                  phase_xlstm_serve_path)}
+    timed("xlstm_gate", phase_xlstm_gate)
+    lm_launches["encdec_serve_path"] = timed("encdec_serve_path",
+                                             phase_encdec_serve_path)
     timed("moe_layer", phase_moe_layer)
     timed("lm_reduced", phase_lm_reduced)
     timed("lru_kernel", phase_lru_kernel)

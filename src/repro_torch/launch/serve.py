@@ -4,18 +4,22 @@ greedy decode of synthetic requests.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --reduced --batch 4 --prompt-len 32 --max-new 16 [--device cpu]
 
-The counterpart of the reference's `repro/launch/serve.py`, for the
-families of `models/lm.py` (dense, moe, vlm) and the hybrid one
-(recurrentgemma-2b, whose prompt is replayed token by token,
-`serve.engine.generate`). It serves ``cfg.with_(attention_impl="pallas")``,
-so that on the card a prefill runs the hand-written flash-attention kernel
-in every layer (on the CPU its plain version); a hybrid decode step runs
-no kernel. As in the reference, it draws no frontend embeddings: a VLM
-backbone (pixtral-12b) serves text only from here, and its patch-embedding
-prefix goes through ``generate(embeds=...)``. Parameters and prompts are
-random, drawn from one `torch.Generator` seeded with ``--seed`` on the
-serving device. With no ``--device`` it runs on the CUDA card and raises
-without one.
+The counterpart of the reference's `repro/launch/serve.py`, for all six
+families: those of `models/lm.py` (dense, moe, vlm: a prefill), the xLSTM
+(xlstm-1.3b) and hybrid (recurrentgemma-2b) ones, whose prompt is replayed
+token by token, and the encoder-decoder (seamless-m4t-large-v2: an
+encoder pass, then the teacher-forced replay; `serve.engine.generate`).
+It serves ``cfg.with_(attention_impl="pallas")``, so that on the card a
+prefill and an encoder pass run the hand-written flash-attention kernel in
+every layer (on the CPU its plain version); a decode step runs no kernel.
+As in the reference, it draws frontend embeddings only for encdec: the
+encoder's ``[batch, prompt_len, d_model]`` frames, standard normal x 0.02
+(the reference's semantics, not its bits). A VLM backbone (pixtral-12b)
+serves text only from here, and its patch-embedding prefix goes through
+``generate(embeds=...)``. Parameters, prompts and frames are random,
+drawn in that order from one `torch.Generator` seeded with ``--seed`` on
+the serving device. With no ``--device`` it runs on the CUDA card and
+raises without one.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ from repro_torch.sharding.policy import single_device_policy
 
 def setup(arch: str, reduced: bool, batch: int, prompt_len: int, seed: int,
           device):
-    """(cfg, pol, params, prompts) of one serving run: the same seed gives
-    the same parameters and prompts on the same device."""
+    """(cfg, pol, params, prompts, embeds) of one serving run: the same
+    seed gives the same parameters, prompts and (encdec only, else None)
+    encoder frames on the same device."""
     dev = resolve_device(device)
     cfg = smoke_config(arch) if reduced else get_config(arch)
     cfg = cfg.with_(attention_impl="pallas")
@@ -43,7 +48,11 @@ def setup(arch: str, reduced: bool, batch: int, prompt_len: int, seed: int,
     params = get_family(cfg).init_params(cfg, pol, gen)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
-    return cfg, pol, params, prompts
+    embeds = None
+    if cfg.family == "encdec":
+        embeds = torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                             device=dev) * 0.02
+    return cfg, pol, params, prompts, embeds
 
 
 def main(argv=None, stats=None):
@@ -58,11 +67,12 @@ def main(argv=None, stats=None):
                     help="default: the CUDA card; 'cpu' runs the plain path")
     args = ap.parse_args(argv)
 
-    cfg, pol, params, prompts = setup(args.arch, args.reduced, args.batch,
-                                      args.prompt_len, args.seed, args.device)
+    cfg, pol, params, prompts, embeds = setup(
+        args.arch, args.reduced, args.batch, args.prompt_len, args.seed,
+        args.device)
     t0 = time.time()
     out = generate(cfg, pol, params, prompts, max_new=args.max_new,
-                   stats=stats)
+                   embeds=embeds, stats=stats)
     dt = time.time() - t0
     toks = args.batch * args.max_new
     print(f"[serve] {cfg.name}: generated {out.shape} in {dt:.2f}s "

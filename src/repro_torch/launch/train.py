@@ -6,9 +6,11 @@ stream, with checkpointing and resume.
       [--ckpt-dir DIR [--ckpt-every 50] [--resume]]
 
 The counterpart of the reference's `repro/launch/train.py` on one card.
-It trains ``cfg.with_(attention_impl="pallas")``, as `launch/serve.py`
-serves it, so that on the card every recurrent layer runs the hand-written
-RG-LRU kernel (forward, and its reverse walk in the backward) and every
+It trains any family of `models/registry.py` (an encoder-decoder on the
+stream's frames, a VLM backbone on its patch embeddings) with
+``cfg.with_(attention_impl="pallas")``, as `launch/serve.py` serves it,
+so that on the card every RG-LRU layer runs the hand-written recurrence
+kernel (forward, and its reverse walk in the backward) and every
 attention layer the flash-attention kernel; on the CPU their plain
 versions. Parameters are random, drawn from one `torch.Generator` seeded
 with ``--seed`` on the training device; the batches are the reference's
@@ -93,7 +95,7 @@ def main(argv=None, stats=None):
 
     t0 = time.time()
     for i in range(start, args.steps):
-        # tokens and labels as integers, a VLM's embeds as float32
+        # tokens and labels as integers, embeds (VLM, encdec) as float32
         batch = {k: torch.from_numpy(v).to(dev, torch.float32 if
                                             k == "embeds" else torch.long)
                  for k, v in next(it).items()}

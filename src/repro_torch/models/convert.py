@@ -1,14 +1,15 @@
 """Parameters of the JAX package carried over to the port.
 
 `params_from_jax(cfg, tree)` takes the reference's unboxed `init_params`
-tree (`repro.models.lm` for the dense, moe and vlm families,
-`repro.models.hybrid` for the hybrid one) with its leaves as numpy arrays
+tree of any of its six families (`repro.models.lm` for dense, moe and vlm,
+`xlstm`, `hybrid`, `encdec`) with its leaves as numpy arrays
 (``np.asarray`` of each JAX array) and returns the port's parameter
 dictionary: the stacked leaves under the family's ``STACKED_KEYS``
 (``[L, ...]`` layers, an MoE layer's ``moe.{router, wi, wg, wo}`` among
-them; ``[R, ...]`` hybrid pattern repeats) become one dictionary per layer
-or repeat, every other subtree (the hybrid tail among them) is carried as
-it is, and the hybrid blocks' ``kind_*`` structural markers are dropped;
+them; ``[R, ...]`` xLSTM and hybrid pattern repeats; the encoder's and
+decoder's ``[L, ...]`` layers) become one dictionary per layer or repeat,
+every other subtree (the hybrid tail, the final norms) is carried as it
+is, and the hybrid blocks' ``kind_*`` structural markers are dropped;
 orientation ``[in, out]`` and dtypes are kept (the MoE router stays
 float32 beside bf16 experts; bfloat16 arrives as numpy's ``bfloat16``
 extension type and is rebuilt exactly). Nothing here imports JAX.
@@ -48,10 +49,10 @@ def _unstack(stacked, dev):
 
 
 def params_from_jax(cfg: ModelConfig, tree, device=None):
-    """The port's parameters from the reference's LM or hybrid tree.
+    """The port's parameters from the reference's tree of `cfg`'s family.
     ``device=None`` means the card (raises without one)."""
     dev = resolve_device(device)
-    stacked = get_family(cfg).STACKED_KEYS     # raises for unported ones
+    stacked = get_family(cfg).STACKED_KEYS
     return {k: (_unstack(v, dev) if k in stacked else
                 _map(v, lambda x: _tensor(x, dev)))
             for k, v in tree.items()}

@@ -35,7 +35,6 @@ by token, as the reference does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -84,19 +83,6 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
-def _causal_conv(x, kernel, state: Optional[torch.Tensor] = None):
-    """x: [B, S, C]; kernel: [W, C]. state: [B, W-1, C] tail of prev tokens.
-    Returns (out [B, S, C], the new state)."""
-    W = kernel.shape[0]
-    if state is None:
-        xp = F.pad(x, (0, 0, W - 1, 0))
-    else:
-        xp = torch.cat([state.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    out = sum(xp[:, i:i + S] * kernel[i] for i in range(W))
-    return out, xp[:, -(W - 1):]
-
-
 def rglru_gates(p, u):
     """u: [B, S, dr] conv output -> (a, bx) of h = a*h + bx, float32."""
     uf = u.float()
@@ -140,7 +126,7 @@ def rglru_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
     gate = F.gelu(h @ p["wy"], approximate="tanh")  # jax.nn.gelu's default
     u = pol.constrain(u, "batch", "seq", "rnn")
     h0, conv_st = state if state is not None else (None, None)
-    u, conv_st = _causal_conv(u, p["conv"], conv_st)
+    u, conv_st = L.causal_conv(u, p["conv"], conv_st)
     a, bx = rglru_gates(p, u)
     if cfg.attention_impl == "pallas" and S > 1:
         hs = chunked_lru(a, bx, h0)

@@ -15,6 +15,7 @@ the CPU) and the plain query-chunked softmax under ``"xla"``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -164,6 +165,23 @@ def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
     return y, (k, v)
 
 
+def cross_attn_forward(p, cfg: ModelConfig, pol: Policy, x, memory):
+    """Encoder-decoder cross attention (no mask, no rope): x [B, S, d]
+    attends to memory [B, Tm, d] through the plain chunked softmax, as the
+    reference computes it outside any Pallas kernel. Returns (out, (k, v))."""
+    B, S, d = x.shape
+    hd = cfg.hd
+    Tm = memory.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (memory @ p["wk"]).reshape(B, Tm, cfg.n_kv_heads, hd)
+    v = (memory @ p["wv"]).reshape(B, Tm, cfg.n_kv_heads, hd)
+    k = _repeat_kv(k, pol.kv_repeat)
+    v = _repeat_kv(v, pol.kv_repeat)
+    out = _chunked_sdpa(q, k, v, causal=False, window=0, offset=0)
+    y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+    return y, (k, v)
+
+
 def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,
                 window: int = 0):
     """One-token decode step.
@@ -226,6 +244,24 @@ def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,
                        cache_v.to(x.dtype)).reshape(B, 1, cfg.n_heads * hd)
     y = out @ p["wo"]
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------- conv
+
+def causal_conv(x, kernel, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv of the recurrent blocks (RG-LRU, mLSTM).
+    x: [B, S, C]; kernel: [W, C]; state: [B, W-1, C] trailing inputs of the
+    previous call (decode). The W taps are summed left to right in x's
+    dtype, as the reference's Python `sum` rounds them. Returns
+    (out [B, S, C], the new state)."""
+    W = kernel.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * kernel[i] for i in range(W))
+    return out, xp[:, -(W - 1):]
 
 
 # ---------------------------------------------------------------- MLP

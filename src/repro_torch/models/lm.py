@@ -9,10 +9,9 @@ first ``embeds.shape[1]`` positions take precomputed patch embeddings from
 the stubbed vision frontend). Parameters are ``{"embed": [Vp, d],
 "layers": [per-layer dict, ...], "norm": {...}}``: the reference's
 layer-stacked leaves ``[L, ...]`` become one dictionary per layer, and its
-`lax.scan` over layers a Python loop. The xLSTM and encoder-decoder
-families raise `NotImplementedError` naming their ROADMAP.md item
-(`check_ported`); the hybrid family has its own module
-(`models/hybrid.py`), and this module's functions refuse it (`_check_lm`).
+`lax.scan` over layers a Python loop. The other families have modules of
+their own (`models/registry.py`), and this module's functions refuse them
+(`_check_lm`).
 """
 from __future__ import annotations
 
@@ -25,11 +24,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import Policy
 
-#: families of the reference that the port does not have yet -> their item
-UNPORTED_FAMILIES = {
-    "ssm": "ROADMAP.md Queue 1 item 13 (xLSTM family)",
-    "encdec": "ROADMAP.md Queue 1 item 14 (encoder-decoder family)",
-}
 #: the families this module runs (the reference's `registry.FAMILIES`
 #: maps each to `lm`)
 LM_FAMILIES = ("dense", "moe", "vlm")
@@ -44,22 +38,8 @@ class DecodeCache(NamedTuple):
     pos: int              # next absolute position
 
 
-def check_ported(cfg: ModelConfig):
-    """Raises unless the port has `cfg`'s family: those of this module or
-    hybrid (`models/hybrid.py`). The port's one refusal of the families it
-    does not have yet."""
-    if cfg.family in LM_FAMILIES + ("hybrid",):
-        return
-    if cfg.family not in UNPORTED_FAMILIES:
-        raise ValueError(f"unknown model family {cfg.family!r}")
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported yet "
-        f"({UNPORTED_FAMILIES[cfg.family]})")
-
-
 def _check_lm(cfg: ModelConfig):
     """This module's functions run the families of `LM_FAMILIES` only."""
-    check_ported(cfg)
     if cfg.family not in LM_FAMILIES:
         raise ValueError(f"{cfg.name}: models/lm.py runs the dense family "
                          f"and its moe and vlm branches, not "

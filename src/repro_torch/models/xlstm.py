@@ -1,0 +1,369 @@
+"""xLSTM language model (mLSTM + sLSTM blocks), attention-free, in PyTorch.
+
+The counterpart of the reference's `repro/models/xlstm.py` (arXiv:2405.04517):
+a stack of pre-norm residual blocks following ``cfg.xlstm_pattern``
+(xlstm-1.3b: 7 mLSTM : 1 sLSTM, repeated 6 times). Parameters are
+``{"embed", "blocks": [R superblock dicts], "norm"}``: the reference's
+pattern-repeat-stacked leaves ``[R, ...]`` become one dictionary per repeat,
+keyed ``b{i}_{t}``, and its `lax.scan` over repeats a Python loop. With
+``cfg.remat != "none"`` each repeat runs under `torch.utils.checkpoint`, as
+the reference wraps its scan body in `jax.checkpoint`.
+
+mLSTM: the matrix memory C_t = f_t C_{t-1} + i_t v_t k_t^T with per-head
+sigmoid gates, in the reference's chunkwise-parallel form: inside a chunk
+an attention-like product with the decay matrix A_ts = i_s exp(F_t - F_s)
+(F = cumsum log f); between chunks a Python loop carries (C, n), where the
+reference has a `lax.scan`. Every expression is the reference's, its double
+scaling of k included (`k / sqrt(dh)`, then ``scale`` again in the scan).
+
+sLSTM: the scalar memory with exponential gating, stabilised by a running
+max (m_0 = -1e9), and a block-diagonal recurrence, a time loop in float32.
+
+Neither has a Pallas kernel in the reference: both are plain `jnp` there
+and plain PyTorch here. Serving: `init_cache` holds the float32 states
+(O(1) in the context length) and `decode_step` runs one token through every
+block, writing the new state into the cache in place (the reference
+restacks new arrays); `serve.engine.generate` replays a prompt through it
+token by token.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import Policy
+
+PROJ_FACTOR = 2          # mLSTM up-projection factor
+SLSTM_FF = 4 / 3         # sLSTM post-MLP factor (GeGLU)
+#: keys of the parameter tree whose per-repeat list the reference stacks
+#: along a leading axis (its ``[R, ...]`` leaves)
+STACKED_KEYS = ("blocks",)
+
+
+def _slstm_ff(d: int) -> int:
+    """4/3 * d rounded up to 128, as the reference sizes it."""
+    return ((int(SLSTM_FF * d) + 127) // 128) * 128
+
+
+def _pattern(cfg: ModelConfig) -> tuple[str, ...]:
+    pat = cfg.xlstm_pattern or ("m",)
+    if cfg.n_layers % len(pat):
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of the pattern {pat}")
+    return pat
+
+
+# ------------------------------------------------------------------ mLSTM
+
+def _mlstm_dims(cfg: ModelConfig):
+    di = PROJ_FACTOR * cfg.d_model
+    H = cfg.n_heads
+    return di, H, di // H
+
+
+def mlstm_block_init(gen: torch.Generator, cfg: ModelConfig):
+    d, dt, dev = cfg.d_model, cfg.pdtype(), gen.device
+    di, H, dh = _mlstm_dims(cfg)
+    s = 1.0 / math.sqrt(dh)
+
+    def bd():   # block-diagonal per-head projection [H, dh, dh]
+        return (torch.randn((H, dh, dh), generator=gen, device=dev)
+                * s).to(dt)
+
+    return {
+        "ln": L.norm_init(d, dt, cfg.norm_type, dev),
+        "w_up": L.dense_init(gen, d, 2 * di, dt),
+        "conv": torch.randn((cfg.conv_width, di), generator=gen,
+                            device=dev).to(dt) * 0.1,
+        "wq": bd(), "wk": bd(), "wv": bd(),
+        "w_gate": L.dense_init(gen, di, 2 * H, torch.float32),
+        "gate_bias": torch.tensor([1.0, -1.0] * H, dtype=torch.float32,
+                                  device=dev),
+        "gn": L.norm_init(di, dt, "rmsnorm", dev),
+        "w_down": L.dense_init(gen, di, d, dt),
+    }
+
+
+class MLSTMState(NamedTuple):
+    C: torch.Tensor     # [B, H, dk, dv]
+    n: torch.Tensor     # [B, H, dk]
+
+
+def mlstm_scan(q, k, v, logf, logi, state: MLSTMState, chunk: int):
+    """Chunkwise-parallel mLSTM.
+
+    q, k, v: [B, S, H, dh]; logf, logi: [B, S, H] (<= 0).
+    Returns (out [B, S, H, dh], final state).
+    """
+    B, S, H, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    chunk = min(chunk, S)
+    S0 = S
+    pad = (-S) % chunk
+    if pad:
+        # identity steps: f = 1 (logf = 0) carries the state, i = 0
+        # (logi = -1e30) adds nothing, so the final state is exact
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+        logf = F.pad(logf, (0, 0, 0, pad))
+        logi = F.pad(logi, (0, 0, 0, pad), value=-1e30)
+        S = S + pad
+    nc = S // chunk
+    r = lambda x: x.reshape(B, nc, chunk, *x.shape[2:])
+    qs, ks, vs, lfs, lis = map(r, (q, k, v, logf, logi))
+    ti = torch.arange(chunk, device=q.device)
+    causal = (ti[:, None] >= ti[None, :])[None, :, :, None]
+    C, n = state
+    outs = []
+    for j in range(nc):
+        qc, kc, vc, lf, li = qs[:, j], ks[:, j], vs[:, j], lfs[:, j], lis[:, j]
+        Fc = torch.cumsum(lf, dim=1)                          # [B, c, H]
+        # intra-chunk decay matrix A[t, s] = exp(F_t - F_s + li_s), s <= t
+        logA = Fc[:, :, None] - Fc[:, None, :] + li[:, None, :]  # [B,t,s,H]
+        A = torch.where(causal, torch.exp(logA), 0.0)
+        scores = torch.einsum("bthd,bshd->btsh", qc, kc) * scale * A
+        num = torch.einsum("btsh,bshd->bthd", scores, vc)
+        # inter-chunk contribution of the carried state
+        decay = torch.exp(Fc)                                 # [B, c, H]
+        qCin = torch.einsum("bthd,bhde->bthe", qc, C) * scale
+        num = num + decay[..., None] * qCin
+        nvec = torch.einsum("btsh,bshd->bthd", scores / scale, kc) \
+            + decay[..., None] * n[:, None]
+        denom = torch.abs(torch.einsum("bthd,bthd->bth", qc, nvec)) * scale
+        outs.append(num / torch.clamp_min(denom, 1.0)[..., None])
+        # the state at the chunk's end
+        dAll = torch.exp(Fc[:, -1])                           # [B, H]
+        w = torch.exp(Fc[:, -1][:, None] - Fc + li)           # [B, c, H]
+        C = dAll[:, :, None, None] * C + \
+            torch.einsum("bsh,bshd,bshe->bhde", w, kc, vc)
+        n = dAll[:, :, None] * n + torch.einsum("bsh,bshd->bhd", w, kc)
+    out = torch.cat(outs, dim=1) if nc > 1 else outs[0]
+    return out[:, :S0], MLSTMState(C, n)
+
+
+def mlstm_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
+                  return_state: bool = False):
+    """x: [B, S, d]. The mLSTM block body (everything but the residual).
+    state = (MLSTMState, conv tail [B, W-1, di]) or None."""
+    B, S, d = x.shape
+    di, H, dh = _mlstm_dims(cfg)
+    h = L.apply_norm(p["ln"], x, cfg.norm_eps, cfg.norm_type)
+    u, z = (h @ p["w_up"]).chunk(2, dim=-1)             # [B, S, di] each
+    cell_state, conv_state = state if state is not None else (None, None)
+    cv, conv_state = L.causal_conv(u, p["conv"], conv_state)
+    c = F.silu(cv)
+    cH = c.reshape(B, S, H, dh)
+    uH = u.reshape(B, S, H, dh)
+    q = torch.einsum("bshd,hde->bshe", cH, p["wq"])
+    k = torch.einsum("bshd,hde->bshe", cH, p["wk"]) / math.sqrt(dh)
+    v = torch.einsum("bshd,hde->bshe", uH, p["wv"])
+    gates = c.float() @ p["w_gate"] + p["gate_bias"]
+    logf = F.logsigmoid(gates[..., :H])
+    logi = F.logsigmoid(gates[..., H:])
+    if cell_state is None:
+        cell_state = MLSTMState(
+            C=torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                          device=x.device),
+            n=torch.zeros((B, H, dh), dtype=torch.float32, device=x.device))
+    out, cell_state = mlstm_scan(q.float(), k.float(), v.float(), logf,
+                                 logi, cell_state, cfg.mlstm_chunk)
+    out = out.reshape(B, S, di).to(x.dtype)
+    out = L.apply_norm(p["gn"], out, cfg.norm_eps, "rmsnorm")
+    y = (out * F.silu(z)) @ p["w_down"]
+    return (y, (cell_state, conv_state)) if return_state else y
+
+
+# ------------------------------------------------------------------ sLSTM
+
+def slstm_block_init(gen: torch.Generator, cfg: ModelConfig):
+    d, dt, dev = cfg.d_model, cfg.pdtype(), gen.device
+    H = cfg.n_heads
+    dh = d // H
+    ff = _slstm_ff(d)
+    w = (torch.randn((d, 4 * d), generator=gen, device=dev)
+         / math.sqrt(d)).to(dt)
+    # block-diagonal recurrence [H, dh, 4 * dh]
+    r = (torch.randn((H, dh, 4 * dh), generator=gen, device=dev)
+         / math.sqrt(dh)).to(dt)
+    return {
+        "ln": L.norm_init(d, dt, cfg.norm_type, dev),
+        "w": w,
+        "r": r,
+        "bias": torch.zeros((4 * d,), dtype=torch.float32, device=dev),
+        "gn": L.norm_init(d, dt, "rmsnorm", dev),
+        "up": L.dense_init(gen, d, 2 * ff, dt),
+        "down": L.dense_init(gen, ff, d, dt),
+    }
+
+
+class SLSTMState(NamedTuple):
+    h: torch.Tensor     # [B, d]
+    c: torch.Tensor     # [B, d]
+    n: torch.Tensor     # [B, d]
+    m: torch.Tensor     # [B, d]  running log-max stabiliser
+
+
+def slstm_seq(p, cfg: ModelConfig, pol: Policy, wx, state: SLSTMState):
+    """wx: [B, S, 4d] precomputed input projections; a loop over time in
+    float32. Returns (h [B, S, d], final state)."""
+    B, S, _ = wx.shape
+    H, d = cfg.n_heads, cfg.d_model
+    dh = d // H
+    r = p["r"].float()
+    wx = wx.float()
+    h, c, n, m = state
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh), r).reshape(
+            B, 4 * d)
+        pre = wx[:, t] + rec + p["bias"]
+        zt, it, ft, ot = pre.chunk(4, dim=-1)
+        z = torch.tanh(zt)
+        o = torch.sigmoid(ot)
+        m_new = torch.maximum(ft + m, it)             # exp-gating stabiliser
+        i = torch.exp(it - m_new)
+        f = torch.exp(ft + m - m_new)
+        c = f * c + i * z
+        n = f * n + i
+        h = o * c / torch.clamp_min(n, 1.0)
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), SLSTMState(h, c, n, m)
+
+
+def slstm_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
+                  return_state: bool = False):
+    """x: [B, S, d]. The sLSTM block body with its post-up GeGLU MLP."""
+    B, S, d = x.shape
+    h = L.apply_norm(p["ln"], x, cfg.norm_eps, cfg.norm_type)
+    wx = h @ p["w"]
+    if state is None:
+        z = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        state = SLSTMState(z, z, z, torch.full((B, d), -1e9,
+                                               dtype=torch.float32,
+                                               device=x.device))
+    hs, state = slstm_seq(p, cfg, pol, wx, state)
+    hs = L.apply_norm(p["gn"], hs.to(x.dtype), cfg.norm_eps, "rmsnorm")
+    a, b = (hs @ p["up"]).chunk(2, dim=-1)
+    y = (F.gelu(a, approximate="tanh") * b) @ p["down"]  # jax.nn.gelu's
+    return (y, state) if return_state else y
+
+
+# ------------------------------------------------------------------ model
+
+def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
+    """Random parameters on `gen`'s device, drawn from `gen` in a fixed
+    order (embedding, then the repeats block by block)."""
+    pat = _pattern(cfg)
+    reps = cfg.n_layers // len(pat)
+
+    def superblock():
+        return {f"b{i}_{t}": (mlstm_block_init(gen, cfg) if t == "m"
+                              else slstm_block_init(gen, cfg))
+                for i, t in enumerate(pat)}
+
+    return {
+        "embed": L.embed_init(gen, L.padded_vocab(cfg), cfg.d_model,
+                              cfg.pdtype()),
+        "blocks": [superblock() for _ in range(reps)],
+        "norm": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type,
+                            gen.device),
+    }
+
+
+def forward(cfg: ModelConfig, pol: Policy, params, tokens, embeds=None):
+    """Full-sequence forward. Returns (hidden [B,S,d] post-final-norm,
+    aux_loss = 0). `embeds` is not read, as in the reference."""
+    pat = _pattern(cfg)
+    x = params["embed"][tokens].to(cfg.cdtype())
+
+    def body(x, bp):
+        for i, t in enumerate(pat):
+            block = mlstm_forward if t == "m" else slstm_forward
+            x = x + block(bp[f"b{i}_{t}"], cfg, pol, x)
+        return x
+
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for bp in params["blocks"]:
+        # nothing in a block draws random numbers: no RNG state to replay
+        x = (checkpoint(body, x, bp, use_reentrant=False,
+                        preserve_rng_state=False) if remat else body(x, bp))
+    x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMCache:
+    """Decode state, O(1) in the context length. A family with no block of
+    one kind keeps one placeholder layer of it, as the reference does."""
+    mC: torch.Tensor      # [n_m, B, H, dh, dh] mLSTM matrix memories
+    mn: torch.Tensor      # [n_m, B, H, dh]
+    mconv: torch.Tensor   # [n_m, B, W-1, di] causal-conv tails
+    sh: torch.Tensor      # [n_s, B, d] sLSTM h, c, n, m
+    sc: torch.Tensor
+    sn: torch.Tensor
+    sm: torch.Tensor
+    pos: int              # absolute position of the next token
+
+
+def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> XLSTMCache:
+    """Zero state (m = -1e9) at position 0, in `dtype` (float32 by
+    default, as the reference's). `max_len` is not read: the state does
+    not grow. ``device=None`` means the card (raises without one)."""
+    dev = resolve_device(device)
+    pat = _pattern(cfg)
+    reps = cfg.n_layers // len(pat)
+    di, H, dh = _mlstm_dims(cfg)
+    n_m = max(reps * pat.count("m"), 1)
+    n_s = max(reps * pat.count("s"), 1)
+    d = cfg.d_model
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    return XLSTMCache(
+        mC=z(n_m, batch, H, dh, dh), mn=z(n_m, batch, H, dh),
+        mconv=z(n_m, batch, cfg.conv_width - 1, di),
+        sh=z(n_s, batch, d), sc=z(n_s, batch, d), sn=z(n_s, batch, d),
+        sm=torch.full((n_s, batch, d), -1e9, dtype=dtype, device=dev),
+        pos=0)
+
+
+def decode_step(cfg: ModelConfig, pol: Policy, params, cache: XLSTMCache,
+                tokens):
+    """One-token decode: recurrent state only. tokens: [B, 1]. Returns
+    (logits [B,1,V], cache): each block's new state is written into its
+    cache slot in place (rounded to the cache's dtype, as the reference
+    casts it) and the cache returned with ``pos + 1``."""
+    pat = _pattern(cfg)
+    x = params["embed"][tokens].to(cfg.cdtype())
+    mi = si = 0
+    for bp in params["blocks"]:
+        for i, t in enumerate(pat):
+            p = bp[f"b{i}_{t}"]
+            if t == "m":
+                st = (MLSTMState(cache.mC[mi], cache.mn[mi]), cache.mconv[mi])
+                y, (cell, conv) = mlstm_forward(p, cfg, pol, x, state=st,
+                                                return_state=True)
+                cache.mC[mi].copy_(cell.C)
+                cache.mn[mi].copy_(cell.n)
+                cache.mconv[mi].copy_(conv)
+                mi += 1
+            else:
+                st = SLSTMState(cache.sh[si], cache.sc[si], cache.sn[si],
+                                cache.sm[si])
+                y, st = slstm_forward(p, cfg, pol, x, state=st,
+                                      return_state=True)
+                for slot, new in zip((cache.sh, cache.sc, cache.sn,
+                                      cache.sm), st):
+                    slot[si].copy_(new)
+                si += 1
+            x = x + y
+    x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
+    logits = L.unembed(cfg, pol, x, params["embed"])
+    return logits, dataclasses.replace(cache, pos=cache.pos + 1)

@@ -1,21 +1,29 @@
 """Batched serving engine: prefill or prompt replay, then greedy decode.
 
-The counterpart of the reference's `repro/serve/engine.py` (its
-decoder-only and recurrent branches, `engine.py:45-83`). ``serve_step`` is
-one new token for every sequence of the batch against the family's decode
-state. ``generate`` takes one of two branches, as the reference does:
+The counterpart of the reference's `repro/serve/engine.py`
+(`engine.py:45-83`). ``serve_step`` is one new token for every sequence of
+the batch against the family's decode state. ``generate`` takes one of
+three branches, as the reference does:
 
   * dense, moe and vlm (`models/lm.py`): prefill the prompt (which seeds
     the KV cache; a VLM backbone's first ``embeds.shape[1]`` positions
     take `embeds`), take the last position's argmax, then run
     ``max_new - 1`` decode steps; it returns the ``max_new`` generated
     tokens;
-  * hybrid (recurrent): replay the prompt's first ``S - 1`` tokens one
-    decode step each from the family's `init_cache`, then decode
-    ``max_new - 1`` steps starting from the prompt's last token; it
-    returns that last prompt token as its first column, followed by the
-    ``max_new - 1`` generated tokens (the reference's output, kept as it
-    is). `embeds` is not read, as the reference does not read it there.
+  * encdec (`models/encdec.py`): encode `embeds` (the frames of the
+    stubbed frontend), compute every decoder layer's cross K/V of the
+    memory once (their length is the memory's, whatever ``MEMORY_LEN``
+    says, as the reference replaces the cache's), then replay the
+    prompt teacher-forced and decode as below;
+  * ssm and hybrid (recurrent, `models/xlstm.py`, `models/hybrid.py`):
+    from the family's `init_cache`.
+
+The last two replay the prompt's first ``S - 1`` tokens one decode step
+each, then decode ``max_new - 1`` steps starting from the prompt's last
+token; they return that last prompt token as their first column, followed
+by the ``max_new - 1`` generated tokens (the reference's output, kept as
+it is). A recurrent family does not read `embeds`, as the reference does
+not read it there.
 
 Greedy ties go to the first index, as `torch.argmax` and `jnp.argmax`
 both resolve them.
@@ -28,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import unembed
 from repro_torch.models.registry import get_family
@@ -58,14 +66,16 @@ def generate(cfg: ModelConfig, pol: Policy, params, prompts,
              embeds=None, stats: Optional[dict] = None) -> np.ndarray:
     """Greedy generation. prompts: [B, S] integer tokens (numpy or a
     tensor); `embeds`: [B, n, d] frontend embeddings of a VLM backbone's
-    first n positions, or None; runs where the parameters live. Returns
+    first n positions, the encoder's n frames of an encoder-decoder (which
+    needs them), or None; runs where the parameters live. Returns
     [B, max_new] int32.
 
     When `stats` is a dict it receives ``decode_seconds`` and, for the
     families of `models/lm.py`, ``prefill_seconds`` and ``prefill_logits``
     (the last prompt position's logits [B, 1, padded vocab]), for the
-    hybrid family ``replay_seconds`` (host clock, each stage ended by a
-    device synchronize)."""
+    others ``replay_seconds``, and for encdec ``encode_seconds`` (the
+    encoder and the cross K/V; its replay_seconds begin after them). Host
+    clock, each stage ended by a device synchronize."""
     family = get_family(cfg)
     step = make_serve_step(cfg, pol)
     device = params["embed"].device
@@ -85,8 +95,20 @@ def generate(cfg: ModelConfig, pol: Policy, params, prompts,
             stats.update(prefill_seconds=_clock(device) - t0,
                          prefill_logits=logits)
     else:
-        # recurrent family: replay the prompt token by token
-        cache = family.init_cache(cfg, pol, B, max_len, device=device)
+        if cfg.family == "encdec":
+            if embeds is None:
+                raise ValueError("encdec needs frontend frames (embeds=...)")
+            memory = encdec.encode(cfg, pol, params,
+                                   torch.as_tensor(embeds, device=device))
+            xk, xv = encdec.prefill_cross_kv(cfg, pol, params, memory)
+            cache = encdec.init_cache(cfg, pol, B, max_len, memory_len=0,
+                                      device=device)._replace(xk=xk, xv=xv)
+            if stats is not None:
+                stats.update(encode_seconds=_clock(device) - t0)
+                t0 = _clock(device)
+        else:
+            cache = family.init_cache(cfg, pol, B, max_len, device=device)
+        # replay the prompt token by token (teacher-forced for encdec)
         for i in range(S - 1):
             _, cache = family.decode_step(cfg, pol, params, cache,
                                           prompts[:, i:i + 1])

@@ -2,8 +2,9 @@
 
 The counterpart of the reference's `repro/train/step.py` on one card:
 ``make_train_step`` builds a (state, batch) -> (state, metrics) function
-for the ported families (dense, moe, vlm and hybrid); a batch's
-``embeds`` (a VLM backbone's frontend embeddings) go to the forward. With ``n_micro > 1`` the
+for every family of `models/registry.py`; a batch's ``embeds`` (a VLM
+backbone's patch embeddings, an encoder-decoder's frames) go to the
+forward. With ``n_micro > 1`` the
 batch is split into microbatches whose float32 gradients are summed in a
 Python loop (the reference's `lax.scan`), then averaged. The policy is the
 single-card one (`sharding/policy.py`); the reference's mesh resolution

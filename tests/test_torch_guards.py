@@ -88,7 +88,9 @@ def test_package_layout_mirrors_the_reference():
                  "kernels.baselines.kernel", "kernels.baselines.ops",
                  "cluster", "cluster.scheduler", "ckpt", "ckpt.checkpoint",
                  "models.moe", "configs.qwen2_moe_a2_7b",
-                 "configs.arctic_480b", "configs.pixtral_12b"):
+                 "configs.arctic_480b", "configs.pixtral_12b",
+                 "models.xlstm", "models.encdec", "configs.xlstm_1_3b",
+                 "configs.seamless_m4t_large_v2"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()

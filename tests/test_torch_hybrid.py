@@ -157,8 +157,8 @@ class TestBlocks:
         tst = torch.from_numpy(st) if with_state else None
         want, wstate = ref.hybrid._causal_conv(ref.jnp.asarray(x),
                                                ref.jnp.asarray(kern), jst)
-        got, gstate = thybrid._causal_conv(torch.from_numpy(x),
-                                           torch.from_numpy(kern), tst)
+        got, gstate = tlayers.causal_conv(torch.from_numpy(x),
+                                          torch.from_numpy(kern), tst)
         close(got, want)
         close(gstate, wstate)
 

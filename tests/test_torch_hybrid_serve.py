@@ -247,7 +247,7 @@ def test_serve_command_line_prints_the_reference_tokens(ref, capsys):
     printed = capsys.readouterr().out
     assert f"[serve] {ARCH}: generated (2, 6)" in printed
     assert f"sample: {out[0][:8].tolist()}" in printed
-    _, _, params, toks = tserve.setup(ARCH, True, 2, 20, 4, "cpu")
+    _, _, params, toks, _ = tserve.setup(ARCH, True, 2, 20, 4, "cpu")
     jc = ref.configs.smoke_config(ARCH, attention_impl="pallas")
     want = ref.engine.generate(jc, ref.policy.single_device_policy(jc),
                                reference_tree(params), toks.numpy(),

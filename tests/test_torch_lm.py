@@ -29,8 +29,10 @@ import pytest
 import torch
 
 from repro_torch import configs as tconfigs
+from repro_torch.models import encdec as tencdec
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as tregistry
+from repro_torch.models import xlstm as txlstm
 from repro_torch.models.config import ModelConfig, reduced
 from repro_torch.models.convert import params_from_jax
 from repro_torch.sharding.policy import Policy, single_device_policy
@@ -90,11 +92,13 @@ class TestConfigs:
         assert cfg.hd == 64 and cfg.with_(head_dim=32).hd == 32
 
     @pytest.mark.parametrize("arch", ["xlstm-1.3b", "seamless-m4t-large-v2"])
-    def test_unported_archs_raise(self, arch):
-        item = {"xlstm-1.3b": 13, "seamless-m4t-large-v2": 14}[arch]
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item}"):
-            tconfigs.get_config(arch)
+    def test_unported_archs_raise(self, ref, arch):
+        """Once the refusal of the two architectures the port lacked; now
+        their configs are the reference's, field for field."""
+        assert fields(tconfigs.get_config(arch)) == fields(
+            ref.configs.get_config(arch))
+        assert fields(tconfigs.smoke_config(arch)) == fields(
+            ref.configs.smoke_config(arch))
 
     def test_unknown_arch_is_a_value_error(self):
         with pytest.raises(ValueError, match="unknown arch"):
@@ -102,10 +106,19 @@ class TestConfigs:
 
 
 class TestRegistry:
-    @pytest.mark.parametrize("family", sorted(tlm.UNPORTED_FAMILIES))
-    def test_unported_families_raise(self, family):
+    @pytest.mark.parametrize("family", ["encdec", "ssm"])
+    def test_unported_families_raise(self, ref, family):
+        """Once the refusal of the two families the port lacked; now
+        `get_family` serves each with its module, as the reference's
+        `FAMILIES` does, and every family of the reference is served."""
+        want = {"encdec": tencdec, "ssm": txlstm}[family]
         cfg = tconfigs.smoke_config("granite-3-2b").with_(family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        assert tregistry.get_family(cfg) is want
+        assert set(tregistry.FAMILIES) == set(ref.registry.FAMILIES)
+
+    def test_unknown_family_is_a_value_error(self):
+        cfg = tconfigs.smoke_config("granite-3-2b").with_(family="rnn")
+        with pytest.raises(ValueError, match="unknown model family"):
             tregistry.get_family(cfg)
 
     def test_dense(self):

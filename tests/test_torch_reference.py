@@ -78,7 +78,8 @@ def load_reference() -> types.SimpleNamespace:
     `service_driver` (repro.service.driver), and the paper's drivers
     `launch_sim` and `launch_service` (repro.launch.sim / .service); the
     ML cluster and checkpointing: `cluster` (repro.cluster.scheduler),
-    `ckpt` (repro.ckpt.checkpoint) and `launch_train` (repro.launch.train).
+    `ckpt` (repro.ckpt.checkpoint) and `launch_train` (repro.launch.train);
+    the last two model families: `xlstm` and `encdec` (repro.models.*).
     """
     global _REF
     if _REF is not None:
@@ -97,7 +98,8 @@ def load_reference() -> types.SimpleNamespace:
     from repro.kernels.rglru_scan import kernel as lru_kernel
     from repro.kernels.rglru_scan import ref as lru_ref
     from repro.launch import serve as launch_serve
-    from repro.models import hybrid, layers, lm, moe, registry
+    from repro.models import (encdec, hybrid, layers, lm, moe, registry,
+                              xlstm)
     from repro.serve import engine
     from repro.sharding import policy
     from repro.train import data as train_data
@@ -123,7 +125,8 @@ def load_reference() -> types.SimpleNamespace:
         lru_kernel=lru_kernel, lru_ref=lru_ref, windows=windows,
         service=service, service_driver=service_driver,
         launch_sim=launch_sim, launch_service=launch_service,
-        cluster=cluster, ckpt=ckpt, launch_train=launch_train)
+        cluster=cluster, ckpt=ckpt, launch_train=launch_train, xlstm=xlstm,
+        encdec=encdec)
     return _REF
 
 

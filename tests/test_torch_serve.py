@@ -128,11 +128,12 @@ class TestLaunch:
         assert np.array_equal(tserve.main(argv), tserve.main(argv))
 
     def test_setup_serves_the_kernel_path(self):
-        cfg, _, params, prompts = tserve.setup("granite-3-2b", True, 2, 8,
-                                               0, "cpu")
+        cfg, _, params, prompts, embeds = tserve.setup(
+            "granite-3-2b", True, 2, 8, 0, "cpu")
         assert cfg.attention_impl == "pallas"
         assert tuple(prompts.shape) == (2, 8)
         assert params["embed"].device.type == "cpu"
+        assert embeds is None          # frames are drawn for encdec only
 
     def test_default_device_is_the_card(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -149,6 +150,11 @@ class TestLaunch:
         assert f"[serve] {arch}: generated (2, 3)" in capsys.readouterr().out
 
     @pytest.mark.parametrize("arch", ["xlstm-1.3b", "seamless-m4t-large-v2"])
-    def test_unported_arch_raises(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tserve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    def test_unported_arch_raises(self, arch, capsys):
+        """Once the refusal of the two families the port lacked; now both
+        serve by name from the command line."""
+        out = tserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                           "--prompt-len", "8", "--max-new", "3",
+                           "--device", "cpu"])
+        assert out.shape == (2, 3) and (out < 251).all()
+        assert f"[serve] {arch}: generated (2, 3)" in capsys.readouterr().out

@@ -22,6 +22,13 @@ Tolerances:
   on one side and not on the other, from a gradient difference of 1e-9.
   A wrong decay, clip or bias correction moves most of a leaf by more than
   1e-6 (lr * weight_decay * |p| is 3e-5 for |p| = 0.1).
+
+The xLSTM and encoder-decoder families (their own tests): each step taken
+from the reference's whole state before it, at the bounds above, but the
+xLSTM's share within 1e-6 is counted over the model and its gradient
+leaves are held at atol 1e-3 of their largest magnitude: its float32
+gradients lie 2e-4 of that from a float64 run on both sides alike (the
+tests' docstrings give the numbers).
 """
 import os
 
@@ -35,7 +42,6 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.launch import train as tlaunch
-from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import get_family
 from repro_torch.sharding.policy import single_device_policy
@@ -48,6 +54,8 @@ from test_torch_reference import load_reference
 ARCHS = ("recurrentgemma-2b", "granite-3-2b")
 #: the MoE (aux loss in the loss) and VLM (embeds, masked prefix) branches
 MOE_VLM = ("qwen2-moe-a2.7b", "pixtral-12b")
+#: the xLSTM family and the encoder-decoder (embeds: the encoder's frames)
+SSM_ENCDEC = ("xlstm-1.3b", "seamless-m4t-large-v2")
 OPT = dict(lr=3e-3, warmup_steps=1, total_steps=10)
 BATCH, SEQ, STEPS = 4, 24, 2
 SCALAR_TOL = dict(rtol=2e-5, atol=0)
@@ -161,9 +169,108 @@ def test_moe_and_vlm_train_steps_match_reference(ref, ref_init, ref_runs,
         assert torch_batch(b)["embeds"].abs().min() > 0
 
 
+@pytest.fixture(scope="module")
+def ref_states(ref, ref_init):
+    """The reference's "xla" train step, STEPS steps from the same
+    parameters, n_micro 1: its whole state (parameters, AdamW moments and
+    step, as numpy) before the first step and after each, with each step's
+    (loss, grad norm)."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            jc = ref.configs.smoke_config(arch, attention_impl="xla")
+            ocfg = ref.train_optim.AdamWConfig(**OPT)
+            state = ref.train_step.TrainState(
+                params=ref_init(arch),
+                opt=ref.train_optim.init(ocfg, ref_init(arch)))
+            step = ref.jax.jit(ref.train_step.make_train_step(
+                jc, ref.policy.single_device_policy(jc), ocfg))
+            states = [ref.jax.tree.map(np.asarray, state)]
+            mets = []
+            for b in ref_batches(ref, arch):
+                state, m = step(state, b)
+                states.append(ref.jax.tree.map(np.asarray, state))
+                mets.append((float(m["loss"]), float(m["grad_norm"])))
+            cache[arch] = states, mets
+        return cache[arch]
+    return get
+
+
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
-@pytest.mark.parametrize("arch", ARCHS + MOE_VLM)
-def test_every_gradient_leaf_matches_reference(ref, ref_init, arch, impl):
+@pytest.mark.parametrize("arch", SSM_ENCDEC)
+def test_xlstm_and_encdec_train_steps_match_reference(ref, ref_states, arch,
+                                                      impl):
+    """One and two steps, n_micro 1, each taken by the port from the
+    reference's whole state before it (parameters, AdamW moments, step):
+    loss and grad norm within 2e-5, every parameter within 2 lr, and at
+    least 99 % of the parameters within 1e-6, of every leaf for seamless
+    and of the whole model for the xLSTM. The xLSTM's stacked blocks (its
+    1-D gate biases and block norms decay, R6); the encoder-decoder's
+    batches carry the encoder's frames as embeds (under "pallas" the
+    encoder runs the attention kernel's Function bidirectionally, the
+    decoder causally).
+
+    Why each step starts from the reference's state, and why the xLSTM's
+    share is counted over the model: an AdamW step moves an element by
+    about lr times a ratio of its gradients (lr * sign(g) at the first
+    step), so an element whose gradient is within float32 noise of 0 parts
+    by up to 2 lr, and this config's noise is large (its gradients lie
+    2e-4 of their leaf's largest magnitude from a float64 run of the same
+    step, the reference's as the port's: tests/xlstm_float64_noise.py). Seen: one element of the
+    64 of the sLSTM norm scale parts at the first step, and, carried into
+    the second step, it moves that step's loss by 4e-5 of itself."""
+    states, mets = ref_states(arch)
+    tc = smoke_config(arch, attention_impl=impl)
+    tpol = single_device_policy(tc)
+    ocfg = toptim.AdamWConfig(**OPT)
+    step = tstep.make_train_step(tc, tpol, ocfg)
+    leaves = lambda tree: toptim.tree_leaves(params_from_jax(tc, tree,
+                                                             device="cpu"))
+    for i, (b, (jl, jgn)) in enumerate(zip(ref_batches(ref, arch), mets)):
+        before, after = states[i], states[i + 1]
+        state = tstep.state_for(params_from_jax(tc, before.params,
+                                                device="cpu"), ocfg)
+        state = state._replace(opt=toptim.OptState(
+            step=int(before.opt.step), m=leaves(before.opt.m),
+            v=leaves(before.opt.v)))
+        state, m = step(state, torch_batch(b))
+        np.testing.assert_allclose(float(m["loss"]), jl, **SCALAR_TOL)
+        np.testing.assert_allclose(float(m["grad_norm"]), jgn, **SCALAR_TOL)
+        assert state.opt.step == int(after.opt.step) == i + 1
+        got = toptim.tree_leaves(state.params)
+        want = leaves(after.params)
+        assert len(got) == len(want)
+        near = []
+        for g, w in zip(got, want):
+            d = (g.detach() - w).abs()
+            assert float(d.max()) <= 2 * OPT["lr"]
+            near.append((d <= 1e-6).flatten())
+            if arch != "xlstm-1.3b":
+                assert float(near[-1].float().mean()) >= 0.99
+        assert float(torch.cat(near).float().mean()) >= 0.99
+    b = ref_batches(ref, arch)[0]
+    assert ("embeds" in b) == (arch == "seamless-m4t-large-v2")
+    if "embeds" in b:
+        assert b["embeds"].shape == (BATCH, SEQ, 64)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_xlstm_gradient_leaves_match_reference(ref, ref_init, impl):
+    """As test_every_gradient_leaf_matches_reference, at the noise of this
+    config's gradients: every leaf within rtol 1e-4 plus atol 1e-3 of its
+    largest magnitude. Against a float64 run of the same step the
+    reference's leaves lie up to 2.1e-4 of that magnitude off and the
+    port's 1.8e-4; port against reference, 3.9e-4 (the first mLSTM block's
+    conv kernel), while one block alone agrees with float64 within 6e-7 on
+    both sides (tests/xlstm_float64_noise.py prints these numbers)."""
+    check_gradient_leaves(ref, ref_init, "xlstm-1.3b", impl, 1e-3)
+
+
+def check_gradient_leaves(ref, ref_init, arch, impl, atol_frac):
+    """The port's gradient of the first batch's loss against the
+    reference's "xla" one, leaf by leaf: rtol 1e-4 plus atol `atol_frac`
+    of the leaf's largest magnitude; the loss at SCALAR_TOL."""
     jc = ref.configs.smoke_config(arch, attention_impl="xla")
     jpol = ref.policy.single_device_policy(jc)
     b = ref_batches(ref, arch)[0]
@@ -181,7 +288,13 @@ def test_every_gradient_leaf_matches_reference(ref, ref_init, arch, impl):
     for g, w in zip(got, want):
         scale = float(w.abs().max())
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
-                                   atol=2e-5 * scale)
+                                   atol=atol_frac * scale)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("arch", ARCHS + MOE_VLM + ("seamless-m4t-large-v2",))
+def test_every_gradient_leaf_matches_reference(ref, ref_init, arch, impl):
+    check_gradient_leaves(ref, ref_init, arch, impl, 2e-5)
 
 
 def fields(cfg):
@@ -192,10 +305,11 @@ def fields(cfg):
                                           "seamless-m4t-large-v2"))
 def test_batches_are_the_references_bit_for_bit(ref, arch):
     """The synthetic stream, including the embeds of the VLM and
-    encoder-decoder configs (their configs rebuilt from the reference's
-    fields: the port does not have those families yet)."""
+    encoder-decoder configs (the port's own configs, which equal the
+    reference's field for field)."""
     jc = ref.configs.smoke_config(arch)
-    tc = ModelConfig(**fields(jc))
+    tc = smoke_config(arch)
+    assert fields(tc) == fields(jc)
     for dc in (dict(batch=4, seq=16, seed=0), dict(batch=6, seq=9, seed=5,
                                                    host_id=1, n_hosts=2)):
         jit = ref.train_data.batches(jc, ref.train_data.DataConfig(**dc))
@@ -255,7 +369,7 @@ def test_lr_schedule_matches_reference(ref):
                                    rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ENCDEC)
 def test_decay_mask_is_the_references(ref, ref_init, arch):
     """Weight decay on the leaves of rank >= 2 in the reference's stacked
     layout, given the family's stacked keys: norm scales and lam of the
@@ -274,6 +388,11 @@ def test_decay_mask_is_the_references(ref, ref_init, arch):
                         toptim.decay_mask(tp, stacked)))
         assert mask[id(tp["reps"][0]["b0_rec"]["rec"]["lam"])]
         assert not mask[id(tp["tail"]["t0_rec"]["rec"]["lam"])]
+        assert not mask[id(tp["norm"]["scale"])]
+    if arch == "xlstm-1.3b":
+        mask = dict(zip(map(id, toptim.tree_leaves(tp)),
+                        toptim.decay_mask(tp, stacked)))
+        assert mask[id(tp["blocks"][0]["b0_m"]["gate_bias"])]
         assert not mask[id(tp["norm"]["scale"])]
 
 
