@@ -100,7 +100,19 @@ card, drives the port's paths and prints one JSON line per phase:
 - checkpoints: `launch.train.main --ckpt-dir` on reduced
   recurrentgemma-2b on the card, 4 steps saving every 2, then `--resume`
   to 6; the same steps in memory saved by the async manager, stepped in
-  place, restored.
+  place, restored;
+- the assigned cell grid (`cells_path`): the meta dry run of all 32 cells
+  (`launch/dryrun.py`, in worker processes off the card once every
+  earlier phase has ended), then, through `dryrun.run_requested`,
+  recurrentgemma-2b and xlstm-1.3b `long_500k` and recurrentgemma-2b `decode_32k` at their assigned shapes
+  (decode steps from seeded caches at position seq - 1; no kernel
+  launched, gated) and recurrentgemma-2b `prefill_32k` at the largest
+  batch whose estimate fits (8 attention and 18 RG-LRU launches a
+  prefill, gated); each cell's measured peak beside its estimate; both
+  kernels at S = 32 768 against their plain versions at the gates below
+  (at the prefill's batch: the attention's last 2 048 query rows of its
+  first and last batch rows, the RG-LRU forward whole), and timed at the
+  prefill's layer beside their bounds and SDPA.
 
 `--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
 `torch.profiler` (device time by kind of kernel, idle share), and
@@ -203,7 +215,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -234,7 +247,8 @@ from repro_torch.kernels.packet_while import kernel as while_kernel
 from repro_torch.kernels.packet_while import ops as while_ops
 from repro_torch.kernels.rglru_scan import kernel as lru_kernel
 from repro_torch.kernels.rglru_scan import ops as lru_ops
-from repro_torch.launch import serve, sim, train
+from repro_torch.configs import SHAPES, cells
+from repro_torch.launch import dryrun, serve, sim, train
 from repro_torch.launch import service as service_launch
 from repro_torch.models import encdec, hybrid, layers, lm, moe, xlstm
 from repro_torch.models.layers import unembed
@@ -390,6 +404,14 @@ PAPER_CHAOS = dict(mtbf_chip_hours=np.repeat([50.0, 200.0], 4),
                    straggler_deadline=2.0, seed=0)
 CHAOS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "benchmarks", "results", "paper_chaos_grid.json")
+# the assigned cell grid (cells_path): the meta dry run of all 32 cells in
+# worker processes off the card, after every earlier phase has ended
+CELLS_DRYRUN_WORKERS = 6
+CELLS_RUN = ("recurrentgemma-2b:long_500k", "xlstm-1.3b:long_500k",
+             "recurrentgemma-2b:decode_32k", "recurrentgemma-2b:prefill_32k")
+CELLS_PREFILL_LAUNCHES = {"flash_attention": 8, "lru_forward": 18,
+                          "lru_reverse": 0}     # one recurrentgemma prefill
+CELLS_ATTN_ROWS = 2048          # query rows of the S = 32 768 kernel check
 BASELINE_WORKSPACE_RING = 10_000    # 24 B a slot in float64: past 227 KB
 BASELINE_CAP_ITERS = 2500       # events a lane on the workspace case: a cap
 
@@ -3770,6 +3792,226 @@ def profile_training():
     torch.cuda.empty_cache()
 
 
+def _dryrun_worker():
+    """A dry-run worker: off the card, one thread (meta work is Python)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+def cells_dryrun() -> tuple[list, float]:
+    """The meta dry run of every assigned cell (`dryrun.lower_cell` on the
+    production single-pod mesh) in CELLS_DRYRUN_WORKERS spawned processes,
+    in the foreground: nothing else runs meanwhile. Returns the records in
+    `cells()`'s order and the seconds the whole took."""
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(CELLS_DRYRUN_WORKERS,
+                             multiprocessing.get_context("spawn"),
+                             initializer=_dryrun_worker) as pool:
+        futures = [pool.submit(dryrun.lower_cell, a, sh) for a, sh in cells()]
+        records = [f.result() for f in futures]
+    return records, time.perf_counter() - t0
+
+
+def dryrun_summary(rec) -> dict:
+    """One record of the dry run in a line's room."""
+    out = dict(cell=f"{rec['arch']}:{rec['shape']}",
+               strategy=rec["policy"]["strategy"],
+               attn_mode=rec["policy"]["attn_mode"],
+               kv_repeat=rec["policy"]["kv_repeat"],
+               expert_pad=rec["policy"]["expert_pad"],
+               params=rec["params"], estimate_bytes=rec["peak_bytes_estimate"],
+               fits_one_card=rec["fits_one_card"], flops=rec["flops"],
+               flops_analytic=rec["flops_analytic"],
+               meta_seconds=rec["meta_seconds"])
+    if not rec["fits_one_card"]:
+        out["min_cards_lower_bound"] = rec["min_cards"]
+    return out
+
+
+def cells_attention_check(B):
+    """The attention kernel at recurrentgemma-2b's prefill_32k layer (S =
+    32 768, 10 / 1 heads, hd 256, window 2048) at the prefill's batch B:
+    the last CELLS_ATTN_ROWS query rows of batch rows 0 and B - 1 against
+    the plain version over every key (the full plain scores would be
+    1.4 TB), at the bf16 gate; then the kernel's ms beside its bound and
+    SDPA's (the causal window as a boolean mask, `enable_gqa`, under the
+    cuDNN backend: the flash and efficient backends refuse a mask with
+    GQA, and the math one would hold [B, 10, S, S] float32 scores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S, H, KV, hd, window = 32768, 10, 1, 256, 2048
+    kw = dict(causal=True, window=window)
+    pos = torch.arange(S, device=Dispatch.device)
+    visible = ((pos[None, :] <= pos[:, None])
+               & (pos[None, :] > pos[:, None] - window))
+
+    def sdpa(q, k, v):
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=visible, enable_gqa=True).transpose(1, 2)
+
+    q, k, v = attn_inputs((B, S, S, H, KV, hd), torch.bfloat16, seed=401)
+    got = attn_ops.flash_attention(q, k, v, impl="cuda", **kw)
+    lib = sdpa(q, k, v)
+    errs, lib_errs = {}, {}
+    for row in sorted({0, B - 1}):
+        rows = slice(row, row + 1)
+        want = attention_ref(q[rows, -CELLS_ATTN_ROWS:], k[rows], v[rows],
+                             **kw)
+        errs[row], atol = attn_check(
+            got[rows, -CELLS_ATTN_ROWS:].contiguous(), want,
+            f"cells_path attention at S=32768, batch row {row}")
+        lib_errs[row] = float((lib[rows, -CELLS_ATTN_ROWS:].float()
+                               - want.float()).abs().max())
+        del want
+    del got, lib
+    free_card()
+    fns = {"kernel": lambda: attn_ops.flash_attention(q, k, v, impl="cuda",
+                                                       **kw),
+           "library": lambda: sdpa(q, k, v)}
+    order = ("kernel", "library", "library", "kernel")
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(cuda_ms(fns[name], 5 if name == "kernel" else 2))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    del q, k, v, fns, visible
+    free_card()
+    flops = 4 * B * H * hd * attn_ops.visible_pairs(S, S, True, window)
+    t_ops = 1e3 * flops / BF16_OPS_PER_S
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return dict(
+        shape=f"B={B} S={S} H={H} KV={KV} hd={hd} causal window={window} "
+              f"bf16", max_abs_err=max(errs.values()), atol=atol,
+        max_abs_err_by_batch_row=errs,
+        checked=f"batch rows {sorted(errs)}, each its last "
+                f"{CELLS_ATTN_ROWS} query rows against all {S} keys",
+        ms=min(runs["kernel"]), library_ms=min(runs["library"]),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=nbytes,
+        library="torch.nn.functional.scaled_dot_product_attention(attn_mask="
+                "<causal window as bool>, enable_gqa=True) under "
+                "SDPBackend.CUDNN_ATTENTION; timed as the yardstick only",
+        library_max_abs_err_vs_plain=max(lib_errs.values()), runs_ms=runs,
+        run_order=", ".join(order))
+
+
+def cells_lru_check(B):
+    """The RG-LRU kernel at the same layer (S = 32 768, D 2560): forward and
+    reverse against the plain version at B 1 in float32 (the model's type)
+    and bf16, and the forward at the prefill's batch B in float32, at the
+    existing gates; the forward's ms at B beside its bound and the plain
+    version's."""
+    S, D = 32768, 2560
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        log_a, b, _, dh, dh_last = lru_inputs((1, S, D, False, False), dtype,
+                                              dtype, seed=410)
+        got = lru_ops.lru_forward(log_a, b, impl="cuda")
+        want = lru_ops.lru_forward(log_a, b, impl="torch")
+        got_r = lru_ops.lru_reverse(log_a, dh, want[0], None, dh_last,
+                                    impl="cuda")
+        want_r = lru_ops.lru_reverse(log_a, dh, want[0], None, dh_last,
+                                     impl="torch")
+        name = str(dtype).replace("torch.", "")
+        for out, g, w in zip(("h", "h_last", "db", "dlog_a", "dh0"),
+                             got + got_r, want + want_r):
+            errs[f"{name} {out}"], _ = bounded_check(
+                g, w, LRU_TOL[dtype], f"cells_path lru {name} {out}")
+        LruWorst.abs_err = max(LruWorst.abs_err, *errs.values())
+        del log_a, b, dh, dh_last, got, want, got_r, want_r
+    free_card()
+    log_a, b, _, _, _ = lru_inputs((B, S, D, False, False), torch.float32,
+                                   torch.float32, seed=411)
+    got = lru_ops.lru_forward(log_a, b, impl="cuda")
+    want = lru_ops.lru_forward(log_a, b, impl="torch")
+    for out, g, w in zip(("h", "h_last"), got, want):
+        errs[f"float32 B={B} forward {out}"], _ = bounded_check(
+            g, w, LRU_TOL[torch.float32],
+            f"cells_path lru float32 B={B} forward {out}")
+    LruWorst.abs_err = max(LruWorst.abs_err, *errs.values())
+    del got, want
+    free_card()
+    runs = {"forward": [], "plain_forward": []}
+    for name in ("forward", "plain_forward", "plain_forward", "forward"):
+        impl = "cuda" if name == "forward" else "torch"
+        runs[name].append(cuda_ms(lambda: lru_ops.lru_forward(
+            log_a, b, impl=impl), 3 if impl == "torch" else 10))
+    del log_a, b
+    free_card()
+    bounds = lru_bounds(B, S, D, torch.float32)["forward"]
+    return dict(shape=f"B={B} S={S} D={D} float32, no h0",
+                checked=f"B=1 S={S} D={D} float32 and bfloat16, forward and "
+                        f"reverse; B={B} float32 forward",
+                max_abs_err=errs,
+                ms=min(runs["forward"]), plain_ms=min(runs["plain_forward"]),
+                bound_ms=bounds["bound_ms"], bound_by=bounds["bound_by"],
+                bytes=bounds["bytes"], runs_ms=runs,
+                run_order="forward, plain, plain, forward")
+
+
+def phase_cells_path():
+    """The assigned cell grid: the 32 records of the meta dry run
+    (`cells_dryrun`), then CELLS_RUN on the card at their assigned shapes
+    through `dryrun.run_requested` (a prefill whose estimate does not fit
+    at B 32 at the largest batch whose estimate fits, printed under
+    `reduced`), each gated: finite logits of the cell's shape, no kernel
+    launched by a decode step, exactly CELLS_PREFILL_LAUNCHES a prefill;
+    then both kernels at S = 32 768 held against their plain versions and
+    timed. Returns (launches of the runs, the attention's and the RG-LRU's
+    dicts for the kernels line)."""
+    records, seconds = cells_dryrun()
+    fit = [f"{r['arch']}:{r['shape']}" for r in records if r["fits_one_card"]]
+    emit("cells_dryrun", cells=len(records), fit_one_card=len(fit),
+         fitting=fit, seconds=seconds,
+         meta_seconds_sum=sum(r["meta_seconds"] for r in records),
+         records=[dryrun_summary(r) for r in records], ok=True)
+    return cells_runs({f"{r['arch']}:{r['shape']}": r for r in records})
+
+
+def cells_runs(by_cell: dict):
+    """CELLS_RUN on the card from their dry-run records, gated, then both
+    kernels at S = 32 768 (see `phase_cells_path`)."""
+    free_card()
+    zero_kernel_counts()
+    launches = kernel_counts()
+    runs = {}
+    for cell in CELLS_RUN:
+        rec = by_cell[cell]
+        arch, shape = cell.split(":")
+        run = dryrun.run_requested(rec)
+        if "skipped" in run:
+            fail(f"cells_path: {cell}: {run['skipped']}")
+        kind = SHAPES[shape].kind
+        vocab = layers.padded_vocab(get_config(arch))
+        if not run["finite"] or run["output_shape"] != [run["batch"], 1,
+                                                        vocab]:
+            fail(f"cells_path: {cell}: logits {run['output_shape']}, "
+                 f"finite {run['finite']}")
+        n_calls = 2 if kind == "prefill" else \
+            dryrun.RUN_WARM + dryrun.RUN_STEPS
+        expect = ({k: v * n_calls for k, v in
+                   CELLS_PREFILL_LAUNCHES.items()} if kind == "prefill"
+                  else {k: 0 for k in CELLS_PREFILL_LAUNCHES})
+        if run["launches"] != expect:
+            fail(f"cells_path: {cell} launched {run['launches']}, expected "
+                 f"{expect}")
+        est = (run.get("estimate_at_reduced_batch")
+               or rec["peak_bytes_estimate"])
+        runs[cell] = dict(run, estimate_bytes=est,
+                          peak_over_estimate=run["peak_bytes"] / est)
+        emit("cells_run", cell=cell, **runs[cell], ok=True)
+        free_card()
+    after = kernel_counts()
+    launches = {k: after[k] - launches[k] for k in after}
+    B = runs["recurrentgemma-2b:prefill_32k"]["batch"]
+    attn = cells_attention_check(B)
+    lru = cells_lru_check(B)
+    emit("cells_path", runs=runs, launches=launches,
+         prefill_batch=B, attention_at_32k=attn, lru_at_32k=lru, ok=True)
+    return launches, attn, lru
+
+
 def lru_bounds(B, S, D, dtype):
     """Bytes, operations and the least time of one forward and one reverse
     launch over [B, S, D] with no h0. Bytes: the forward reads log_a and b
@@ -3872,7 +4114,9 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build,
                   cohort_times, base_launches, base_times, base_plain_ms,
-                  base_build, hybrid_launches, ckpt_launches, lm_launches):
+                  base_build, hybrid_launches, ckpt_launches, lm_launches,
+                  cells_out):
+    cells_launches, cells_attn, cells_lru = cells_out
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -3905,7 +4149,8 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
     by_path = {"serve_path": attn_launches,
                "train_path": train_launches["flash_attention"],
                "hybrid_serve_path": hybrid_launches["flash_attention"],
-               "ckpt_path": ckpt_launches["flash_attention"]}
+               "ckpt_path": ckpt_launches["flash_attention"],
+               "cells_path": cells_launches["flash_attention"]}
     by_path.update(lm_launches)
     layer_times = {}
     for name, case, path in (
@@ -3918,6 +4163,9 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         layer_times[name] = dict(
             time_attention(case), launches=lm_launches[path], path=path,
             max_abs_err=AttnWorst.cases[case, torch.bfloat16])
+    layer_times["recurrentgemma-2b prefill_32k"] = dict(
+        cells_attn, launches=cells_launches["flash_attention"],
+        path="cells_path")
     line["kernels"].append({
         "name": "flash_attention",
         "route": "cuda",
@@ -3959,7 +4207,9 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                           + train_launches["lru_reverse"],
             "hybrid_serve_path": hybrid_launches["lru_forward"],
             "ckpt_path": ckpt_launches["lru_forward"]
-                         + ckpt_launches["lru_reverse"]},
+                         + ckpt_launches["lru_reverse"],
+            "cells_path": cells_launches["lru_forward"]
+                          + cells_launches["lru_reverse"]},
         "max_abs_err": LruWorst.abs_err,
         "ms": lru["ms"],
         "plain_ms": lru["plain_ms"],
@@ -3984,6 +4234,9 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "main_shape": lru,
         "bfloat16_main_shape": lru_all["bfloat16"],
         "float32_batch_1": lru_all["float32_batch_1"],
+        "prefill_32k_layer": dict(cells_lru,
+                                  launches=cells_launches["lru_forward"],
+                                  path="cells_path"),
         "build_seconds": lru_build[0],
         "instantiations": lru_instantiations(lru_build[1]),
     })
@@ -4156,12 +4409,13 @@ def main(argv=None):
     ckpt_launches = timed("ckpt_path", phase_ckpt_path)
     if args.profile:
         timed("train_profile", profile_training)
+    cells_out = timed("cells_path", phase_cells_path)
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
           while_build, lru_build, cohort_times, base_launches, base_times,
           base_plain_ms, base_build, hybrid_launches, ckpt_launches,
-          lm_launches)
+          lm_launches, cells_out)
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)

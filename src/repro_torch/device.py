@@ -23,3 +23,21 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: the models' init functions
+    draw on ``gen.device``, so with it they build every tensor's shape and
+    dtype on the ``meta`` device, allocate no storage and draw nothing (a
+    draw on ``meta`` leaves the generator's state as it was)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def meta_generator() -> torch.Generator:
+    """The generator to pass to an ``init_params`` for a shape-only build:
+    the same init functions as a real build, no second set that could
+    drift from them."""
+    return _MetaGenerator()

@@ -15,7 +15,12 @@ inputs the CUDA-core kernel (float32 throughout; 2e-5).
 `check_launchable` refuses, before anything is built or launched, what the
 TMA copies cannot take. On CPU tensors it runs the plain PyTorch version
 (`ref.py`). ``impl="torch"`` asks for the plain version by name on either
-device; ``impl="cuda"`` on CPU tensors raises.
+device; ``impl="cuda"`` on CPU tensors raises. On ``meta`` tensors it runs
+the kernel's meta function `attention_meta` (a `torch.library` op): the
+output the kernel allocates, nothing computed; its FLOPs, the visible
+(query, key) pairs times ``4 hd`` a head, are registered with
+`torch.utils.flop_counter`, so that a dry run counts the kernel's work
+and never the plain version's ``[B, H, Sq, Skv]`` scores.
 
 Under autograd (grad mode on and an input that requires a gradient) it
 goes through `AttentionFunction`: the forward as above, the backward
@@ -30,7 +35,9 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -80,8 +87,44 @@ def check_launchable(q, k, v):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks leave visible: query row i sits at
+    position ``i + Skv - Sq`` and sees the keys at or before it (causal)
+    and within ``window`` of it (window > 0). In numpy, so that a flop
+    count taken under a dispatch mode does not dispatch it."""
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(pos, Skv - 1) if causal else np.full_like(pos, Skv - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else \
+        np.zeros_like(pos)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@torch.library.custom_op("repro_torch::flash_attention_meta",
+                         mutates_args=())
+def attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: int) -> torch.Tensor:
+    """The kernel's meta function (its fake implementation below): the
+    output, shape and dtype only. It has no implementation off meta."""
+    raise NotImplementedError("attention_meta takes meta tensors only")
+
+
+@attention_meta.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_meta)
+def _attention_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                     **kwargs) -> int:
+    """QK^T and P.V over the visible pairs: 2 products of hd a pair."""
+    B, Sq, H, hd = q_shape
+    return 4 * B * H * hd * visible_pairs(Sq, k_shape[1], causal, window)
+
+
 def _forward(q, k, v, causal: bool, window: int, softcap: float,
              impl: str):
+    if impl == "meta":
+        return attention_meta(q, k, v, causal, window)
     if impl == "torch":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
@@ -129,7 +172,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     no key at all (causal with ``Skv < Sq``) are outside the contract, as
     they are for the reference's kernel."""
     _check(q, k, v)
-    impl = resolve_impl(impl, q.device)
+    impl = resolve_impl(impl, q.device, meta=True)
     window, softcap = int(window), float(softcap)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return AttentionFunction.apply(q, k, v, causal, window, softcap,

@@ -12,14 +12,22 @@ reverse walk of the same recurrence (see `ref.py`). The forward and the
 reverse run through the same implementation: on CUDA tensors the
 hand-written kernel (`repro_torch/csrc/rglru_scan.cu`) or an exception,
 on CPU tensors the plain PyTorch version; ``impl="torch"`` asks for the
-plain version by name and ``impl="cuda"`` on CPU tensors raises.
+plain version by name and ``impl="cuda"`` on CPU tensors raises. On
+``meta`` tensors each direction runs the kernel's meta function
+(`lru_forward_meta`, `lru_reverse_meta`, `torch.library` ops): the
+outputs' shapes and dtypes, nothing computed, with the kernel's
+operations (2 an element forward, 4 reverse) registered with
+`torch.utils.flop_counter` for a dry run.
 
 `lru_forward.launches` and `lru_reverse.launches` count kernel launches of
 each direction (and nothing else).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.rglru_scan import kernel as _kernel
 from repro_torch.kernels.rglru_scan.ref import lru_ref, lru_reverse_ref
@@ -90,10 +98,54 @@ def _launch(reverse: bool, log_a, x, c0=None, h0=None, h_fwd=None):
     return out.to(x_dtype), last.to(x_dtype)
 
 
+@torch.library.custom_op("repro_torch::lru_forward_meta", mutates_args=())
+def lru_forward_meta(log_a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's meta function (its fake implementation
+    below): (h, h_last) in b's dtype. It has no implementation off meta."""
+    raise NotImplementedError("lru_forward_meta takes meta tensors only")
+
+
+@lru_forward_meta.register_fake
+def _(log_a, b, h0):
+    B, _, D = b.shape
+    return torch.empty_like(b), b.new_empty((B, D))
+
+
+@torch.library.custom_op("repro_torch::lru_reverse_meta", mutates_args=())
+def lru_reverse_meta(log_a: torch.Tensor, dh: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse kernel's meta function (its fake implementation
+    below): (db, dlog_a, dh0 float32). No implementation off meta."""
+    raise NotImplementedError("lru_reverse_meta takes meta tensors only")
+
+
+@lru_reverse_meta.register_fake
+def _(log_a, dh):
+    B, _, D = dh.shape
+    return (torch.empty_like(dh), torch.empty_like(log_a),
+            dh.new_empty((B, D), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.lru_forward_meta)
+def _forward_flops(a_shape, b_shape, *args, **kwargs) -> int:
+    B, S, D = b_shape
+    return 2 * B * S * D          # one multiply-add an element
+
+
+@register_flop_formula(torch.ops.repro_torch.lru_reverse_meta)
+def _reverse_flops(a_shape, dh_shape, *args, **kwargs) -> int:
+    B, S, D = dh_shape
+    return 4 * B * S * D          # an add and two multiplies, and the exp
+
+
 def lru_forward(log_a, b, h0=None, impl: str | None = None):
     """The forward recurrence, no autograd: (h, h_last) in ``b.dtype``."""
     _check(log_a, b, h0)
-    impl = resolve_impl(impl, b.device)
+    impl = resolve_impl(impl, b.device, meta=True)
+    if impl == "meta":
+        return lru_forward_meta(log_a, b, h0)
     if impl == "torch":
         return lru_ref(log_a, b, h0)
     h, last = _launch(False, log_a, b, c0=h0)
@@ -112,7 +164,9 @@ def lru_reverse(log_a, dh, h, h0=None, dh_last=None,
     if dh_last is not None and dh_last.shape != dh[:, 0].shape:
         raise ValueError(f"dh_last must be [B, D], got "
                          f"{tuple(dh_last.shape)}")
-    impl = resolve_impl(impl, dh.device)
+    impl = resolve_impl(impl, dh.device, meta=True)
+    if impl == "meta":
+        return lru_reverse_meta(log_a, dh)
     if impl == "torch":
         return lru_reverse_ref(log_a, dh, h, h0, dh_last)
     db, dlog_a, dh0 = _launch(True, log_a, dh, c0=dh_last, h0=h0, h_fwd=h)
@@ -145,7 +199,7 @@ def lru_chunked(log_a, b, h0=None, *, impl: str | None = None):
     """log_a, b: [B, S, D]; h0: optional [B, D]. Returns (h, h_last) in
     ``b.dtype``, differentiable in log_a, b and h0."""
     _check(log_a, b, h0)
-    impl = resolve_impl(impl, b.device)
+    impl = resolve_impl(impl, b.device, meta=True)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (log_a, b, h0)):
         return LRUFunction.apply(log_a, b, h0, impl)

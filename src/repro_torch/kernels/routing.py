@@ -5,6 +5,12 @@ hand-written kernel, and ``"torch"``, its plain PyTorch version. With no
 choice, CUDA tensors take the kernel and CPU tensors the plain version;
 ``"cuda"`` asked for on CPU tensors raises. Nothing falls back from one to
 the other.
+
+The wrappers of the model path's kernels (flash attention, the RG-LRU
+recurrence) also answer on the ``meta`` device (``meta=True``): there
+they run the kernel's meta function, which gives the outputs' shapes and
+dtypes and computes nothing, as a dry run needs (`launch/dryrun.py`).
+The other wrappers take meta tensors to their plain versions.
 """
 from __future__ import annotations
 
@@ -14,9 +20,13 @@ import torch
 IMPLS = ("cuda", "torch")
 
 
-def resolve_impl(impl: str | None, device: torch.device) -> str:
-    """Default: the kernel on a CUDA device, the plain version on the CPU.
-    ``"cuda"`` on a CPU device raises."""
+def resolve_impl(impl: str | None, device: torch.device,
+                 meta: bool = False) -> str:
+    """Default: the kernel on a CUDA device, the plain version on the CPU,
+    and, for a wrapper with a meta function (``meta=True``), ``"meta"`` on
+    the meta device. ``"cuda"`` on another device raises."""
+    if meta and device.type == "meta" and impl in (None, "meta"):
+        return "meta"
     if impl is None:
         return "cuda" if device.type == "cuda" else "torch"
     if impl not in IMPLS:

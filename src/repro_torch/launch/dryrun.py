@@ -1,0 +1,614 @@
+"""Dry run of the assigned cell grid: does each cell fit, and what does it
+cost?
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --cells recurrentgemma-2b:decode_32k,yi-6b:train_4k --out dry.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+        --cells recurrentgemma-2b:long_500k --run
+
+The counterpart of the reference's `repro/launch/dryrun.py`
+(`dryrun.py:75-246`), with its command line. For every requested
+(architecture x input-shape) cell, on the production single-pod
+(16 x 16) or multi-pod (2 x 16 x 16) mesh's axis sizes
+(`launch/mesh.py`), `lower_cell`
+
+  * resolves the sharding policy (`sharding.policy.resolve`: strategy,
+    attention mode, KV replication, expert padding, batch axes, notes);
+    its ``kv_repeat`` and ``expert_pad`` decide the parameter tree;
+  * builds the cell's step on the ``meta`` device, with no allocation,
+    as the reference's `eval_shape` + `lower` do: train -> `make_train_step`
+    with AdamW (bf16 moments for arctic, `_moment_dtype`), prefill ->
+    `forward` + `unembed` of the last position, decode ->
+    `make_decode_logits_step` against `init_cache(B, seq)` at position
+    ``seq - 1``; the model runs ``attention_impl="pallas"``, as the port
+    serves and trains, so that the attention and RG-LRU kernels count as
+    their meta functions (the outputs they allocate) and the plain
+    attention's ``[B, H, Sq, Skv]`` scores never enter;
+  * records the parameter count and bytes, the moment, cache and input
+    bytes, ``flops`` by `torch.utils.flop_counter`'s formulas (its
+    FlopCounterMode's table) over the meta step (matrix products and the
+    kernels' registered formulas) beside ``flops_analytic`` = 2 x active
+    params x tokens (6 x for train), and an estimate of ONE card's peak
+    bytes: the exact argument
+    bytes plus the peak of the bytes that the step allocates, storage by
+    storage, as the meta run creates and frees them (`MetaRun`).
+    ``fits_one_card`` is the estimate at most FIT_SHARE of CARD_BYTES,
+    on the assumption that the card's allocator runs with expandable
+    segments (see ``--run`` below; ordinary serving and training runs
+    use its fixed segments, which can fragment past it); where
+    it is not, ``min_cards`` = ceil(estimate / CARD_BYTES), a lower bound
+    (the reference shards over 256 or 512 chips; one card's bytes do not
+    say how a mesh would split them).
+
+The reference also records the collective traffic parsed from XLA's
+optimized HLO (`collectives`, `hlo_lines`) and XLA's `memory_analysis`.
+They have no counterpart on one card: the collectives wait for the
+multi-card item of ROADMAP.md, and the estimate above stands where
+`memory_analysis` stood.
+
+``--run`` (the card only; without one it raises) then runs each requested
+cell on the card at its assigned shape if its estimate fits, else at the
+largest batch whose estimate fits (recorded under ``reduced``), with
+random bf16 weights from ``--seed``: a prefill twice (seconds of the
+second), a decode step from a cache whose every tensor is a seeded
+standard-normal draw at position ``seq - 1`` (ms a step over RUN_STEPS
+steps by CUDA events, each step at that position), a train step once.
+It records the measured peak (`torch.cuda.max_memory_allocated`) beside
+the estimate and the kernel launches. A cell the estimate admits must not
+run out of memory: that error is not caught. The estimate counts bytes
+allocated, so a cell runs with the caching allocator's expandable
+segments (`expandable_segments`), under which the bytes the card must
+hold are the bytes allocated: with its fixed segments the allocator
+fragments around a prefill's 2.8-8.4 GiB activations (recurrentgemma-2b
+prefill_32k at B 18 ran out of memory with 19.3 GiB reserved but
+unallocated beside 58.4 GiB allocated, on an H100 80GB HBM3).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+import weakref
+from typing import Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten as _pytree_flatten
+from torch.utils._pytree import tree_leaves as _pytree_leaves
+from torch.utils._pytree import tree_unflatten as _pytree_unflatten
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.configs import SHAPES, Shape, cells, get_config, input_specs
+from repro_torch.device import meta_generator, resolve_device
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.rglru_scan.ops import lru_forward, lru_reverse
+from repro_torch.launch.mesh import mesh_devices, production_axes
+from repro_torch.models import analysis
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import unembed
+from repro_torch.models.registry import get_family
+from repro_torch.serve.engine import make_decode_logits_step
+from repro_torch.sharding import policy as policy_lib
+from repro_torch.train import optim as optim_lib
+from repro_torch.train.step import make_train_step, state_for
+
+CARD_BYTES = 80e9        # one H100's HBM
+FIT_SHARE = 0.9          # the share of it an estimate may claim
+RUN_STEPS = 5            # timed decode steps of --run, after RUN_WARM
+RUN_WARM = 2
+META = torch.device("meta")
+
+
+def _moment_dtype(cfg: ModelConfig) -> str:
+    # >=100B params: bf16 moments (gradient/optimizer compression)
+    return "bfloat16" if cfg.name.startswith("arctic") else "float32"
+
+
+def nbytes(tensors) -> int:
+    """Bytes of the tensors' elements (meta tensors included)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tensors_of(tree) -> list:
+    """The tensors of a nested structure (dicts, lists, named tuples,
+    dataclasses)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tensors_of(v)]
+    return []
+
+
+class _Uncacheable(Exception):
+    """An operand the shape cache does not key (a tensor off meta)."""
+
+
+def _signature(x):
+    """What an operand contributes to the shape cache's key."""
+    if isinstance(x, torch.Tensor):
+        if x.device != META:
+            raise _Uncacheable
+        return (x.shape, x.stride(), x.dtype, x.storage_offset())
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(y) for y in x)
+    return x
+
+
+class MetaRun(TorchDispatchMode):
+    """Runs a step on the meta device and counts its work and its bytes.
+
+    ``flops``: each operation's count by the formulas of
+    `torch.utils.flop_counter` (`flop_registry`, FlopCounterMode's table:
+    the matrix products and convolutions, and the kernels' meta functions
+    that register theirs), summed.
+
+    ``live`` and ``peak``: the bytes of the storages the operations
+    create. A storage counts from the operation that creates it until the
+    last tensor viewing it dies (a finalizer on the storage), so views and
+    in-place results add nothing; the storages of `exclude`d tensors (the
+    step's arguments, counted apart) are never counted.
+
+    Shapes are deterministic functions of the operands' metadata, so an
+    operation that neither mutates nor aliases is answered, the second time
+    it meets the same operands' shapes, strides and dtypes and the same
+    other arguments, with new meta tensors of the shapes it gave the first
+    time, without running its shape function again: PyTorch's meta
+    functions of elementwise operations are Python and cost 0.1-0.4 ms
+    each, and the sLSTM's time loop runs ~25 of them a step, 32 768 steps a
+    block. ``hits`` counts them.
+    """
+
+    # no alias annotation in the schema, but a view of the operand
+    ALIASING = ("_unsafe_view",)
+
+    def __init__(self, exclude=()):
+        super().__init__()
+        self.flops = 0
+        self.live = 0
+        self.peak = 0
+        self.hits = 0
+        self._seen: set[int] = set()
+        self._shapes: dict = {}
+        self._cacheable: dict = {}
+        for t in exclude:
+            st = t.untyped_storage()
+            self._seen.add(id(st))
+            weakref.finalize(st, self._seen.discard, id(st))
+
+    def _free(self, key: int, n: int):
+        self._seen.discard(key)
+        self.live -= n
+
+    def _key(self, func, args, kwargs):
+        """The operation and its operands' metadata, or None where it
+        may mutate or alias (or an operand is not hashable, or a tensor
+        not on meta)."""
+        ok = self._cacheable.get(func)
+        if ok is None:
+            schema = func._schema
+            ok = not (schema.is_mutable or func._opname in self.ALIASING
+                      or any(r.alias_info is not None
+                             for r in schema.returns))
+            self._cacheable[func] = ok
+        if not ok:
+            return None
+        try:
+            key = (func, _signature(args),
+                   tuple((k, _signature(v)) for k, v in kwargs.items()))
+            hash(key)
+        except (_Uncacheable, TypeError):
+            return None
+        return key
+
+    def _run(self, func, args, kwargs):
+        key = self._key(func, args, kwargs)
+        made = None if key is None else self._shapes.get(key)
+        if made is None:
+            out = func(*args, **kwargs)
+            leaves, spec = _pytree_flatten(out)
+            if key is not None and all(
+                    o.device == META for o in leaves
+                    if isinstance(o, torch.Tensor)):
+                # metadata only: a tensor kept here would keep its
+                # storage live
+                self._shapes[key] = ([
+                    (True, (o.shape, o.stride(), o.dtype))
+                    if isinstance(o, torch.Tensor) else (False, o)
+                    for o in leaves], spec)
+            return out
+        self.hits += 1
+        leaves, spec = made
+        return _pytree_unflatten(
+            [torch.empty_strided(m[0], m[1], dtype=m[2], device=META)
+             if is_tensor else m for is_tensor, m in leaves], spec)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = self._run(func, args, kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.flops += count(*args, **kwargs, out_val=out)
+        for t in _pytree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                key = id(st)
+                if key not in self._seen:
+                    n = st.nbytes()
+                    self._seen.add(key)
+                    self.live += n
+                    self.peak = max(self.peak, self.live)
+                    weakref.finalize(st, self._free, key, n)
+        return out
+
+
+def _at_position(cache, pos: int):
+    """The family's decode cache with its next position set to `pos`."""
+    if dataclasses.is_dataclass(cache):
+        return dataclasses.replace(cache, pos=pos)
+    return cache._replace(pos=pos)
+
+
+def filled_cache(cfg: ModelConfig, pol, batch: int, seq: int,
+                 gen: Optional[torch.Generator], device):
+    """A decode cache of `seq` positions whose next position is ``seq -
+    1``: every tensor a standard-normal draw from `gen` (one leading slice
+    at a time, drawn in float32 and rounded to the tensor's dtype), or
+    shapes only on the meta device (`gen` None)."""
+    cache = get_family(cfg).init_cache(cfg, pol, batch, seq, device=device)
+    if gen is not None:
+        with torch.no_grad():
+            for t in tensors_of(cache):
+                for row in t:
+                    row.copy_(torch.randn(row.shape, generator=gen,
+                                          device=row.device))
+    return _at_position(cache, seq - 1)
+
+
+def random_inputs(cfg: ModelConfig, shape: Shape, gen: torch.Generator,
+                  device) -> dict:
+    """The cell's inputs (`input_specs`) drawn from `gen`: tokens and
+    labels uniform over the vocabulary, frames and patch embeddings
+    standard normal x 0.02."""
+    out = {}
+    for name, spec in input_specs(cfg, shape, device=META).items():
+        if spec.dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+        else:
+            out[name] = (torch.randn(spec.shape, generator=gen,
+                                     device=device) * 0.02).to(spec.dtype)
+    return out
+
+
+@dataclasses.dataclass
+class Step:
+    """One cell's step, built: `fn()` runs it on `args`."""
+    fn: object
+    params: dict
+    state: object          # the moments (train), the cache (decode) or None
+    inputs: dict
+    tokens: int            # tokens the step processes
+
+    def argument_tensors(self) -> list:
+        return tensors_of((self.params, self.state, self.inputs))
+
+
+def build_step(cfg: ModelConfig, pol, shape: Shape, device,
+               gen: Optional[torch.Generator] = None) -> Step:
+    """The cell's step on `device`: on the meta device with `gen` None
+    (shapes only), else with parameters and data drawn from `gen`."""
+    fam = get_family(cfg)
+    meta = gen is None
+    params = fam.init_params(cfg, pol, meta_generator() if meta else gen)
+    inputs = (input_specs(cfg, shape, device=META) if meta
+              else random_inputs(cfg, shape, gen, device))
+    B, S = shape.batch, shape.seq
+
+    if shape.kind == "train":
+        ocfg = optim_lib.AdamWConfig(moment_dtype=_moment_dtype(cfg))
+        state = state_for(params, ocfg)
+        step = make_train_step(cfg, pol, ocfg)
+
+        def fn():
+            return step(state, inputs)[1]["loss"]
+
+        return Step(fn, params, state.opt, inputs, B * S)
+
+    if shape.kind == "prefill":
+        def fn():
+            with torch.no_grad():
+                hidden, _ = fam.forward(cfg, pol, params, inputs["tokens"],
+                                        inputs.get("embeds"))
+                return unembed(cfg, pol, hidden[:, -1:], params["embed"])
+
+        return Step(fn, params, None, inputs, B * S)
+
+    cache = filled_cache(cfg, pol, B, S, gen, device)
+    step = make_decode_logits_step(cfg, pol)
+
+    def fn():
+        with torch.no_grad():
+            # every step at position seq - 1: the cost of the seq-th token
+            logits, _ = step(params, _at_position(cache, S - 1),
+                             inputs["tokens"])
+            return logits
+
+    return Step(fn, params, cache, inputs, B)
+
+
+def cell_config(arch: str, remat: Optional[str] = None) -> ModelConfig:
+    cfg = get_config(arch).with_(attention_impl="pallas")
+    return cfg.with_(remat=remat) if remat is not None else cfg
+
+
+def estimate(cfg: ModelConfig, pol, shape: Shape) -> dict:
+    """The meta build of one cell and what it says: counts, bytes, FLOPs
+    and the one-card estimate."""
+    t0 = time.perf_counter()
+    step = build_step(cfg, pol, shape, META)
+    args = step.argument_tensors()
+    param_leaves = optim_lib.tree_leaves(step.params)
+    with MetaRun(exclude=args) as run:
+        out = step.fn()
+        del out
+    arg_bytes = nbytes(args)
+    peak = arg_bytes + run.peak
+    state_bytes = nbytes(tensors_of(step.state))
+    k = 6 if shape.kind == "train" else 2
+    rec = {
+        "params": sum(t.numel() for t in param_leaves),
+        "param_bytes": nbytes(param_leaves),
+        "analysis_params": analysis.param_count(cfg, pol.expert_pad),
+        "active_params": analysis.active_param_count(cfg),
+        "moment_bytes": state_bytes if shape.kind == "train" else 0,
+        "cache_bytes": state_bytes if shape.kind == "decode" else 0,
+        "input_bytes": nbytes(tensors_of(step.inputs)),
+        "argument_bytes": arg_bytes,
+        "transient_bytes": run.peak,
+        "peak_bytes_estimate": peak,
+        "fits_one_card": peak <= FIT_SHARE * CARD_BYTES,
+        "tokens": step.tokens,
+        "flops": float(run.flops),
+        "flops_analytic": k * analysis.active_param_count(cfg) * step.tokens,
+        "meta_seconds": time.perf_counter() - t0,
+    }
+    if not rec["fits_one_card"]:
+        rec["min_cards"] = math.ceil(peak / CARD_BYTES)
+        rec["min_cards_is"] = "a lower bound"
+    return rec
+
+
+def policy_record(pol) -> dict:
+    return {"strategy": pol.strategy, "attn_mode": pol.attn_mode,
+            "decode_attn": pol.decode_attn, "kv_repeat": pol.kv_repeat,
+            "expert_pad": pol.expert_pad, "batch_axes": str(pol.batch_axes),
+            "notes": list(pol.notes)}
+
+
+def resolved_cell(arch: str, shape_name: str, multi_pod: bool = False,
+                  remat: Optional[str] = None, strategy: str = "auto"):
+    """(cfg, shape, mesh axes, policy) of one cell: the policy resolved
+    on the production mesh's axes for the cell's batch, kind and length."""
+    cfg = cell_config(arch, remat)
+    shape = SHAPES[shape_name]
+    axes = production_axes(multi_pod=multi_pod)
+    pol = policy_lib.resolve(cfg, axes, shape.batch, shape.kind,
+                             seq=shape.seq, strategy=strategy)
+    return cfg, shape, axes, pol
+
+
+def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
+               remat: Optional[str] = None, strategy: str = "auto") -> dict:
+    """The dry run of one cell on the meta device. Returns its record."""
+    cfg, shape, axes, pol = resolved_cell(arch, shape_name, multi_pod,
+                                          remat, strategy)
+    rec = {"arch": arch, "shape": shape_name, "kind": shape.kind,
+           "batch": shape.batch, "seq": shape.seq,
+           "mesh": "x".join(str(s) for s in axes.values()),
+           "devices": mesh_devices(axes), "policy": policy_record(pol),
+           "attention_impl": cfg.attention_impl, "remat": cfg.remat}
+    rec.update(estimate(cfg, pol, shape))
+    rec["ok"] = True
+    return rec
+
+
+def largest_fitting_batch(cfg: ModelConfig, pol, shape: Shape
+                          ) -> tuple[int, Optional[int]]:
+    """The largest batch up to the cell's whose estimate fits one card,
+    and that estimate ((0, None) if none does): a bisection over meta
+    builds."""
+    lo, hi, est = 0, shape.batch, None
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        rec = estimate(cfg, pol, dataclasses.replace(shape, batch=mid))
+        if rec["fits_one_card"]:
+            lo, est = mid, rec["peak_bytes_estimate"]
+        else:
+            hi = mid - 1
+    return lo, est
+
+
+def kernel_launches() -> dict:
+    return {"flash_attention": flash_attention.launches,
+            "lru_forward": lru_forward.launches,
+            "lru_reverse": lru_reverse.launches}
+
+
+def _expandable_segments_on() -> bool:
+    """Whether the caching allocator's settings turn expandable segments
+    on: the last ones set, where this PyTorch reads them back, else the
+    environment's (PYTORCH_CUDA_ALLOC_CONF or PYTORCH_ALLOC_CONF)."""
+    get = getattr(torch._C, "_accelerator_getAllocatorSettings", None)
+    conf = get() if get is not None else (
+        os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        or os.environ.get("PYTORCH_ALLOC_CONF", ""))
+    return "expandable_segments:true" in conf.replace(" ", "").lower()
+
+
+@contextlib.contextmanager
+def expandable_segments(device):
+    """The caching allocator's expandable segments on for the block's new
+    allocations (the cached segments released first), and back to the
+    caller's setting after it."""
+    prior = _expandable_segments_on()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch._C._accelerator_setAllocatorSettings(
+            f"expandable_segments:{prior}")
+
+
+def run_cell(cfg: ModelConfig, pol, shape: Shape, seed: int = 0,
+             device=None) -> dict:
+    """Run one cell's step on the card at `shape` (see the module's
+    docstring), under `expandable_segments`. Returns the measurements."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"--run measures the card; {dev} is not one")
+    with expandable_segments(dev):
+        return _run_cell(cfg, pol, shape, seed, dev)
+
+
+def _run_cell(cfg: ModelConfig, pol, shape: Shape, seed: int, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    step = build_step(cfg, pol, shape, dev, gen)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = kernel_launches()
+    out = {"batch": shape.batch, "seq": shape.seq,
+           "argument_bytes": nbytes(step.argument_tensors()),
+           "allocator": "expandable_segments"}
+    if shape.kind == "decode":
+        for _ in range(RUN_WARM):
+            step.fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(RUN_STEPS):
+            logits = step.fn()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        ms = start.elapsed_time(stop) / RUN_STEPS
+        out.update(ms_per_step=ms, steps=RUN_STEPS, warm_steps=RUN_WARM,
+                   tokens_per_second=shape.batch * 1e3 / ms)
+        result = logits
+    else:
+        seconds = []
+        for _ in range(2 if shape.kind == "prefill" else 1):
+            t0 = time.perf_counter()
+            result = step.fn()
+            torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+        out.update(seconds=seconds[-1], seconds_each=seconds,
+                   tokens_per_second=step.tokens / seconds[-1])
+    out["finite"] = bool(torch.isfinite(result.float()).all())
+    out["output_shape"] = list(result.shape)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    after = kernel_launches()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    del step, result
+    return out
+
+
+def run_requested(rec: dict, seed: int = 0, remat: Optional[str] = None,
+                  strategy: str = "auto", device=None) -> dict:
+    """--run for one dry-run record: at the assigned shape if it fits,
+    else at the largest batch that fits, else not at all."""
+    cfg, shape, _, pol = resolved_cell(
+        rec["arch"], rec["shape"], rec["devices"] > 256, remat, strategy)
+    if rec["fits_one_card"]:
+        return run_cell(cfg, pol, shape, seed, device)
+    batch, est = largest_fitting_batch(cfg, pol, shape)
+    if batch == 0:
+        return {"skipped": "the estimate at batch 1 exceeds one card"}
+    out = run_cell(cfg, pol, dataclasses.replace(shape, batch=batch), seed,
+                   device)
+    out["reduced"] = {"batch": [shape.batch, batch],
+                      "why": "the largest batch whose estimate fits"}
+    out["estimate_at_reduced_batch"] = est
+    return out
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cells", type=str, default="",
+                    help="comma-separated arch:shape list")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--remat", type=str, default=None)
+    ap.add_argument("--strategy", type=str, default="auto",
+                    choices=["auto", "tp", "dp_zero1", "dp_zero3", "dp_seq"])
+    ap.add_argument("--out", type=str, default="")
+    ap.add_argument("--run", action="store_true",
+                    help="also run the cells that fit on the card")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.run:
+        resolve_device(None)        # the card, or raise before any work
+
+    if args.all:
+        todo = cells()
+    else:
+        todo = [tuple(c.split(":")) for c in args.cells.split(",") if c]
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    results = []
+    for arch, shape in todo:
+        for mp in meshes:
+            tag = f"{arch}:{shape}:{'multi' if mp else 'single'}"
+            try:
+                rec = lower_cell(arch, shape, mp, remat=args.remat,
+                                 strategy=args.strategy)
+                fit = ("fits one card" if rec["fits_one_card"] else
+                       f">= {rec['min_cards']} cards")
+                print(f"[dryrun] OK   {tag:55s} "
+                      f"est={rec['peak_bytes_estimate'] / 1e9:.1f}GB {fit} "
+                      f"flops={rec['flops']:.3e} "
+                      f"meta={rec['meta_seconds']:.1f}s", flush=True)
+            except Exception as e:      # the next cell still runs
+                rec = {"arch": arch, "shape": shape,
+                       "mesh": "multi" if mp else "single", "ok": False,
+                       "error": f"{type(e).__name__}: {e}",
+                       "trace": traceback.format_exc()[-2000:]}
+                print(f"[dryrun] FAIL {tag:55s} {type(e).__name__}: "
+                      f"{str(e)[:200]}", flush=True)
+            if args.run and rec["ok"]:
+                rec["run"] = run_requested(rec, args.seed, args.remat,
+                                           args.strategy)
+                print(f"[dryrun] RUN  {tag:55s} {json.dumps(rec['run'])}",
+                      flush=True)
+            results.append(rec)
+
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+        print(f"[dryrun] wrote {len(results)} records -> {args.out}")
+    n_ok = sum(1 for r in results if r.get("ok"))
+    n_fit = sum(1 for r in results if r.get("fits_one_card"))
+    print(f"[dryrun] {n_ok}/{len(results)} cells built on meta, "
+          f"{n_fit} fit one card")
+    if n_ok < len(results):
+        raise SystemExit(1)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,11 @@ every other subtree (the hybrid tail, the final norms) is carried as it
 is, and the hybrid blocks' ``kind_*`` structural markers are dropped;
 orientation ``[in, out]`` and dtypes are kept (the MoE router stays
 float32 beside bf16 experts; bfloat16 arrives as numpy's ``bfloat16``
-extension type and is rebuilt exactly). Nothing here imports JAX.
+extension type and is rebuilt exactly). With ``device="meta"`` only the
+leaves' ``shape`` and ``dtype`` are read (they may be the reference's
+`jax.eval_shape` structs) and the tree is built of meta tensors: the
+reference's parameter shapes under the port's names. Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -24,7 +28,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_family
 
 
+def _meta(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(tuple(shape), device=device,
+                       dtype=getattr(torch, np.dtype(dtype).name))
+
+
 def _tensor(x, device) -> torch.Tensor:
+    if device.type == "meta":
+        return _meta(x.shape, x.dtype, device)
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":       # bf16 widens to float32 exactly
         return torch.from_numpy(a.astype(np.float32)).to(
@@ -44,8 +55,12 @@ def _unstack(stacked, dev):
     first = stacked
     while isinstance(first, dict):
         first = next(iter(first.values()))
-    return [_map(stacked, lambda x, i=i: _tensor(np.asarray(x)[i], dev))
-            for i in range(np.shape(first)[0])]
+    if dev.type == "meta":      # one layer's shape: the leading axis off
+        row = lambda x, i: _meta(tuple(x.shape)[1:], x.dtype, dev)
+    else:
+        row = lambda x, i: _tensor(np.asarray(x)[i], dev)
+    return [_map(stacked, lambda x, i=i: row(x, i))
+            for i in range(tuple(first.shape)[0])]
 
 
 def params_from_jax(cfg: ModelConfig, tree, device=None):

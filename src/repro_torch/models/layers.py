@@ -4,7 +4,9 @@ The counterpart of the reference's `repro/models/layers.py`. Parameters
 are plain dictionaries of tensors with JAX's weight orientation
 ``[in, out]`` (``x @ w``); the reference's `Boxed` logical axes belong to
 TPU sharding and are not carried. Every function takes a `Policy`, whose
-`constrain` is the identity on one card. Public layouts are the
+`constrain` is the identity on one card. The init functions draw on
+``gen.device``: with `device.meta_generator()` they build the tree's
+shapes and dtypes on the ``meta`` device and draw nothing. Public layouts are the
 reference's: ``[B, S, H, hd]`` for attention and ``[B, T, KV, hd]`` for one
 layer's KV cache.
 
@@ -159,8 +161,12 @@ def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
         out = flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.logit_softcap)
     else:
+        # a sequence sharded by the policy (dp_seq) takes the reference's
+        # unchunked branch, though one card shards nothing
+        seq_sharded = pol.rules.get("seq") is not None
         out = _chunked_sdpa(q, k, v, causal=causal, window=window, offset=0,
-                            softcap=cfg.logit_softcap)
+                            softcap=cfg.logit_softcap,
+                            chunk=S if seq_sharded else ATTN_CHUNK)
     y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
     return y, (k, v)
 

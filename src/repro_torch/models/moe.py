@@ -1,22 +1,26 @@
 """Mixture-of-Experts layer, in PyTorch: sort/gather dispatch (default) and
 the GShard one-hot einsum.
 
-The counterpart of the reference's `repro/models/moe.py`. On one card the
-router is as wide as ``cfg.n_experts`` (the reference's
-``single_device_policy`` sets ``expert_pad = n_experts``); a router that is
-wider, as a carried-over tree padded for an expert-parallel mesh would be,
-has its dead experts' logits masked to -1e30, as the reference masks them.
+The counterpart of the reference's `repro/models/moe.py`. The router and
+the expert stack are ``E = pol.expert_pad or cfg.n_experts`` wide:
+`single_device_policy` sets ``expert_pad = n_experts``, and a policy
+resolved for an expert-parallel mesh pads E to a multiple of its model
+axis (qwen2-moe-a2.7b's 60 experts to 64 on a 16-wide axis); the dead
+experts' router logits are masked to -1e30, as the reference masks them,
+so they receive no token.
 
 Two dispatch implementations, selected by ``impl``:
 
-  * ``gather`` (what ``"auto"`` resolves to on one card) — each batch row
+  * ``gather`` (what ``"auto"`` resolves to unless the policy maps the
+    expert axis) — each batch row
     is a routing group: its (token, choice) pairs, in the flattened (s, k)
     order, are ranked within their expert by an exclusive running count,
     scattered into an ``[E * C + 1, d]`` buffer whose last row is the drop
     bin, run through the SwiGLU experts and gathered back, each weighted by
     ``gate * keep``. Linear in tokens.
   * ``einsum`` — the GShard one-hot formulation, ``[B, S, E, C]`` dispatch
-    and combine tensors.
+    and combine tensors; ``"auto"`` takes it when ``pol.rules["expert"]``
+    names a mesh axis, as the reference's does.
 
 Both drop the choices past an expert's capacity C = ceil(S * k / E * cf)
 (combine weight 0; the residual path carries the token), as in
@@ -43,17 +47,20 @@ IMPLS = ("auto", "gather", "einsum")
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, pol: Policy):
-    """Router ``[d, E]`` in float32 at scale 0.02 and the stacked SwiGLU
+    """Router ``[d, E]`` (E the padded expert count) in float32 at scale
+    0.02 and the stacked SwiGLU
     experts ``wi`` / ``wg`` ``[E, d, f]``, ``wo`` ``[E, f, d]``, each drawn
     in float32 times 1/sqrt(d) (one expert at a time, so that no float32
     copy of a whole stack is held) and cast to the param dtype."""
-    E = cfg.n_experts
+    E = pol.expert_pad or cfg.n_experts
     d, f, dt = cfg.d_model, cfg.expert_d_ff, cfg.pdtype()
     s = 1.0 / math.sqrt(d)
     router = dense_init(gen, d, E, torch.float32, scale=0.02)
 
     def ex(shape):
         w = torch.empty((E,) + shape, dtype=dt, device=gen.device)
+        if w.device.type == "meta":     # a shape-only build draws nothing
+            return w
         for e in range(E):
             w[e] = torch.randn(shape, generator=gen, dtype=torch.float32,
                                device=gen.device) * s
@@ -103,10 +110,13 @@ def _experts(p, xin, spec: str):
 
 def moe_forward(p, cfg: ModelConfig, pol: Policy, x, impl: str = "auto"):
     """x: [B, S, d] -> (out [B, S, d], aux_loss scalar). ``"auto"`` is
-    ``"gather"``: the reference takes ``"einsum"`` only when its policy
-    maps an expert axis of a mesh, which one card does not have."""
+    ``"einsum"`` when the policy maps the expert axis (experts sharded
+    over a mesh: dispatch and combine as all-to-alls), else ``"gather"``,
+    as the reference's."""
     if impl not in IMPLS:
         raise ValueError(f"unknown moe impl {impl!r}; one of {IMPLS}")
+    if impl == "auto":
+        impl = "einsum" if pol.rules.get("expert") is not None else "gather"
     if impl == "einsum":
         return moe_forward_einsum(p, cfg, pol, x)
     return moe_forward_gather(p, cfg, pol, x)

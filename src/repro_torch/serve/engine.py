@@ -1,8 +1,9 @@
 """Batched serving engine: prefill or prompt replay, then greedy decode.
 
 The counterpart of the reference's `repro/serve/engine.py`
-(`engine.py:45-83`). ``serve_step`` is one new token for every sequence of
-the batch against the family's decode state. ``generate`` takes one of
+(`engine.py:35-83`). ``serve_step`` is one new token for every sequence of
+the batch against the family's decode state, ``make_decode_logits_step``
+the same step with the logits out. ``generate`` takes one of
 three branches, as the reference does:
 
   * dense, moe and vlm (`models/lm.py`): prefill the prompt (which seeds
@@ -52,6 +53,18 @@ def make_serve_step(cfg: ModelConfig, pol: Policy):
         return torch.argmax(logits[:, -1:], dim=-1), cache
 
     return serve_step
+
+
+def make_decode_logits_step(cfg: ModelConfig, pol: Policy):
+    """The raw decode step, logits out: (params, cache, tokens [B,1]) ->
+    (logits [B,1,V], cache). What a decode cell of the dry run builds
+    (`launch/dryrun.py`)."""
+    family = get_family(cfg)
+
+    def step(params, cache, tokens):
+        return family.decode_step(cfg, pol, params, cache, tokens)
+
+    return step
 
 
 def _clock(device: torch.device) -> float:

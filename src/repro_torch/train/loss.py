@@ -47,6 +47,8 @@ def chunked_ce(cfg: ModelConfig, pol: Policy, hidden, embed_w, labels,
     from the graph).
     """
     B, S, d = hidden.shape
+    if pol.rules.get("seq") is not None:
+        chunk = S          # dp_seq: the reference's unchunked branch
     chunk = min(chunk, S)
     w = embed_w.to(hidden.dtype)
     remat = torch.is_grad_enabled() and (hidden.requires_grad

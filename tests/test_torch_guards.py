@@ -90,7 +90,8 @@ def test_package_layout_mirrors_the_reference():
                  "models.moe", "configs.qwen2_moe_a2_7b",
                  "configs.arctic_480b", "configs.pixtral_12b",
                  "models.xlstm", "models.encdec", "configs.xlstm_1_3b",
-                 "configs.seamless_m4t_large_v2"):
+                 "configs.seamless_m4t_large_v2", "sharding.partitioning",
+                 "models.analysis", "launch.mesh", "launch.dryrun"):
         assert f"repro_torch.{name}" in mods
     for source, _, _ in CUDA_SOURCES:
         assert (REPO / "src/repro_torch/csrc" / source).is_file()
@@ -201,6 +202,44 @@ class TestKernelImpl:
             tlru.lru_chunked(x, x, impl="cuda")
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             tlru.chunked_lru(x + 0.5, x, impl="cuda")
+
+
+class TestMetaRoutes:
+    """The model path's two kernel wrappers answer on the meta device with
+    their meta functions (shapes only, no launch, no plain version); CPU
+    tensors still take the plain version and ``impl="cuda"`` still needs
+    CUDA tensors, on meta as on the CPU."""
+
+    def test_attention(self, monkeypatch):
+        from repro_torch.kernels.flash_attention import ops as tattn
+        monkeypatch.setattr(tattn, "attention_ref", lambda *a, **k: (
+            _ for _ in ()).throw(AssertionError("plain version on meta")))
+        q = torch.empty((1, 64, 4, 32), device="meta")
+        k = torch.empty((1, 64, 2, 32), device="meta")
+        before = tattn.flash_attention.launches
+        out = tattn.flash_attention(q, k, k, window=16)
+        assert out.device.type == "meta" and out.shape == q.shape
+        assert tattn.flash_attention.launches == before
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tattn.flash_attention(q, k, k, impl="cuda")
+
+    def test_rglru(self, monkeypatch):
+        monkeypatch.setattr(tlru, "lru_ref", lambda *a, **k: (
+            _ for _ in ()).throw(AssertionError("plain version on meta")))
+        x = torch.empty((2, 40, 8), device="meta")
+        h, last = tlru.lru_chunked(x, x, torch.empty((2, 8), device="meta"))
+        assert (h.shape, last.shape) == ((2, 40, 8), (2, 8))
+        assert h.device.type == last.device.type == "meta"
+        db, dla, dh0 = tlru.lru_reverse(x, x, x)
+        assert dh0.dtype == torch.float32 and db.shape == x.shape
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            tlru.lru_chunked(x, x, impl="cuda")
+
+    def test_cpu_tensors_keep_the_plain_version(self):
+        x = torch.zeros((1, 4, 8))
+        before = tlru.lru_forward.launches
+        h, _ = tlru.lru_chunked(x, x)
+        assert h.device.type == "cpu" and tlru.lru_forward.launches == before
 
 
 class TestUnportedPathsRaise:
