@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--only multicard_path]
 
 Builds the six CUDA kernels from the sources in this checkout (one `nvcc`
 per source, started together; the attention and RG-LRU builds go on while
@@ -112,7 +112,21 @@ card, drives the port's paths and prints one JSON line per phase:
   kernels at S = 32 768 against their plain versions at the gates below
   (at the prefill's batch: the attention's last 2 048 query rows of its
   first and last batch rows, the RG-LRU forward whole), and timed at the
-  prefill's layer beside their bounds and SDPA.
+  prefill's layer beside their bounds and SDPA;
+- the multi-card path (`multicard_path`): N = torch.cuda.device_count()
+  ranks under `torchrun --standalone --nproc-per-node N`, each on its own
+  card, joined by `launch/multihost.py` (NCCL): both flows' 666-lane fault
+  grids and the homog cohort study under paper_sweep.py's fault axis
+  (5 328 lanes), their lane axes padded and split over the ranks, held
+  bitwise against this process's one-rank fused runs; then granite-3-2b
+  prefill_32k through `launch/dryrun.py --run --mesh` on the data x model
+  mesh of the N cards (DTensor placements of the parameters' logical
+  axes, the attention kernel through `local_map` on each rank's shards):
+  at B 2 on one card (1 x 1 mesh), at its assigned B 32 x 32 768 on four
+  (data 2 x model 2), with its collectives, seconds and per-rank peak,
+  the last position's logits against one-card runs of the same seed.
+  ``--only multicard_path`` runs only env, the builds and this phase, for
+  a call on four cards.
 
 `--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
 `torch.profiler` (device time by kind of kernel, idle share), and
@@ -197,6 +211,21 @@ Tolerances of the kernel-vs-plain comparisons:
 - checkpoints: every restored leaf bitwise the saved one, bf16 included;
   the first resumed step's loss within rtol 2e-5 (the train gate of the
   tests) of the same step from the state in memory (expected: equal).
+- the multi-card path: the split DES grids bitwise the one-rank grids (a
+  lane does not depend on what shares its dispatch); the model cell's
+  last-position logits within MULTICARD_LOGIT_TOL = 0.1 relative L2
+  (||got - want|| / ||want|| over the vocabulary's entries; the padded
+  ones, masked to -1e30, would swamp both norms) of the one-card
+  references, rows 0 and B - 1. On a 1 x 1 mesh every local tensor is
+  the whole one and the expected difference is 0. On data 2 x model 2
+  each output projection is two bf16 partial sums added by the
+  all-reduce, and cuBLAS may split the narrower products otherwise, so
+  each of the 81 reduced products rounds differently (about 2^-9 of its
+  size). A bf16 run is itself that far from its float32 twin: on the CPU,
+  40 layers at d 1 024 on a model-2 mesh measured 0.022 against one
+  process, which was 0.018 from float32. A wrong split (a head on the
+  wrong rank, a missing or doubled sum, a wrong vocabulary shard) moves
+  the logits by their own size, 1e0; 0.1 sits between.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN before anything runs.
@@ -211,6 +240,7 @@ import importlib.util
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -412,6 +442,11 @@ CELLS_RUN = ("recurrentgemma-2b:long_500k", "xlstm-1.3b:long_500k",
 CELLS_PREFILL_LAUNCHES = {"flash_attention": 8, "lru_forward": 18,
                           "lru_reverse": 0}     # one recurrentgemma prefill
 CELLS_ATTN_ROWS = 2048          # query rows of the S = 32 768 kernel check
+# the multi-card path (multicard_path): N ranks under torchrun, one card each
+MULTICARD_CELL = "granite-3-2b:prefill_32k"
+MULTICARD_ONE_CARD_BATCH = 2    # the cell's batch on a mesh of one card
+MULTICARD_SECONDS = 600         # the ranks' limit; then all are killed
+MULTICARD_LOGIT_TOL = 0.1       # relative L2 of the last logits, see above
 BASELINE_WORKSPACE_RING = 10_000    # 24 B a slot in float64: past 227 KB
 BASELINE_CAP_ITERS = 2500       # events a lane on the workspace case: a cap
 
@@ -4110,12 +4145,307 @@ def lru_instantiations(log: str) -> list:
     return sorted(rows, key=lambda r: (r["dtype"], r["direction"]))
 
 
+# --------------------------------------------------------------------------
+# multicard_path: the DES lanes and a model cell over the ranks of a group
+# --------------------------------------------------------------------------
+
+def multicard_axes(n: int) -> dict:
+    """The mesh of `n` cards: the four-card cut of the production mesh,
+    data 2 x model 2, at n = 4; 1 x 1 on one card."""
+    model = 2 if n % 2 == 0 else 1
+    return {"data": n // model, "model": model}
+
+
+def des_multicard_runs(flows) -> tuple[dict, dict]:
+    """The fused paths `multicard_path` splits: both flows' 666-lane fault
+    grids (launch/service.py's chaos axis) and the homog cohort study under
+    paper_sweep.py's 8-cell fault axis (5 328 lanes), each twice (cold,
+    warm). Returns ({name: Metrics}, {name: walls, launches, plan})."""
+    K, S = len(sweep.PAPER_SCALE_RATIOS), len(sweep.PAPER_INIT_PROPS)
+    grids, runs = {}, {}
+
+    def twice(name, fn, plan, lanes):
+        walls, launched = [], []
+        for _ in range(2):
+            step_ops.packet_event_steps.launches = 0
+            out, wall = timed_call(fn)
+            walls.append(wall)
+            launched.append(step_ops.packet_event_steps.launches)
+        runs[name] = dict(lanes=lanes, wall_seconds_cold=walls[0],
+                          wall_seconds=walls[1], launches=launched[1],
+                          launches_cold=launched[0],
+                          n_devices=plan["n_devices"],
+                          lane_pad=plan["lane_pad"],
+                          lane_axis=plan["n_lanes"])
+        return out
+
+    chaos = des.ChaosConfig(**service_launch.SERVICE_CHAOS)
+    C = sweep.chaos_axis_len(chaos)
+    for flow, dtype in (("homog0.85", np.float32), ("hetero0.85", np.float64)):
+        plan = sweep.sweep_plan("auto", K * S, chaos=chaos, dtype=dtype)
+        grids[f"fault_grid {flow}"] = twice(
+            f"fault_grid {flow}", functools.partial(
+                sweep.run_packet_grid, flows[flow], dtype=dtype, chaos=chaos),
+            plan, K * S * C)
+    cohort = next(c for c in paper_cohorts(flows) if c.dtype == np.float32)
+    chaos = des.ChaosConfig(**PAPER_CHAOS)
+    C = sweep.chaos_axis_len(chaos)
+    plan = sweep.sweep_plan("auto", K * S, cohort.n_workloads, chaos=chaos,
+                            dtype=cohort.dtype)
+    study = twice(f"cohort_fault_axis {cohort.label}", functools.partial(
+        sweep.run_cohort_grid, cohort, chaos=chaos), plan,
+        cohort.n_workloads * K * S * C)
+    for name, grid in study.items():
+        grids[f"cohort_fault_axis {name}"] = grid
+    return grids, runs
+
+
+def _metrics_arrays(grids: dict) -> dict:
+    return {f"{name}|{f_}": np.asarray(x) for name, g in grids.items()
+            for f_, x in zip(g._fields, g)}
+
+
+def multicard_one_card_logits(cfg, pol, axes, batch, dev):
+    """The one-card references of the mesh run's last-position logits,
+    same seed: at B <= 2, PR 24's one-card `--run` path (`build_step` at
+    the run's shape, rows 0 and B - 1); at the assigned batch, one-card
+    B 1 prefills of rows 0 and B - 1 of the same draw. Returns {row:
+    logits [1, Vp]}."""
+    shape = dataclasses.replace(SHAPES["prefill_32k"], batch=batch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = sorted({0, batch - 1})
+    if batch <= 2:
+        step = dryrun.build_step(cfg, pol, shape, dev, gen)
+        logits = step.fn()[:, -1]
+        del step
+        return {r: logits[r:r + 1].float().cpu() for r in rows}
+    fam = get_family(cfg)
+    params = fam.init_params(cfg, pol, gen)
+    tokens = dryrun.random_inputs(cfg, shape, gen, dev)["tokens"]
+    out = {}
+    with torch.no_grad():
+        for r in rows:
+            hidden, _ = fam.forward(cfg, pol, params, tokens[r:r + 1])
+            out[r] = unembed(cfg, pol, hidden[:, -1:],
+                             params["embed"])[:, -1].float().cpu()
+            del hidden
+    del params, tokens
+    return out
+
+
+def multicard_rank(outdir: str):
+    """One rank of `multicard_path`, under torchrun: joins the group
+    (`multihost.initialize`: this rank's card, NCCL), runs the split DES
+    paths (rank 0 saves the grids), then the model cell through
+    `dryrun.main(["--run", "--mesh", ...])` (rank 0 saves the logits and
+    the record), then, on rank 0, the one-card references. Writes
+    rank<r>.json."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    facts = multihost.initialize(timeout_s=300)
+    rank, n = facts["process_id"], facts["n_processes"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"facts": facts, "card": torch.cuda.get_device_name(dev),
+           "cuda_device": dev.index}
+    flows = paper_workloads(0)
+    grids, out["des"] = des_multicard_runs(flows)
+    if rank == 0:
+        np.savez(os.path.join(outdir, "des.npz"), **_metrics_arrays(grids))
+    del grids, flows
+    free_card()
+    dist.barrier()
+
+    axes = multicard_axes(n)
+    batch = MULTICARD_ONE_CARD_BATCH if n == 1 else None
+    argv = ["--cells", MULTICARD_CELL, "--run", "--seed", "0",
+            "--mesh", ",".join(f"{k}={v}" for k, v in axes.items()),
+            "--out", os.path.join(outdir, "cell.json"),
+            "--logits-out", os.path.join(outdir, "logits.pt")]
+    if batch is not None:
+        argv += ["--batch", str(batch)]
+    zero_kernel_counts()
+    dryrun.main(argv)
+    out["cell_launches"] = kernel_counts()
+    free_card()
+    dist.barrier()
+    if rank == 0:
+        arch, shape_name = MULTICARD_CELL.split(":")
+        cfg, shape, _, pol = dryrun.resolved_cell(arch, shape_name,
+                                                  axes=axes)
+        t0 = time.perf_counter()
+        ref = multicard_one_card_logits(cfg, pol, axes,
+                                        batch or shape.batch, dev)
+        out["one_card_seconds"] = time.perf_counter() - t0
+        torch.save(ref, os.path.join(outdir, "one_card_logits.pt"))
+        free_card()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    multihost.shutdown()
+
+
+def run_multicard_ranks(n: int, outdir: str) -> str:
+    """`multicard_rank` in n processes under torchrun, in a session of its
+    own: past MULTICARD_SECONDS every process of it is killed and the
+    phase fails. Returns what the ranks printed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", os.path.abspath(__file__),
+           "--multicard-rank", outdir]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=MULTICARD_SECONDS)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        print(log[-8000:], flush=True)
+        fail(f"multicard_path: the {n} ranks outlived {MULTICARD_SECONDS} s "
+             f"and were killed")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    for ln in log.splitlines():
+        if ln.startswith("[dryrun]") or "Error" in ln or "error" in ln:
+            print(ln, flush=True)
+    if proc.returncode != 0:
+        print(log[-8000:], flush=True)
+        fail(f"multicard_path: a rank failed (torchrun exit "
+             f"{proc.returncode})")
+    return log
+
+
+def relative_l2(got: torch.Tensor, want: torch.Tensor, vocab: int) -> float:
+    """||got - want|| / ||want|| over the vocabulary's logits (the padded
+    entries, masked to -1e30, left out: they would swamp both norms)."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).norm() / want.norm())
+
+
+def phase_multicard_path(flows):
+    """The multi-card path over the N = torch.cuda.device_count() cards:
+    N ranks under torchrun (`multicard_rank`), each on its own card. The
+    DES: both flows' 666-lane fault grids and the homog cohort study under
+    the 8-cell fault axis through the split fused path, held bitwise
+    against this process's one-rank fused runs; gates: every rank holds
+    the whole grid (rank 0's saved), `sweep_plan` gives n_devices N and
+    the pad, one event-step launch a segment (no rank more than the
+    one-rank run, the rank with the longest lane exactly as many). The
+    model: granite-3-2b prefill_32k on the data x model mesh of N cards
+    (B 2 on one card, B 32 x 32 768 on four), `dryrun --run --mesh`;
+    gates: 40 attention launches a prefill on every rank, finite logits,
+    2 all-reduces a layer + 1 over the model groups where the model axis
+    has 2 cards, and the last position's logits of rows 0 and B - 1
+    within MULTICARD_LOGIT_TOL (relative L2) of the one-card references
+    (`multicard_one_card_logits`). Returns the launches of the ranks, for
+    the kernels line."""
+    n = torch.cuda.device_count()
+    mine, mine_runs = des_multicard_runs(flows)
+    free_card()
+    outdir = tempfile.mkdtemp(prefix="multicard_")
+    t0 = time.perf_counter()
+    run_multicard_ranks(n, outdir)
+    ranks_seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    saved = np.load(os.path.join(outdir, "des.npz"))
+    want = _metrics_arrays(mine)
+    if sorted(saved.files) != sorted(want):
+        fail("multicard_path: the ranks saved other grids")
+    for key, x in want.items():
+        g = saved[key]
+        if g.dtype != x.dtype or g.shape != x.shape or not np.array_equal(
+                g, x):
+            fail(f"multicard_path: {key} split over {n} ranks differs from "
+                 f"the one-rank fused grid")
+    des_launches = 0
+    for name, one in mine_runs.items():
+        per_rank = [rk["des"][name] for rk in ranks]
+        launched = [p["launches"] for p in per_rank]
+        des_launches += sum(launched) + sum(p["launches_cold"]
+                                            for p in per_rank)
+        if max(launched) != one["launches"] or min(launched) < 1:
+            fail(f"multicard_path {name}: launches by rank {launched}, the "
+                 f"one-rank run {one['launches']}")
+        lanes = one["lanes"]
+        for p in per_rank:
+            if p["n_devices"] != n or p["lane_pad"] != (-p["lane_axis"]) % n:
+                fail(f"multicard_path {name}: plan n_devices "
+                     f"{p['n_devices']}, lane_pad {p['lane_pad']}")
+        emit("multicard_path", run=name, ranks=n, lanes=lanes,
+             lane_pad=per_rank[0]["lane_pad"],
+             one_rank_wall_seconds=one["wall_seconds"],
+             one_rank_wall_seconds_cold=one["wall_seconds_cold"],
+             wall_seconds_by_rank=[p["wall_seconds"] for p in per_rank],
+             wall_seconds_cold_by_rank=[p["wall_seconds_cold"]
+                                        for p in per_rank],
+             launches_by_rank=launched, one_rank_launches=one["launches"],
+             bitwise_one_rank=True, ok=True)
+
+    with open(os.path.join(outdir, "cell.json")) as f:
+        rec = json.load(f)[0]
+    run = rec["run"]
+    logits = torch.load(os.path.join(outdir, "logits.pt"))
+    ref = torch.load(os.path.join(outdir, "one_card_logits.pt"))
+    axes = multicard_axes(n)
+    cfg = get_config(MULTICARD_CELL.split(":")[0])
+    B = run["batch"]
+    if run["output_shape"] != [B, 1, layers.padded_vocab(cfg)] or \
+            not run["finite"]:
+        fail(f"multicard_path: logits {run['output_shape']}, finite "
+             f"{run['finite']}")
+    for r, rk in enumerate(run["ranks"]):
+        if rk["launches"]["flash_attention"] != cfg.n_layers:
+            fail(f"multicard_path: rank {r} launched {rk['launches']} in "
+                 f"one prefill, not {cfg.n_layers} attention kernels")
+        if ranks[r]["cell_launches"]["flash_attention"] != 2 * cfg.n_layers:
+            fail(f"multicard_path: rank {r} launched "
+                 f"{ranks[r]['cell_launches']} in the two prefills")
+    n_ar = run["collectives"]["op_count"].get("all-reduce", 0)
+    if axes["model"] > 1 and n_ar != 2 * cfg.n_layers + 1:
+        fail(f"multicard_path: {n_ar} all-reduces, not 2 a layer + 1")
+    errs = {r: relative_l2(logits[r:r + 1, -1], w, cfg.vocab_size)
+            for r, w in ref.items()}
+    if max(errs.values()) > MULTICARD_LOGIT_TOL:
+        fail(f"multicard_path: last-position logits against one card, "
+             f"relative L2 {errs} > {MULTICARD_LOGIT_TOL}")
+    greedy_one_card = {r: int(w.argmax(-1)) for r, w in ref.items()}
+    emit("multicard_path", run=MULTICARD_CELL, ranks=n, mesh=axes,
+         batch=B, seq=run["seq"], reduced=run.get("reduced"),
+         seconds=run["seconds"], seconds_each=run["seconds_each"],
+         tokens_per_second=run["tokens_per_second"],
+         collectives=run["collectives"],
+         all_reduces_expected=(2 * cfg.n_layers + 1 if axes["model"] > 1
+                               else None),
+         peak_bytes_by_rank=[rk["peak_bytes"] for rk in run["ranks"]],
+         argument_bytes_by_rank=[rk["argument_bytes"]
+                                 for rk in run["ranks"]],
+         peak_bytes_estimate_one_card=run["peak_bytes_estimate_one_card"],
+         peak_over_one_card_estimate=(run["peak_bytes_max"]
+                                      / run["peak_bytes_estimate_one_card"]),
+         launches_by_rank=[rk["launches"] for rk in run["ranks"]],
+         cards=[rk["device"] for rk in run["ranks"]],
+         cuda_device_by_rank=[rk["cuda_device"] for rk in ranks],
+         policy=rec["policy"],
+         logits_rel_l2_vs_one_card=errs, logits_tol=MULTICARD_LOGIT_TOL,
+         greedy_tokens=run["greedy_tokens"][:8],
+         greedy_rows_vs_one_card={r: [run["greedy_tokens"][r],
+                                      greedy_one_card[r]] for r in ref},
+         one_card_seconds=ranks[0]["one_card_seconds"],
+         ranks_wall_seconds=ranks_seconds, ok=True)
+    attn = sum(rk["cell_launches"]["flash_attention"] for rk in ranks)
+    return {"packet_event_steps": des_launches, "flash_attention": attn}
+
+
 def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build,
                   cohort_times, base_launches, base_times, base_plain_ms,
                   base_build, hybrid_launches, ckpt_launches, lm_launches,
-                  cells_out):
+                  cells_out, multicard_launches):
     cells_launches, cells_attn, cells_lru = cells_out
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
@@ -4126,7 +4456,9 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "source": "src/repro_torch/csrc/packet_step.cu",
         "replaces": "src/repro/kernels/packet_step/kernel.py:41",
         "launches": sum(des_launches.values()),
-        "launches_by_path": des_launches,
+        "launches_by_path": dict(
+            des_launches,
+            multicard_path=multicard_launches["packet_event_steps"]),
         "max_abs_err": Worst.abs_err,
         "max_ulp": Worst.ulp,
         "ms": main["ms"],
@@ -4150,7 +4482,8 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                "train_path": train_launches["flash_attention"],
                "hybrid_serve_path": hybrid_launches["flash_attention"],
                "ckpt_path": ckpt_launches["flash_attention"],
-               "cells_path": cells_launches["flash_attention"]}
+               "cells_path": cells_launches["flash_attention"],
+               "multicard_path": multicard_launches["flash_attention"]}
     by_path.update(lm_launches)
     layer_times = {}
     for name, case, path in (
@@ -4337,11 +4670,21 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile a warm serving run and a warm "
                          "training step (torch.profiler)")
+    ap.add_argument("--only", type=str, default="",
+                    help="comma-separated phases to run after env and the "
+                         f"builds, alone: {', '.join(ONLY_PHASES)}")
+    ap.add_argument("--multicard-rank", type=str, default="",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
+    if args.multicard_rank:
+        multicard_rank(args.multicard_rank)
+        return
+    if args.only:
+        return main_only([p for p in args.only.split(",") if p])
     t0 = time.perf_counter()
     seconds = {}
 
@@ -4410,18 +4753,50 @@ def main(argv=None):
     if args.profile:
         timed("train_profile", profile_training)
     cells_out = timed("cells_path", phase_cells_path)
+    multicard_launches = timed("multicard_path", phase_multicard_path, flows)
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
           while_build, lru_build, cohort_times, base_launches, base_times,
           base_plain_ms, base_build, hybrid_launches, ckpt_launches,
-          lm_launches, cells_out)
+          lm_launches, cells_out, multicard_launches)
+    finish(t0, seconds)
+
+
+def finish(t0, seconds):
     emit("done", total_seconds=time.perf_counter() - t0,
          phase_seconds=seconds)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+#: the phases `--only` runs, each with the workloads it needs
+ONLY_PHASES = {"multicard_path": lambda: phase_multicard_path(
+    paper_workloads(0))}
+
+
+def main_only(phases):
+    """`--only`: env, every build (one nvcc a source, together), then the
+    named phases in order; no kernels line."""
+    unknown = [p for p in phases if p not in ONLY_PHASES]
+    if unknown:
+        fail(f"--only: unknown phases {unknown}; available: "
+             f"{list(ONLY_PHASES)}")
+    t0 = time.perf_counter()
+    seconds = {}
+    with ThreadPoolExecutor(4) as pool:
+        builds = start_builds(pool)
+        phase_env()
+        for mod, fut in builds.items():
+            phase_build(mod, fut)
+    seconds["env and builds"] = time.perf_counter() - t0
+    for name in phases:
+        t = time.perf_counter()
+        ONLY_PHASES[name]()
+        seconds[name] = time.perf_counter() - t
+    finish(t0, seconds)
 
 
 if __name__ == "__main__":

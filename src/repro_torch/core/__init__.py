@@ -17,7 +17,9 @@ from repro_torch.core.schedulers import simulate_backfill, simulate_fcfs
 from repro_torch.core.sweep import (CHAOS_AXIS_FIELDS, PAPER_INIT_PROPS,
                                     PAPER_SCALE_RATIOS, PlateauResult,
                                     chaos_axis_len, chaos_lane_grid,
-                                    plateau_threshold, resolve_mode,
+                                    cohort_lane_sharding, lane_padding,
+                                    lane_sharding, plateau_threshold,
+                                    resolve_mode,
                                     run_baselines, run_cohort_grid,
                                     run_packet_grid, run_window_oracle,
                                     sweep_plan)
@@ -33,6 +35,7 @@ __all__ = [
     "efficiency_metrics", "simulate_backfill", "simulate_fcfs",
     "CHAOS_AXIS_FIELDS", "PAPER_INIT_PROPS", "PAPER_SCALE_RATIOS",
     "PlateauResult", "chaos_axis_len", "chaos_lane_grid",
+    "cohort_lane_sharding", "lane_padding", "lane_sharding",
     "plateau_threshold", "resolve_mode", "run_baselines", "run_cohort_grid",
     "run_packet_grid", "run_window_oracle", "sweep_plan",
 ]

@@ -41,6 +41,18 @@ scan engine's cohort dispatch (one launch per segment for all W * L lanes
 on the card), each member's grid bitwise the one `run_packet_grid` gives
 it. `run_baselines` runs the rigid FCFS and EASY-backfill baselines
 (`repro_torch.core.schedulers`) over the init-proportion axis.
+
+Over several cards: the fused layout (of the grid, the cohort study and
+the window oracle) splits its lane axis over the ranks of the default
+process group (`repro_torch.launch.multihost`), as the reference splits it
+over every device (`sweep.py:532-556, 684-709`). The axis is padded with
+`lane_padding` sentinel lanes that repeat the last lane (its chaos fields
+and lane id too, so a sentinel replays that lane's streams), each rank
+runs its contiguous block (`lane_sharding`, `cohort_lane_sharding`) on its
+own card, the blocks are all-gathered and the sentinels sliced off: every
+rank returns the whole grid, bitwise the one-rank fused grid, since a lane
+does not depend on what shares its dispatch. Without a process group, or
+in a group of one rank, nothing is split.
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ from repro_torch.core.schedulers import simulate_backfill, simulate_fcfs
 from repro_torch.device import resolve_device
 from repro_torch.kernels.packet_step.ops import (STEP_IMPLS,
                                                  resolve_step_impl)
+from repro_torch.launch import multihost
 from repro_torch.workload.lublin import Workload
 
 # the paper's 37 scale-ratio values: 0.1..1 step .1, 1..10 step 1,
@@ -158,6 +171,55 @@ def lane_order(k_lanes, s_lanes) -> np.ndarray:
     return np.argsort(-predicted_lane_events(k_lanes, s_lanes), kind="stable")
 
 
+def lane_padding(n_lanes: int, n_devices: int | None = None) -> int:
+    """Sentinel lanes needed to round n_lanes up to a device multiple
+    (`n_devices` None: the process group's ranks)."""
+    if n_devices is None:
+        n_devices = multihost.device_count()
+    return (-int(n_lanes)) % max(1, int(n_devices))
+
+
+class LaneSharding(NamedTuple):
+    """This rank's contiguous block of a lane axis of `n_lanes` split over
+    `n_ranks` ranks: the split the reference's ``PartitionSpec("lane")``
+    makes (`spec`; ``(None, "lane")`` for a cohort's ``[W, lanes]``, whose
+    workload axis every rank keeps whole)."""
+    n_lanes: int
+    n_ranks: int
+    rank: int
+    spec: tuple
+
+    @property
+    def lanes(self) -> slice:
+        block = -(-self.n_lanes // self.n_ranks)
+        start = min(self.rank * block, self.n_lanes)
+        return slice(start, min(start + block, self.n_lanes))
+
+
+def _lane_split(n_lanes: int, pad: bool, spec: tuple):
+    n = multihost.device_count()
+    if n <= 1 or (not pad and int(n_lanes) % n != 0):
+        return None
+    return LaneSharding(int(n_lanes), n, multihost.process_index(), spec)
+
+
+def lane_sharding(n_lanes: int, pad: bool = False):
+    """The split of the experiment lane axis over the process group's
+    ranks, or None: on one rank, and (by default) when the lane count does
+    not divide the rank count. ``pad=True`` declares that the caller pads
+    the lane axis with `lane_padding` sentinel lanes first, as the fused
+    layout does, so that any lane count splits (the reference's
+    contract, `sweep.py:371-390`)."""
+    return _lane_split(n_lanes, pad, ("lane",))
+
+
+def cohort_lane_sharding(n_lanes: int, pad: bool = False):
+    """`lane_sharding` for a cohort's ``[W, lanes]`` batch: the lane axis
+    split over the ranks, the workload axis whole on every rank, so that
+    cohort and single-workload dispatches split alike."""
+    return _lane_split(n_lanes, pad, (None, "lane"))
+
+
 def resolve_mode(mode: str, n_lanes: int, n_workloads: int = 1,
                  step_impl: str | None = None) -> str:
     """Resolve mode='auto' to the concrete dispatch layout; validate others.
@@ -197,7 +259,10 @@ def sweep_plan(mode: str, n_lanes: int, n_workloads: int = 1,
     ``[W, lanes]`` layout `run_cohort_grid` runs. A `chaos` config (an
     inert one counts as none, as in the run_* functions) multiplies the lane
     axis by its length C and records the fault grid (seed, requeue bound,
-    parameter values) in the reference's ``"chaos"`` block."""
+    parameter values) in the reference's ``"chaos"`` block. ``n_devices``
+    is the process group's ranks and ``lane_pad`` the sentinel lanes the
+    fused layout adds to split over them, as the reference defines them
+    (`sweep.py:466-467`)."""
     dev = resolve_device(device)
     if chaos_is_inert(chaos):
         chaos = None
@@ -217,6 +282,8 @@ def sweep_plan(mode: str, n_lanes: int, n_workloads: int = 1,
         "n_workloads": W,
         "total_experiments": W * n_lanes,
         "layout": [W, n_lanes],
+        "n_devices": multihost.device_count(),
+        "lane_pad": lane_padding(n_lanes) if resolved == "fused" else 0,
         "chunk_lanes": CHUNK_LANES if resolved == "chunked" else None,
     }
     if chaos is not None:
@@ -299,23 +366,69 @@ def _chaos_take(chaos_lanes: ChaosConfig | None, idx) -> ChaosConfig | None:
         f: getattr(chaos_lanes, f)[idx] for f in _CHAOS_LANE_FIELDS})
 
 
-def _lane_metrics(spw, k_l2, s_l2, m_nodes, ring, step_impl, device,
-                  chaos=None) -> Metrics:
+def _lane_metric_tensors(spw, k_l2, s_l2, m_nodes, ring, step_impl,
+                         device, chaos=None) -> Metrics:
     """One dispatch of ``[W, L]`` lanes over a stacked workload (W = 1 for
-    one workload): engine + metrics, as numpy leaves ``[W, L]``. The
-    metrics are taken member by member on ``[L]`` lanes, the shapes a
-    member's own dispatch gives them, so that no reduction's order depends
-    on the cohort's width."""
+    one workload): engine + metrics, as tensors ``[W, L]`` on the
+    engine's device. The metrics are taken member by member on ``[L]``
+    lanes, the shapes a member's own dispatch gives them, so that no
+    reduction's order depends on the cohort's width."""
     res = simulate_packet_scan_lanes(spw, k_l2, s_l2, m_nodes, ring=ring,
                                      chaos=chaos, step_impl=step_impl,
                                      device=device)
     rows = []
     for w in range(int(spw.submit.shape[0])):
         pw_w = member_workload(spw, w)
-        m = efficiency_metrics(pw_w.submit, DesResult(*(x[w] for x in res)),
-                               m_nodes, pw_w.t_last_submit)
-        rows.append(Metrics(*(x.cpu().numpy() for x in m)))
-    return _stack(rows, axis=0)
+        rows.append(efficiency_metrics(
+            pw_w.submit, DesResult(*(x[w] for x in res)), m_nodes,
+            pw_w.t_last_submit))
+    return Metrics(*(torch.stack(x) for x in zip(*rows)))
+
+
+def _numpy(m: Metrics) -> Metrics:
+    return Metrics(*(x.cpu().numpy() for x in m))
+
+
+def _lane_metrics(spw, k_l2, s_l2, m_nodes, ring, step_impl, device,
+                  chaos=None) -> Metrics:
+    """`_lane_metric_tensors` as numpy leaves ``[W, L]``."""
+    return _numpy(_lane_metric_tensors(spw, k_l2, s_l2, m_nodes, ring,
+                                       step_impl, device, chaos))
+
+
+def _gather_lanes(x: torch.Tensor, sharding: LaneSharding) -> torch.Tensor:
+    """The ranks' ``[W, block]`` blocks of one metric, all-gathered into
+    ``[W, n_lanes]`` on every rank (booleans travel as bytes)."""
+    import torch.distributed as dist
+
+    flag = x.dtype == torch.bool
+    part = (x.to(torch.uint8) if flag else x).t().contiguous()   # [blk, W]
+    out = part.new_empty((sharding.n_lanes,) + tuple(part.shape[1:]))
+    dist.all_gather_into_tensor(out, part)
+    out = out.t()
+    return out.bool() if flag else out
+
+
+def _run_lanes_fused(spw, k_l2, s_l2, m_nodes, ring, step_impl, device,
+                     chaos_l=None) -> Metrics:
+    """All ``[W, L]`` lanes in one dispatch; over several ranks the lane
+    axis padded with sentinel lanes (the last lane repeated, its chaos
+    fields and lane id too), each rank's block run on its card, the
+    blocks all-gathered and the sentinels sliced off. Numpy leaves
+    ``[W, L]``, the same on every rank."""
+    L = int(k_l2.shape[1])
+    pad = lane_padding(L)
+    sharding = cohort_lane_sharding(L + pad, pad=True)
+    if sharding is None:
+        return _lane_metrics(spw, k_l2, s_l2, m_nodes, ring, step_impl,
+                             device, chaos_l)
+    lanes = np.concatenate([np.arange(L), np.full(pad, L - 1)])
+    block = lanes[sharding.lanes]
+    local = _lane_metric_tensors(spw, k_l2[:, block], s_l2[:, block],
+                                 m_nodes, ring, step_impl, device,
+                                 _chaos_take(chaos_l, block))
+    return _numpy(Metrics(*(_gather_lanes(x, sharding)[:, :L]
+                            for x in local)))
 
 
 def _run_lane_chunks(spw, k_l2, s_l2, m_nodes, ring, chunk: int,
@@ -386,8 +499,8 @@ def _run_lanes(spw, k_l2, s_l2, m_nodes, ring, mode: str,
         return _run_lane_chunks(spw, k_l2, s_l2, m_nodes, ring,
                                 max(1, int(chunk_lanes or CHUNK_LANES)),
                                 step_impl, device, chaos_l)
-    return _lane_metrics(spw, k_l2, s_l2, m_nodes, ring, step_impl, device,
-                         chaos_l)
+    return _run_lanes_fused(spw, k_l2, s_l2, m_nodes, ring, step_impl,
+                            device, chaos_l)
 
 
 def run_packet_grid(wl: Workload,

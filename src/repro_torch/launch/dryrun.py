@@ -6,6 +6,9 @@ cost?
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --cells recurrentgemma-2b:long_500k --run
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.dryrun --cells granite-3-2b:prefill_32k \\
+        --run --mesh data=2,model=2
 
 The counterpart of the reference's `repro/launch/dryrun.py`
 (`dryrun.py:75-246`), with its command line. For every requested
@@ -41,11 +44,27 @@ The counterpart of the reference's `repro/launch/dryrun.py`
     (the reference shards over 256 or 512 chips; one card's bytes do not
     say how a mesh would split them).
 
-The reference also records the collective traffic parsed from XLA's
-optimized HLO (`collectives`, `hlo_lines`) and XLA's `memory_analysis`.
-They have no counterpart on one card: the collectives wait for the
-multi-card item of ROADMAP.md, and the estimate above stands where
-`memory_analysis` stood.
+The reference also records XLA's `memory_analysis`; the estimate above
+stands where it stood. Its `collectives` block (parsed from the optimized
+HLO) is measured by ``--run --mesh`` below.
+
+``--mesh data=2,model=2`` resolves the policy on those axis sizes instead
+of the production mesh's. With ``--run``, in a process group of as many
+ranks (`launch/multihost.py`, one card a rank; torchrun), a prefill cell
+then runs on that mesh (`launch/mesh.py::make_mesh`): each rank draws the
+full parameters and inputs from ``--seed`` on its card and keeps its shard
+of each (`param_specs`, `batch_sharding`: the placements of their logical
+axes under the policy's rules, `distribute_tensor`); the step runs on
+DTensors (the models' `constrain` points lay activations out; the kernels
+run on each rank's local shards), its last position's logits gathered to
+every rank as the reference's ``out_shardings=repl`` does. The record gets
+the reference's ``collectives`` block (`op_bytes`, `op_count`,
+`link_bytes_per_device`) measured from the first step
+(`launch/collective_stats.py`), each rank's peak bytes beside the one-card
+estimate, and the seconds of the second, warm step. ``--batch`` cuts the
+cell's batch (recorded under ``reduced``); ``--logits-out`` saves the last
+position's logits from rank 0. Training and decode cells on a mesh wait
+for ROADMAP.md item 19b and raise.
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the
@@ -88,12 +107,16 @@ from repro_torch.configs import SHAPES, Shape, cells, get_config, input_specs
 from repro_torch.device import meta_generator, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rglru_scan.ops import lru_forward, lru_reverse
-from repro_torch.launch.mesh import mesh_devices, production_axes
+from repro_torch.launch import multihost
+from repro_torch.launch.collective_stats import CollectiveRecorder
+from repro_torch.launch.mesh import (make_mesh, mesh_devices, parse_axes,
+                                     production_axes)
 from repro_torch.models import analysis
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import unembed
 from repro_torch.models.registry import get_family
 from repro_torch.serve.engine import make_decode_logits_step
+from repro_torch.sharding import partitioning
 from repro_torch.sharding import policy as policy_lib
 from repro_torch.train import optim as optim_lib
 from repro_torch.train.step import make_train_step, state_for
@@ -397,22 +420,25 @@ def policy_record(pol) -> dict:
 
 
 def resolved_cell(arch: str, shape_name: str, multi_pod: bool = False,
-                  remat: Optional[str] = None, strategy: str = "auto"):
+                  remat: Optional[str] = None, strategy: str = "auto",
+                  axes: Optional[dict] = None):
     """(cfg, shape, mesh axes, policy) of one cell: the policy resolved
-    on the production mesh's axes for the cell's batch, kind and length."""
+    on the production mesh's axes (or on `axes`) for the cell's batch,
+    kind and length."""
     cfg = cell_config(arch, remat)
     shape = SHAPES[shape_name]
-    axes = production_axes(multi_pod=multi_pod)
+    axes = dict(axes) if axes else production_axes(multi_pod=multi_pod)
     pol = policy_lib.resolve(cfg, axes, shape.batch, shape.kind,
                              seq=shape.seq, strategy=strategy)
     return cfg, shape, axes, pol
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
-               remat: Optional[str] = None, strategy: str = "auto") -> dict:
+               remat: Optional[str] = None, strategy: str = "auto",
+               axes: Optional[dict] = None) -> dict:
     """The dry run of one cell on the meta device. Returns its record."""
     cfg, shape, axes, pol = resolved_cell(arch, shape_name, multi_pod,
-                                          remat, strategy)
+                                          remat, strategy, axes)
     rec = {"arch": arch, "shape": shape_name, "kind": shape.kind,
            "batch": shape.batch, "seq": shape.seq,
            "mesh": "x".join(str(s) for s in axes.values()),
@@ -545,6 +571,175 @@ def run_requested(rec: dict, seed: int = 0, remat: Optional[str] = None,
     return out
 
 
+# --------------------------------------------------------------------------
+# A cell on a mesh of cards
+# --------------------------------------------------------------------------
+
+def _zip_map(fn, a, b):
+    """`fn(x, y)` over two trees of the same dicts and lists."""
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    if isinstance(a, list):
+        return [_zip_map(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
+def param_specs(cfg: ModelConfig, pol, mesh):
+    """The tree of `partitioning.Sharding`s of the parameters: each
+    leaf's placements from its logical axes (the family's `param_axes`)
+    under the policy's rules."""
+    return partitioning.map_axes(
+        lambda ax: partitioning.logical_sharding(mesh, ax, pol.rules),
+        get_family(cfg).param_axes(cfg, pol))
+
+
+def batch_sharding(cfg: ModelConfig, pol, mesh, specs: dict) -> dict:
+    """The inputs' shardings: batch on its leading axis, the rest whole."""
+    return {name: partitioning.logical_sharding(
+        mesh, ("batch",) + (None,) * (s.dim() - 1), pol.rules)
+        for name, s in specs.items()}
+
+
+def distribute(tree, shardings):
+    """Each tensor of `tree` as a DTensor holding only this rank's shard
+    (the same full tensor is on every rank: no data moves)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return _zip_map(lambda t, sh: distribute_tensor(
+        t, sh.mesh, sh.placements, src_data_rank=None), tree, shardings)
+
+
+def _replicated(x, mesh):
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def mesh_prefill(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
+                 device=None):
+    """Draw a prefill cell's parameters and inputs from `seed` on this
+    rank's device, keep this rank's shards, and return ``(fn, params,
+    inputs)``: `fn()` runs the prefill on `mesh` and returns the last
+    position's logits, replicated on every rank (the reference's
+    ``out_shardings=repl``)."""
+    if shape.kind != "prefill":
+        raise NotImplementedError(f"a {shape.kind} cell on a mesh is not "
+                                  f"ported (ROADMAP.md item 19b)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = get_family(cfg).init_params(cfg, pol, gen)
+    return mesh_step(cfg, pol, mesh, params,
+                     random_inputs(cfg, shape, gen, dev))
+
+
+def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs) -> tuple:
+    """`mesh_prefill` from the full parameters and inputs, the same on
+    every rank: ``(fn, sharded params, sharded inputs)``."""
+    fam = get_family(cfg)
+    params = distribute(params, param_specs(cfg, pol, mesh))
+    inputs = {k: distribute(v, sh) for (k, v), sh in zip(
+        inputs.items(), batch_sharding(cfg, pol, mesh, inputs).values())}
+
+    def fn():
+        with torch.no_grad(), partitioning.mesh_context(mesh):
+            hidden, _ = fam.forward(cfg, pol, params, inputs["tokens"],
+                                    inputs.get("embeds"))
+            logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
+            return _replicated(logits, mesh)
+
+    return fn, params, inputs
+
+
+def _local_tensors(tree) -> list:
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in tensors_of(tree)]
+
+
+def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
+                  device=None) -> tuple:
+    """Run a prefill cell on `mesh` twice (see the module's docstring).
+    Returns (record, last-position logits): the collectives of the first
+    step, the seconds of the second, and per rank the peak bytes and the
+    kernel launches of one step (the card's allocator under expandable
+    segments, as `run_cell`)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    ctx = expandable_segments(dev) if on_card else contextlib.nullcontext()
+    with ctx:
+        fn, params, inputs = mesh_prefill(cfg, pol, shape, mesh, seed, dev)
+        sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (
+            lambda: None)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        seconds = []
+        with CollectiveRecorder() as rec:
+            t0 = time.perf_counter()
+            logits = fn()
+            sync()
+        seconds.append(time.perf_counter() - t0)
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        logits = fn()
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        after = kernel_launches()
+        mine = {
+            "launches": {k: after[k] - before[k] for k in after},
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if on_card
+                           else None),
+            "argument_bytes": nbytes(_local_tensors((params, inputs))),
+            "device": (torch.cuda.get_device_name(dev) if on_card
+                       else str(dev))}
+        ranks = [None] * multihost.device_count()
+        dist.all_gather_object(ranks, mine)
+        del fn, params, inputs
+    cs = rec.stats()
+    out = {"batch": shape.batch, "seq": shape.seq,
+           "mesh": {k: int(v) for k, v in zip(mesh.mesh_dim_names,
+                                               mesh.mesh.shape)},
+           "seconds": seconds[-1], "seconds_each": seconds,
+           "tokens_per_second": shape.batch * shape.seq / seconds[-1],
+           "collectives": {"op_bytes": cs.op_bytes, "op_count": cs.op_count,
+                           "link_bytes_per_device": cs.link_bytes_per_device,
+                           "group_sizes": sorted({g for _, _, g, _ in
+                                                  rec.ops})},
+           "ranks": ranks,
+           "peak_bytes_max": (max(r["peak_bytes"] for r in ranks)
+                              if on_card else None),
+           "finite": bool(torch.isfinite(logits.float()).all()),
+           "output_shape": list(logits.shape),
+           "greedy_tokens": logits[:, -1].float().argmax(-1).tolist()}
+    return out, logits
+
+
+def run_on_mesh(rec: dict, axes: dict, seed: int = 0, batch=None,
+                remat: Optional[str] = None, strategy: str = "auto",
+                device=None) -> tuple:
+    """--run --mesh for one dry-run record: the cell (at `batch` if
+    given) on a mesh of `axes` over the process group's ranks.
+    Returns (run record, logits)."""
+    cfg, shape, _, pol = resolved_cell(rec["arch"], rec["shape"], False,
+                                       remat, strategy, axes)
+    dev = resolve_device(device)
+    mesh = make_mesh(axes, dev.type)
+    multihost.assert_mesh_spans_processes(mesh)
+    full = shape.batch
+    if batch is not None:
+        shape = dataclasses.replace(shape, batch=int(batch))
+    out, logits = run_mesh_cell(cfg, pol, shape, mesh, seed, dev)
+    out["peak_bytes_estimate_one_card"] = rec["peak_bytes_estimate"]
+    if shape.batch != full:
+        out["reduced"] = {"batch": [full, shape.batch],
+                          "why": "given by --batch"}
+        out["peak_bytes_estimate_one_card"] = estimate(
+            cfg, pol, shape)["peak_bytes_estimate"]
+        out["peak_bytes_estimate_one_card_at_full_batch"] = \
+            rec["peak_bytes_estimate"]
+    return out, logits
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", type=str, default="",
@@ -559,9 +754,24 @@ def main(argv=None) -> list:
     ap.add_argument("--run", action="store_true",
                     help="also run the cells that fit on the card")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", type=str, default="",
+                    help="axis sizes, e.g. data=2,model=2: resolve on them "
+                         "and, with --run, run on a mesh of the process "
+                         "group's cards")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="with --run --mesh: the batch, cut from the cell's")
+    ap.add_argument("--logits-out", type=str, default="",
+                    help="with --run --mesh: save the last position's "
+                         "logits (torch.save, from rank 0)")
     args = ap.parse_args(argv)
+    axes = parse_axes(args.mesh) if args.mesh else None
+    joined = False
+    if args.run and axes and not multihost.is_initialized():
+        multihost.initialize()      # takes this rank's card first
+        joined = True
     if args.run:
         resolve_device(None)        # the card, or raise before any work
+    lead = multihost.process_index() == 0
 
     if args.all:
         todo = cells()
@@ -575,13 +785,14 @@ def main(argv=None) -> list:
             tag = f"{arch}:{shape}:{'multi' if mp else 'single'}"
             try:
                 rec = lower_cell(arch, shape, mp, remat=args.remat,
-                                 strategy=args.strategy)
+                                 strategy=args.strategy, axes=axes)
                 fit = ("fits one card" if rec["fits_one_card"] else
                        f">= {rec['min_cards']} cards")
-                print(f"[dryrun] OK   {tag:55s} "
-                      f"est={rec['peak_bytes_estimate'] / 1e9:.1f}GB {fit} "
-                      f"flops={rec['flops']:.3e} "
-                      f"meta={rec['meta_seconds']:.1f}s", flush=True)
+                if lead:
+                    print(f"[dryrun] OK   {tag:55s} "
+                          f"est={rec['peak_bytes_estimate'] / 1e9:.1f}GB "
+                          f"{fit} flops={rec['flops']:.3e} "
+                          f"meta={rec['meta_seconds']:.1f}s", flush=True)
             except Exception as e:      # the next cell still runs
                 rec = {"arch": arch, "shape": shape,
                        "mesh": "multi" if mp else "single", "ok": False,
@@ -589,22 +800,33 @@ def main(argv=None) -> list:
                        "trace": traceback.format_exc()[-2000:]}
                 print(f"[dryrun] FAIL {tag:55s} {type(e).__name__}: "
                       f"{str(e)[:200]}", flush=True)
-            if args.run and rec["ok"]:
+            if args.run and rec["ok"] and axes:
+                rec["run"], logits = run_on_mesh(
+                    rec, axes, args.seed, args.batch, args.remat,
+                    args.strategy)
+                if args.logits_out and lead:
+                    torch.save(logits.cpu(), args.logits_out)
+                del logits
+            elif args.run and rec["ok"]:
                 rec["run"] = run_requested(rec, args.seed, args.remat,
                                            args.strategy)
+            if args.run and rec["ok"] and lead:
                 print(f"[dryrun] RUN  {tag:55s} {json.dumps(rec['run'])}",
                       flush=True)
             results.append(rec)
 
-    if args.out:
+    if args.out and lead:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
         print(f"[dryrun] wrote {len(results)} records -> {args.out}")
     n_ok = sum(1 for r in results if r.get("ok"))
     n_fit = sum(1 for r in results if r.get("fits_one_card"))
-    print(f"[dryrun] {n_ok}/{len(results)} cells built on meta, "
-          f"{n_fit} fit one card")
+    if lead:
+        print(f"[dryrun] {n_ok}/{len(results)} cells built on meta, "
+              f"{n_fit} fit one card")
+    if joined:
+        multihost.shutdown()
     if n_ok < len(results):
         raise SystemExit(1)
     return results

@@ -75,6 +75,19 @@ def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig):
             "mlp": L.mlp_init(gen, cfg)}
 
 
+def param_axes(cfg: ModelConfig, pol: Policy) -> dict:
+    """The logical axes of every leaf of `init_params`' tree (the
+    reference's `Boxed` axes, without the leading "layers")."""
+    n = L.norm_axes(cfg.norm_type)
+    enc = {"ln1": n, "attn": L.attn_axes(), "ln2": n, "mlp": L.mlp_axes(cfg)}
+    dec = dict(enc, lnx=n, xattn=L.attn_axes())
+    return {"embed": L.EMBED_AXES,
+            "enc": [dict(enc) for _ in range(_n_enc(cfg))],
+            "enc_norm": n,
+            "dec": [dict(dec) for _ in range(_n_dec(cfg))],
+            "norm": n}
+
+
 def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
     """Random parameters on `gen`'s device, drawn from `gen` in a fixed
     order (embedding, encoder layers, decoder layers)."""

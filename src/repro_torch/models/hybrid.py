@@ -83,6 +83,13 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def rglru_axes(cfg: ModelConfig) -> dict:
+    return {"ln": L.norm_axes(cfg.norm_type), "wx": ("embed_fsdp", "rnn"),
+            "wy": ("embed_fsdp", "rnn"), "conv": (None, "rnn"),
+            "wr": ("rnn", None), "wi": ("rnn", None), "lam": ("rnn",),
+            "wo": ("rnn", "embed_fsdp")}
+
+
 def rglru_gates(p, u):
     """u: [B, S, dr] conv output -> (a, bx) of h = a*h + bx, float32."""
     uf = u.float()
@@ -152,6 +159,16 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str):
     return p
 
 
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    p = {"ln2": L.norm_axes(cfg.norm_type), "mlp": L.mlp_axes(cfg)}
+    if kind == "rec":
+        p["rec"] = rglru_axes(cfg)
+    else:
+        p["ln1"] = L.norm_axes(cfg.norm_type)
+        p["attn"] = L.attn_axes()
+    return p
+
+
 def _block_fwd(p, cfg: ModelConfig, pol: Policy, x, positions, kind: str):
     if kind == "rec":
         x = x + rglru_forward(p["rec"], cfg, pol, x)
@@ -185,6 +202,21 @@ def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
         params["tail"] = {f"t{i}_{t}": _block_init(gen, cfg, t)
                           for i, t in enumerate(tail)}
     return params
+
+
+def param_axes(cfg: ModelConfig, pol: Policy) -> dict:
+    """The logical axes of every leaf of `init_params`' tree (the
+    reference's `Boxed` axes, without the leading "layers" of the
+    repeats; the structural ``kind_*`` markers are not parameters)."""
+    pat, reps, tail = _split(cfg)
+    axes = {"embed": L.EMBED_AXES,
+            "reps": [{f"b{i}_{t}": _block_axes(cfg, t)
+                      for i, t in enumerate(pat)} for _ in range(reps)],
+            "norm": L.norm_axes(cfg.norm_type)}
+    if tail:
+        axes["tail"] = {f"t{i}_{t}": _block_axes(cfg, t)
+                        for i, t in enumerate(tail)}
+    return axes
 
 
 def forward(cfg: ModelConfig, pol: Policy, params, tokens, embeds=None):

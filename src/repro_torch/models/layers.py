@@ -2,9 +2,14 @@
 
 The counterpart of the reference's `repro/models/layers.py`. Parameters
 are plain dictionaries of tensors with JAX's weight orientation
-``[in, out]`` (``x @ w``); the reference's `Boxed` logical axes belong to
-TPU sharding and are not carried. Every function takes a `Policy`, whose
-`constrain` is the identity on one card. The init functions draw on
+``[in, out]`` (``x @ w``). The reference's `Boxed` logical axes are a tree
+of their own beside each init (`EMBED_AXES`, `norm_axes`, `attn_axes`,
+`mlp_axes`, and each family's `param_axes`): the reference's tuples
+without the leading ``"layers"`` axis of its stacked layers, since the
+port keeps one dictionary a layer. Every function takes a `Policy`, whose
+`constrain` lays out a DTensor on the current mesh
+(`sharding.partitioning`) and is the identity on one card. The init
+functions draw on
 ``gen.device``: with `device.meta_generator()` they build the tree's
 shapes and dtypes on the ``meta`` device and draw nothing. Public layouts are the
 reference's: ``[B, S, H, hd]`` for attention and ``[B, T, KV, hd]`` for one
@@ -12,10 +17,13 @@ layer's KV cache.
 
 Full-sequence attention runs the flash-attention kernel under
 ``cfg.attention_impl == "pallas"`` (CUDA on the card, its plain version on
-the CPU) and the plain query-chunked softmax under ``"xla"``.
+the CPU) and the plain query-chunked softmax under ``"xla"``. On a mesh
+either runs on each rank's local ``[B/data, S, H/model, hd]`` shards
+through `local_map` (`_attention_on_shards`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import partitioning
 from repro_torch.sharding.policy import Policy
 
 ATTN_CHUNK = 512          # query-chunk length for full-sequence attention
@@ -41,6 +50,15 @@ def embed_init(gen: torch.Generator, vocab, dim, dtype):
     w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
                     device=gen.device) * 0.02
     return w.to(dtype)
+
+
+#: logical axes of the embedding table [Vp, d]
+EMBED_AXES = ("vocab", "embed")
+
+
+def norm_axes(norm_type="rmsnorm") -> dict:
+    return ({"scale": ("embed",), "bias": ("embed",)}
+            if norm_type == "layernorm" else {"scale": ("embed",)})
 
 
 def norm_init(dim, dtype, norm_type="rmsnorm", device=None):
@@ -95,6 +113,11 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def attn_axes() -> dict:
+    return {"wq": ("embed_fsdp", "heads"), "wk": ("embed_fsdp", "kv_heads"),
+            "wv": ("embed_fsdp", "kv_heads"), "wo": ("heads", "embed_fsdp")}
+
+
 def _repeat_kv(k, repeat: int):
     """Exact GQA KV replication: kv head j -> repeat copies, so that query
     head i (group g = H/KV') still reads its own key/value."""
@@ -140,12 +163,45 @@ def _chunked_sdpa(q, k, v, *, causal: bool, window: int, offset: int,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
+#: logical axes of the attention's queries and of its keys and values
+Q_AXES = ("attn_batch", "seq", "heads", None)
+KV_AXES = ("attn_batch", "kv_seq", "kv_heads", None)
+
+
+def _attention_on_shards(fn, pol: Policy, q, k, v, **kw):
+    """`fn(q, k, v, **kw)`; for DTensors, on each rank's local shards
+    through `local_map`, with the placements of `Q_AXES` / `KV_AXES` in
+    and `Q_AXES` out, so that the kernel sees its rank's
+    ``[B/data, S, H/model, hd]`` tensors. Heads and batch rows are
+    independent, so the local results are the global one's shards. A
+    sharded sequence needs the keys of other ranks: it raises (the
+    training strategies on a mesh wait for ROADMAP.md item 19b)."""
+    if not partitioning.is_dtensor(q):
+        return fn(q, k, v, **kw)
+    if pol.rules.get("seq") is not None:
+        raise NotImplementedError("attention over a sequence sharded on a "
+                                  "mesh (dp_seq) is not ported")
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qp = partitioning.logical_placements(mesh, Q_AXES, pol.rules)
+    kp = partitioning.logical_placements(mesh, KV_AXES, pol.rules)
+    # lists: a tuple of out_placements would mean one per output
+    return local_map(functools.partial(fn, **kw), out_placements=list(qp),
+                     in_placements=(list(qp), list(kp), list(kp)),
+                     device_mesh=mesh)(q, k, v)
+
+
 def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
                  window: int = 0, causal: bool = True):
     """Full-sequence (train / prefill) attention. Returns (out, (k, v)).
 
     The returned k, v have KV heads already replicated per the policy, ready
-    to seed a decode cache.
+    to seed a decode cache. The reference's constraint points are kept
+    (`layers.py:210-226`), and one more on the output projection: on a
+    mesh, with heads over "model", that product is a partial sum, and the
+    constraint makes its all-reduce explicit where the reference leaves it
+    to XLA.
     """
     B, S, d = x.shape
     hd = cfg.hd
@@ -157,18 +213,24 @@ def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
         k = apply_rope(k, positions, cfg.rope_theta)
     k = _repeat_kv(k, pol.kv_repeat)
     v = _repeat_kv(v, pol.kv_repeat)
+    q = pol.constrain(q, *Q_AXES)
+    k = pol.constrain(k, *KV_AXES)
+    v = pol.constrain(v, *KV_AXES)
     if cfg.attention_impl == "pallas":
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.logit_softcap)
+        out = _attention_on_shards(flash_attention, pol, q, k, v,
+                                   causal=causal, window=window,
+                                   softcap=cfg.logit_softcap)
     else:
         # a sequence sharded by the policy (dp_seq) takes the reference's
         # unchunked branch, though one card shards nothing
         seq_sharded = pol.rules.get("seq") is not None
-        out = _chunked_sdpa(q, k, v, causal=causal, window=window, offset=0,
-                            softcap=cfg.logit_softcap,
-                            chunk=S if seq_sharded else ATTN_CHUNK)
+        out = _attention_on_shards(
+            _chunked_sdpa, pol, q, k, v, causal=causal, window=window,
+            offset=0, softcap=cfg.logit_softcap,
+            chunk=S if seq_sharded else ATTN_CHUNK)
+    out = pol.constrain(out, *Q_AXES)
     y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
-    return y, (k, v)
+    return pol.constrain(y, "batch", "seq", None), (k, v)
 
 
 def cross_attn_forward(p, cfg: ModelConfig, pol: Policy, x, memory):
@@ -272,6 +334,13 @@ def causal_conv(x, kernel, state: Optional[torch.Tensor] = None):
 
 # ---------------------------------------------------------------- MLP
 
+def mlp_axes(cfg: ModelConfig) -> dict:
+    p = {"wi": ("embed_fsdp", "mlp"), "wo": ("mlp", "embed_fsdp")}
+    if cfg.mlp_type == "swiglu":
+        p["wg"] = ("embed_fsdp", "mlp")
+    return p
+
+
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff=None,
              d_model=None):
     """The MLP at widths `d_model` -> `d_ff` -> `d_model` (the config's by
@@ -287,11 +356,15 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff=None,
 
 
 def mlp_forward(p, cfg: ModelConfig, pol: Policy, x):
+    """The reference's constraint on the hidden units (`layers.py:327`),
+    and one on the down projection, a partial sum over "model" on a mesh
+    (see `attn_forward`)."""
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     else:
         h = F.gelu(x @ p["wi"], approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["wo"]
+    h = pol.constrain(h, "batch", "seq", "mlp")
+    return pol.constrain(h @ p["wo"], "batch", "seq", None)
 
 
 # ---------------------------------------------------------------- head
@@ -306,7 +379,7 @@ def unembed(cfg: ModelConfig, pol: Policy, x, embed_w):
     if pad > 0:
         mask = torch.arange(logits.shape[-1], device=x.device) < cfg.vocab_size
         logits = logits.masked_fill(~mask, NEG_INF)
-    return logits
+    return pol.constrain(logits, "batch", "seq", "vocab")
 
 
 def padded_vocab(cfg: ModelConfig, multiple: int = 16) -> int:

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -81,6 +82,27 @@ def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
     }
 
 
+def _layer_axes(cfg: ModelConfig) -> dict:
+    p = {"ln1": L.norm_axes(cfg.norm_type), "attn": L.attn_axes(),
+         "ln2": L.norm_axes(cfg.norm_type)}
+    if cfg.n_experts:
+        p["moe"] = moe_lib.moe_axes()
+        if _parallel_ff(cfg):
+            p["mlp"] = L.mlp_axes(cfg)
+    else:
+        p["mlp"] = L.mlp_axes(cfg)
+    return p
+
+
+def param_axes(cfg: ModelConfig, pol: Policy) -> dict:
+    """The logical axes of every leaf of `init_params`' tree (the
+    reference's `Boxed` axes without the leading "layers")."""
+    _check_lm(cfg)
+    return {"embed": L.EMBED_AXES,
+            "layers": [_layer_axes(cfg) for _ in range(cfg.n_layers)],
+            "norm": L.norm_axes(cfg.norm_type)}
+
+
 def _ffn(cfg: ModelConfig, pol: Policy, p, h):
     """The block's feed-forward part: (out, MoE aux loss)."""
     if not cfg.n_experts:
@@ -99,7 +121,7 @@ def _block(cfg: ModelConfig, pol: Policy, p, x, positions):
     x = x + a
     h = L.apply_norm(p["ln2"], x, cfg.norm_eps, cfg.norm_type)
     f, aux = _ffn(cfg, pol, p, h)
-    return x + f, aux, kv
+    return pol.constrain(x + f, "batch", "seq", None), aux, kv
 
 
 def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens,
@@ -108,12 +130,13 @@ def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens,
     ``embeds.shape[1]`` positions come from the (stubbed) modality
     frontend instead of the table; `embeds` is cast to the table's dtype
     first, then with the rest to the compute dtype, as the reference casts
-    it."""
-    x = params["embed"][tokens]
+    it. On a mesh, a table sharded over the vocabulary gives each rank the
+    rows it holds, and the constraint sums them (an all-reduce)."""
+    x = F.embedding(tokens, params["embed"])
     if embeds is not None:
         n = embeds.shape[1]
         x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
-    return x.to(cfg.cdtype())
+    return pol.constrain(x.to(cfg.cdtype()), "batch", "seq", None)
 
 
 def forward(cfg: ModelConfig, pol: Policy, params, tokens,

@@ -46,6 +46,14 @@ from repro_torch.sharding.policy import Policy
 IMPLS = ("auto", "gather", "einsum")
 
 
+def moe_axes() -> dict:
+    """Logical axes of `moe_init`'s leaves."""
+    return {"router": ("embed", "expert"),
+            "wi": ("expert", "embed_fsdp", None),
+            "wg": ("expert", "embed_fsdp", None),
+            "wo": ("expert", None, "embed_fsdp")}
+
+
 def moe_init(gen: torch.Generator, cfg: ModelConfig, pol: Policy):
     """Router ``[d, E]`` (E the padded expert count) in float32 at scale
     0.02 and the stacked SwiGLU

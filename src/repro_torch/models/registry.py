@@ -6,12 +6,16 @@ The port has all six of the reference's families (its
   forward(cfg, pol, params, tokens, embeds=None) -> (hidden [B,S,d], aux)
   init_cache(cfg, pol, batch, max_len)    -> decode state
   decode_step(cfg, pol, params, cache, tokens) -> (logits [B,1,V], cache)
+  param_axes(cfg, pol)                    -> logical axes of init_params'
+                                             leaves (the reference's
+                                             `unbox(...)[1]`, one dict a
+                                             layer, no leading "layers")
 the decoder-only LM (`models/lm.py`) for the dense, moe and vlm families,
 the xLSTM LM (`models/xlstm.py`) for ssm, the hybrid RG-LRU +
 local-attention LM (`models/hybrid.py`) and the encoder-decoder backbone
 (`models/encdec.py`). An unknown family raises `ValueError`. The
-reference's `cache_axes` (logical sharding axes of the cache) has no
-counterpart on one card.
+reference's `cache_axes` (logical sharding axes of the cache) belongs to
+sharded decode and waits for ROADMAP.md item 19b.
 """
 from __future__ import annotations
 

@@ -92,6 +92,14 @@ def mlstm_block_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def mlstm_block_axes(cfg: ModelConfig) -> dict:
+    return {"ln": L.norm_axes(cfg.norm_type), "w_up": ("embed_fsdp", "rnn"),
+            "conv": (None, "rnn"), "wq": (None, "rnn", None),
+            "wk": (None, "rnn", None), "wv": (None, None, "rnn"),
+            "w_gate": ("rnn", None), "gate_bias": (None,),
+            "gn": L.norm_axes(), "w_down": ("rnn", "embed_fsdp")}
+
+
 class MLSTMState(NamedTuple):
     C: torch.Tensor     # [B, H, dk, dv]
     n: torch.Tensor     # [B, H, dk]
@@ -203,6 +211,12 @@ def slstm_block_init(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def slstm_block_axes(cfg: ModelConfig) -> dict:
+    return {"ln": L.norm_axes(cfg.norm_type), "w": ("embed_fsdp", "rnn"),
+            "r": (None, None, "rnn"), "bias": (None,), "gn": L.norm_axes(),
+            "up": ("embed_fsdp", "mlp"), "down": ("mlp", "embed_fsdp")}
+
+
 class SLSTMState(NamedTuple):
     h: torch.Tensor     # [B, d]
     c: torch.Tensor     # [B, d]
@@ -276,6 +290,18 @@ def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
         "norm": L.norm_init(cfg.d_model, cfg.pdtype(), cfg.norm_type,
                             gen.device),
     }
+
+
+def param_axes(cfg: ModelConfig, pol: Policy) -> dict:
+    """The logical axes of every leaf of `init_params`' tree (the
+    reference's `Boxed` axes, without the leading "layers" of the
+    repeats)."""
+    pat = _pattern(cfg)
+    block = {"m": mlstm_block_axes, "s": slstm_block_axes}
+    return {"embed": L.EMBED_AXES,
+            "blocks": [{f"b{i}_{t}": block[t](cfg) for i, t in enumerate(pat)}
+                       for _ in range(cfg.n_layers // len(pat))],
+            "norm": L.norm_axes(cfg.norm_type)}
 
 
 def forward(cfg: ModelConfig, pol: Policy, params, tokens, embeds=None):

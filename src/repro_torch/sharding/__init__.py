@@ -1,1 +1,2 @@
-"""Single-card policy of the port (see `policy.py`)."""
+"""Sharding policy and logical-axis partitioning of the port (see
+`policy.py`, `partitioning.py`)."""

@@ -1,23 +1,31 @@
-"""Logical-axis partitioning rules, as the reference names them.
+"""Logical-axis partitioning, as the reference names it, as DTensor
+placements.
 
 The counterpart of the reference's `repro/sharding/partitioning.py`
-(`partitioning.py:24-57`). Every parameter and activation of the
-reference is annotated with a tuple of *logical* axis names, and a rule
-table maps each logical name to mesh axes; `sharding.policy.resolve`
-builds such a table per cell. Mesh axes: ``pod`` (the slowest, pure data
-parallel), ``data`` (data parallel, FSDP shards) and ``model`` (tensor and
-expert parallel).
+(`partitioning.py:24-77`). Every parameter and activation of the reference
+is annotated with a tuple of *logical* axis names, and a rule table maps
+each logical name to mesh axes; `sharding.policy.resolve` builds such a
+table per cell. Mesh axes: ``pod`` (the slowest, pure data parallel),
+``data`` (data parallel, FSDP shards) and ``model`` (tensor and expert
+parallel).
 
 `logical_spec` returns the tuple of mesh axes that the reference's
-`PartitionSpec` holds, so that a multi-card runner can turn it into
-DTensor placements. On one card `constrain` is the identity. The
-reference's `logical_sharding` and `shard_params_spec` build
-`NamedSharding`s over a device mesh; they belong to the multi-card item of
-ROADMAP.md and have no counterpart here.
+`PartitionSpec` holds. `logical_placements` turns it into one DTensor
+`Placement` for each dimension of a `torch.distributed` DeviceMesh
+(`launch/mesh.py::make_mesh`), which is what the reference's
+`NamedSharding` is to JAX; `logical_sharding` pairs it with its mesh, and
+`shard_params_spec` maps a tree of logical axes to a tree of specs.
+
+`constrain` is the counterpart of `with_sharding_constraint`: under
+``with mesh_context(mesh):`` (the reference's ``with mesh:``) it
+redistributes a DTensor to the placements of its logical axes, and it is
+the identity on a plain tensor or outside a mesh, so every one-card path
+is unchanged.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+import contextlib
+from typing import Mapping, NamedTuple, Optional, Sequence
 
 # Default rules: tensor parallel on "model", ZeRO-3-style parameter sharding
 # of the non-TP dimension over "data", batch over ("pod", "data").
@@ -46,6 +54,13 @@ LOGICAL_RULES: dict[str, Optional[str | tuple]] = {
 # Pure tensor-parallel rules (no ZeRO): small models / serving.
 TP_ONLY_RULES = dict(LOGICAL_RULES, embed_fsdp=None)
 
+_MESHES: list = []          # the meshes of the open `mesh_context`s
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
 
 def logical_spec(axes: Sequence[Optional[str]],
                  rules: Mapping[str, Optional[str | tuple]] = LOGICAL_RULES
@@ -55,6 +70,102 @@ def logical_spec(axes: Sequence[Optional[str]],
     return tuple(rules.get(a) if a is not None else None for a in axes)
 
 
+def logical_placements(mesh, axes: Sequence[Optional[str]],
+                       rules: Mapping[str, Optional[str | tuple]]
+                       = LOGICAL_RULES) -> tuple:
+    """One DTensor placement for each dimension of `mesh`: ``Shard(d)``
+    where the rule of tensor dim d names that mesh axis (each axis of a
+    tuple, which must follow the mesh's order), else ``Replicate()``.
+    Raises ValueError for a mesh axis that the mesh lacks or that two
+    tensor dims name, as `NamedSharding` refuses them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for dim, entry in enumerate(logical_spec(axes, rules)):
+        group = (entry,) if isinstance(entry, str) else (entry or ())
+        where = []
+        for name in group:
+            if name not in names:
+                raise ValueError(f"logical axes {tuple(axes)}: mesh axis "
+                                 f"{name!r} is not in the mesh {names}")
+            i = names.index(name)
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"logical axes {tuple(axes)}: mesh axis "
+                                 f"{name!r} shards two tensor dims")
+            out[i] = Shard(dim)
+            where.append(i)
+        if where != sorted(where):
+            raise ValueError(f"logical axes {tuple(axes)}: mesh axes "
+                             f"{group} of one dim are not in mesh order")
+    return tuple(out)
+
+
+class Sharding(NamedTuple):
+    """A mesh and the placements of one tensor on it: the port's
+    `NamedSharding` (``distribute_tensor(x, *sharding)``)."""
+    mesh: object
+    placements: tuple
+
+
+def logical_sharding(mesh, axes: Sequence[Optional[str]],
+                     rules=LOGICAL_RULES) -> Sharding:
+    return Sharding(mesh, logical_placements(mesh, axes, rules))
+
+
+def map_axes(fn, tree):
+    """`fn` on every logical-axes tuple of a tree of dicts and lists."""
+    if _is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_axes(fn, v) for v in tree]
+    raise TypeError(f"not a tree of logical axes: {tree!r}")
+
+
+def shard_params_spec(axes_tree, rules=LOGICAL_RULES):
+    """A tree of logical-axis tuples -> the tree of their specs."""
+    return map_axes(lambda ax: logical_spec(ax, rules), axes_tree)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Make `mesh` the one `constrain` lays DTensors out on, and treat
+    plain tensors met beside DTensors (positions, masks, frequencies, made
+    alike on every rank) as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _MESHES.append(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh():
+    return _MESHES[-1] if _MESHES else None
+
+
 def constrain(x, *axes, rules=LOGICAL_RULES):
-    """The identity: one card has no layout to constrain."""
-    return x
+    """Redistribute the DTensor `x` to the placements of its logical
+    `axes` on the current mesh (a reduction, gather or slice as the
+    placements require); the identity on a plain tensor or outside a
+    mesh."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    want = logical_placements(mesh, axes, rules)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def is_dtensor(x) -> bool:
+    """Whether `x` is a DTensor (without importing DTensor for a plain
+    tensor)."""
+    if not hasattr(x, "placements"):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

@@ -32,8 +32,12 @@ do: ``kv_repeat`` (KV heads repeated before attention and in the caches),
 ``expert_pad`` (the MoE router's and expert stack's width, the padded
 experts masked), ``rules["expert"]`` (the MoE dispatch under ``"auto"``)
 and ``rules["seq"]`` (a sharded sequence disables query chunking of the
-plain attention and the loss's sequence chunks). `constrain` is the
-identity: nothing is laid out across cards here.
+plain attention and the loss's sequence chunks). On a mesh of cards
+(`launch/mesh.py::make_mesh`, under `partitioning.mesh_context`) the
+rules also lay DTensors out: `Policy.constrain` redistributes to the
+placements of logical axes, and the prefill path runs on that mesh
+(`launch/dryrun.py --mesh`). Training, sharded decode and the expert axis
+on a mesh wait for ROADMAP.md item 19b.
 """
 from __future__ import annotations
 
@@ -69,10 +73,12 @@ class Policy:
     notes: tuple[str, ...] = ()   # human-readable resolution log
 
     def constrain(self, x, *axes):
-        """Identity: on one card there is no layout to constrain."""
+        """`partitioning.constrain` by this policy's rules: a DTensor
+        redistributed on the current mesh, the identity otherwise."""
         return partitioning.constrain(x, *axes, rules=self.rules)
 
     def spec(self, axes):
+        """The mesh axes of each logical axis (a PartitionSpec's entries)."""
         return partitioning.logical_spec(axes, self.rules)
 
 

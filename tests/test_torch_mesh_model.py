@@ -1,0 +1,374 @@
+"""The model's logical axes, their placements, and the prefill on a mesh.
+
+- Every family's `param_axes` leaf by leaf against the reference's
+  ``unbox(jax.eval_shape(init))[1]`` (its stacked leaves' leading
+  "layers" dropped, one dictionary a layer, the hybrid's ``kind_*``
+  markers left out, as `models/convert.py` carries the parameters).
+- The port of tests/test_policy_hlo.py:76-101 (no mesh axis twice in one
+  spec) over every arch, and `logical_placements` for every rule table
+  `resolve` gives on the four-card mesh ``{"data": 2, "model": 2}``.
+- Reduced granite-3-2b (4 layers, float32, the attention kernel's path,
+  its plain version here) prefilled on a data 2 x model 2 mesh of four
+  gloo ranks (`launch/dryrun.py::mesh_step`): hidden states and the last
+  position's logits against the same port in one process within 1e-5
+  (relative, plus 1e-5 of the largest magnitude: float32 products summed
+  over two shards in another order), the greedy tokens the reference's,
+  the attention run on each rank's local ``[B/2, S, H/2, hd]`` shards,
+  and the collectives DTensor issued: 2 all-reduces a layer over the
+  model groups (after the attention's and the MLP's output projections)
+  and 1 after the vocabulary-sharded embedding, each of a
+  ``[B/2, S, d]`` float32 operand, then the logits' all-gathers.
+- `CollectiveStats`'s ring factors against the reference's
+  `collective_stats` on an HLO text with one op of each kind.
+"""
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs as tconfigs
+from repro_torch.launch import collective_stats as tcs
+from repro_torch.launch.mesh import FOUR_CARD, SINGLE_POD
+from repro_torch.models import registry as tregistry
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.layers import unembed
+from repro_torch.sharding import partitioning as tpart
+from repro_torch.sharding.policy import resolve
+from test_torch_multihost import run_ranks
+from test_torch_reference import load_reference
+
+ARCH = "granite-3-2b"
+LAYERS, BATCH, SEQ = 4, 4, 16
+FAKE_MESH = types.SimpleNamespace(mesh_dim_names=tuple(FOUR_CARD))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return load_reference()
+
+
+def reference_axes(ref, cfg, pol, stacked):
+    """The reference's axes tree in the port's layout."""
+    jax, jnp = ref.jax, ref.jnp
+    fam = ref.registry.get_family(cfg)
+    boxed = jax.eval_shape(lambda k: fam.init_params(cfg, pol, k),
+                           jax.ShapeDtypeStruct((2,), jnp.uint32))
+    shapes, axes = ref.layers.unbox(boxed)
+
+    def port(tree, drop):
+        if isinstance(tree, dict):
+            return {k: port(v, drop) for k, v in tree.items()
+                    if not k.startswith("kind_")}
+        assert not drop or tree[0] == "layers", tree
+        return tree[1:] if drop else tree
+
+    out = {}
+    for k, v in axes.items():
+        if k in stacked:
+            n = jax.tree.leaves(shapes[k])[0].shape[0]
+            out[k] = [port(v, True) for _ in range(n)]
+        else:
+            out[k] = port(v, False)
+    return out
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_param_axes_are_the_reference(ref, arch, size):
+    jc = (ref.configs.get_config(arch) if size == "full"
+          else ref.configs.smoke_config(arch))
+    tc = (tconfigs.get_config(arch) if size == "full"
+          else tconfigs.smoke_config(arch))
+    jpol = ref.policy.resolve(jc, SINGLE_POD, 256, "train", seq=4096)
+    tpol = resolve(tc, SINGLE_POD, 256, "train", seq=4096)
+    fam = tregistry.get_family(tc)
+    got = fam.param_axes(tc, tpol)
+    assert got == reference_axes(ref, jc, jpol, fam.STACKED_KEYS)
+    # one axes tuple a parameter, of its rank
+    params = fam.init_params(tc, tpol, torch.Generator().manual_seed(0)
+                             if size == "reduced" else _meta())
+
+    def check(t, ax):
+        assert t.dim() == len(ax)
+
+    _walk(check, params, got)
+
+
+def _meta():
+    from repro_torch.device import meta_generator
+    return meta_generator()
+
+
+def _walk(fn, a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _walk(fn, a[k], b[k])
+    elif isinstance(a, list):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _walk(fn, x, y)
+    else:
+        fn(a, b)
+
+
+def _specs(tree):
+    out = []
+    tpart.map_axes(lambda ax: out.append(ax), tree)
+    return out
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_policy_rules_have_no_duplicate_axes(arch):
+    """tests/test_policy_hlo.py:76-101 on the port's axes trees."""
+    cfg = tconfigs.get_config(arch)
+    fam = tregistry.get_family(cfg)
+    for step, batch in (("train", 256), ("decode", 128)):
+        pol = resolve(cfg, SINGLE_POD, batch, step, seq=4096)
+        for ax in _specs(fam.param_axes(cfg, pol)):
+            flat = []
+            for e in pol.spec(ax):
+                if isinstance(e, tuple):
+                    flat.extend(e)
+                elif e is not None:
+                    flat.append(e)
+            assert len(flat) == len(set(flat)), (arch, step, ax)
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+@pytest.mark.parametrize("step,batch,strategy", [
+    ("prefill", 32, "auto"), ("decode", 128, "auto"), ("train", 256, "tp"),
+    ("train", 256, "dp_zero1"), ("train", 256, "dp_zero3"),
+    ("train", 256, "dp_seq")])
+def test_placements_on_the_four_card_mesh(arch, step, batch, strategy):
+    """Every leaf's placements under every rule table `resolve` gives on
+    {"data": 2, "model": 2}: one a mesh dim, a Shard only where a rule
+    names that mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    cfg = tconfigs.get_config(arch)
+    pol = resolve(cfg, FOUR_CARD, batch, step, seq=4096, strategy=strategy)
+    fam = tregistry.get_family(cfg)
+    for ax in _specs(fam.param_axes(cfg, pol)) + [("batch", None)]:
+        pl = tpart.logical_placements(FAKE_MESH, ax, pol.rules)
+        assert len(pl) == 2
+        spec = pol.spec(ax)
+        for i, name in enumerate(FOUR_CARD):
+            dims = [d for d, e in enumerate(spec)
+                    if e == name or (isinstance(e, tuple) and name in e)]
+            assert pl[i] == (Shard(dims[0]) if dims else Replicate())
+
+
+def test_granite_prefill_placements():
+    """The cell's policy on four cards: batch over data; heads, kv heads,
+    mlp and vocab over model; kv_repeat 1."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    cfg = tconfigs.get_config(ARCH)
+    pol = resolve(cfg, FOUR_CARD, 32, "prefill", seq=32768)
+    assert (pol.strategy, pol.attn_mode, pol.kv_repeat) == \
+        ("serve", "tp_heads", 1)
+    R = Replicate()
+    want = {("vocab", "embed"): (R, Shard(0)),
+            ("embed_fsdp", "heads"): (R, Shard(1)),
+            ("heads", "embed_fsdp"): (R, Shard(0)),
+            ("embed_fsdp", "mlp"): (R, Shard(1)),
+            ("mlp", "embed_fsdp"): (R, Shard(0)),
+            ("embed",): (R, R),
+            ("batch", None): (Shard(0), R),
+            ("attn_batch", "seq", "heads", None): (Shard(0), Shard(2))}
+    for ax, pl in want.items():
+        assert tpart.logical_placements(FAKE_MESH, ax, pol.rules) == pl
+
+
+def test_logical_placements_refuse():
+    with pytest.raises(ValueError, match="is not in the mesh"):
+        tpart.logical_placements(FAKE_MESH, ("batch",))      # ("pod", ..)
+    with pytest.raises(ValueError, match="shards two tensor dims"):
+        tpart.logical_placements(FAKE_MESH, ("heads", "mlp"))
+    with pytest.raises(ValueError, match="mesh order"):
+        tpart.logical_placements(FAKE_MESH, ("x",),
+                                 {"x": ("model", "data")})
+    assert tpart.logical_placements(FAKE_MESH, ("x",),
+                                    {"x": ("data", "model")})[1].dim == 0
+
+
+def test_constrain_is_the_identity_off_a_mesh():
+    x = torch.ones(2, 3)
+    assert tpart.constrain(x, "batch", None) is x
+    assert tpart.shard_params_spec({"a": [("vocab", "embed")]}) == \
+        {"a": [("model", None)]}
+
+
+# ------------------------------------------------------------ on a mesh
+
+_RANKS = r"""
+import json, sys
+import torch
+from repro_torch.launch import dryrun, mesh as tmesh, multihost
+from repro_torch.launch.collective_stats import CollectiveRecorder
+from repro_torch.models import layers
+from repro_torch.models.registry import get_family
+from repro_torch.sharding import partitioning
+from test_torch_mesh_model import case_config
+
+multihost.initialize(timeout_s=60, device="cpu")
+m = tmesh.make_mesh(tmesh.FOUR_CARD, "cpu")
+case = torch.load(sys.argv[1] + "/case.pt")
+cfg, pol = case_config()
+seen = []
+kernel = layers.flash_attention
+
+
+def spy(q, k, v, **kw):
+    seen.append([type(q).__name__, list(q.shape), list(k.shape)])
+    return kernel(q, k, v, **kw)
+
+
+layers.flash_attention = spy
+fn, params, inputs = dryrun.mesh_step(cfg, pol, m, case["params"],
+                                      {"tokens": case["tokens"]})
+with CollectiveRecorder() as rec:
+    logits = fn()
+with torch.no_grad(), partitioning.mesh_context(m):
+    hidden = get_family(cfg).forward(cfg, pol, params, inputs["tokens"])[0]
+    from torch.distributed.tensor import Replicate, Shard
+    placements = tuple(hidden.placements) == (Shard(0), Replicate())
+    hidden = hidden.full_tensor()
+if multihost.process_index() == 0:
+    torch.save({"hidden": hidden, "logits": logits},
+               sys.argv[1] + "/out.pt")
+wq = params["layers"][0]["attn"]["wq"]
+print(json.dumps({"ops": rec.ops, "seen": seen,
+                  "hidden_placements": placements,
+                  "wq_local": list(wq.to_local().shape),
+                  "embed_local": list(params["embed"].to_local().shape),
+                  "tokens_local": list(inputs["tokens"].to_local().shape)}))
+multihost.shutdown()
+"""
+
+
+def case_config():
+    cfg = tconfigs.smoke_config(ARCH, n_layers=LAYERS,
+                                attention_impl="pallas")
+    return cfg, resolve(cfg, FOUR_CARD, BATCH, "prefill", seq=SEQ)
+
+
+@pytest.fixture(scope="module")
+def mesh_run(ref, tmp_path_factory):
+    """The reference's parameters carried to the port, run on the mesh
+    and in one process; the reference's own forward for its greedy
+    tokens."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    jc = ref.configs.smoke_config(ARCH, n_layers=LAYERS)
+    jpol = ref.policy.single_device_policy(jc)
+    jp, _ = ref.layers.unbox(ref.lm.init_params(
+        jc, jpol, ref.jax.random.PRNGKey(3)))
+    cfg, pol = case_config()
+    params = params_from_jax(cfg, ref.jax.tree.map(np.asarray, jp),
+                             device="cpu")
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    torch.save({"params": params, "tokens": torch.from_numpy(tokens)},
+               tmp / "case.pt")
+    outs = run_ranks(_RANKS, 4, tmp)
+    got = torch.load(tmp / "out.pt")
+    fam = tregistry.get_family(cfg)
+    with torch.no_grad():
+        hidden = fam.forward(cfg, pol, params, torch.from_numpy(tokens))[0]
+        logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
+    jh, _ = ref.lm.forward(jc, jpol, jp, ref.jnp.asarray(tokens))
+    jl = ref.layers.unembed(jc, jpol, jh[:, -1:], jp["embed"])
+    return types.SimpleNamespace(
+        outs=outs, got=got, hidden=hidden, logits=logits,
+        ref_tokens=np.argmax(np.asarray(jl)[:, -1], -1), cfg=cfg)
+
+
+def close(got, want, rel=1e-5):
+    got, want = got.numpy(), want.numpy()
+    bound = rel * np.abs(want) + rel * np.abs(want).max()
+    assert np.all(np.abs(got - want) <= bound), \
+        float(np.max(np.abs(got - want) - bound))
+
+
+def test_mesh_prefill_matches_one_process(mesh_run):
+    close(mesh_run.got["hidden"], mesh_run.hidden)
+    # the vocabulary's logits: the padded entries are -1e30 on both sides
+    V = mesh_run.cfg.vocab_size
+    close(mesh_run.got["logits"][..., :V], mesh_run.logits[..., :V])
+    assert torch.equal(mesh_run.got["logits"][..., V:],
+                       mesh_run.logits[..., V:])
+    for out in mesh_run.outs:
+        assert out["hidden_placements"]        # batch over data only
+
+
+def test_mesh_prefill_gives_the_reference_tokens(mesh_run):
+    greedy = mesh_run.got["logits"][:, -1].argmax(-1).numpy()
+    np.testing.assert_array_equal(greedy, mesh_run.ref_tokens)
+
+
+def test_kernel_sees_local_shards(mesh_run):
+    cfg = mesh_run.cfg
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    for out in mesh_run.outs:
+        # one call a layer in each of the rank's two forwards, on plain
+        # tensors: this rank's batch rows and heads, every position
+        assert out["seen"] == [["Tensor", [BATCH // 2, SEQ, H // 2, hd],
+                                [BATCH // 2, SEQ, KV // 2, hd]]] * (
+                                    2 * LAYERS)
+        assert out["wq_local"] == [d, H * hd // 2]
+        assert out["embed_local"] == [256 // 2, d]
+        assert out["tokens_local"] == [BATCH // 2, SEQ]
+
+
+def test_counted_collectives(mesh_run):
+    """2 all-reduces a layer + 1 (the embedding), over the model groups,
+    each of one rank's [B/2, S, d] activations; then the logits' two
+    all-gathers (batch over data, vocabulary over model)."""
+    d = mesh_run.cfg.d_model
+    for out in mesh_run.outs:
+        ops = out["ops"]
+        ar = [o for o in ops if o[0] == "all-reduce"]
+        assert len(ar) == 2 * LAYERS + 1
+        assert {(o[1], o[2]) for o in ar} == {(BATCH // 2 * SEQ * d * 4, 2)}
+        assert [o[0] for o in ops[len(ar):]] == ["all-gather"] * 2
+        stats = tcs.stats_of((o[0], o[1], o[2]) for o in ops)
+        assert stats.op_count["all-reduce"] == 2 * LAYERS + 1
+        assert stats.op_bytes["all-reduce"] == \
+            (2 * LAYERS + 1) * BATCH // 2 * SEQ * d * 4
+
+
+_HLO = """
+HloModule one_of_each
+%add (a: f32[], b: f32[]) -> f32[] {
+  ROOT %r = f32[] add(%a, %b)
+}
+ENTRY %main (a: f32[8,128]) -> f32[8,128] {
+  %ar = f32[8,128]{1,0} all-reduce(%x), replica_groups=[2,2]<=[4], to_apply=%add
+  %ag = bf16[32,128]{1,0} all-gather(%s), replica_groups=[1,4]<=[4], dimensions={0}
+  %rs = f32[4,64]{1,0} reduce-scatter(%y), replica_groups=[4,2]<=[8], dimensions={0}, to_apply=%add
+  %aa = bf16[16,16]{1,0} all-to-all(%z), replica_groups=[1,8]<=[8], dimensions={0}
+  %cp = f32[2,3]{1,0} collective-permute(%w), source_target_pairs={{0,1}}
+  ROOT %o = f32[8,128] copy(%ar)
+}
+"""
+# (opcode, result bytes, group size) of the ops above
+_OPS = [("all-reduce", 8 * 128 * 4, 2), ("all-gather", 32 * 128 * 2, 4),
+        ("reduce-scatter", 4 * 64 * 4, 2), ("all-to-all", 16 * 16 * 2, 8),
+        ("collective-permute", 2 * 3 * 4, 2)]
+
+
+def test_ring_factors_are_the_reference():
+    from repro.launch.hlo_stats import collective_stats   # imports no JAX
+    want = collective_stats(_HLO)
+    got = tcs.stats_of(_OPS)
+    assert got.op_count == want.op_count
+    assert got.op_bytes == want.op_bytes
+    assert got.link_bytes_per_device == pytest.approx(
+        want.link_bytes_per_device, rel=1e-12)
+    assert got.total_bytes() == want.total_bytes()

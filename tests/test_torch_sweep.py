@@ -188,9 +188,11 @@ def test_sweep_plan_records_what_ran():
 
 # the keys the port's plan shares with the reference's; "step_impl" names
 # another engine on each side, and "auto" resolves to "fused" in the port
-# at every lane count (ROADMAP.md, deliberate differences)
+# at every lane count (ROADMAP.md, deliberate differences); "n_devices"
+# and "lane_pad" at world size 1, one JAX device here
 PLAN_SHARED_KEYS = ("requested_mode", "mode", "n_lanes", "n_workloads",
-                    "total_experiments", "chunk_lanes")
+                    "total_experiments", "chunk_lanes", "n_devices",
+                    "lane_pad")
 PLAN_CHAOS = {
     "none": None,
     "inert": dict(),
