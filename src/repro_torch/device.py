@@ -1,7 +1,11 @@
 """The one place that decides where the port's tensors live."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_META_REPEATS = [1]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,3 +45,20 @@ def meta_generator() -> torch.Generator:
     the same init functions as a real build, no second set that could
     drift from them."""
     return _MetaGenerator()
+
+
+@contextlib.contextmanager
+def meta_repeat(n: int):
+    """Within the block, a shape-only run (`launch/dryrun.py::MetaRun`)
+    counts each operation's FLOPs `n` times: a loop whose steps are alike
+    runs one step on ``meta`` in place of `n`."""
+    _META_REPEATS.append(_META_REPEATS[-1] * n)
+    try:
+        yield
+    finally:
+        _META_REPEATS.pop()
+
+
+def meta_repeats() -> int:
+    """The count `meta_repeat` has set (1 outside it)."""
+    return _META_REPEATS[-1]

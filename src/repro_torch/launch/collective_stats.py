@@ -17,6 +17,7 @@ of g ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import defaultdict
 
@@ -92,7 +93,11 @@ def _group_size(args, kwargs) -> int:
 
 class CollectiveRecorder(TorchDispatchMode):
     """Records each `_c10d_functional` collective issued under it, in
-    order: ``ops`` holds (opcode, result bytes, group size, op name)."""
+    order: ``ops`` holds (opcode, result bytes, group size, op name).
+    ``skip_local_ops``: `layers.on_shards` sets it aside while a function
+    runs on plain local tensors (`partitioning.local_ops_unrecorded`)."""
+
+    skip_local_ops = True
 
     def __init__(self):
         super().__init__()
@@ -113,3 +118,29 @@ class CollectiveRecorder(TorchDispatchMode):
 
     def stats(self) -> CollectiveStats:
         return stats_of((op, ob, g) for op, ob, g, _ in self.ops)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str):
+    """CUDA events around every call of ``module.name`` in the block (the
+    attribute replaced by a timing wrapper, restored after): yields the
+    list of (start, end) event pairs. The card only."""
+    import torch
+
+    fn = getattr(module, name)
+    spans: list = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield spans
+    finally:
+        setattr(module, name, fn)

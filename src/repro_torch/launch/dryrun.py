@@ -49,22 +49,35 @@ stands where it stood. Its `collectives` block (parsed from the optimized
 HLO) is measured by ``--run --mesh`` below.
 
 ``--mesh data=2,model=2`` resolves the policy on those axis sizes instead
-of the production mesh's. With ``--run``, in a process group of as many
-ranks (`launch/multihost.py`, one card a rank; torchrun), a prefill cell
-then runs on that mesh (`launch/mesh.py::make_mesh`): each rank draws the
-full parameters and inputs from ``--seed`` on its card and keeps its shard
-of each (`param_specs`, `batch_sharding`: the placements of their logical
-axes under the policy's rules, `distribute_tensor`); the step runs on
-DTensors (the models' `constrain` points lay activations out; the kernels
-run on each rank's local shards), its last position's logits gathered to
-every rank as the reference's ``out_shardings=repl`` does. The record gets
-the reference's ``collectives`` block (`op_bytes`, `op_count`,
-`link_bytes_per_device`) measured from the first step
-(`launch/collective_stats.py`), each rank's peak bytes beside the one-card
-estimate, and the seconds of the second, warm step. ``--batch`` cuts the
-cell's batch (recorded under ``reduced``); ``--logits-out`` saves the last
-position's logits from rank 0. Training and decode cells on a mesh wait
-for ROADMAP.md item 19b and raise.
+of the production mesh's, and gives a prefill cell's record a per-card
+estimate (`per_card_fit`: one rank's step on meta DTensors of a fake
+process group of the mesh's size, metered by `MetaRun`: its shards of the
+parameters and inputs, and the peak of its transients, the replicated
+ones and each all-reduce's whole operand included; where it exceeds
+FIT_SHARE of a card, the largest batch whose estimate fits). With
+``--run``, in a process group of as many ranks (`launch/multihost.py`,
+one card a rank; torchrun), a prefill cell then runs on that mesh
+(`launch/mesh.py::make_mesh`), at its batch where the per-card estimate
+fits and at the largest batch that fits where it does not (under
+``reduced``): each rank draws the full parameters and inputs from
+``--seed`` on its card and keeps its shard of each, in storage of its own
+(`param_specs`, `batch_sharding`: the placements of their logical axes
+under the policy's rules, `distribute`); the step runs on DTensors (the
+models' `constrain` points lay activations out; the kernels and the
+recurrent families' time loops run on each rank's local shards), its last
+position's logits gathered to every rank as the reference's
+``out_shardings=repl`` does. The record gets the reference's
+``collectives`` block (`op_bytes`, `op_count`, `link_bytes_per_device`)
+measured from the first step (`launch/collective_stats.py`), each rank's
+bytes (while the parameters are distributed, resident after, the peak of
+a prefill) beside the estimates, and the seconds of the second, warm step,
+split on the card by CUDA events into its redistributions (all-reduces,
+gathers, each waited for) and the rest. ``--batch`` cuts the cell's batch
+(recorded under ``reduced``); ``--logits-out`` saves the last position's
+logits from rank 0; ``--records`` takes the cells and their records from
+an earlier ``--out`` (the meta work done once, off the ranks). Training
+and decode cells on a mesh wait for ROADMAP.md item 19b (steps 2 and 3)
+and raise.
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the
@@ -104,7 +117,7 @@ from torch.utils._pytree import tree_unflatten as _pytree_unflatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import SHAPES, Shape, cells, get_config, input_specs
-from repro_torch.device import meta_generator, resolve_device
+from repro_torch.device import meta_generator, meta_repeats, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rglru_scan.ops import lru_forward, lru_reverse
 from repro_torch.launch import multihost
@@ -156,10 +169,15 @@ class _Uncacheable(Exception):
     """An operand the shape cache does not key (a tensor off meta)."""
 
 
+def _local(x):
+    """A DTensor's local tensor; anything else as it is."""
+    return x._local_tensor if partitioning.is_dtensor(x) else x
+
+
 def _signature(x):
     """What an operand contributes to the shape cache's key."""
     if isinstance(x, torch.Tensor):
-        if x.device != META:
+        if x.device != META or partitioning.is_dtensor(x):
             raise _Uncacheable
         return (x.shape, x.stride(), x.dtype, x.storage_offset())
     if isinstance(x, (list, tuple)):
@@ -189,13 +207,22 @@ class MetaRun(TorchDispatchMode):
     functions of elementwise operations are Python and cost 0.1-0.4 ms
     each, and the sLSTM's time loop runs ~25 of them a step, 32 768 steps a
     block. ``hits`` counts them.
+
+    On a mesh (the step's tensors DTensors of a fake process group, see
+    `per_card_fit`) it counts one rank's bytes: the storages of the local
+    tensors, and the results of the collectives that the step issues (an
+    all-reduce's operand is the local partial sum before it); FLOPs are not
+    counted there (``count_flops=False``): a plain tensor met beside a
+    DTensor is sharded inside DTensor's dispatch, out of sight. Operations
+    on DTensors are never answered from the cache.
     """
 
     # no alias annotation in the schema, but a view of the operand
     ALIASING = ("_unsafe_view",)
 
-    def __init__(self, exclude=()):
+    def __init__(self, exclude=(), count_flops: bool = True):
         super().__init__()
+        self.count_flops = count_flops
         self.flops = 0
         self.live = 0
         self.peak = 0
@@ -204,7 +231,7 @@ class MetaRun(TorchDispatchMode):
         self._shapes: dict = {}
         self._cacheable: dict = {}
         for t in exclude:
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             self._seen.add(id(st))
             weakref.finalize(st, self._seen.discard, id(st))
 
@@ -258,10 +285,13 @@ class MetaRun(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = self._run(func, args, kwargs)
-        count = flop_registry.get(func._overloadpacket)
+        count = (flop_registry.get(func._overloadpacket)
+                 if self.count_flops else None)
         if count is not None:
-            self.flops += count(*args, **kwargs, out_val=out)
+            self.flops += meta_repeats() * count(*args, **kwargs,
+                                                 out_val=out)
         for t in _pytree_leaves(out):
+            t = _local(t)
             if isinstance(t, torch.Tensor):
                 st = t.untyped_storage()
                 key = id(st)
@@ -419,13 +449,25 @@ def policy_record(pol) -> dict:
             "notes": list(pol.notes)}
 
 
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """`cfg` with its stack (the encoder's and the decoder's both) cut to
+    `layers` layers."""
+    if cfg.family == "encdec":
+        return cfg.with_(n_layers=layers, n_enc_layers=layers,
+                         n_dec_layers=layers)
+    return cfg.with_(n_layers=layers)
+
+
 def resolved_cell(arch: str, shape_name: str, multi_pod: bool = False,
                   remat: Optional[str] = None, strategy: str = "auto",
-                  axes: Optional[dict] = None):
+                  axes: Optional[dict] = None,
+                  layers: Optional[int] = None):
     """(cfg, shape, mesh axes, policy) of one cell: the policy resolved
     on the production mesh's axes (or on `axes`) for the cell's batch,
-    kind and length."""
+    kind and length; the depth cut to `layers` where given."""
     cfg = cell_config(arch, remat)
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
     shape = SHAPES[shape_name]
     axes = dict(axes) if axes else production_axes(multi_pod=multi_pod)
     pol = policy_lib.resolve(cfg, axes, shape.batch, shape.kind,
@@ -435,34 +477,68 @@ def resolved_cell(arch: str, shape_name: str, multi_pod: bool = False,
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
                remat: Optional[str] = None, strategy: str = "auto",
-               axes: Optional[dict] = None) -> dict:
-    """The dry run of one cell on the meta device. Returns its record."""
+               axes: Optional[dict] = None,
+               layers: Optional[int] = None) -> dict:
+    """The dry run of one cell on the meta device (its depth cut to
+    `layers` where given, recorded as ``cut_layers``). Returns its
+    record."""
     cfg, shape, axes, pol = resolved_cell(arch, shape_name, multi_pod,
-                                          remat, strategy, axes)
+                                          remat, strategy, axes, layers)
     rec = {"arch": arch, "shape": shape_name, "kind": shape.kind,
            "batch": shape.batch, "seq": shape.seq,
            "mesh": "x".join(str(s) for s in axes.values()),
            "devices": mesh_devices(axes), "policy": policy_record(pol),
            "attention_impl": cfg.attention_impl, "remat": cfg.remat}
+    if layers is not None:
+        rec["cut_layers"] = [cell_config(arch).n_layers, layers]
     rec.update(estimate(cfg, pol, shape))
     rec["ok"] = True
     return rec
 
 
-def largest_fitting_batch(cfg: ModelConfig, pol, shape: Shape
-                          ) -> tuple[int, Optional[int]]:
-    """The largest batch up to the cell's whose estimate fits one card,
-    and that estimate ((0, None) if none does): a bisection over meta
-    builds."""
-    lo, hi, est = 0, shape.batch, None
+def largest_fitting_batch(cfg: ModelConfig, pol, shape: Shape, peak=None,
+                          unit: int = 1) -> tuple[int, Optional[int]]:
+    """The largest batch up to the cell's, a multiple of `unit`, whose
+    estimate fits one card, and that estimate ((0, None) if none does): a
+    bisection over meta builds. `peak(shape)` gives the estimate (one
+    card's, `estimate`, by default)."""
+    if peak is None:
+        peak = lambda sh: estimate(cfg, pol, sh)["peak_bytes_estimate"]
+    lo, hi, est = 0, shape.batch // unit, None
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        rec = estimate(cfg, pol, dataclasses.replace(shape, batch=mid))
-        if rec["fits_one_card"]:
-            lo, est = mid, rec["peak_bytes_estimate"]
+        got = peak(dataclasses.replace(shape, batch=mid * unit))
+        if got <= FIT_SHARE * CARD_BYTES:
+            lo, est = mid, got
         else:
             hi = mid - 1
-    return lo, est
+    return lo * unit, est
+
+
+def prefill_counts(cfg: ModelConfig) -> dict:
+    """What one prefill of `cfg` launches and, on a mesh whose "model"
+    axis has more than one card, how many all-reduces it issues, by the
+    family's layer structure: the attention kernel once an attention layer
+    (the encoder's included), the RG-LRU forward once a recurrent layer,
+    and an all-reduce after the embedding and after each output projection
+    (two a transformer, MoE or hybrid layer, one an xLSTM block, two an
+    encoder layer and three a decoder layer of the encoder-decoder: self,
+    cross, MLP)."""
+    from repro_torch.models import encdec, hybrid
+
+    if cfg.family == "hybrid":
+        _, n_rec, n_attn = hybrid._counts(cfg)
+        return {"flash_attention": n_attn, "lru_forward": n_rec,
+                "all_reduces": 2 * cfg.n_layers + 1}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "lru_forward": 0,
+                "all_reduces": cfg.n_layers + 1}
+    if cfg.family == "encdec":
+        n_enc, n_dec = encdec._n_enc(cfg), encdec._n_dec(cfg)
+        return {"flash_attention": n_enc + n_dec, "lru_forward": 0,
+                "all_reduces": 2 * n_enc + 3 * n_dec + 1}
+    return {"flash_attention": cfg.n_layers, "lru_forward": 0,
+            "all_reduces": 2 * cfg.n_layers + 1}
 
 
 def kernel_launches() -> dict:
@@ -600,13 +676,26 @@ def batch_sharding(cfg: ModelConfig, pol, mesh, specs: dict) -> dict:
         for name, s in specs.items()}
 
 
-def distribute(tree, shardings):
-    """Each tensor of `tree` as a DTensor holding only this rank's shard
-    (the same full tensor is on every rank: no data moves)."""
-    from torch.distributed.tensor import distribute_tensor
+def _own_shard(t, sh):
+    """`t` (the same full tensor on every rank: no data moves) as a
+    DTensor of this rank's shard, in storage of its own: a shard along
+    the leading dim is a view, which would keep the whole tensor alive."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
-    return _zip_map(lambda t, sh: distribute_tensor(
-        t, sh.mesh, sh.placements, src_data_rank=None), tree, shardings)
+    d = distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().nbytes() == local.numel() * \
+            local.element_size():
+        return d
+    return DTensor.from_local(local.clone(), sh.mesh, sh.placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
+def distribute(tree, shardings):
+    """Each tensor of `tree` as a DTensor holding only this rank's shard,
+    in storage of its own (`_own_shard`)."""
+    return _zip_map(_own_shard, tree, shardings)
 
 
 def _replicated(x, mesh):
@@ -615,23 +704,25 @@ def _replicated(x, mesh):
 
 
 def mesh_prefill(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
-                 device=None):
+                 device=None, positions=None):
     """Draw a prefill cell's parameters and inputs from `seed` on this
     rank's device, keep this rank's shards, and return ``(fn, params,
     inputs)``: `fn()` runs the prefill on `mesh` and returns the last
-    position's logits, replicated on every rank (the reference's
-    ``out_shardings=repl``)."""
+    position's logits (those of `positions` where given), replicated on
+    every rank (the reference's ``out_shardings=repl``)."""
     if shape.kind != "prefill":
         raise NotImplementedError(f"a {shape.kind} cell on a mesh is not "
-                                  f"ported (ROADMAP.md item 19b)")
+                                  f"ported (ROADMAP.md item 19b, steps 2 "
+                                  f"and 3)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = get_family(cfg).init_params(cfg, pol, gen)
     return mesh_step(cfg, pol, mesh, params,
-                     random_inputs(cfg, shape, gen, dev))
+                     random_inputs(cfg, shape, gen, dev), positions)
 
 
-def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs) -> tuple:
+def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs,
+              positions=None) -> tuple:
     """`mesh_prefill` from the full parameters and inputs, the same on
     every rank: ``(fn, sharded params, sharded inputs)``."""
     fam = get_family(cfg)
@@ -643,7 +734,9 @@ def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs) -> tuple:
         with torch.no_grad(), partitioning.mesh_context(mesh):
             hidden, _ = fam.forward(cfg, pol, params, inputs["tokens"],
                                     inputs.get("embeds"))
-            logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
+            at = hidden[:, -1:] if positions is None else torch.cat(
+                [hidden[:, p:p + 1] for p in positions], dim=1)
+            logits = unembed(cfg, pol, at, params["embed"])
             return _replicated(logits, mesh)
 
     return fn, params, inputs
@@ -654,14 +747,104 @@ def _local_tensors(tree) -> list:
             for t in tensors_of(tree)]
 
 
+def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
+    """One rank's prefill on `mesh`, built on the meta device (the
+    parameters and inputs of `mesh_step` as meta DTensors) and metered by
+    `MetaRun`: this rank's argument bytes (its shards of the parameters
+    and inputs), the peak of the bytes its step allocates (every local
+    transient: the replicated norms and residual stream, each output
+    projection's partial sum before its all-reduce, the gathered logits),
+    their sum and the collectives it issues (no FLOPs). On a mesh of a
+    fake process group's rank 0 (`per_card_fit`), whose shards are the
+    largest where a dim does not divide."""
+    t0 = time.perf_counter()
+    fam = get_family(cfg)
+    params = fam.init_params(cfg, pol, meta_generator())
+    fn, params, inputs = mesh_step(cfg, pol, mesh, params,
+                                   input_specs(cfg, shape, device=META))
+    args = _local_tensors((params, inputs))
+    with MetaRun(exclude=args, count_flops=False) as run, \
+            CollectiveRecorder() as rec:
+        out = fn()
+        del out
+    arg_bytes = nbytes(args)
+    cs = rec.stats()
+    return {"batch": shape.batch, "argument_bytes": arg_bytes,
+            "transient_bytes": run.peak,
+            "peak_bytes_estimate": arg_bytes + run.peak,
+            "fits": arg_bytes + run.peak <= FIT_SHARE * CARD_BYTES,
+            "collective_count": cs.op_count,
+            "collective_bytes": cs.op_bytes,
+            "meta_seconds": time.perf_counter() - t0}
+
+
+def per_card_fit(cfg: ModelConfig, pol, shape: Shape, axes: dict) -> dict:
+    """The per-card estimate of a prefill cell on a mesh of `axes`
+    (`mesh_estimate`) at `shape`'s batch and, where it exceeds FIT_SHARE
+    of a card, the largest batch (a multiple of the batch axes' size) whose
+    estimate fits: ``{"batch", "peak_bytes_estimate_per_card",
+    "fits_per_card", "batch_that_fits", "estimates": {str(batch): the
+    record of each batch built}}``. The meta step runs under a
+    single-process fake process group of the mesh's size, so that DTensor
+    gives rank 0's local shapes; a process that already belongs to a group
+    runs it in a spawned child."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(1, mp_context=ctx) as pool:
+            return pool.submit(per_card_fit, cfg, pol, shape, axes).result()
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh_devices(axes))
+    try:
+        mesh = init_device_mesh("cpu", tuple(axes.values()),
+                                mesh_dim_names=tuple(axes))
+        estimates = {}
+
+        def peak(sh):
+            estimates[str(sh.batch)] = mesh_estimate(cfg, pol, sh, mesh)
+            return estimates[str(sh.batch)]["peak_bytes_estimate"]
+
+        full = peak(shape)
+        fits = full <= FIT_SHARE * CARD_BYTES
+        b = shape.batch
+        if not fits:
+            unit = math.prod(axes.get(a, 1) for a in ("pod", "data"))
+            b, _ = largest_fitting_batch(cfg, pol, shape, peak, unit)
+        return {"batch": shape.batch, "peak_bytes_estimate_per_card": full,
+                "fits_per_card": fits, "batch_that_fits": b,
+                "estimates": estimates}
+    finally:
+        dist.destroy_process_group()
+
+
+#: functions of a family's prefill whose calls a run on the card times
+#: apart (CUDA events): the xLSTM's sLSTM blocks, a time loop on the host
+TIMED_CALLS = {"ssm": (("repro_torch.models.xlstm", "slstm_forward"),)}
+
+
 def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
                   device=None) -> tuple:
     """Run a prefill cell on `mesh` twice (see the module's docstring).
     Returns (record, last-position logits): the collectives of the first
-    step, the seconds of the second, and per rank the peak bytes and the
-    kernel launches of one step (the card's allocator under expandable
-    segments, as `run_cell`)."""
+    step, the seconds of the second, and per rank the bytes it holds
+    (its peak while the parameters are drawn and distributed, then what
+    stays), the peak of a prefill, its argument bytes and the kernel
+    launches of one step (the card's allocator under expandable segments,
+    as `run_cell`). On the card the second step is also timed by CUDA
+    events, whole and per redistribution (`constrain`'s all-reduces and
+    gathers, each waited for), with the family's `TIMED_CALLS` apart."""
+    import importlib
+
     import torch.distributed as dist
+
+    from repro_torch.launch.collective_stats import timed_calls
 
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
@@ -671,7 +854,10 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
         sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (
             lambda: None)
         sync()
+        held = {}
         if on_card:
+            held = {"setup_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "resident_bytes": torch.cuda.memory_allocated(dev)}
             torch.cuda.reset_peak_memory_stats(dev)
         seconds = []
         with CollectiveRecorder() as rec:
@@ -680,21 +866,47 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
             sync()
         seconds.append(time.perf_counter() - t0)
         before = kernel_launches()
-        t0 = time.perf_counter()
-        logits = fn()
-        sync()
-        seconds.append(time.perf_counter() - t0)
+        with contextlib.ExitStack() as stack:
+            timing = {}
+            if on_card:
+                red = stack.enter_context(partitioning.timed_redistributions())
+                spans = {name: stack.enter_context(timed_calls(
+                    importlib.import_module(mod), name))
+                    for mod, name in TIMED_CALLS.get(cfg.family, ())}
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            logits = fn()
+            if on_card:
+                stop.record()
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            if on_card:
+                by_kind = partitioning.redistribution_ms(red)
+                timing = {
+                    "device_ms": start.elapsed_time(stop),
+                    "redistribution_ms": by_kind,
+                    "all_reduce_ms": by_kind.get("all-reduce", [0, 0.0])[1],
+                    "rest_ms": start.elapsed_time(stop) - sum(
+                        ms for _, ms in by_kind.values()),
+                    "span_ms": {name: sum(a.elapsed_time(b) for a, b in sp)
+                                for name, sp in spans.items()}}
         after = kernel_launches()
-        mine = {
+        mine = dict(held, **timing, **{
             "launches": {k: after[k] - before[k] for k in after},
             "peak_bytes": (torch.cuda.max_memory_allocated(dev) if on_card
                            else None),
             "argument_bytes": nbytes(_local_tensors((params, inputs))),
             "device": (torch.cuda.get_device_name(dev) if on_card
-                       else str(dev))}
+                       else str(dev))})
+        del fn, params, inputs
+        if on_card:
+            # NCCL may set up the world's communicator only now, and needs
+            # memory the allocator's cache would otherwise hold
+            torch.cuda.empty_cache()
         ranks = [None] * multihost.device_count()
         dist.all_gather_object(ranks, mine)
-        del fn, params, inputs
     cs = rec.stats()
     out = {"batch": shape.batch, "seq": shape.seq,
            "mesh": {k: int(v) for k, v in zip(mesh.mesh_dim_names,
@@ -717,22 +929,52 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
 def run_on_mesh(rec: dict, axes: dict, seed: int = 0, batch=None,
                 remat: Optional[str] = None, strategy: str = "auto",
                 device=None) -> tuple:
-    """--run --mesh for one dry-run record: the cell (at `batch` if
-    given) on a mesh of `axes` over the process group's ranks.
-    Returns (run record, logits)."""
+    """--run --mesh for one dry-run record: the cell on a mesh of `axes`
+    over the process group's ranks, at `batch` if given, else at the
+    cell's batch where its per-card estimate (``rec["per_card"]``,
+    `per_card_fit`) fits and at the largest batch that fits where it does
+    not (recorded under ``reduced``). Returns (run record, logits)."""
+    cut = rec.get("cut_layers")
     cfg, shape, _, pol = resolved_cell(rec["arch"], rec["shape"], False,
-                                       remat, strategy, axes)
+                                       remat, strategy, axes,
+                                       cut[1] if cut else None)
     dev = resolve_device(device)
-    mesh = make_mesh(axes, dev.type)
-    multihost.assert_mesh_spans_processes(mesh)
     full = shape.batch
     if batch is not None:
         shape = dataclasses.replace(shape, batch=int(batch))
+    fit = rec.get("per_card")
+    if fit is None or fit["batch"] != shape.batch:
+        fit = per_card_fit(cfg, pol, shape, axes)
+    reduced = None
+    if batch is not None:
+        reduced = {"batch": [full, shape.batch], "why": "given by --batch"}
+    elif not fit["fits_per_card"]:
+        if not fit["batch_that_fits"]:
+            raise RuntimeError(f"{rec['arch']}:{rec['shape']}: the per-card "
+                               f"estimate exceeds a card at every batch")
+        reduced = {"batch": [full, fit["batch_that_fits"]],
+                   "why": "per-card estimate"}
+        shape = dataclasses.replace(shape, batch=fit["batch_that_fits"])
+    at = fit["estimates"][str(shape.batch)]
+    mesh = make_mesh(axes, dev.type)
+    multihost.assert_mesh_spans_processes(mesh)
     out, logits = run_mesh_cell(cfg, pol, shape, mesh, seed, dev)
     out["peak_bytes_estimate_one_card"] = rec["peak_bytes_estimate"]
-    if shape.batch != full:
-        out["reduced"] = {"batch": [full, shape.batch],
-                          "why": "given by --batch"}
+    out["peak_bytes_estimate_per_card"] = at["peak_bytes_estimate"]
+    out["argument_bytes_estimate_per_card"] = at["argument_bytes"]
+    if out["peak_bytes_max"] is not None:
+        out["peak_over_per_card_estimate"] = (out["peak_bytes_max"]
+                                              / at["peak_bytes_estimate"])
+    if cut:
+        out["reduced"] = dict(reduced or {}, layers=cut,
+                              why=", ".join(filter(None, [
+                                  (reduced or {}).get("why"),
+                                  "depth cut in the record"])))
+    if reduced is not None:
+        out.setdefault("reduced", reduced)
+        if fit["batch"] == full:
+            out["peak_bytes_estimate_per_card_at_full_batch"] = \
+                fit["peak_bytes_estimate_per_card"]
         out["peak_bytes_estimate_one_card"] = estimate(
             cfg, pol, shape)["peak_bytes_estimate"]
         out["peak_bytes_estimate_one_card_at_full_batch"] = \
@@ -763,6 +1005,10 @@ def main(argv=None) -> list:
     ap.add_argument("--logits-out", type=str, default="",
                     help="with --run --mesh: save the last position's "
                          "logits (torch.save, from rank 0)")
+    ap.add_argument("--records", type=str, default="",
+                    help="take the cells and their dry-run records from "
+                         "this file (an earlier run's --out) instead of "
+                         "building them")
     args = ap.parse_args(argv)
     axes = parse_axes(args.mesh) if args.mesh else None
     joined = False
@@ -773,7 +1019,12 @@ def main(argv=None) -> list:
         resolve_device(None)        # the card, or raise before any work
     lead = multihost.process_index() == 0
 
-    if args.all:
+    known = {}
+    if args.records:
+        with open(args.records) as f:
+            known = {(r["arch"], r["shape"]): r for r in json.load(f)}
+        todo = list(known)
+    elif args.all:
         todo = cells()
     else:
         todo = [tuple(c.split(":")) for c in args.cells.split(",") if c]
@@ -784,8 +1035,9 @@ def main(argv=None) -> list:
         for mp in meshes:
             tag = f"{arch}:{shape}:{'multi' if mp else 'single'}"
             try:
-                rec = lower_cell(arch, shape, mp, remat=args.remat,
-                                 strategy=args.strategy, axes=axes)
+                rec = known.get((arch, shape)) or lower_cell(
+                    arch, shape, mp, remat=args.remat,
+                    strategy=args.strategy, axes=axes)
                 fit = ("fits one card" if rec["fits_one_card"] else
                        f">= {rec['min_cards']} cards")
                 if lead:
@@ -800,6 +1052,19 @@ def main(argv=None) -> list:
                        "trace": traceback.format_exc()[-2000:]}
                 print(f"[dryrun] FAIL {tag:55s} {type(e).__name__}: "
                       f"{str(e)[:200]}", flush=True)
+            if rec["ok"] and axes and rec["kind"] == "prefill" and \
+                    "per_card" not in rec:
+                cut = rec.get("cut_layers")
+                cfg, shape_, _, pol = resolved_cell(
+                    arch, shape, False, args.remat, args.strategy, axes,
+                    cut[1] if cut else None)
+                if args.batch is not None:
+                    shape_ = dataclasses.replace(shape_, batch=args.batch)
+                rec["per_card"] = per_card_fit(cfg, pol, shape_, axes)
+                if lead:
+                    est = rec["per_card"]["peak_bytes_estimate_per_card"]
+                    print(f"[dryrun] MESH {tag:55s} per-card est="
+                          f"{est / 1e9:.1f}GB on {args.mesh}", flush=True)
             if args.run and rec["ok"] and axes:
                 rec["run"], logits = run_on_mesh(
                     rec, axes, args.seed, args.batch, args.remat,

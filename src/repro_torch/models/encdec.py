@@ -135,7 +135,7 @@ def encode(cfg: ModelConfig, pol: Policy, params, frames):
 def decode_train(cfg: ModelConfig, pol: Policy, params, tokens, memory):
     """Teacher-forced decoder over the whole target sequence."""
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.cdtype())
+    x = L.embed_lookup(cfg, pol, params["embed"], tokens)
     positions = torch.arange(S, device=x.device)
     x = x + sinusoid(positions, cfg.d_model)[None].to(x.dtype)
     positions = positions[None, :]

@@ -47,6 +47,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import Policy
 
 LRU_C = 8.0
+#: logical axes of the recurrence's operands [B, S, dr] and state [B, dr]
+RNN_AXES = ("batch", "seq", "rnn")
+H_AXES = ("batch", "rnn")
+CONV_AXES = ("batch", None, "rnn")         # the conv tail [B, W-1, dr]
 #: keys of the parameter tree whose per-repeat list the reference stacks
 #: along a leading axis (its ``[R, ...]`` leaves)
 STACKED_KEYS = ("reps",)
@@ -90,11 +94,16 @@ def rglru_axes(cfg: ModelConfig) -> dict:
             "wo": ("rnn", "embed_fsdp")}
 
 
-def rglru_gates(p, u):
-    """u: [B, S, dr] conv output -> (a, bx) of h = a*h + bx, float32."""
+def rglru_gates(p, u, pol: Policy | None = None):
+    """u: [B, S, dr] conv output -> (a, bx) of h = a*h + bx, float32. On
+    a mesh (`pol` given) the gates' products over the sharded "rnn" are
+    partial sums, reduced and scattered back onto "rnn", so that every
+    operand of the recurrence keeps its rank's channels."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["wr"])
-    i = torch.sigmoid(uf @ p["wi"])
+    keep = (lambda x: x) if pol is None else (
+        lambda x: pol.constrain(x, *RNN_AXES))
+    r = torch.sigmoid(keep(uf @ p["wr"]))
+    i = torch.sigmoid(keep(uf @ p["wi"]))
     log_a = -LRU_C * F.softplus(p["lam"]) * r       # [B, S, dr]
     a = torch.exp(log_a)
     bx = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
@@ -133,13 +142,21 @@ def rglru_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
     gate = F.gelu(h @ p["wy"], approximate="tanh")  # jax.nn.gelu's default
     u = pol.constrain(u, "batch", "seq", "rnn")
     h0, conv_st = state if state is not None else (None, None)
-    u, conv_st = L.causal_conv(u, p["conv"], conv_st)
-    a, bx = rglru_gates(p, u)
+    # a depthwise conv along time: each rank's channels on a mesh
+    u, conv_st = L.on_shards(L.causal_conv, pol, (RNN_AXES, (None, "rnn"),
+                                                  CONV_AXES),
+                             [RNN_AXES, CONV_AXES], u, p["conv"], conv_st)
+    a, bx = rglru_gates(p, u, pol)
     if cfg.attention_impl == "pallas" and S > 1:
-        hs = chunked_lru(a, bx, h0)
+        # on a mesh, each rank's kernel walks its [B/data, S, dr/model]
+        # shard: channels and rows are independent
+        hs = L.on_shards(chunked_lru, pol, (RNN_AXES, RNN_AXES, H_AXES),
+                         RNN_AXES, a, bx, h0)
     else:
         hs = lru_scan(a, bx, h0)
-    y = (hs.to(x.dtype) * gate) @ p["wo"]
+    # on a mesh the product over the sharded "rnn" is a partial sum: the
+    # constraint all-reduces it, as `layers.attn_forward` does its own
+    y = pol.constrain((hs.to(x.dtype) * gate) @ p["wo"], "batch", "seq", None)
     if return_state:
         return y, (hs[:, -1], conv_st)
     return y
@@ -225,8 +242,7 @@ def forward(cfg: ModelConfig, pol: Policy, params, tokens, embeds=None):
     reference: the family has no frontend input."""
     pat, reps, tail = _split(cfg)
     B, S = tokens.shape
-    x = params["embed"][tokens].to(cfg.cdtype())
-    x = pol.constrain(x, "batch", "seq", None)
+    x = L.embed_lookup(cfg, pol, params["embed"], tokens)
     positions = torch.arange(S, device=x.device)[None, :]
 
     def body(x, bp):

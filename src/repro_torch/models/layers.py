@@ -19,7 +19,8 @@ Full-sequence attention runs the flash-attention kernel under
 ``cfg.attention_impl == "pallas"`` (CUDA on the card, its plain version on
 the CPU) and the plain query-chunked softmax under ``"xla"``. On a mesh
 either runs on each rank's local ``[B/data, S, H/model, hd]`` shards
-through `local_map` (`_attention_on_shards`).
+through `local_map` (`on_shards`, which the recurrent families' scans use
+too).
 """
 from __future__ import annotations
 
@@ -54,6 +55,16 @@ def embed_init(gen: torch.Generator, vocab, dim, dtype):
 
 #: logical axes of the embedding table [Vp, d]
 EMBED_AXES = ("vocab", "embed")
+
+
+def embed_lookup(cfg: ModelConfig, pol: Policy, table, tokens):
+    """The table's rows of `tokens` in the compute dtype, laid out as
+    ("batch", "seq", None). On a mesh a table sharded over the vocabulary
+    gives each rank the rows it holds (`F.embedding`, zeros for the rest)
+    and the constraint sums them: one all-reduce of the activations, where
+    indexing would gather the whole table inside DTensor's dispatch."""
+    x = F.embedding(tokens, table).to(cfg.cdtype())
+    return pol.constrain(x, "batch", "seq", None)
 
 
 def norm_axes(norm_type="rmsnorm") -> dict:
@@ -168,28 +179,49 @@ Q_AXES = ("attn_batch", "seq", "heads", None)
 KV_AXES = ("attn_batch", "kv_seq", "kv_heads", None)
 
 
-def _attention_on_shards(fn, pol: Policy, q, k, v, **kw):
-    """`fn(q, k, v, **kw)`; for DTensors, on each rank's local shards
-    through `local_map`, with the placements of `Q_AXES` / `KV_AXES` in
-    and `Q_AXES` out, so that the kernel sees its rank's
-    ``[B/data, S, H/model, hd]`` tensors. Heads and batch rows are
-    independent, so the local results are the global one's shards. A
-    sharded sequence needs the keys of other ranks: it raises (the
-    training strategies on a mesh wait for ROADMAP.md item 19b)."""
-    if not partitioning.is_dtensor(q):
-        return fn(q, k, v, **kw)
-    if pol.rules.get("seq") is not None:
-        raise NotImplementedError("attention over a sequence sharded on a "
-                                  "mesh (dp_seq) is not ported")
+def on_shards(fn, pol: Policy, in_axes, out_axes, *args):
+    """`fn(*args)`; for DTensors, on each rank's local shards through
+    `local_map`. Each tensor argument is first laid out on its logical
+    axes in `in_axes` (`constrain`: a gather or a reduction where its
+    placements differ, once, before `fn`); None stands for an argument
+    that is not a tensor (or is None). `fn` then runs on plain local
+    tensors and its outputs are placed on `out_axes`: one logical-axes
+    tuple for a single output, a list of them for a tuple of outputs.
+    `fn` must compute each local output from the local inputs alone
+    (rows, heads or channels that do not interact across ranks)."""
+    lead = next((a for a in args if partitioning.is_dtensor(a)), None)
+    if lead is None:
+        return fn(*args)
     from torch.distributed.tensor.experimental import local_map
 
-    mesh = q.device_mesh
-    qp = partitioning.logical_placements(mesh, Q_AXES, pol.rules)
-    kp = partitioning.logical_placements(mesh, KV_AXES, pol.rules)
-    # lists: a tuple of out_placements would mean one per output
-    return local_map(functools.partial(fn, **kw), out_placements=list(qp),
-                     in_placements=(list(qp), list(kp), list(kp)),
-                     device_mesh=mesh)(q, k, v)
+    mesh = partitioning.current_mesh() or lead.device_mesh
+    place = lambda ax: list(partitioning.logical_placements(mesh, ax,
+                                                            pol.rules))
+    args = [a if ax is None or a is None else pol.constrain(a, *ax)
+            for a, ax in zip(args, in_axes)]
+    ins = tuple(None if ax is None or a is None else place(ax)
+                for a, ax in zip(args, in_axes))
+    # a list of placements is one output's; a tuple holds one an output
+    outs = (tuple(place(ax) for ax in out_axes)
+            if isinstance(out_axes, list) else place(out_axes))
+    with partitioning.local_ops_unrecorded():
+        return local_map(fn, out_placements=outs, in_placements=ins,
+                         device_mesh=mesh)(*args)
+
+
+def _attention_on_shards(fn, pol: Policy, q, k, v, **kw):
+    """`fn(q, k, v, **kw)`; for DTensors, on each rank's local shards
+    (`on_shards`), with the placements of `Q_AXES` / `KV_AXES` in and
+    `Q_AXES` out, so that the kernel sees its rank's ``[B/data, S,
+    H/model, hd]`` tensors. Heads and batch rows are independent, so the
+    local results are the global one's shards. A sharded sequence needs
+    the keys of other ranks: it raises (the training strategies on a mesh
+    wait for ROADMAP.md item 19b, step 3)."""
+    if partitioning.is_dtensor(q) and pol.rules.get("seq") is not None:
+        raise NotImplementedError("attention over a sequence sharded on a "
+                                  "mesh (dp_seq) is not ported")
+    return on_shards(functools.partial(fn, **kw), pol,
+                     (Q_AXES, KV_AXES, KV_AXES), Q_AXES, q, k, v)
 
 
 def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
@@ -236,7 +268,8 @@ def attn_forward(p, cfg: ModelConfig, pol: Policy, x, positions,
 def cross_attn_forward(p, cfg: ModelConfig, pol: Policy, x, memory):
     """Encoder-decoder cross attention (no mask, no rope): x [B, S, d]
     attends to memory [B, Tm, d] through the plain chunked softmax, as the
-    reference computes it outside any Pallas kernel. Returns (out, (k, v))."""
+    reference computes it outside any Pallas kernel; on a mesh, on each
+    rank's heads (`_attention_on_shards`). Returns (out, (k, v))."""
     B, S, d = x.shape
     hd = cfg.hd
     Tm = memory.shape[1]
@@ -245,9 +278,11 @@ def cross_attn_forward(p, cfg: ModelConfig, pol: Policy, x, memory):
     v = (memory @ p["wv"]).reshape(B, Tm, cfg.n_kv_heads, hd)
     k = _repeat_kv(k, pol.kv_repeat)
     v = _repeat_kv(v, pol.kv_repeat)
-    out = _chunked_sdpa(q, k, v, causal=False, window=0, offset=0)
+    out = _attention_on_shards(_chunked_sdpa, pol, q, k, v, causal=False,
+                               window=0, offset=0)
     y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
-    return y, (k, v)
+    # a partial sum over "heads" on a mesh: all-reduced, as in attn_forward
+    return pol.constrain(y, "batch", "seq", None), (k, v)
 
 
 def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,

@@ -131,10 +131,14 @@ def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens,
     frontend instead of the table; `embeds` is cast to the table's dtype
     first, then with the rest to the compute dtype, as the reference casts
     it. On a mesh, a table sharded over the vocabulary gives each rank the
-    rows it holds, and the constraint sums them (an all-reduce)."""
+    rows it holds, and the constraint sums them (an all-reduce). With a
+    prefix, the lookup is summed before the splice: a partial sum of rows
+    does not concatenate with the whole embeddings (DTensor refuses it),
+    and the one all-reduce stays the only one."""
     x = F.embedding(tokens, params["embed"])
     if embeds is not None:
         n = embeds.shape[1]
+        x = pol.constrain(x, "batch", "seq", None)
         x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
     return pol.constrain(x.to(cfg.cdtype()), "batch", "seq", None)
 

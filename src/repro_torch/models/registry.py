@@ -15,7 +15,7 @@ the xLSTM LM (`models/xlstm.py`) for ssm, the hybrid RG-LRU +
 local-attention LM (`models/hybrid.py`) and the encoder-decoder backbone
 (`models/encdec.py`). An unknown family raises `ValueError`. The
 reference's `cache_axes` (logical sharding axes of the cache) belongs to
-sharded decode and waits for ROADMAP.md item 19b.
+sharded decode and waits for ROADMAP.md item 19b, step 2.
 """
 from __future__ import annotations
 

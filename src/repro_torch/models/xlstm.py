@@ -29,6 +29,7 @@ token by token.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -36,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import meta_repeat, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import Policy
@@ -59,6 +60,32 @@ def _pattern(cfg: ModelConfig) -> tuple[str, ...]:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
                          f"multiple of the pattern {pat}")
     return pat
+
+
+#: logical axes of the time loops' operands on a mesh: each rank runs its
+#: batch rows whole (the loops mix every channel of a row)
+SEQ_AXES = ("batch", "seq", None)
+ROW_AXES = ("batch", None)
+#: with shapes only (the ``meta`` device), the sLSTM's time loop runs its
+#: first two steps and counts the second once for each later step
+#: (`device.meta_repeat`), and so does the mLSTM's chunk loop without
+#: autograd. Every step after the first allocates and frees the same
+#: storages (the outputs go into buffers made before the loop), so the
+#: FLOPs and the live and peak bytes are the whole loop's. False runs
+#: every step, as on a card.
+META_LOOP_BY_COUNT = True
+
+
+def _steps(S: int, meta: bool, reverse: bool = False):
+    """The time steps of a loop, in order; with shapes only (and
+    META_LOOP_BY_COUNT) the first two, the second counted S - 1 times."""
+    order = range(S - 1, -1, -1) if reverse else range(S)
+    if not (meta and META_LOOP_BY_COUNT) or S <= 2:
+        yield from order
+        return
+    yield order[0]
+    with meta_repeat(S - 1):
+        yield order[1]
 
 
 # ------------------------------------------------------------------ mLSTM
@@ -129,8 +156,12 @@ def mlstm_scan(q, k, v, logf, logi, state: MLSTMState, chunk: int):
     ti = torch.arange(chunk, device=q.device)
     causal = (ti[:, None] >= ti[None, :])[None, :, :, None]
     C, n = state
-    outs = []
-    for j in range(nc):
+    # the chunks' outputs go into a buffer made before the loop, so that
+    # every chunk after the first allocates and frees alike; on meta and
+    # without autograd (which keeps each chunk's graph), `_steps` counts
+    # the second for the rest
+    outs = q.new_empty((B, nc, chunk, H, dh))
+    for j in _steps(nc, q.is_meta and not torch.is_grad_enabled()):
         qc, kc, vc, lf, li = qs[:, j], ks[:, j], vs[:, j], lfs[:, j], lis[:, j]
         Fc = torch.cumsum(lf, dim=1)                          # [B, c, H]
         # intra-chunk decay matrix A[t, s] = exp(F_t - F_s + li_s), s <= t
@@ -145,47 +176,71 @@ def mlstm_scan(q, k, v, logf, logi, state: MLSTMState, chunk: int):
         nvec = torch.einsum("btsh,bshd->bthd", scores / scale, kc) \
             + decay[..., None] * n[:, None]
         denom = torch.abs(torch.einsum("bthd,bthd->bth", qc, nvec)) * scale
-        outs.append(num / torch.clamp_min(denom, 1.0)[..., None])
+        outs[:, j] = num / torch.clamp_min(denom, 1.0)[..., None]
         # the state at the chunk's end
         dAll = torch.exp(Fc[:, -1])                           # [B, H]
         w = torch.exp(Fc[:, -1][:, None] - Fc + li)           # [B, c, H]
         C = dAll[:, :, None, None] * C + \
             torch.einsum("bsh,bshd,bshe->bhde", w, kc, vc)
         n = dAll[:, :, None] * n + torch.einsum("bsh,bshd->bhd", w, kc)
-    out = torch.cat(outs, dim=1) if nc > 1 else outs[0]
-    return out[:, :S0], MLSTMState(C, n)
+    return outs.reshape(B, S, H, dh)[:, :S0], MLSTMState(C, n)
 
 
 def mlstm_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
                   return_state: bool = False):
     """x: [B, S, d]. The mLSTM block body (everything but the residual).
-    state = (MLSTMState, conv tail [B, W-1, di]) or None."""
-    B, S, d = x.shape
-    di, H, dh = _mlstm_dims(cfg)
+    state = (MLSTMState, conv tail [B, W-1, di]) or None. On a mesh the up
+    projection is gathered whole (its u and z halves lie on different
+    ranks), the block's core runs on each rank's batch rows with its
+    parameters gathered (`_mlstm_core`: plain tensors, the chunk loop
+    without DTensor's dispatch), and the down projection's partial sum is
+    all-reduced, as the MLP's own."""
     h = L.apply_norm(p["ln"], x, cfg.norm_eps, cfg.norm_type)
-    u, z = (h @ p["w_up"]).chunk(2, dim=-1)             # [B, S, di] each
+    up = pol.constrain(h @ p["w_up"], *SEQ_AXES)
     cell_state, conv_state = state if state is not None else (None, None)
-    cv, conv_state = L.causal_conv(u, p["conv"], conv_state)
+    C0, n0 = (None, None) if cell_state is None else cell_state
+    names = ("conv", "wq", "wk", "wv", "w_gate", "gate_bias")
+    weights = [p[k] for k in names] + [p["gn"]["scale"]]
+    g, C1, n1, conv_state = L.on_shards(
+        functools.partial(_mlstm_core, cfg=cfg, dtype=x.dtype), pol,
+        (SEQ_AXES,) + tuple((None,) * w.dim() for w in weights)
+        + (("batch", None, None, None), ("batch", None, None),
+           ("batch", None, None)),
+        [SEQ_AXES, ("batch", None, None, None), ("batch", None, None),
+         ("batch", None, None)],
+        up, *weights, C0, n0, conv_state)
+    y = pol.constrain(g @ p["w_down"], "batch", "seq", None)
+    return (y, (MLSTMState(C1, n1), conv_state)) if return_state else y
+
+
+def _mlstm_core(up, conv, wq, wk, wv, w_gate, gate_bias, gn, C, n,
+                conv_state, cfg: ModelConfig, dtype):
+    """The mLSTM block between its projections, on plain tensors (a rank's
+    batch rows on a mesh): the causal conv, the q / k / v and gate
+    projections, `mlstm_scan` in float32 (from the zero state where C is
+    None), the group norm and the output gate. Returns (out * silu(z)
+    [B, S, di], C, n, the conv tail)."""
+    B, S, _ = up.shape
+    di, H, dh = _mlstm_dims(cfg)
+    u, z = up.chunk(2, dim=-1)                          # [B, S, di] each
+    cv, conv_state = L.causal_conv(u, conv, conv_state)
     c = F.silu(cv)
     cH = c.reshape(B, S, H, dh)
     uH = u.reshape(B, S, H, dh)
-    q = torch.einsum("bshd,hde->bshe", cH, p["wq"])
-    k = torch.einsum("bshd,hde->bshe", cH, p["wk"]) / math.sqrt(dh)
-    v = torch.einsum("bshd,hde->bshe", uH, p["wv"])
-    gates = c.float() @ p["w_gate"] + p["gate_bias"]
+    q = torch.einsum("bshd,hde->bshe", cH, wq)
+    k = torch.einsum("bshd,hde->bshe", cH, wk) / math.sqrt(dh)
+    v = torch.einsum("bshd,hde->bshe", uH, wv)
+    gates = c.float() @ w_gate + gate_bias
     logf = F.logsigmoid(gates[..., :H])
     logi = F.logsigmoid(gates[..., H:])
-    if cell_state is None:
-        cell_state = MLSTMState(
-            C=torch.zeros((B, H, dh, dh), dtype=torch.float32,
-                          device=x.device),
-            n=torch.zeros((B, H, dh), dtype=torch.float32, device=x.device))
-    out, cell_state = mlstm_scan(q.float(), k.float(), v.float(), logf,
-                                 logi, cell_state, cfg.mlstm_chunk)
-    out = out.reshape(B, S, di).to(x.dtype)
-    out = L.apply_norm(p["gn"], out, cfg.norm_eps, "rmsnorm")
-    y = (out * F.silu(z)) @ p["w_down"]
-    return (y, (cell_state, conv_state)) if return_state else y
+    if C is None:
+        C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=up.device)
+        n = torch.zeros((B, H, dh), dtype=torch.float32, device=up.device)
+    out, (C, n) = mlstm_scan(q.float(), k.float(), v.float(), logf, logi,
+                             MLSTMState(C, n), cfg.mlstm_chunk)
+    out = out.reshape(B, S, di).to(dtype)
+    out = L.apply_norm({"scale": gn}, out, cfg.norm_eps, "rmsnorm")
+    return out * F.silu(z), C, n, conv_state
 
 
 # ------------------------------------------------------------------ sLSTM
@@ -224,49 +279,108 @@ class SLSTMState(NamedTuple):
     m: torch.Tensor     # [B, d]  running log-max stabiliser
 
 
-def slstm_seq(p, cfg: ModelConfig, pol: Policy, wx, state: SLSTMState):
+def _slstm_step(wx_t, r, bias, h, c, n, m):
+    """One sLSTM step: wx_t [B, 4d], r [H, dh, 4dh], the state [B, d]."""
+    B, d = h.shape
+    H, dh = r.shape[0], r.shape[1]
+    rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh), r).reshape(
+        B, 4 * d)
+    pre = wx_t + rec + bias
+    zt, it, ft, ot = pre.chunk(4, dim=-1)
+    z = torch.tanh(zt)
+    o = torch.sigmoid(ot)
+    m_new = torch.maximum(ft + m, it)             # exp-gating stabiliser
+    i = torch.exp(it - m_new)
+    f = torch.exp(ft + m - m_new)
+    c = f * c + i * z
+    n = f * n + i
+    h = o * c / torch.clamp_min(n, 1.0)
+    return h, c, n, m_new
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM's time loop: forward step by step, each step's state
+    written into ``[B, S, d]`` buffers made before the loop (h always; c,
+    n and m too when a gradient is wanted); backward step by step in
+    reverse, each step recomputed from the state before it and
+    differentiated by autograd: the operations of autograd through the
+    loop, one step at a time."""
+
+    @staticmethod
+    def forward(ctx, wx, r, bias, h, c, n, m):
+        B, S, _ = wx.shape
+        keep = any(ctx.needs_input_grad)
+        bufs = [wx.new_empty((B, S, h.shape[1])) for _ in range(4 if keep
+                                                                else 1)]
+        state = (h, c, n, m)
+        for t in _steps(S, wx.is_meta):
+            state = _slstm_step(wx[:, t], r, bias, *state)
+            for buf, x in zip(bufs, state):
+                buf[:, t] = x
+        if keep:
+            ctx.save_for_backward(wx, r, bias, h, c, n, m, *bufs)
+        return (bufs[0], *state)
+
+    @staticmethod
+    def backward(ctx, dhs, *dstate):
+        wx, r, bias, *first, hs, cs, ns, ms = ctx.saved_tensors
+        dwx = torch.zeros_like(wx)
+        dr = torch.zeros_like(r)
+        dbias = torch.zeros_like(bias)
+        carry = [torch.zeros_like(first[0]) if g is None else g
+                 for g in dstate]
+        for t in _steps(wx.shape[1], wx.is_meta, reverse=True):
+            prev = first if t == 0 else [x[:, t - 1] for x in (hs, cs, ns,
+                                                                ms)]
+            if dhs is not None:
+                carry[0] = carry[0] + dhs[:, t]
+            with torch.enable_grad():
+                ins = [x.detach().requires_grad_()
+                       for x in (wx[:, t], r, bias, *prev)]
+                g = torch.autograd.grad(_slstm_step(*ins), ins, carry)
+            dwx[:, t] = g[0]
+            dr += g[1]
+            dbias += g[2]
+            carry = list(g[3:])
+        return (dwx, dr, dbias, *carry)
+
+
+def _slstm_local(wx, r, bias, h, c, n, m):
+    """The time loop in float32 on plain tensors (a rank's batch rows on a
+    mesh). A state of None is the zero state (m = -1e9)."""
+    if h is None:
+        B, d = wx.shape[0], wx.shape[2] // 4
+        h = c = n = torch.zeros((B, d), dtype=torch.float32, device=wx.device)
+        m = torch.full((B, d), -1e9, dtype=torch.float32, device=wx.device)
+    return _SLSTMScan.apply(wx.float(), r.float(), bias, h, c, n, m)
+
+
+def slstm_seq(p, cfg: ModelConfig, pol: Policy, wx, state=None):
     """wx: [B, S, 4d] precomputed input projections; a loop over time in
-    float32. Returns (h [B, S, d], final state)."""
-    B, S, _ = wx.shape
-    H, d = cfg.n_heads, cfg.d_model
-    dh = d // H
-    r = p["r"].float()
-    wx = wx.float()
-    h, c, n, m = state
-    hs = []
-    for t in range(S):
-        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh), r).reshape(
-            B, 4 * d)
-        pre = wx[:, t] + rec + p["bias"]
-        zt, it, ft, ot = pre.chunk(4, dim=-1)
-        z = torch.tanh(zt)
-        o = torch.sigmoid(ot)
-        m_new = torch.maximum(ft + m, it)             # exp-gating stabiliser
-        i = torch.exp(it - m_new)
-        f = torch.exp(ft + m - m_new)
-        c = f * c + i * z
-        n = f * n + i
-        h = o * c / torch.clamp_min(n, 1.0)
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1), SLSTMState(h, c, n, m)
+    float32 from `state` (None: the zero state). Returns (h [B, S, d],
+    final state). On a mesh, `wx` and the recurrence are gathered along
+    "model" once, and each rank runs its batch rows' loop on plain
+    tensors."""
+    st = (None,) * 4 if state is None else tuple(state)
+    hs, *fin = L.on_shards(
+        _slstm_local, pol,
+        (SEQ_AXES, (None, None, None), (None,)) + (ROW_AXES,) * 4,
+        [SEQ_AXES] + [ROW_AXES] * 4, wx, p["r"], p["bias"], *st)
+    return hs, SLSTMState(*fin)
 
 
 def slstm_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
                   return_state: bool = False):
     """x: [B, S, d]. The sLSTM block body with its post-up GeGLU MLP."""
-    B, S, d = x.shape
     h = L.apply_norm(p["ln"], x, cfg.norm_eps, cfg.norm_type)
     wx = h @ p["w"]
-    if state is None:
-        z = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-        state = SLSTMState(z, z, z, torch.full((B, d), -1e9,
-                                               dtype=torch.float32,
-                                               device=x.device))
     hs, state = slstm_seq(p, cfg, pol, wx, state)
     hs = L.apply_norm(p["gn"], hs.to(x.dtype), cfg.norm_eps, "rmsnorm")
-    a, b = (hs @ p["up"]).chunk(2, dim=-1)
+    # on a mesh the up projection's halves lie on different ranks: gathered
+    a, b = pol.constrain(hs @ p["up"], *SEQ_AXES).chunk(2, dim=-1)
     y = (F.gelu(a, approximate="tanh") * b) @ p["down"]  # jax.nn.gelu's
+    # a partial sum over "mlp" on a mesh: all-reduced, as the MLP's own
+    y = pol.constrain(y, "batch", "seq", None)
     return (y, state) if return_state else y
 
 
@@ -308,7 +422,7 @@ def forward(cfg: ModelConfig, pol: Policy, params, tokens, embeds=None):
     """Full-sequence forward. Returns (hidden [B,S,d] post-final-norm,
     aux_loss = 0). `embeds` is not read, as in the reference."""
     pat = _pattern(cfg)
-    x = params["embed"][tokens].to(cfg.cdtype())
+    x = L.embed_lookup(cfg, pol, params["embed"], tokens)
 
     def body(x, bp):
         for i, t in enumerate(pat):

@@ -152,14 +152,90 @@ def constrain(x, *axes, rules=LOGICAL_RULES):
     """Redistribute the DTensor `x` to the placements of its logical
     `axes` on the current mesh (a reduction, gather or slice as the
     placements require); the identity on a plain tensor or outside a
-    mesh."""
+    mesh. Inside `timed_redistributions` each one is timed."""
     mesh = current_mesh()
     if mesh is None or not is_dtensor(x):
         return x
     want = logical_placements(mesh, axes, rules)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(mesh, want)
+    if not _TIMED:
+        return x.redistribute(mesh, want)
+    start = _event()
+    y = x.redistribute(mesh, want)
+    local = y._local_tensor
+    if hasattr(local, "trigger_wait"):      # the collective, still running
+        local.trigger_wait()
+    _TIMED[-1].append((transition(x.placements, want), start, _event()))
+    return y
+
+
+_TIMED: list = []           # the open `timed_redistributions` records
+
+
+def transition(have, want) -> str:
+    """The collective a redistribution from placements `have` to `want`
+    issues: "all-reduce" (a partial sum made whole), "reduce-scatter" (a
+    partial sum made a shard), "all-gather" (a shard made whole),
+    "all-to-all" (a shard moved to another dim), joined by "+" where mesh
+    dims differ, or "slice" (none: each rank keeps part of what it
+    has)."""
+    kinds = set()
+    for a, b in zip(have, want):
+        if a == b:
+            continue
+        if a.is_partial():
+            kinds.add("reduce-scatter" if b.is_shard() else "all-reduce")
+        elif a.is_shard():
+            kinds.add("all-to-all" if b.is_shard() else "all-gather")
+    return "+".join(sorted(kinds)) or "slice"
+
+
+def _event():
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+@contextlib.contextmanager
+def timed_redistributions():
+    """CUDA events around every redistribution `constrain` makes in the
+    block, each waited for before its end event (so that its time is the
+    collective's on the card, not its launch). Yields the list of (kind,
+    start, end) that `redistribution_ms` sums. The card only."""
+    _TIMED.append([])
+    try:
+        yield _TIMED[-1]
+    finally:
+        _TIMED.pop()
+
+
+def redistribution_ms(record) -> dict:
+    """{kind: [count, milliseconds]} of a `timed_redistributions` record
+    (the card synchronized first)."""
+    import torch
+    torch.cuda.synchronize()
+    out: dict = {}
+    for kind, start, end in record:
+        n, ms = out.get(kind, (0, 0.0))
+        out[kind] = (n + 1, ms + start.elapsed_time(end))
+    return {k: list(v) for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def local_ops_unrecorded():
+    """The dispatch modes on top of the stack that watch only collectives
+    (``skip_local_ops``: `launch/collective_stats.py::CollectiveRecorder`)
+    set aside for the block: the plain local operations of a
+    `layers.on_shards` function (a time loop's millions) issue none."""
+    from torch.utils._python_dispatch import (_get_current_dispatch_mode,
+                                              _pop_mode_temporarily)
+
+    with contextlib.ExitStack() as stack:
+        while getattr(_get_current_dispatch_mode(), "skip_local_ops", False):
+            stack.enter_context(_pop_mode_temporarily())
+        yield
 
 
 def is_dtensor(x) -> bool:

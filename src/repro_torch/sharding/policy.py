@@ -37,7 +37,7 @@ plain attention and the loss's sequence chunks). On a mesh of cards
 rules also lay DTensors out: `Policy.constrain` redistributes to the
 placements of logical axes, and the prefill path runs on that mesh
 (`launch/dryrun.py --mesh`). Training, sharded decode and the expert axis
-on a mesh wait for ROADMAP.md item 19b.
+on a mesh wait for ROADMAP.md item 19b, steps 2 to 4.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs as tconfigs
 from repro_torch.launch import dryrun
+from repro_torch.models import xlstm as txlstm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import make_decode_logits_step
 from repro_torch.sharding.policy import resolve, single_device_policy
@@ -172,10 +173,39 @@ class TestMetaRun:
             if cached:
                 assert run.hits > 0
         assert counts[0] == counts[1]
+        # FlopCounterMode counts what runs: the xLSTM's loops step by step
+        monkeypatch.setattr(txlstm, "META_LOOP_BY_COUNT", False)
         step = dryrun.build_step(cfg, pol, s, META)
         with FlopCounterMode(display=False) as fc:
             step.fn()
         assert counts[0][0] == fc.get_total_flops() > 0
+
+    @pytest.mark.parametrize("shape,seq", [("prefill_32k", 200),
+                                           ("train_4k", 72)])
+    def test_xlstm_loops_counted_from_one_step(self, monkeypatch, shape,
+                                               seq):
+        """The sLSTM's time loop (and, without autograd, the mLSTM's chunk
+        loop) run on meta as their first two steps, the second counted for
+        the rest: the same FLOPs and the same peak bytes, exactly, as every
+        step run one by one, forward and (train) backward, under remat."""
+        cfg = tconfigs.smoke_config("xlstm-1.3b", attention_impl="pallas",
+                                    remat="full")
+        s = dataclasses.replace(tconfigs.SHAPES[shape], seq=seq, batch=2)
+        pol = resolve(cfg, MESH1, s.batch, s.kind, seq=s.seq)
+        one_step = txlstm._slstm_step
+        got = {}
+        for by_count in (True, False):
+            monkeypatch.setattr(txlstm, "META_LOOP_BY_COUNT", by_count)
+            steps = []
+            monkeypatch.setattr(txlstm, "_slstm_step", lambda *a: (
+                steps.append(1), one_step(*a))[1])
+            step = dryrun.build_step(cfg, pol, s, META)
+            with dryrun.MetaRun(exclude=step.argument_tensors()) as run:
+                step.fn()
+            got[by_count] = (run.flops, run.peak, len(steps))
+        (f1, p1, n1), (f0, p0, n0) = got[True], got[False]
+        assert (f1, p1) == (f0, p0) and f1 > 0
+        assert n1 < n0 / 10          # the steps the loops really ran
 
     def test_attention_counts_as_its_kernel(self):
         """The kernel's meta function: its output's bytes and the visible

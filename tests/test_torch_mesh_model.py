@@ -18,8 +18,18 @@
   model groups (after the attention's and the MLP's output projections)
   and 1 after the vocabulary-sharded embedding, each of a
   ``[B/2, S, d]`` float32 operand, then the logits' all-gathers.
+- The same for the other families whose prefill cells fit four cards,
+  each reduced (its own depth, B 4 x S 32) and in a group of ranks of its
+  own: yi-6b, starcoder2-7b, phi3-medium-14b, pixtral-12b (with its
+  `embeds` prefix: the lookup is summed before the splice, which a
+  vocabulary-sharded table otherwise refuses), recurrentgemma-2b,
+  xlstm-1.3b, seamless-m4t-large-v2 and qwen2-moe-a2.7b: within 1e-5 of
+  one process, the reference's greedy tokens, the attention and RG-LRU
+  wrappers on plain local shards, `dryrun.prefill_counts`' all-reduces,
+  and `dryrun.per_card_fit`'s argument bytes equal to each rank's.
 - `CollectiveStats`'s ring factors against the reference's
-  `collective_stats` on an HLO text with one op of each kind.
+  `collective_stats` on an HLO text with one op of each kind, and the
+  collective each redistribution issues (`partitioning.transition`).
 """
 import os
 
@@ -33,6 +43,7 @@ import torch
 
 from repro_torch import configs as tconfigs
 from repro_torch.launch import collective_stats as tcs
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import FOUR_CARD, SINGLE_POD
 from repro_torch.models import registry as tregistry
 from repro_torch.models.convert import params_from_jax
@@ -198,6 +209,23 @@ def test_logical_placements_refuse():
                                     {"x": ("data", "model")})[1].dim == 0
 
 
+@pytest.mark.parametrize("have,want,kind", [
+    (("S0", "P"), ("S0", "R"), "all-reduce"),
+    (("S0", "P"), ("S0", "S2"), "reduce-scatter"),
+    (("S0", "S2"), ("S0", "R"), "all-gather"),
+    (("S0", "S3"), ("S0", "S2"), "all-to-all"),
+    (("S0", "R"), ("S0", "S2"), "slice"),
+    (("S0", "P"), ("R", "R"), "all-gather+all-reduce")])
+def test_transition_names_the_collective(have, want, kind):
+    """What `timed_redistributions` files each redistribution under."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    place = {"R": Replicate(), "P": Partial(), "S0": Shard(0),
+             "S2": Shard(2), "S3": Shard(3)}
+    assert tpart.transition([place[p] for p in have],
+                            [place[p] for p in want]) == kind
+
+
 def test_constrain_is_the_identity_off_a_mesh():
     x = torch.ones(2, 3)
     assert tpart.constrain(x, "batch", None) is x
@@ -210,19 +238,20 @@ def test_constrain_is_the_identity_off_a_mesh():
 _RANKS = r"""
 import json, sys
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from repro_torch.launch import dryrun, mesh as tmesh, multihost
 from repro_torch.launch.collective_stats import CollectiveRecorder
-from repro_torch.models import layers
+from repro_torch.models import hybrid, layers
 from repro_torch.models.registry import get_family
 from repro_torch.sharding import partitioning
-from test_torch_mesh_model import case_config
+from test_torch_mesh_model import case_config, case_shape, positions
 
 multihost.initialize(timeout_s=60, device="cpu")
 m = tmesh.make_mesh(tmesh.FOUR_CARD, "cpu")
 case = torch.load(sys.argv[1] + "/case.pt")
-cfg, pol = case_config()
-seen = []
-kernel = layers.flash_attention
+cfg, pol = case_config(**case["config"])
+seen, seen_lru = [], []
+kernel, lru = layers.flash_attention, hybrid.chunked_lru
 
 
 def spy(q, k, v, **kw):
@@ -230,63 +259,126 @@ def spy(q, k, v, **kw):
     return kernel(q, k, v, **kw)
 
 
-layers.flash_attention = spy
-fn, params, inputs = dryrun.mesh_step(cfg, pol, m, case["params"],
-                                      {"tokens": case["tokens"]})
+def spy_lru(a, bx, h0=None, **kw):
+    seen_lru.append([type(a).__name__, list(a.shape), list(bx.shape)])
+    return lru(a, bx, h0, **kw)
+
+
+layers.flash_attention, hybrid.chunked_lru = spy, spy_lru
+inputs = {k: case[k] for k in ("tokens", "embeds") if case.get(k) is not None}
+fn, params, inputs = dryrun.mesh_step(cfg, pol, m, case["params"], inputs)
 with CollectiveRecorder() as rec:
     logits = fn()
 with torch.no_grad(), partitioning.mesh_context(m):
-    hidden = get_family(cfg).forward(cfg, pol, params, inputs["tokens"])[0]
-    from torch.distributed.tensor import Replicate, Shard
+    hidden = get_family(cfg).forward(cfg, pol, params, inputs["tokens"],
+                                     inputs.get("embeds"))[0]
     placements = tuple(hidden.placements) == (Shard(0), Replicate())
     hidden = hidden.full_tensor()
+layers.flash_attention, hybrid.chunked_lru = kernel, lru
+# the logits at some positions of the same prefill (`positions`)
+at, _, _ = dryrun.mesh_step(
+    cfg, pol, m, case["params"],
+    {k: case[k] for k in ("tokens", "embeds") if case.get(k) is not None},
+    positions(case["config"]["seq"]))
+logits_at = at()
 if multihost.process_index() == 0:
-    torch.save({"hidden": hidden, "logits": logits},
+    torch.save({"hidden": hidden, "logits": logits, "logits_at": logits_at},
                sys.argv[1] + "/out.pt")
-wq = params["layers"][0]["attn"]["wq"]
-print(json.dumps({"ops": rec.ops, "seen": seen,
-                  "hidden_placements": placements,
-                  "wq_local": list(wq.to_local().shape),
-                  "embed_local": list(params["embed"].to_local().shape),
-                  "tokens_local": list(inputs["tokens"].to_local().shape)}))
+out = {"ops": rec.ops, "seen": seen, "seen_lru": seen_lru,
+       "hidden_placements": placements,
+       "embed_local": list(params["embed"].to_local().shape),
+       "tokens_local": list(inputs["tokens"].to_local().shape)}
+if "layers" in params:
+    out["wq_local"] = list(params["layers"][0]["attn"]["wq"].to_local().shape)
+# the mesh runner's own draw of the same cell: its argument bytes a rank
+run, _ = dryrun.run_mesh_cell(cfg, pol, case_shape(**case["config"]), m,
+                              device="cpu")
+out["argument_bytes"] = [r["argument_bytes"] for r in run["ranks"]]
+print(json.dumps(out))
 multihost.shutdown()
 """
 
 
-def case_config():
-    cfg = tconfigs.smoke_config(ARCH, n_layers=LAYERS,
-                                attention_impl="pallas")
-    return cfg, resolve(cfg, FOUR_CARD, BATCH, "prefill", seq=SEQ)
+def case_config(arch=ARCH, n_layers=LAYERS, batch=BATCH, seq=SEQ):
+    """The reduced config (attention kernel's path, float32) and its
+    prefill policy on the four-card mesh; `n_layers` None keeps the
+    reduced config's own depth."""
+    depth = {} if n_layers is None else {"n_layers": n_layers}
+    cfg = tconfigs.smoke_config(arch, attention_impl="pallas", **depth)
+    return cfg, resolve(cfg, FOUR_CARD, batch, "prefill", seq=seq)
+
+
+def positions(seq):
+    """The positions whose logits the rank script also asks for."""
+    return (0, seq // 2, seq - 1)
+
+
+def case_shape(arch=ARCH, n_layers=LAYERS, batch=BATCH, seq=SEQ):
+    from repro_torch.configs import SHAPES
+    import dataclasses
+    return dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
+
+
+def reference_prefill(ref, arch, n_layers, batch, seq):
+    """The reference's parameters (carried to the port) and its prefill
+    of seeded numpy inputs: (port params, tokens, embeds or None,
+    reference greedy tokens of the last position)."""
+    depth = {} if n_layers is None else {"n_layers": n_layers}
+    jc = ref.configs.smoke_config(arch, **depth)
+    jpol = ref.policy.single_device_policy(jc)
+    jfam = ref.registry.get_family(jc)
+    jp, _ = ref.layers.unbox(jfam.init_params(jc, jpol,
+                                              ref.jax.random.PRNGKey(3)))
+    cfg, _ = case_config(arch, n_layers, batch, seq)
+    params = params_from_jax(cfg, ref.jax.tree.map(np.asarray, jp),
+                             device="cpu")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    embeds = None
+    if cfg.family == "encdec":                   # the encoder's frames
+        embeds = rng.standard_normal((batch, seq, cfg.d_model)) * 0.02
+    elif cfg.embeds_input and cfg.n_prefix:      # a VLM's patch prefix
+        embeds = rng.standard_normal((batch, cfg.n_prefix,
+                                      cfg.d_model)) * 0.02
+    if embeds is not None:
+        embeds = embeds.astype(np.float32)
+    jh, _ = jfam.forward(jc, jpol, jp, ref.jnp.asarray(tokens),
+                         None if embeds is None else ref.jnp.asarray(embeds))
+    jl = ref.layers.unembed(jc, jpol, jh[:, -1:], jp["embed"])
+    return (params, torch.from_numpy(tokens),
+            None if embeds is None else torch.from_numpy(embeds),
+            np.argmax(np.asarray(jl)[:, -1], -1))
+
+
+def mesh_case(ref, tmp, arch, n_layers, batch, seq):
+    """One family's cell run on a data 2 x model 2 mesh of four gloo ranks
+    (its own group: no DTensor state carries from one family to the next)
+    and in one process."""
+    params, tokens, embeds, ref_tokens = reference_prefill(
+        ref, arch, n_layers, batch, seq)
+    config = dict(arch=arch, n_layers=n_layers, batch=batch, seq=seq)
+    torch.save({"params": params, "tokens": tokens, "embeds": embeds,
+                "config": config}, tmp / "case.pt")
+    outs = run_ranks(_RANKS, 4, tmp)
+    got = torch.load(tmp / "out.pt")
+    cfg, pol = case_config(**config)
+    fam = tregistry.get_family(cfg)
+    with torch.no_grad():
+        hidden = fam.forward(cfg, pol, params, tokens, embeds)[0]
+        logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
+    return types.SimpleNamespace(
+        outs=outs, got=got, hidden=hidden, logits=logits,
+        ref_tokens=ref_tokens, cfg=cfg, pol=pol, config=config,
+        params=params)
 
 
 @pytest.fixture(scope="module")
 def mesh_run(ref, tmp_path_factory):
-    """The reference's parameters carried to the port, run on the mesh
-    and in one process; the reference's own forward for its greedy
-    tokens."""
-    tmp = tmp_path_factory.mktemp("mesh")
-    jc = ref.configs.smoke_config(ARCH, n_layers=LAYERS)
-    jpol = ref.policy.single_device_policy(jc)
-    jp, _ = ref.layers.unbox(ref.lm.init_params(
-        jc, jpol, ref.jax.random.PRNGKey(3)))
-    cfg, pol = case_config()
-    params = params_from_jax(cfg, ref.jax.tree.map(np.asarray, jp),
-                             device="cpu")
-    tokens = np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
-    torch.save({"params": params, "tokens": torch.from_numpy(tokens)},
-               tmp / "case.pt")
-    outs = run_ranks(_RANKS, 4, tmp)
-    got = torch.load(tmp / "out.pt")
-    fam = tregistry.get_family(cfg)
-    with torch.no_grad():
-        hidden = fam.forward(cfg, pol, params, torch.from_numpy(tokens))[0]
-        logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
-    jh, _ = ref.lm.forward(jc, jpol, jp, ref.jnp.asarray(tokens))
-    jl = ref.layers.unembed(jc, jpol, jh[:, -1:], jp["embed"])
-    return types.SimpleNamespace(
-        outs=outs, got=got, hidden=hidden, logits=logits,
-        ref_tokens=np.argmax(np.asarray(jl)[:, -1], -1), cfg=cfg)
+    """Reduced granite-3-2b: the reference's parameters carried to the
+    port, run on the mesh and in one process; the reference's own forward
+    for its greedy tokens."""
+    return mesh_case(ref, tmp_path_factory.mktemp("mesh"), ARCH, LAYERS,
+                     BATCH, SEQ)
 
 
 def close(got, want, rel=1e-5):
@@ -372,3 +464,103 @@ def test_ring_factors_are_the_reference():
     assert got.link_bytes_per_device == pytest.approx(
         want.link_bytes_per_device, rel=1e-12)
     assert got.total_bytes() == want.total_bytes()
+
+
+# ------------------------------------------------- every prefill family
+
+#: the families whose prefill cells fit four cards (granite above), each
+#: reduced (its own depth: 2 layers, 4 for the hybrid's (rec, rec, attn) +
+#: tail, 8 for the xLSTM's 7:1, 2 + 2 for the encoder-decoder), B 4 x S 32
+MESH_ARCHS = ("yi-6b", "starcoder2-7b", "phi3-medium-14b", "pixtral-12b",
+              "recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-large-v2",
+              "qwen2-moe-a2.7b")
+FAMILY_BATCH, FAMILY_SEQ = 4, 32
+
+
+@pytest.fixture(scope="module", params=MESH_ARCHS)
+def family_run(request, ref, tmp_path_factory):
+    arch = request.param
+    return mesh_case(ref, tmp_path_factory.mktemp(arch), arch, None,
+                     FAMILY_BATCH, FAMILY_SEQ)
+
+
+def test_family_prefill_matches_one_process(family_run):
+    close(family_run.got["hidden"], family_run.hidden)
+    V = family_run.cfg.vocab_size
+    close(family_run.got["logits"][..., :V], family_run.logits[..., :V])
+    assert torch.equal(family_run.got["logits"][..., V:],
+                       family_run.logits[..., V:])
+    for out in family_run.outs:
+        assert out["hidden_placements"]
+
+
+def test_family_logits_at_positions(family_run):
+    """`mesh_step(..., positions)`: the logits at those positions of the
+    same prefill, against one process's hidden states there."""
+    run = family_run
+    pos = list(positions(run.config["seq"]))
+    want = unembed(run.cfg, run.pol, run.hidden[:, pos],
+                   run.params["embed"])
+    V = run.cfg.vocab_size
+    got = run.got["logits_at"]
+    assert got.shape == want.shape
+    close(got[..., :V], want[..., :V])
+    assert torch.equal(got[..., V:], want[..., V:])
+
+
+def test_family_prefill_gives_the_reference_tokens(family_run):
+    greedy = family_run.got["logits"][:, -1].argmax(-1).numpy()
+    np.testing.assert_array_equal(greedy, family_run.ref_tokens)
+
+
+def test_family_kernels_see_local_shards(family_run):
+    """The attention kernel once an attention layer (the encoder's too)
+    and the RG-LRU once a recurrent layer, in each of the rank's two
+    forwards, on plain tensors: this rank's batch rows and heads
+    (``[B/2, S, H/2, hd]``, the KV heads after their repeat) or channels
+    (``[B/2, S, dr/2]``)."""
+    cfg, pol = family_run.cfg, family_run.pol
+    counts = dryrun.prefill_counts(cfg)
+    B, S = FAMILY_BATCH // 2, FAMILY_SEQ
+    kvr = cfg.n_kv_heads * pol.kv_repeat
+    dr = (cfg.d_rnn or cfg.d_model) // 2
+    for out in family_run.outs:
+        assert out["seen"] == [["Tensor", [B, S, cfg.n_heads // 2, cfg.hd],
+                                [B, S, kvr // 2, cfg.hd]]] * (
+                                    2 * counts["flash_attention"])
+        assert out["seen_lru"] == [["Tensor", [B, S, dr], [B, S, dr]]] * (
+            2 * counts["lru_forward"])
+        assert out["tokens_local"] == [B, S]
+
+
+def test_family_counted_collectives(family_run):
+    """`dryrun.prefill_counts`' all-reduces, each of one rank's
+    ``[B/2, S, d]`` float32 activations over the model groups; the hybrid's
+    two gate products a recurrent layer reduce-scattered onto its
+    channels."""
+    cfg = family_run.cfg
+    counts = dryrun.prefill_counts(cfg)
+    act = FAMILY_BATCH // 2 * FAMILY_SEQ * cfg.d_model * 4
+    for out in family_run.outs:
+        ar = [o for o in out["ops"] if o[0] == "all-reduce"]
+        assert len(ar) == counts["all_reduces"]
+        assert {(o[1], o[2]) for o in ar} == {(act, 2)}
+        rs = [o for o in out["ops"] if o[0] == "reduce-scatter"]
+        assert len(rs) == 2 * counts["lru_forward"]
+        assert out["ops"][-2:] == [["all-gather", o[1], 2, o[3]]
+                                   for o in out["ops"][-2:]]
+
+
+def test_family_per_card_estimate_is_the_ranks_arguments(family_run):
+    """The per-card estimate's argument bytes (rank 0 of a fake group, on
+    the meta device) are the bytes each gloo rank's mesh runner holds, and
+    its meta step issues the all-reduces the ranks issued."""
+    cfg, pol = family_run.cfg, family_run.pol
+    fit = dryrun.per_card_fit(cfg, pol, case_shape(**family_run.config),
+                              FOUR_CARD)
+    at = fit["estimates"][str(fit["batch"])]
+    for out in family_run.outs:
+        assert out["argument_bytes"] == [at["argument_bytes"]] * 4
+    assert at["collective_count"]["all-reduce"] == \
+        dryrun.prefill_counts(cfg)["all_reduces"]
+    assert fit["fits_per_card"] and at["transient_bytes"] > 0
