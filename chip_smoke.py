@@ -396,8 +396,12 @@ HYBRID_FORWARD_TOL = 2e-2       # tests/test_archs.py's rtol = atol
 HYBRID_REDUCED = (2, 40, 8)     # gate (b): batch, prompt, new tokens
 HYBRID_CPU_TOL, HYBRID_GAP = 1e-4, 1e-3
 # the xLSTM and encoder-decoder serving paths: prompts of 512 tokens, a cut
-# from granite's 2048 (each prompt token is one eager decode step)
+# from granite's 2048 (each prompt token is one eager decode step); the
+# recurrent replays cut further, host-bound at ~42 ms (recurrentgemma) and
+# ~125 ms (xlstm) a step: HYBRID_PROMPT from 2048, XLSTM_PROMPT from 512
 RECUR_PROMPT = 512
+HYBRID_PROMPT = 512
+XLSTM_PROMPT = 128
 XLSTM_F32_TOKENS = 130          # float32 gate: chunks of 64, the last padded
 CKPT_BATCH, CKPT_SEQ, CKPT_SEED = 2, 64, 0
 CKPT_STEPS, CKPT_RESUME_STEPS = 4, 6
@@ -434,16 +438,20 @@ RG_ATTN_CASE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256, True, 2048, 0.0)
 PLAIN_COMPARE_LAYERS = 5        # one (rec, rec, attn) repeat + the tail
 CHAOS = dict(mtbf_chip_hours=50.0, ckpt_period=300.0, straggler_prob=0.05,
              straggler_factor=1.5, straggler_deadline=2.0)
-PLAIN_RUN_SECONDS = 150.0       # per plain whole-dispatch run, then a prefix
-COHORT_CHAOS_PLAIN_SECONDS = 30.0   # the 5 328-lane fault cohort's prefix
+# the plain version's prefix of each whole dispatch of kernel_run (0.7-2.5
+# s a segment, host-bound; the kernel runs every dispatch to its end)
+PLAIN_RUN_SEGMENTS = 5
 SELECT_SHAPES = [(T, H) for T in (1, 222, 4096) for H in (1, 8, 130)]
 SELECT_TIMED = [(222, 8, torch.float32), (222, 8, torch.float64),
                 (1 << 20, 8, torch.float32)]
 SELECT_GRAPH_LAUNCHES = 200     # launches captured in one CUDA graph
 SEQ_RTOL = {np.dtype(np.float32): 1e-5, np.dtype(np.float64): 1e-12}
 SEQ_CELLS = (0, 18, 36)         # smallest, middle and largest k, S = 0.05
-PLAIN_TURN_SECONDS = 20.0       # a second plain while-engine run below this
-WHILE_CUT_JOBS = 1000           # the cut workload of `while_kernel`
+# the plain lockstep versions (host-bound) run on the first WHILE_CUT_JOBS
+# jobs of a flow: `seq_path` and `baselines` hold the kernels against them
+# there; `while_kernel` runs on a generated workload of WHILE_KERNEL_JOBS
+WHILE_CUT_JOBS = 1000
+WHILE_KERNEL_JOBS = 300
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "golden_metrics.json")
 # the chaos grid: launch/service.py's 3-cell fault axis over the paper grid
@@ -480,6 +488,9 @@ CELLS_ATTN_ROWS = 2048          # query rows of the S = 32 768 kernel check
 MULTICARD_CELL = "granite-3-2b:prefill_32k"
 MULTICARD_ONE_CARD_BATCH = 2    # a cell's batch on a mesh of one card (B 1
                                 # on a data axis is a view DTensor refuses)
+MULTICARD_ONE_CARD_SEQ = 4096   # its length there, cut from 32 768: the
+                                # 1 x 1 mesh exercises the code paths, four
+                                # cards the full length
 MULTICARD_SECONDS = 600         # the ranks' limit; then all are killed
 MULTICARD_LOGIT_TOL = 0.1       # relative L2 of the last logits, see above
 # the other prefill_32k cells within four cards, cheapest first, each in a
@@ -523,8 +534,30 @@ MULTICARD_FLOAT32_TOL = 1e-2    # relative L2; a wrong split moves it by 1
 MULTICARD_FLOAT32_WITNESS = 2.0 ** -22
 MULTICARD_CUT_SECONDS = 600     # the one-card group's limit, all the cells
 MULTICARD_PEAK_BAND = (0.85, 1.05)  # measured peak / per-card estimate
+# sharded decode (multicard_decode): the decode_32k cells within four cards,
+# each on its mesh (phi3-medium-14b's 10 KV heads do not divide a model
+# axis of 2 or 4, so its policy is seq_kv, the cache's time axis over
+# "model", on data 1 x model 4), each in a torchrun group of its own on
+# four cards, all three on a 1 x 1 mesh in one group at B 2 on one card
+MULTICARD_DECODE = {"starcoder2-7b": {"data": 2, "model": 2},
+                    "xlstm-1.3b": {"data": 2, "model": 2},
+                    "phi3-medium-14b": {"data": 1, "model": 4}}
+# a decode cell's group's limit: the three cells took 47.8 s in one group
+# on one card at B 2 (NVIDIA H100 80GB HBM3, 700 W)
+MULTICARD_DECODE_SECONDS = 300
+# each cache tensor's rows 0 and B - 1 after the steps (the written K/V
+# slot; the xLSTM's whole states) against the one-card B 1 runs': relative
+# L2 within the logits' gate. On one card (1 x 1, B 2) the B 1 runs alone,
+# other bf16 products, moved them up to 0.041 (xlstm's sLSTM c) and the
+# logits up to 0.051
+MULTICARD_CACHE_TOL = 0.1
+# the step's collective bytes against a rank's cache shard, xlstm-1.3b:
+# its mLSTM state must not be gathered
+MULTICARD_DECODE_BYTES_SHARE = 0.01
+DEC_TAG = "/decode"             # a group running `decode_cell_on_ranks`
 BASELINE_WORKSPACE_RING = 10_000    # 24 B a slot in float64: past 227 KB
-BASELINE_CAP_ITERS = 2500       # events a lane on the workspace case: a cap
+BASELINE_CAP_ITERS = 500        # events a lane on the workspace case: a cap
+                                # (a lane of 1 000 jobs takes ~2 000)
 
 
 def emit(phase: str, **fields):
@@ -880,59 +913,63 @@ def phase_kernel_step(flows):
             step_check(CohortDispatch(c, axis))
 
 
-def run_check(d: Dispatch, max_seconds: float):
-    """The dispatch from its initial state, kernel against plain version,
-    segment by segment, until every lane drained or the plain version's
-    time passed `max_seconds`. Returns the plain version's ms a segment."""
+def run_check(d: Dispatch, prefix: int):
+    """The dispatch from its initial state to its end on the kernel, held
+    against the plain version segment by segment on its first `prefix`
+    segments (a fixed prefix: the plain version is host-bound). Returns
+    the plain version's ms a segment."""
     a, b = d.initial_state(), d.initial_state()
     la, lb = d.new_logs(d.n_segs * SEG), d.new_logs(d.n_segs * SEG)
     worst, segs, plain_s = 0.0, 0, 0.0
     while segs < d.n_segs and d.any_active(a):
         d.steps(a, SEG, "cuda", la, segs * SEG)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        d.steps(b, SEG, "torch", lb, segs * SEG)
-        torch.cuda.synchronize()
-        plain_s += time.perf_counter() - t0
-        rows = slice(segs * SEG, (segs + 1) * SEG)
-        worst = max(worst, compare(
-            a, tuple(x[rows] for x in la), b, tuple(x[rows] for x in lb),
-            f"kernel_run {d.label()} segment {segs}"))
+        if segs < prefix:
+            t0 = time.perf_counter()
+            d.steps(b, SEG, "torch", lb, segs * SEG)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            rows = slice(segs * SEG, (segs + 1) * SEG)
+            worst = max(worst, compare(
+                a, tuple(x[rows] for x in la), b,
+                tuple(x[rows] for x in lb),
+                f"kernel_run {d.label()} segment {segs}"))
         segs += 1
-        if plain_s > max_seconds:
-            break
+    compared = min(segs, prefix)
     whole = not d.any_active(a)
     emit("kernel_run", shape=d.label(), segments=segs,
-         steps_compared=segs * SEG, budget=d.budget, whole_dispatch=whole,
-         note=("every lane drained" if whole else
-               "compared on a prefix of the budget at full width: the "
-               "plain version's time limit was reached"),
+         segments_compared=compared, steps_compared=compared * SEG,
+         budget=d.budget, whole_dispatch=whole,
+         note=(("every lane drained" if whole else "the budget's end")
+               + f" on the kernel; held against the plain version on its "
+               f"first {compared} segments"),
          n_groups_total=int(a.n_groups.sum()),
          requeues_total=int(a.requeues.sum()),
          plain_seconds=plain_s, max_ulp=worst, ulp_bound=ULP_BOUND, ok=True)
-    return 1e3 * plain_s / segs
+    return 1e3 * plain_s / compared
 
 
 def phase_kernel_run(flows):
-    """A whole dispatch at full width, kernel against plain version, segment
-    by segment: homog0.85 float32 chaos off, then on, then hetero0.85
-    float64 (ring 500); then the cohorts: M100-N5000-float32 fault-free
-    (666 lanes) to its end, M500-N5000-float64 under the 8-cell fault axis
-    (5 328 lanes) on a prefix. Returns the plain version's ms per segment
-    (homog, chaos off), for the kernels line."""
+    """A whole dispatch at full width on the kernel, held against the
+    plain version segment by segment on its first PLAIN_RUN_SEGMENTS:
+    homog0.85 float32 chaos off, then on, then hetero0.85 float64 (ring
+    500); then the cohorts: M100-N5000-float32 fault-free (666 lanes),
+    M500-N5000-float64 under the 8-cell fault axis (5 328 lanes). Returns
+    the plain version's ms per segment (homog, chaos off), for the kernels
+    line."""
     plain_ms = None
     for flow, dtype, with_chaos in (("homog0.85", np.float32, False),
                                     ("homog0.85", np.float32, True),
                                     ("hetero0.85", np.float64, False)):
         ms = run_check(Dispatch(flows[flow], dtype, with_chaos),
-                       PLAIN_RUN_SECONDS)
+                       PLAIN_RUN_SEGMENTS)
         plain_ms = ms if plain_ms is None else plain_ms
     cohorts = {c.label: c for c in paper_cohorts(flows)}
     run_check(CohortDispatch(cohorts["M100-N5000-float32"]),
-              PLAIN_RUN_SECONDS)
+              PLAIN_RUN_SEGMENTS)
     run_check(CohortDispatch(cohorts["M500-N5000-float64"],
                              des.ChaosConfig(**PAPER_CHAOS)),
-              COHORT_CHAOS_PLAIN_SECONDS)
+              PLAIN_RUN_SEGMENTS)
     return plain_ms
 
 
@@ -1272,11 +1309,10 @@ class WhileCapture:
         return state, counts
 
 
-def while_runs(pw, k, s, M, impls, plain_limit=None, **kw):
+def while_runs(pw, k, s, M, impls, **kw):
     """`simulate_packet` through its normal entry point, once per entry of
     `impls` ("cuda": no `impl`, the default on the card; "torch": the plain
-    lockstep engine by name), in that order; a second plain run is skipped
-    when the first took longer than `plain_limit` seconds. Gates each call
+    lockstep engine by name), in that order. Gates each call
     on its launches: the kernel once and no decision launch; the plain
     version no kernel launch and one decision launch per lockstep
     formation. Returns one dict per run: the DesResult, the final state,
@@ -1286,10 +1322,6 @@ def while_runs(pw, k, s, M, impls, plain_limit=None, **kw):
     runs = []
     try:
         for impl in impls:
-            plain_runs = [r for r in runs if r["impl"] == "torch"]
-            if impl == "torch" and plain_runs and plain_limit is not None \
-                    and plain_runs[0]["seconds"] > plain_limit:
-                continue
             stats = {}
             sel0 = select_ops.fused_packet_select.launches
             while0 = while_ops.packet_while.launches
@@ -1427,26 +1459,34 @@ def time_while(run):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def cut_workload():
-    """homog0.85's generator cut to WHILE_CUT_JOBS jobs over the same share
-    of its horizon, so that its jobs keep their sizes."""
+def cut_workload(n_jobs: int = WHILE_CUT_JOBS):
+    """homog0.85's generator cut to `n_jobs` jobs over the same share of
+    its horizon, so that its jobs keep their sizes."""
     p = WorkloadParams(nodes=100, load=0.85, homogeneous=True, seed=1,
                        daily_amplitude=0.3)
     return generate_workload(dataclasses.replace(
-        p, n_jobs=WHILE_CUT_JOBS,
-        horizon=p.horizon * WHILE_CUT_JOBS / p.n_jobs))
+        p, n_jobs=n_jobs, horizon=p.horizon * n_jobs / p.n_jobs))
+
+
+def first_jobs(wl, n: int):
+    """The workload's first `n` jobs (by submit time), on its nodes."""
+    cut = {f: getattr(wl, f)[:n] for f in ("submit", "runtime", "nodes",
+                                           "work", "jtype")}
+    return dataclasses.replace(wl, params=dataclasses.replace(
+        wl.params, n_jobs=n), **cut)
 
 
 def phase_while_kernel():
     """The while-loop kernel against its plain version through
-    `simulate_packet`, on the paper's 222 (k, s) lanes of a cut workload:
+    `simulate_packet`, on the paper's 222 (k, s) lanes of a workload cut to
+    WHILE_KERNEL_JOBS jobs:
     chaos in float32 and float64 with the lanes' columns in shared memory;
     columns past the shared-memory opt-in (the device-memory
     instantiation) in float32 and in float64 under chaos; and a
     `max_iters` that exhausts some lanes (float64, device memory). With
     the paper's two flows in `seq_path` (float32 and float64, shared
     memory, chaos off) that is seven of the eight instantiations."""
-    wl = cut_workload()
+    wl = cut_workload(WHILE_KERNEL_JOBS)
     cases = []
     for dtype, with_chaos, past_optin, exhaust in (
             (np.float32, True, False, False),
@@ -1508,11 +1548,11 @@ def phase_while_kernel():
 def phase_seq_path(flows, fused):
     """The while-loop engine on the card. `simulate_packet` over all 222
     lanes of each paper flow in one call: the kernel (the normal entry
-    point, one launch a call) and the plain lockstep engine (impl="torch",
-    one select-kernel launch per lockstep formation) in turns, kernel,
-    plain, plain, kernel (the second plain run only where the first took
-    under PLAIN_TURN_SECONDS); their final states held against each other
-    and the kernel's metrics against the fused grid of `phase_main_path`.
+    point, one launch a call) twice, its final states bitwise each other
+    and its metrics against the fused grid of `phase_main_path`; then on
+    the flow's first WHILE_CUT_JOBS jobs the kernel and the plain lockstep
+    engine (impl="torch", one select-kernel launch per lockstep
+    formation, host-bound), their final states held against each other.
     Then `run_packet_grid(mode="seq")` (step_impl="torch": the same entry
     point, one cell a call, one kernel launch a cell) on three cells and
     the legacy vmap_k / vmap_s layouts on the whole homog0.85 grid.
@@ -1527,15 +1567,18 @@ def phase_seq_path(flows, fused):
     for flow, dtype in (("homog0.85", np.float32), ("hetero0.85", np.float64)):
         wl, want = flows[flow], fused[flow]
         d = Dispatch(wl, dtype, False)      # the grid's lanes, k major
-        runs = while_runs(d.pw, d.k[0], d.s[0], d.M,
-                          ("cuda", "torch", "torch", "cuda"),
-                          plain_limit=PLAIN_TURN_SECONDS)
-        kernel_runs = [r for r in runs if r["impl"] == "cuda"]
-        plain_runs = [r for r in runs if r["impl"] == "torch"]
-        kernel_calls += len(kernel_runs)
+        kernel_runs = while_runs(d.pw, d.k[0], d.s[0], d.M, ("cuda", "cuda"))
+        compare_while(kernel_runs[1], kernel_runs[0],
+                      f"seq_path {flow} kernel twice")
+        cut = Dispatch(first_jobs(wl, WHILE_CUT_JOBS), dtype, False)
+        cut_runs = while_runs(cut.pw, cut.k[0], cut.s[0], cut.M,
+                              ("cuda", "torch"))
+        runs = kernel_runs + cut_runs
+        plain_runs = [r for r in cut_runs if r["impl"] == "torch"]
+        kernel_calls += len(kernel_runs) + 1
         formations += sum(r["select_launches"] for r in plain_runs)
-        worst = max(compare_while(k_, plain_runs[0], f"seq_path {flow}")
-                    for k_ in kernel_runs)
+        worst = compare_while(cut_runs[0], plain_runs[0],
+                              f"seq_path {flow} first {cut.N} jobs")
         m = efficiency_metrics(d.pw.submit, kernel_runs[0]["res"], d.M,
                                d.pw.t_last_submit)
         got = Metrics(*(x.cpu().numpy().reshape((K, S)) for x in m))
@@ -1545,16 +1588,17 @@ def phase_seq_path(flows, fused):
         t = time_while(kernel_runs[0])
         t.update(shape=f"{flow} N={d.N} M={d.M} ring={d.ring} T={d.T} "
                        f"{np.dtype(dtype).name}",
-                 plain_ms=1e3 * min(r["wrapper_seconds"]
-                                    for r in plain_runs),
+                 plain_ms=1e3 * plain_runs[0]["wrapper_seconds"],
+                 plain_n_jobs=cut.N,
+                 kernel_ms_at_plain_n_jobs=time_while(cut_runs[0])["ms"],
                  simulate_packet_seconds=min(r["seconds"]
                                              for r in kernel_runs),
-                 plain_simulate_packet_seconds=min(r["seconds"]
-                                                   for r in plain_runs))
+                 plain_simulate_packet_seconds=plain_runs[0]["seconds"])
         times[flow] = t
         emit("seq_path", run="simulate_packet", flow=flow,
              dtype=str(np.dtype(dtype)), lanes=K * S, n_jobs=wl.n_jobs,
-             ring=d.ring, run_order=[r["impl"] for r in runs],
+             plain_n_jobs=cut.N, ring=d.ring,
+             run_order=[r["impl"] for r in runs],
              wall_seconds_runs={i: [r["seconds"] for r in runs
                                     if r["impl"] == i]
                                 for i in ("cuda", "torch")},
@@ -2269,8 +2313,9 @@ def phase_baselines(flows):
     dtype (6 init proportions x FCFS and backfill), and `launch.sim.main
     (["--baselines"])`, as a user calls them: one `baselines` launch a
     policy a call (gated). Then the kernel against its plain version
-    (lanes in lockstep) on homog0.85 (float32) and hetero0.85 (float64),
-    uncut, at the six init proportions, every lane to its end (job times
+    (lanes in lockstep, host-bound) on the first WHILE_CUT_JOBS jobs of
+    homog0.85 (float32) and hetero0.85 (float64), at the six init
+    proportions, every lane to its end (job times
     at 0 ulp, counts and flags equal, integrals within 2 ulp; once more
     with a ring too long for shared memory, the workspace path, capped at
     BASELINE_CAP_ITERS events a lane), the golden file's
@@ -2319,8 +2364,9 @@ def phase_baselines(flows):
          launches_on_path=launches, calls=calls, ok=True)
 
     plain_ms = {}
-    # the main path's shapes: N = 5000, the six init proportions, the
-    # policy dtype's ring; every lane to its end. The last case, a ring of
+    # the main path's shapes cut to the first WHILE_CUT_JOBS jobs: the six
+    # init proportions, the policy dtype's ring; every lane to its end (the
+    # uncut flows' plain seconds stand in PERF.md). The last case, a ring of
     # BASELINE_WORKSPACE_RING slots, takes the device-memory workspace in
     # place of shared memory (launch plan) and stops every lane at
     # BASELINE_CAP_ITERS events (budget_exhausted in both versions)
@@ -2331,8 +2377,8 @@ def phase_baselines(flows):
             ("hetero0.85", "backfill", None, None),
             ("hetero0.85", "backfill", BASELINE_WORKSPACE_RING,
              BASELINE_CAP_ITERS)):
-        wl = flows[flow]
-        dtype = paper_dtype(wl)
+        wl = first_jobs(flows[flow], WHILE_CUT_JOBS)
+        dtype = paper_dtype(flows[flow])
         pw, s = baseline_operands(wl, dtype, sweep.PAPER_INIT_PROPS)
         M, N = int(wl.params.nodes), pw.n_jobs
         fn = (schedulers.simulate_fcfs if policy == "fcfs"
@@ -2794,8 +2840,9 @@ def check_first_column(phase, out, prompts):
 
 
 def phase_hybrid_serve_path():
-    """`launch.serve.main` on full-width recurrentgemma-2b (bf16, the prompt
-    replayed token by token; its ring of 2048 slots wraps), then one
+    """`launch.serve.main` on full-width recurrentgemma-2b (bf16, a prompt
+    of HYBRID_PROMPT tokens replayed token by token; its ring of 2048
+    slots wraps in gate (a), at a window of 64), then one
     `forward` over the same tokens against the last HYBRID_TAIL replayed
     positions (reported, not gated), and the two gates. The kernel counts
     are zeroed before the serving run and read after it and at the end:
@@ -2804,11 +2851,11 @@ def phase_hybrid_serve_path():
     layer."""
     phase = "hybrid_serve_path"
     out, _, replay, serve_launches, fields = replay_run(
-        phase, HYBRID_ARCH, hybrid, SERVE_PROMPT)
+        phase, HYBRID_ARCH, hybrid, HYBRID_PROMPT)
     if any(serve_launches.values()):
         fail(f"{phase}: the decode path launched kernels: {serve_launches}")
     # the same parameters and prompts: one forward over the replayed tokens
-    S = SERVE_PROMPT
+    S = HYBRID_PROMPT
     cfg, pol, params, prompts, _ = serve.setup(HYBRID_ARCH, False,
                                                SERVE_BATCH, S, SERVE_SEED,
                                                None)
@@ -3002,17 +3049,17 @@ def phase_xlstm_serve_path():
     launches (0)."""
     phase = "xlstm_serve_path"
     out, _, replay, serve_launches, fields = replay_run(
-        phase, XLSTM_ARCH, xlstm, RECUR_PROMPT)
+        phase, XLSTM_ARCH, xlstm, XLSTM_PROMPT)
     if any(serve_launches.values()):
         fail(f"{phase}: the xLSTM path launched kernels: {serve_launches}")
     cfg, pol, params, prompts, _ = serve.setup(
-        XLSTM_ARCH, False, SERVE_BATCH, RECUR_PROMPT, SERVE_SEED, None)
+        XLSTM_ARCH, False, SERVE_BATCH, XLSTM_PROMPT, SERVE_SEED, None)
     check_first_column(phase, out, prompts)
     tail = lambda c, p, h: unembed(c, pol, h[:, -HYBRID_TAIL:], p["embed"])[
         ..., :c.vocab_size].float()
     with torch.inference_mode():
         hidden, _ = xlstm.forward(cfg, pol, params,
-                                  prompts[:, :RECUR_PROMPT - 1])
+                                  prompts[:, :XLSTM_PROMPT - 1])
         full = tail(cfg, params, hidden)
         # the same weights and tokens in float32: how far bf16 alone moves
         # the forward's logits through 48 random blocks
@@ -3020,7 +3067,7 @@ def phase_xlstm_serve_path():
         params32 = tree_map(lambda t: t.float(), params)
         del hidden
         hidden, _ = xlstm.forward(cfg32, pol, params32,
-                                  prompts[:, :RECUR_PROMPT - 1])
+                                  prompts[:, :XLSTM_PROMPT - 1])
         full32 = tail(cfg32, params32, hidden)
     forward_check = logit_agreement(replay, full)
     bf16_check = logit_agreement(full, full32)
@@ -4323,16 +4370,19 @@ def multicard_one_card_logits(cfg, pol, axes, batch, dev,
     return out
 
 
-def multicard_record(arch: str, axes: dict, batch, layers) -> dict:
-    """A prefill_32k cell's dry-run record on the mesh of `axes` (its
-    depth cut to `layers` where given), with its per-card estimate at the
-    cell's batch (at `batch` where given): the meta work of `dryrun
-    --mesh`, done in a worker off the card."""
-    rec = dryrun.lower_cell(arch, "prefill_32k", axes=axes, layers=layers)
-    cfg, shape, _, pol = dryrun.resolved_cell(arch, "prefill_32k",
-                                              axes=axes, layers=layers)
+def multicard_record(arch: str, axes: dict, batch, layers, seq=None,
+                     shape_name: str = "prefill_32k") -> dict:
+    """A cell's dry-run record on the mesh of `axes` (its depth cut to
+    `layers` where given), with its per-card estimate at the cell's batch
+    and length (at `batch` and `seq` where given): the meta work of
+    `dryrun --mesh`, done in a worker off the card."""
+    rec = dryrun.lower_cell(arch, shape_name, axes=axes, layers=layers)
+    cfg, shape, _, pol = dryrun.resolved_cell(arch, shape_name, axes=axes,
+                                              layers=layers)
     if batch is not None:
         shape = dataclasses.replace(shape, batch=batch)
+    if seq is not None:
+        shape = dataclasses.replace(shape, seq=seq)
     rec["per_card"] = dryrun.per_card_fit(cfg, pol, shape, axes)
     return rec
 
@@ -4346,9 +4396,10 @@ def start_multicard_records(pool, n: int, archs) -> dict:
     submitted to `pool` (spawned workers off the card): {arch: future}."""
     axes = multicard_axes(n)
     batch = MULTICARD_ONE_CARD_BATCH if n == 1 else None
+    seq = MULTICARD_ONE_CARD_SEQ if n == 1 else None
     cut = MULTICARD_ONE_CARD_LAYERS if n == 1 else {}
-    return {a: pool.submit(multicard_record, a, axes, batch, cut.get(a))
-            for a in archs}
+    return {a: pool.submit(multicard_record, a, axes, batch, cut.get(a),
+                           seq) for a in archs}
 
 
 def cell_of(outdir: str, arch: str, axes: dict):
@@ -4376,7 +4427,8 @@ def mesh_cell_on_ranks(outdir: str, arch: str, out: dict):
             "--out", cell_file(outdir, arch, "cell.json"),
             "--logits-out", cell_file(outdir, arch, "logits.pt")]
     if n == 1:
-        argv += ["--batch", str(MULTICARD_ONE_CARD_BATCH)]
+        argv += ["--batch", str(MULTICARD_ONE_CARD_BATCH),
+                 "--seq", str(MULTICARD_ONE_CARD_SEQ)]
     zero_kernel_counts()
     dryrun.main(argv)
     out["cell_launches"][arch] = kernel_counts()
@@ -4385,9 +4437,10 @@ def mesh_cell_on_ranks(outdir: str, arch: str, out: dict):
     if rank == 0:
         cfg, _, _, pol = cell_of(outdir, arch, axes)
         with open(cell_file(outdir, arch, "cell.json")) as f:
-            B = json.load(f)[0]["run"]["batch"]
+            run = json.load(f)[0]["run"]
         t0 = time.perf_counter()
-        ref = multicard_one_card_logits(cfg, pol, axes, B, dev)
+        ref = multicard_one_card_logits(cfg, pol, axes, run["batch"], dev,
+                                        seq=run["seq"])
         out["one_card_seconds"][arch] = time.perf_counter() - t0
         torch.save(ref, cell_file(outdir, arch, "one_card_logits.pt"))
         free_card()
@@ -4418,7 +4471,7 @@ def float32_check_on_ranks(outdir: str, arch: str, out: dict):
     mesh = make_mesh(axes)
     t0 = time.perf_counter()
     with dryrun.expandable_segments(dev):
-        fn, _, _ = dryrun.mesh_prefill(cfg, pol, shape, mesh, 0, dev,
+        fn, _, _, _ = dryrun.mesh_prefill(cfg, pol, shape, mesh, 0, dev,
                                        MULTICARD_FLOAT32_POSITIONS)
         logits = fn()
         torch.cuda.synchronize(dev)
@@ -4498,7 +4551,7 @@ def multicard_rank(outdir: str, archs: str = ""):
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {"facts": facts, "card": torch.cuda.get_device_name(dev),
            "cuda_device": dev.index, "cell_launches": {},
-           "one_card_seconds": {}}
+           "one_card_seconds": {}, "cell_seconds": {}}
     if not archs:
         flows = paper_workloads(0)
         grids, out["des"] = des_multicard_runs(flows)
@@ -4511,6 +4564,8 @@ def multicard_rank(outdir: str, archs: str = ""):
     for arch in archs.split(",") if archs else [MULTICARD_CELL.split(":")[0]]:
         if arch.endswith(F32_TAG):
             float32_check_on_ranks(outdir, arch[:-len(F32_TAG)], out)
+        elif arch.endswith(DEC_TAG):
+            decode_cell_on_ranks(outdir, arch[:-len(DEC_TAG)], out)
         else:
             mesh_cell_on_ranks(outdir, arch, out)
     name = rank_file(rank, archs)
@@ -4851,6 +4906,285 @@ def phase_multicard_path(flows):
     return launches
 
 
+def decode_axes(arch: str, n: int) -> dict:
+    """A decode cell's mesh on n cards: MULTICARD_DECODE's on four, 1 x 1
+    on one."""
+    return MULTICARD_DECODE[arch] if n > 1 else multicard_axes(1)
+
+
+def decode_cell_on_ranks(outdir: str, arch: str, out: dict):
+    """One decode_32k cell through `dryrun.main(["--records", ..., "--run",
+    "--mesh", ...])` on this group's ranks: the cache drawn shard by shard,
+    RUN_WARM + RUN_STEPS steps; rank 0 saves the record and the logits,
+    every rank its parts of the cache's rows 0 and B - 1 (`--rows-out`).
+    Then, on rank 0, the one-card B 1 runs of those rows
+    (`decode_one_card`)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    n = multihost.device_count()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    axes = decode_axes(arch, n)
+    argv = ["--records", cell_file(outdir, arch, "decode.records.json"),
+            "--run", "--seed", "0",
+            "--mesh", ",".join(f"{k}={v}" for k, v in axes.items()),
+            "--out", cell_file(outdir, arch, "decode.cell.json"),
+            "--logits-out", cell_file(outdir, arch, "decode.logits.pt"),
+            "--rows-out", cell_file(outdir, arch, "decode.rows")]
+    if n == 1:
+        argv += ["--batch", str(MULTICARD_ONE_CARD_BATCH)]
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    dryrun.main(argv)
+    out["cell_seconds"][arch] = time.perf_counter() - t0
+    out["cell_launches"][arch] = kernel_counts()
+    free_card()
+    dist.barrier()
+    if multihost.process_index() == 0:
+        with open(cell_file(outdir, arch, "decode.cell.json")) as f:
+            rec = json.load(f)[0]
+        cfg, shape, _, pol = dryrun.resolved_cell(arch, "decode_32k",
+                                                  axes=axes)
+        t0 = time.perf_counter()
+        ref = decode_one_card(cfg, pol, rec["run"]["batch"], shape.seq, dev)
+        out["one_card_seconds"][arch] = time.perf_counter() - t0
+        torch.save(ref, cell_file(outdir, arch, "decode.one_card.pt"))
+        free_card()
+    dist.barrier()
+
+
+def decode_one_card(cfg, pol, batch: int, seq: int, dev) -> dict:
+    """The one-card references of a decode cell's rows 0 and B - 1, same
+    seed: the parameters and tokens of the mesh run's draw, each row's
+    cache drawn alone (`dryrun.filled_cache(rows=[r])`, bitwise the mesh's
+    shards of that row), then the run's RUN_WARM + RUN_STEPS steps at
+    position seq - 1 at B 1. Returns {row: {"logits": [Vp] float32,
+    "rows": `dryrun.local_rows` of the cache after the steps}}."""
+    fam = get_family(cfg)
+    shape = dataclasses.replace(SHAPES["decode_32k"], batch=batch, seq=seq)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = fam.init_params(cfg, pol, gen)
+    tokens = dryrun.random_inputs(cfg, shape, gen, dev)["tokens"]
+    out = {}
+    with torch.no_grad():
+        for r in sorted({0, batch - 1}):
+            cache = dryrun.filled_cache(cfg, pol, batch, seq,
+                                        torch.Generator().manual_seed(0),
+                                        dev, rows=[r])
+            for _ in range(dryrun.RUN_WARM + dryrun.RUN_STEPS):
+                logits, _ = fam.decode_step(cfg, pol, params, cache,
+                                            tokens[r:r + 1])
+            rows = dryrun.local_rows(cache, [0], seq - 1, seq)
+            out[r] = {"logits": logits[0, -1].float().cpu(),
+                      "rows": {k: [(r, o, t) for _, o, t in v]
+                               for k, v in rows.items()}}
+            del cache
+    del params, tokens
+    return out
+
+
+def cache_rows_l2(outdir: str, arch: str, n: int, ref: dict) -> dict:
+    """Each cache tensor's rows 0 and B - 1 after the mesh run's steps,
+    the ranks' parts put against the one-card runs' (`decode_one_card`):
+    {tensor: relative L2 over the rows}, and the elements held, which
+    must cover the one-card rows."""
+    diff, norm, held = {}, {}, {}
+    for r in range(n):
+        parts = torch.load(cell_file(outdir, arch, f"decode.rows.rank{r}"))
+        for name, got in parts.items():
+            for row, offs, t in got:
+                _, at, want = ref[row]["rows"][name][0]
+                want = want[(slice(None),) + tuple(
+                    slice(o - a, o - a + k)
+                    for o, a, k in zip(offs, at, t.shape[1:]))]
+                if want.shape != t.shape:
+                    raise CellFailure(f"{arch}: cache {name} row {row} part "
+                                      f"{list(t.shape)} at {offs} against "
+                                      f"{list(want.shape)}")
+                diff[name] = diff.get(name, 0.0) + float(
+                    (t.float() - want.float()).pow(2).sum())
+                norm[name] = norm.get(name, 0.0) + float(
+                    want.float().pow(2).sum())
+                held[name] = held.get(name, 0) + t.numel()
+    need = {name: sum(w.numel() for row in ref for _, _, w in
+                      ref[row]["rows"][name]) for name in diff}
+    if any(held[k] < need[k] for k in need):
+        raise CellFailure(f"{arch}: the ranks held {held} elements of the "
+                          f"rows, the one-card rows have {need}")
+    return {k: (diff[k] / norm[k]) ** 0.5 if norm[k] else diff[k] ** 0.5
+            for k in diff}
+
+
+def check_decode_cell(arch: str, outdir: str, ranks: list, n: int,
+                      wall: float):
+    """The gates of one decode_32k cell on its mesh of n cards (see
+    `phase_multicard_decode`); emits its line; raises CellFailure."""
+    with open(cell_file(outdir, arch, "decode.cell.json")) as f:
+        rec = json.load(f)[0]
+    run = rec["run"]
+    axes = decode_axes(arch, n)
+    cfg, _, _, pol = dryrun.resolved_cell(arch, "decode_32k", axes=axes)
+    B, V = run["batch"], cfg.vocab_size
+    logits = torch.load(cell_file(outdir, arch, "decode.logits.pt"))
+    ref = torch.load(cell_file(outdir, arch, "decode.one_card.pt"))
+    problems = []
+    if run["output_shape"] != [B, 1, layers.padded_vocab(cfg)] or \
+            not run["finite"]:
+        problems.append(f"logits {run['output_shape']}, finite "
+                        f"{run['finite']}")
+    errs = {r: relative_l2(logits[r, -1], w["logits"], V)
+            for r, w in ref.items()}
+    greedy = {r: greedy_pair(logits[r, -1], w["logits"], V)
+              for r, w in ref.items()}
+    if max(errs.values()) > MULTICARD_LOGIT_TOL or \
+            not all(ok for ok, _ in greedy.values()):
+        problems.append(f"logits against one card {errs}, greedy {greedy}")
+    cache_l2 = cache_rows_l2(outdir, arch, n, ref)
+    if max(cache_l2.values()) > MULTICARD_CACHE_TOL:
+        problems.append(f"cache rows against one card {cache_l2}")
+    launched = [rk["launches"] for rk in run["ranks"]] + [
+        rk["cell_launches"][arch] for rk in ranks]
+    if any(any(x.values()) for x in launched):
+        problems.append(f"kernels launched on the decode path: {launched}")
+    if any(str(rk["device"]).startswith("cpu") for rk in run["ranks"]):
+        problems.append(f"a rank ran on the CPU: "
+                        f"{[rk['device'] for rk in run['ranks']]}")
+    got = {k: [run["collectives"]["op_count"][k],
+               run["collectives"]["op_bytes"][k]]
+           for k in run["collectives"]["op_count"]}
+    want = dryrun.decode_counts(cfg, pol, B, axes) if n > 1 else None
+    if want is not None and got != want:
+        problems.append(f"collectives {got}, decode_counts {want}")
+    cache_bytes = run["ranks"][0]["cache_bytes"]
+    share = sum(run["collectives"]["op_bytes"].values()) / cache_bytes
+    if arch == "xlstm-1.3b" and n > 1 and share >= \
+            MULTICARD_DECODE_BYTES_SHARE:
+        problems.append(f"collective bytes a step {share:.4f} of the cache "
+                        f"shard")
+    peaks = [rk["peak_bytes"] for rk in run["ranks"]]
+    est = run["peak_bytes_estimate_per_card"]
+    in_band = MULTICARD_PEAK_BAND[0] <= max(peaks) / est <= \
+        MULTICARD_PEAK_BAND[1]
+    if not in_band:
+        problems.append(f"peak {max(peaks)} against the per-card estimate "
+                        f"{est}")
+    emit("multicard_decode", run=f"{arch}:decode_32k", ranks=n, mesh=axes,
+         policy=rec["policy"], batch=B, seq=run["seq"],
+         reduced=run.get("reduced"), ms_per_step=run["ms_per_step"],
+         ms_per_step_by_rank=[rk.get("device_ms") for rk in run["ranks"]],
+         ms_per_step_host=run["ms_per_step_host"],
+         first_step_seconds=run["first_step_seconds"],
+         tokens_per_second=run["tokens_per_second"],
+         steps=run["steps"], warm_steps=run["warm_steps"],
+         redistribution_ms_by_rank=[rk.get("redistribution_ms")
+                                    for rk in run["ranks"]],
+         collective_ms_rank0=sum(ms for _, ms in (run["ranks"][0].get(
+             "redistribution_ms") or {}).values()),
+         rest_ms_by_rank=[rk.get("rest_ms") for rk in run["ranks"]],
+         collectives=run["collectives"], decode_counts=want,
+         collective_bytes_over_cache_shard=share,
+         cache_bytes_by_rank=[rk["cache_bytes"] for rk in run["ranks"]],
+         peak_bytes_by_rank=peaks, peak_bytes_estimate_per_card=est,
+         peak_over_per_card_estimate=max(peaks) / est,
+         peak_within_band=in_band,
+         setup_peak_bytes_by_rank=[rk.get("setup_peak_bytes")
+                                   for rk in run["ranks"]],
+         argument_bytes_by_rank=[rk["argument_bytes"]
+                                 for rk in run["ranks"]],
+         argument_bytes_estimate_per_card=run[
+             "argument_bytes_estimate_per_card"],
+         peak_bytes_estimate_one_card=run["peak_bytes_estimate_one_card"],
+         logits_rel_l2_vs_one_card=errs, logits_tol=MULTICARD_LOGIT_TOL,
+         greedy_rows_vs_one_card={r: pair for r, (_, pair) in
+                                  greedy.items()},
+         cache_rows_rel_l2_vs_one_card=cache_l2,
+         cache_tol=MULTICARD_CACHE_TOL, launches_by_rank=launched,
+         cards=[rk["device"] for rk in run["ranks"]],
+         cell_seconds=ranks[0]["cell_seconds"][arch],
+         one_card_seconds=ranks[0]["one_card_seconds"][arch],
+         ranks_wall_seconds=wall, ok=not problems)
+    if problems:
+        raise CellFailure(f"{arch} decode: " + "; ".join(problems))
+
+
+def phase_multicard_decode():
+    """Sharded decode over the N = torch.cuda.device_count() cards. First,
+    off the card, each decode_32k cell's dry-run record on its mesh with
+    its per-card estimate (`multicard_record`, spawned workers; on four
+    cards the largest batch that fits where B 128 does not). Then each
+    cell through `dryrun --records ... --run --mesh` (`decode_cell_on_
+    ranks`): on four cards starcoder2-7b and xlstm-1.3b on data 2 x model
+    2 (tp_heads) and phi3-medium-14b on data 1 x model 4 (seq_kv), each in
+    a torchrun group of its own under MULTICARD_DECODE_SECONDS; on one
+    card all three on a 1 x 1 mesh at MULTICARD_ONE_CARD_BATCH in one
+    group. The parameters, tokens and cache come from seed 0, every rank
+    drawing only its shard of the cache. Gates (`check_decode_cell`):
+    finite logits of the shape; the logits of rows 0 and B - 1 after
+    RUN_WARM + RUN_STEPS steps within MULTICARD_LOGIT_TOL of one-card B 1
+    runs of the same rows and weights, greedy equal or tied; their cache
+    rows within MULTICARD_CACHE_TOL; where the model axis has several
+    cards, a step's collectives equal to `dryrun.decode_counts`, and for
+    xlstm-1.3b their bytes under MULTICARD_DECODE_BYTES_SHARE of a rank's
+    cache shard; each rank's peak within MULTICARD_PEAK_BAND of the
+    per-card estimate; no kernel launched (decode attention is an einsum:
+    no attention kernel, plain or not). A cell that fails does not stop
+    the next; the phase fails at the end."""
+    n = torch.cuda.device_count()
+    outdir = tempfile.mkdtemp(prefix="multicard_decode_")
+    archs = list(MULTICARD_DECODE)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(archs), multiprocessing.get_context("spawn"),
+                             initializer=_dryrun_worker) as pool:
+        futures = {a: pool.submit(
+            multicard_record, a, decode_axes(a, n),
+            MULTICARD_ONE_CARD_BATCH if n == 1 else None, None, None,
+            "decode_32k") for a in archs}
+        records = {a: f.result() for a, f in futures.items()}
+    for arch, rec in records.items():
+        with open(cell_file(outdir, arch, "decode.records.json"), "w") as f:
+            json.dump([rec], f)
+    emit("multicard_decode_records", seconds=time.perf_counter() - t0,
+         cells={a: dict(mesh=decode_axes(a, n),
+                        decode_attn=r["policy"]["decode_attn"],
+                        one_card=r["peak_bytes_estimate"],
+                        per_card=r["per_card"]["peak_bytes_estimate_per_card"],
+                        batch=r["per_card"]["batch"],
+                        batch_that_fits=r["per_card"]["batch_that_fits"],
+                        estimates={b: dict(
+                            peak=e["peak_bytes_estimate"],
+                            arguments=e["argument_bytes"],
+                            cache=e["cache_bytes"],
+                            collective_count=e["collective_count"],
+                            collective_bytes=e["collective_bytes"])
+                            for b, e in r["per_card"]["estimates"].items()})
+                for a, r in records.items()})
+    free_card()
+    failures = {}
+    groups = ([tuple(archs)] if n == 1 else [(a,) for a in archs])
+    for group in groups:
+        tag = ",".join(a + DEC_TAG for a in group)
+        t0 = time.perf_counter()
+        try:
+            run_multicard_ranks(n, outdir, tag, MULTICARD_DECODE_SECONDS)
+        except CellFailure as e:
+            for arch in group:
+                failures[arch] = str(e)
+            continue
+        wall = time.perf_counter() - t0
+        group_ranks = []
+        for r in range(n):
+            with open(os.path.join(outdir, rank_file(r, tag))) as f:
+                group_ranks.append(json.load(f))
+        for arch in group:
+            try:
+                check_decode_cell(arch, outdir, group_ranks, n, wall)
+            except CellFailure as e:
+                failures[arch] = str(e)
+    if failures:
+        fail(f"multicard_decode: {len(failures)} of {len(archs)} cells "
+             f"failed: {failures}")
+
+
 def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build,
@@ -5031,8 +5365,10 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "unit": f"one launch = one simulate_packet call over the 222 "
                 f"lanes of {wt['shape']}, every lane run to its end; ms by "
                 f"CUDA events, warm; plain_ms the plain lockstep engine "
-                f"(impl='torch') on the same operands, host clock ended by "
-                f"a synchronize; no single PyTorch call computes this loop",
+                f"(impl='torch') on the flow's first {wt['plain_n_jobs']} "
+                f"jobs (the kernel there: kernel_ms_at_plain_n_jobs), host "
+                f"clock ended by a synchronize; no single PyTorch call "
+                f"computes this loop",
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": wt,
@@ -5061,9 +5397,9 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
         "unit": f"one launch = one policy over the six init proportions "
                 f"of a paper flow, every lane to its end; {bt['shape']}; "
                 f"ms by CUDA events, warm; plain_ms the plain lockstep "
-                f"version (impl='torch') on the same operands, host clock "
-                f"ended by a synchronize; no single PyTorch call computes "
-                f"this loop",
+                f"version (impl='torch') on the flow's first "
+                f"{WHILE_CUT_JOBS} jobs, host clock ended by a synchronize; "
+                f"no single PyTorch call computes this loop",
         "bound_rates": {"bytes_per_s": HBM_BYTES_PER_S,
                         "ops_per_s": FP32_OPS_PER_S},
         "main_shape": bt,
@@ -5168,6 +5504,7 @@ def main(argv=None):
         timed("train_profile", profile_training)
     cells_out = timed("cells_path", phase_cells_path)
     multicard_launches = timed("multicard_path", phase_multicard_path, flows)
+    timed("multicard_decode", phase_multicard_decode)
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
@@ -5188,7 +5525,7 @@ def finish(t0, seconds):
 
 #: the phases `--only` runs, each with the workloads it needs
 ONLY_PHASES = {"multicard_path": lambda: phase_multicard_path(
-    paper_workloads(0))}
+    paper_workloads(0)), "multicard_decode": phase_multicard_decode}
 
 
 def main_only(phases):

@@ -9,6 +9,9 @@ cost?
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
         -m repro_torch.launch.dryrun --cells granite-3-2b:prefill_32k \\
         --run --mesh data=2,model=2
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.dryrun --run \\
+        --mesh data=2,model=2 --cells starcoder2-7b:decode_32k
 
 The counterpart of the reference's `repro/launch/dryrun.py`
 (`dryrun.py:75-246`), with its command line. For every requested
@@ -49,42 +52,50 @@ stands where it stood. Its `collectives` block (parsed from the optimized
 HLO) is measured by ``--run --mesh`` below.
 
 ``--mesh data=2,model=2`` resolves the policy on those axis sizes instead
-of the production mesh's, and gives a prefill cell's record a per-card
-estimate (`per_card_fit`: one rank's step on meta DTensors of a fake
-process group of the mesh's size, metered by `MetaRun`: its shards of the
-parameters and inputs, and the peak of its transients, the replicated
-ones and each all-reduce's whole operand included; where it exceeds
-FIT_SHARE of a card, the largest batch whose estimate fits). With
-``--run``, in a process group of as many ranks (`launch/multihost.py`,
-one card a rank; torchrun), a prefill cell then runs on that mesh
-(`launch/mesh.py::make_mesh`), at its batch where the per-card estimate
-fits and at the largest batch that fits where it does not (under
+of the production mesh's, and gives a prefill or decode cell's record a
+per-card estimate (`per_card_fit`: one rank's step on meta DTensors of a
+fake process group of the mesh's size, metered by `MetaRun`: its shards
+of the parameters, inputs and decode cache, and the peak of its
+transients, the replicated ones and each all-reduce's whole operand
+included; where it exceeds FIT_SHARE of a card, the largest batch whose
+estimate fits). With ``--run``, in a process group of as many ranks
+(`launch/multihost.py`, one card a rank; torchrun), the cell then runs on
+that mesh (`launch/mesh.py::make_mesh`), at its batch where the per-card
+estimate fits and at the largest batch that fits where it does not (under
 ``reduced``): each rank draws the full parameters and inputs from
 ``--seed`` on its card and keeps its shard of each, in storage of its own
 (`param_specs`, `batch_sharding`: the placements of their logical axes
-under the policy's rules, `distribute`); the step runs on DTensors (the
-models' `constrain` points lay activations out; the kernels and the
-recurrent families' time loops run on each rank's local shards), its last
-position's logits gathered to every rank as the reference's
-``out_shardings=repl`` does. The record gets the reference's
-``collectives`` block (`op_bytes`, `op_count`, `link_bytes_per_device`)
-measured from the first step (`launch/collective_stats.py`), each rank's
-bytes (while the parameters are distributed, resident after, the peak of
-a prefill) beside the estimates, and the seconds of the second, warm step,
-split on the card by CUDA events into its redistributions (all-reduces,
-gathers, each waited for) and the rest. ``--batch`` cuts the cell's batch
-(recorded under ``reduced``); ``--logits-out`` saves the last position's
-logits from rank 0; ``--records`` takes the cells and their records from
-an earlier ``--out`` (the meta work done once, off the ranks). Training
-and decode cells on a mesh wait for ROADMAP.md item 19b (steps 2 and 3)
-and raise.
+under the policy's rules, `distribute`); a decode cell's cache is laid
+out on its family's `cache_axes` and each rank draws only its shard
+(`mesh_cache`), as the reference shards the cache it donates
+(`dryrun.py:144-162`). The step runs on DTensors (the models' `constrain`
+points lay activations out; the kernels, the recurrent families' time
+loops and the decode attention run on each rank's local shards, the
+decode attention of a cache sharded on its time axis, ``seq_kv``, as
+flash-decoding), its logits (a prefill's last position's) gathered to
+every rank as the reference's ``out_shardings=repl`` does; the cache stays
+sharded. The record gets the reference's ``collectives`` block
+(`op_bytes`, `op_count`, `link_bytes_per_device`) measured from the first
+step (`launch/collective_stats.py`; a decode step's expected by
+`decode_counts`), each rank's bytes (while the parameters and cache are
+drawn and distributed, resident after, the peak of the steps) beside the
+estimates, and the seconds of the second, warm prefill, or the ms of
+RUN_STEPS decode steps after RUN_WARM, split on the card by CUDA events
+into their redistributions (all-reduces, gathers, each waited for) and the
+rest. ``--batch`` and ``--seq`` cut the cell's batch and length
+(recorded under ``reduced``); ``--logits-out`` saves the logits from rank
+0, ``--rows-out`` each rank's parts of a decode cache's rows 0 and B - 1
+after the steps; ``--records`` takes the cells and their records from an
+earlier ``--out`` (the meta work done once, off the ranks). Train cells
+on a mesh wait for ROADMAP.md item 19b (step 3) and raise.
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the
 largest batch whose estimate fits (recorded under ``reduced``), with
 random bf16 weights from ``--seed``: a prefill twice (seconds of the
-second), a decode step from a cache whose every tensor is a seeded
-standard-normal draw at position ``seq - 1`` (ms a step over RUN_STEPS
+second), a decode step from a cache whose every (tensor, layer, batch
+row) slice is a standard-normal draw of its own seed (`filled_cache`) at
+position ``seq - 1`` (ms a step over RUN_STEPS
 steps by CUDA events, each step at that position), a train step once.
 It records the measured peak (`torch.cuda.max_memory_allocated`) beside
 the estimate and the kernel launches. A cell the estimate admits must not
@@ -101,6 +112,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -126,7 +138,7 @@ from repro_torch.launch.mesh import (make_mesh, mesh_devices, parse_axes,
                                      production_axes)
 from repro_torch.models import analysis
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import unembed
+from repro_torch.models.layers import padded_vocab, unembed
 from repro_torch.models.registry import get_family
 from repro_torch.serve.engine import make_decode_logits_step
 from repro_torch.sharding import partitioning
@@ -306,24 +318,48 @@ class MetaRun(TorchDispatchMode):
 
 def _at_position(cache, pos: int):
     """The family's decode cache with its next position set to `pos`."""
-    if dataclasses.is_dataclass(cache):
-        return dataclasses.replace(cache, pos=pos)
-    return cache._replace(pos=pos)
+    return _with_fields(cache, pos=pos)
+
+
+def row_seed(seed: int, leaf: int, layer: int, row: int) -> int:
+    """The seed of one (cache leaf, layer, batch row) slice's draw."""
+    digest = hashlib.sha256(f"{seed}:{leaf}:{layer}:{row}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
+
+
+def draw_rows(t, leaf: int, seed: int, rows, offsets=(), full=None):
+    """Fill `t` [layers, b, ...] (a cache leaf, or a rank's shard of one)
+    in place: its slice (layer l, row j) with a standard-normal draw of
+    the leaf's whole row (`full`, the shape after the batch dim; t's own
+    by default) from the generator of ``row_seed(seed, leaf, l,
+    rows[j])``, drawn in float32, rounded to t's dtype, cut to t's part
+    of it (`offsets`: its first index in each dim after the batch)."""
+    full = tuple(full or t.shape[2:])
+    cut = tuple(slice(o, o + n) for o, n in
+                zip(offsets or (0,) * len(full), t.shape[2:]))
+    gen = torch.Generator(device=t.device)
+    with torch.no_grad():
+        for layer in range(t.shape[0]):
+            for j, row in enumerate(rows):
+                gen.manual_seed(row_seed(seed, leaf, layer, row))
+                t[layer, j].copy_(torch.randn(full, generator=gen,
+                                              device=t.device)[cut])
 
 
 def filled_cache(cfg: ModelConfig, pol, batch: int, seq: int,
-                 gen: Optional[torch.Generator], device):
+                 gen: Optional[torch.Generator], device, rows=None):
     """A decode cache of `seq` positions whose next position is ``seq -
-    1``: every tensor a standard-normal draw from `gen` (one leading slice
-    at a time, drawn in float32 and rounded to the tensor's dtype), or
-    shapes only on the meta device (`gen` None)."""
-    cache = get_family(cfg).init_cache(cfg, pol, batch, seq, device=device)
+    1``: every (leaf, layer, batch row) slice a standard-normal draw of its
+    own (`draw_rows`, seeded by `gen`'s seed), so that any rows drawn
+    alone (`rows`: their indices in the whole batch, ``range(batch)`` by
+    default) are those rows of the whole draw, bitwise; or shapes only on
+    the meta device (`gen` None)."""
+    rows = list(range(batch)) if rows is None else list(rows)
+    cache = get_family(cfg).init_cache(cfg, pol, len(rows), seq,
+                                       device=device)
     if gen is not None:
-        with torch.no_grad():
-            for t in tensors_of(cache):
-                for row in t:
-                    row.copy_(torch.randn(row.shape, generator=gen,
-                                          device=row.device))
+        for leaf, t in enumerate(tensors_of(cache)):
+            draw_rows(t, leaf, gen.initial_seed(), rows)
     return _at_position(cache, seq - 1)
 
 
@@ -517,14 +553,16 @@ def largest_fitting_batch(cfg: ModelConfig, pol, shape: Shape, peak=None,
 
 def prefill_counts(cfg: ModelConfig) -> dict:
     """What one prefill of `cfg` launches and, on a mesh whose "model"
-    axis has more than one card, how many all-reduces it issues, by the
-    family's layer structure: the attention kernel once an attention layer
-    (the encoder's included), the RG-LRU forward once a recurrent layer,
-    and an all-reduce after the embedding and after each output projection
-    (two a transformer, MoE or hybrid layer, one an xLSTM block, two an
-    encoder layer and three a decoder layer of the encoder-decoder: self,
-    cross, MLP)."""
-    from repro_torch.models import encdec, hybrid
+    axis has more than one card, how many all-reduces of the activations
+    it issues, by the family's layer structure: the attention kernel once
+    an attention layer (the encoder's included), the RG-LRU forward once a
+    recurrent layer, and an all-reduce after the embedding and after each
+    output projection (two a transformer or hybrid layer, three an MoE
+    layer with a parallel MLP branch: attention, experts, branch; one an
+    xLSTM block, two an encoder layer and three a decoder layer of the
+    encoder-decoder: self, cross, MLP). ``aux_all_reduces``: an MoE
+    layer's aux-loss sums, [2, E] float32 over the batch's axis."""
+    from repro_torch.models import encdec, hybrid, lm
 
     if cfg.family == "hybrid":
         _, n_rec, n_attn = hybrid._counts(cfg)
@@ -537,8 +575,106 @@ def prefill_counts(cfg: ModelConfig) -> dict:
         n_enc, n_dec = encdec._n_enc(cfg), encdec._n_dec(cfg)
         return {"flash_attention": n_enc + n_dec, "lru_forward": 0,
                 "all_reduces": 2 * n_enc + 3 * n_dec + 1}
+    per = 2 + (1 if cfg.n_experts and lm._parallel_ff(cfg) else 0)
     return {"flash_attention": cfg.n_layers, "lru_forward": 0,
-            "all_reduces": 2 * cfg.n_layers + 1}
+            "all_reduces": per * cfg.n_layers + 1,
+            "aux_all_reduces": cfg.n_layers if cfg.n_experts else 0}
+
+
+def decode_counts(cfg: ModelConfig, pol, batch: int, axes: dict) -> dict:
+    """The collectives one decode step of `cfg` issues on a mesh of `axes`
+    under `pol`, the logits' gathers to every rank with them, by the
+    family's layer structure: {kind: [count, operand
+    bytes]} as `collective_stats` counts them, a collective over a mesh
+    axis of one card left out. With L_r = the rows a rank holds, c the
+    compute dtype's bytes:
+
+    - the embedding: an all-reduce of [L_r, 1, d] (c);
+    - an attention layer: its output projection's all-reduce of [L_r, 1,
+      d]; under ``seq_kv`` instead three over "model": the maxima and the
+      sums [L_r, H] float32 and the partial P.V [L_r, H, hd] float32
+      (flash-decoding); with ``kv_repeat`` > 1 one relayout of the
+      repeated heads [L_r, 1, KVr, hd] (c) onto "kv_heads" (an all-to-all,
+      which a process group without one, gloo, makes a gather);
+    - an MLP, an MoE layer's experts and its parallel branch, an RG-LRU
+      block's output, an encoder-decoder's cross attention: an all-reduce
+      of [L_r, 1, d] each; an MoE layer also gathers its router's logits
+      [L_r, 1, E] float32; an RG-LRU block reduce-scatters its two gates
+      [L_r, 1, dr] float32;
+    - an mLSTM block: gathers of the up projection [L_r, 1, 2 di], of the
+      conv's output and of the gated output [L_r, 1, di] (c), all-reduces
+      of the gates, q and k [L_r, 1, 2H + 2 H dh] float32, of the group
+      norm's sum of squares [L_r, 1] float32 and of the down projection;
+    - an sLSTM block: gathers of its input projection [L_r, 1, 4d] (c),
+      of its recurrence weights [H, d/H, 4d/H] (the param dtype) and of
+      the up projection [L_r, 1, 2 ff] (c); the down projection's
+      all-reduce;
+    - the logits [L_r, 1, Vp] (c): gathered over "model", then [B, 1, Vp]
+      over the batch's axis."""
+    from repro_torch.models import encdec, hybrid, lm, xlstm
+
+    m, dn = axes.get("model", 1), axes.get("data", 1)
+    rows = batch // dn if pol.rules.get("batch") == "data" else batch
+    c = torch.empty((), dtype=cfg.cdtype()).element_size()
+    pb = torch.empty((), dtype=cfg.pdtype()).element_size()
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    act = rows * d * c
+    out: dict = {}
+
+    def add(kind, result, group, n=1):
+        if group > 1 and n:
+            got = out.setdefault(kind, [0, 0])
+            got[0] += n
+            got[1] += n * (result // group if kind == "all-gather" else
+                           result * group if kind == "reduce-scatter"
+                           else result)
+
+    def attention(n):
+        if pol.rules.get("cache_seq") is not None:
+            add("all-reduce", rows * H * 4, m, 2 * n)
+            add("all-reduce", rows * H * hd * 4, m, n)
+        else:
+            add("all-reduce", act, m, n)
+        if pol.kv_repeat > 1:
+            add("all-gather", rows * cfg.n_kv_heads * pol.kv_repeat * hd * c,
+                m, n)
+
+    add("all-reduce", act, m)                       # the embedding
+    if cfg.family == "hybrid":
+        _, n_rec, n_attn = hybrid._counts(cfg)
+        dr = cfg.d_rnn or d
+        attention(n_attn)
+        add("reduce-scatter", rows * dr * 4 // m, m, 2 * n_rec)
+        add("all-reduce", act, m, n_rec + cfg.n_layers)
+    elif cfg.family == "ssm":
+        pat = xlstm._pattern(cfg)
+        reps = cfg.n_layers // len(pat)
+        n_m, n_s = reps * pat.count("m"), reps * pat.count("s")
+        di, Hm, dh = xlstm._mlstm_dims(cfg)
+        add("all-gather", rows * 2 * di * c, m, n_m)
+        add("all-gather", rows * di * c, m, 2 * n_m)
+        add("all-reduce", rows * (2 * Hm + 2 * Hm * dh) * 4, m, n_m)
+        add("all-reduce", rows * 4, m, n_m)
+        add("all-gather", rows * 4 * d * c, m, n_s)
+        add("all-gather", 4 * d * d // H * pb, m, n_s)
+        add("all-gather", rows * 2 * xlstm._slstm_ff(d) * c, m, n_s)
+        add("all-reduce", act, m, n_m + n_s)
+    elif cfg.family == "encdec":
+        n_dec = encdec._n_dec(cfg)
+        attention(n_dec)
+        add("all-reduce", act, m, 2 * n_dec)
+    else:
+        attention(cfg.n_layers)
+        per = 1
+        if cfg.n_experts:
+            E = pol.expert_pad or cfg.n_experts
+            add("all-gather", rows * E * 4, m, cfg.n_layers)
+            per += 1 if lm._parallel_ff(cfg) else 0
+        add("all-reduce", act, m, per * cfg.n_layers)
+    Vp = padded_vocab(cfg)
+    add("all-gather", rows * Vp * c, m)
+    add("all-gather", batch * Vp * c, dn if rows < batch else 1)
+    return {k: [float(n), float(b)] for k, (n, b) in out.items()}
 
 
 def kernel_launches() -> dict:
@@ -705,20 +841,29 @@ def _replicated(x, mesh):
 
 def mesh_prefill(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
                  device=None, positions=None):
-    """Draw a prefill cell's parameters and inputs from `seed` on this
-    rank's device, keep this rank's shards, and return ``(fn, params,
-    inputs)``: `fn()` runs the prefill on `mesh` and returns the last
-    position's logits (those of `positions` where given), replicated on
-    every rank (the reference's ``out_shardings=repl``)."""
-    if shape.kind != "prefill":
-        raise NotImplementedError(f"a {shape.kind} cell on a mesh is not "
-                                  f"ported (ROADMAP.md item 19b, steps 2 "
-                                  f"and 3)")
+    """Draw a cell's parameters and inputs from `seed` on this rank's
+    device, keep this rank's shards, and return ``(fn, params, state,
+    inputs)``: for a prefill, `fn()` runs it on `mesh` and returns the
+    last position's logits (those of `positions` where given), replicated
+    on every rank (the reference's ``out_shardings=repl``), and `state` is
+    None; for a decode cell, `state` is the cache, each rank drawing only
+    its shard (`mesh_cache`), and `fn()` runs one decode step at position
+    ``seq - 1`` (`mesh_decode`)."""
+    if shape.kind == "train":
+        raise NotImplementedError("a train cell on a mesh is not ported "
+                                  "(ROADMAP.md item 19b, step 3)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = get_family(cfg).init_params(cfg, pol, gen)
-    return mesh_step(cfg, pol, mesh, params,
-                     random_inputs(cfg, shape, gen, dev), positions)
+    inputs = random_inputs(cfg, shape, gen, dev)
+    if shape.kind == "decode":
+        # the parameters' shards first: the whole tree and the cache's
+        # shards need not fit a card together
+        params = distribute(params, param_specs(cfg, pol, mesh))
+        cache = mesh_cache(cfg, pol, mesh, shape.batch, shape.seq, seed, dev)
+        return mesh_decode(cfg, pol, mesh, params, inputs, cache)
+    fn, params, inputs = mesh_step(cfg, pol, mesh, params, inputs, positions)
+    return fn, params, None, inputs
 
 
 def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs,
@@ -742,27 +887,159 @@ def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs,
     return fn, params, inputs
 
 
+def _fields(cache) -> list:
+    """(name, value) of a decode cache's fields, in order."""
+    if dataclasses.is_dataclass(cache):
+        return [(f.name, getattr(cache, f.name))
+                for f in dataclasses.fields(cache)]
+    return list(zip(cache._fields, cache))
+
+
+def _with_fields(cache, **fields):
+    if dataclasses.is_dataclass(cache):
+        return dataclasses.replace(cache, **fields)
+    return cache._replace(**fields)
+
+
+def cache_placements(cfg: ModelConfig, pol, mesh) -> dict:
+    """{field: placements} of the family's decode cache on `mesh`: each
+    tensor's from its logical axes (`cache_axes`) under the policy's
+    rules, as the reference shards the cache it donates."""
+    return {name: partitioning.logical_placements(mesh, ax, pol.rules)
+            for name, ax in _fields(get_family(cfg).cache_axes(cfg))
+            if ax != ()}
+
+
+def distribute_cache(cfg: ModelConfig, pol, mesh, cache):
+    """A decode cache of full tensors (the same on every rank) as DTensors
+    of this rank's shards (`cache_placements`), in storage of their
+    own."""
+    places = cache_placements(cfg, pol, mesh)
+    return _with_fields(cache, **{
+        name: _own_shard(t, partitioning.Sharding(mesh, places[name]))
+        for name, t in _fields(cache) if isinstance(t, torch.Tensor)})
+
+
+def mesh_cache(cfg: ModelConfig, pol, mesh, batch: int, seq: int,
+               seed: Optional[int], device):
+    """A decode cell's cache on `mesh` as DTensors whose next position is
+    ``seq - 1``, each rank holding and drawing only its own shard of each
+    tensor (`draw_rows` over its rows, cut to its part of the other dims:
+    the same values as `filled_cache` with a generator seeded `seed`); on
+    the meta device, shapes only, with `seed` None."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    template = get_family(cfg).init_cache(cfg, pol, batch, seq, device=META)
+    places = cache_placements(cfg, pol, mesh)
+    fields, leaf = {}, 0
+    for name, t in _fields(template):
+        if not isinstance(t, torch.Tensor):
+            continue
+        shape, off = compute_local_shape_and_global_offset(
+            t.shape, mesh, places[name])
+        local = torch.empty(shape, dtype=t.dtype, device=device)
+        if seed is not None:
+            draw_rows(local, leaf, seed, range(off[1], off[1] + shape[1]),
+                      off[2:], t.shape[2:])
+        fields[name] = DTensor.from_local(local, mesh, places[name],
+                                          run_check=False, shape=t.shape,
+                                          stride=t.stride())
+        leaf += 1
+    return _at_position(_with_fields(template, **fields), seq - 1)
+
+
+def mesh_decode(cfg: ModelConfig, pol, mesh, params, inputs, cache) -> tuple:
+    """A decode cell on `mesh` from the parameters and cache already
+    sharded (`distribute`, `mesh_cache`) and the full inputs (the same on
+    every rank): ``(fn, params, cache, sharded inputs)``. `fn()` runs one
+    decode step at position ``seq - 1`` (the cost of the seq-th token, as
+    `build_step`'s), writing the cache's shards in place, and returns the
+    logits replicated on every rank; the cache stays sharded, as the
+    reference's ``out_shardings=(repl, cache_shard)``."""
+    fam = get_family(cfg)
+    inputs = {k: distribute(v, sh) for (k, v), sh in zip(
+        inputs.items(), batch_sharding(cfg, pol, mesh, inputs).values())}
+    at = cache.pos
+
+    def fn():
+        with torch.no_grad(), partitioning.mesh_context(mesh):
+            logits, _ = fam.decode_step(cfg, pol, params,
+                                        _at_position(cache, at),
+                                        inputs["tokens"])
+            return _replicated(logits, mesh)
+
+    return fn, params, cache, inputs
+
+
+def local_rows(cache, rows, pos: int, seq: int) -> dict:
+    """This rank's parts of batch rows `rows` of every cache tensor (a
+    DTensor's local shard, or a plain tensor whole): {field: [(row,
+    offsets of the dims after the batch, tensor on the CPU)]}. A tensor
+    with a time axis of `seq` slots (a KV cache) gives only the slot a
+    step at `pos` writes (its ring slot where the axis is shorter)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    out = {}
+    for name, t in _fields(cache):
+        if not isinstance(t, torch.Tensor):
+            continue
+        if partitioning.is_dtensor(t):
+            local = t.to_local()
+            _, off = compute_local_shape_and_global_offset(
+                t.shape, t.device_mesh, t.placements)
+        else:
+            local, off = t, (0,) * t.dim()
+        parts = []
+        for r in rows:
+            j = r - off[1]
+            if not 0 <= j < local.shape[1]:
+                continue
+            part, offs = local[:, j], list(off[2:])
+            if name in ("k", "v"):          # [layers, T, KVr, hd]
+                T = t.shape[2]
+                slot = pos % T - off[2]
+                if not 0 <= slot < local.shape[2]:
+                    continue
+                part, offs[0] = part[:, slot:slot + 1], pos % T
+            parts.append((r, offs, part.detach().cpu().clone()))
+        out[name] = parts
+    return out
+
+
 def _local_tensors(tree) -> list:
     return [t.to_local() if hasattr(t, "to_local") else t
             for t in tensors_of(tree)]
 
 
 def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
-    """One rank's prefill on `mesh`, built on the meta device (the
-    parameters and inputs of `mesh_step` as meta DTensors) and metered by
-    `MetaRun`: this rank's argument bytes (its shards of the parameters
-    and inputs), the peak of the bytes its step allocates (every local
-    transient: the replicated norms and residual stream, each output
-    projection's partial sum before its all-reduce, the gathered logits),
-    their sum and the collectives it issues (no FLOPs). On a mesh of a
-    fake process group's rank 0 (`per_card_fit`), whose shards are the
-    largest where a dim does not divide."""
+    """One rank's step of a prefill or decode cell on `mesh`, built on
+    the meta device (the parameters, inputs and cache of `mesh_step` /
+    `mesh_decode` as meta DTensors) and metered by `MetaRun`: this rank's
+    argument bytes (its shards of the parameters, inputs and cache), the
+    peak of the bytes its step allocates (every local transient: the
+    replicated norms and residual stream, each output projection's partial
+    sum before its all-reduce, a decode step's float32 copy of one layer's
+    K shard and whatever state it gathers, the gathered logits), their sum
+    and the collectives it issues (no FLOPs). On a mesh of a fake process
+    group's rank 0 (`per_card_fit`), whose shards are the largest where a
+    dim does not divide."""
     t0 = time.perf_counter()
     fam = get_family(cfg)
     params = fam.init_params(cfg, pol, meta_generator())
-    fn, params, inputs = mesh_step(cfg, pol, mesh, params,
-                                   input_specs(cfg, shape, device=META))
-    args = _local_tensors((params, inputs))
+    inputs = input_specs(cfg, shape, device=META)
+    if shape.kind == "decode":
+        cache = mesh_cache(cfg, pol, mesh, shape.batch, shape.seq, None,
+                           META)
+        fn, params, cache, inputs = mesh_decode(
+            cfg, pol, mesh, distribute(params, param_specs(cfg, pol, mesh)),
+            inputs, cache)
+    else:
+        cache = None
+        fn, params, inputs = mesh_step(cfg, pol, mesh, params, inputs)
+    args = _local_tensors((params, cache, inputs))
     with MetaRun(exclude=args, count_flops=False) as run, \
             CollectiveRecorder() as rec:
         out = fn()
@@ -770,6 +1047,7 @@ def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
     arg_bytes = nbytes(args)
     cs = rec.stats()
     return {"batch": shape.batch, "argument_bytes": arg_bytes,
+            "cache_bytes": nbytes(_local_tensors(cache)),
             "transient_bytes": run.peak,
             "peak_bytes_estimate": arg_bytes + run.peak,
             "fits": arg_bytes + run.peak <= FIT_SHARE * CARD_BYTES,
@@ -779,7 +1057,7 @@ def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
 
 
 def per_card_fit(cfg: ModelConfig, pol, shape: Shape, axes: dict) -> dict:
-    """The per-card estimate of a prefill cell on a mesh of `axes`
+    """The per-card estimate of a prefill or decode cell on a mesh of `axes`
     (`mesh_estimate`) at `shape`'s batch and, where it exceeds FIT_SHARE
     of a card, the largest batch (a multiple of the batch axes' size) whose
     estimate fits: ``{"batch", "peak_bytes_estimate_per_card",
@@ -817,7 +1095,8 @@ def per_card_fit(cfg: ModelConfig, pol, shape: Shape, axes: dict) -> dict:
         if not fits:
             unit = math.prod(axes.get(a, 1) for a in ("pod", "data"))
             b, _ = largest_fitting_batch(cfg, pol, shape, peak, unit)
-        return {"batch": shape.batch, "peak_bytes_estimate_per_card": full,
+        return {"batch": shape.batch, "seq": shape.seq,
+                "peak_bytes_estimate_per_card": full,
                 "fits_per_card": fits, "batch_that_fits": b,
                 "estimates": estimates}
     finally:
@@ -830,16 +1109,20 @@ TIMED_CALLS = {"ssm": (("repro_torch.models.xlstm", "slstm_forward"),)}
 
 
 def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
-                  device=None) -> tuple:
-    """Run a prefill cell on `mesh` twice (see the module's docstring).
-    Returns (record, last-position logits): the collectives of the first
-    step, the seconds of the second, and per rank the bytes it holds
-    (its peak while the parameters are drawn and distributed, then what
-    stays), the peak of a prefill, its argument bytes and the kernel
-    launches of one step (the card's allocator under expandable segments,
-    as `run_cell`). On the card the second step is also timed by CUDA
+                  device=None, rows_out: str = "") -> tuple:
+    """Run a cell on `mesh` (see the module's docstring): a prefill twice,
+    a decode cell RUN_WARM + RUN_STEPS steps. Returns (record, logits of
+    the last step): the collectives of the first step, the seconds of the
+    second prefill or the ms a timed decode step, and per rank the bytes
+    it holds (its peak while the parameters and cache are drawn and
+    distributed, then what stays), the peak of the steps, its argument
+    bytes and the kernel launches of one prefill or of the timed decode
+    steps (the card's allocator under expandable segments, as
+    `run_cell`). On the card the timed steps are also timed by CUDA
     events, whole and per redistribution (`constrain`'s all-reduces and
-    gathers, each waited for), with the family's `TIMED_CALLS` apart."""
+    gathers, each waited for), with the family's `TIMED_CALLS` apart.
+    With `rows_out`, each rank saves its parts of rows 0 and B - 1 of the
+    decode cache after the steps (`local_rows`) to ``rows_out.rank<r>``."""
     import importlib
 
     import torch.distributed as dist
@@ -848,9 +1131,11 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
 
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
+    decode = shape.kind == "decode"
     ctx = expandable_segments(dev) if on_card else contextlib.nullcontext()
     with ctx:
-        fn, params, inputs = mesh_prefill(cfg, pol, shape, mesh, seed, dev)
+        fn, params, cache, inputs = mesh_prefill(cfg, pol, shape, mesh,
+                                                 seed, dev)
         sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (
             lambda: None)
         sync()
@@ -865,6 +1150,10 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
             logits = fn()
             sync()
         seconds.append(time.perf_counter() - t0)
+        for _ in range(RUN_WARM - 1 if decode else 0):
+            fn()
+        sync()
+        steps = RUN_STEPS if decode else 1
         before = kernel_launches()
         with contextlib.ExitStack() as stack:
             timing = {}
@@ -877,30 +1166,39 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
             t0 = time.perf_counter()
-            logits = fn()
+            for _ in range(steps):
+                logits = fn()
             if on_card:
                 stop.record()
             sync()
-            seconds.append(time.perf_counter() - t0)
+            seconds.append((time.perf_counter() - t0) / steps)
             if on_card:
                 by_kind = partitioning.redistribution_ms(red)
                 timing = {
-                    "device_ms": start.elapsed_time(stop),
-                    "redistribution_ms": by_kind,
-                    "all_reduce_ms": by_kind.get("all-reduce", [0, 0.0])[1],
-                    "rest_ms": start.elapsed_time(stop) - sum(
-                        ms for _, ms in by_kind.values()),
+                    "device_ms": start.elapsed_time(stop) / steps,
+                    "redistribution_ms": {k: [n // steps, ms / steps] for
+                                          k, (n, ms) in by_kind.items()},
+                    "all_reduce_ms": by_kind.get("all-reduce",
+                                                 [0, 0.0])[1] / steps,
+                    "rest_ms": (start.elapsed_time(stop) - sum(
+                        ms for _, ms in by_kind.values())) / steps,
                     "span_ms": {name: sum(a.elapsed_time(b) for a, b in sp)
-                                for name, sp in spans.items()}}
+                                / steps for name, sp in spans.items()}}
         after = kernel_launches()
         mine = dict(held, **timing, **{
             "launches": {k: after[k] - before[k] for k in after},
             "peak_bytes": (torch.cuda.max_memory_allocated(dev) if on_card
                            else None),
-            "argument_bytes": nbytes(_local_tensors((params, inputs))),
+            "argument_bytes": nbytes(_local_tensors((params, cache,
+                                                     inputs))),
+            "cache_bytes": nbytes(_local_tensors(cache)),
             "device": (torch.cuda.get_device_name(dev) if on_card
                        else str(dev))})
-        del fn, params, inputs
+        if rows_out and decode:
+            torch.save(local_rows(cache, sorted({0, shape.batch - 1}),
+                                  cache.pos, shape.seq),
+                       f"{rows_out}.rank{multihost.process_index()}")
+        del fn, params, cache, inputs
         if on_card:
             # NCCL may set up the world's communicator only now, and needs
             # memory the allocator's cache would otherwise hold
@@ -908,11 +1206,9 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
         ranks = [None] * multihost.device_count()
         dist.all_gather_object(ranks, mine)
     cs = rec.stats()
-    out = {"batch": shape.batch, "seq": shape.seq,
+    out = {"batch": shape.batch, "seq": shape.seq, "kind": shape.kind,
            "mesh": {k: int(v) for k, v in zip(mesh.mesh_dim_names,
                                                mesh.mesh.shape)},
-           "seconds": seconds[-1], "seconds_each": seconds,
-           "tokens_per_second": shape.batch * shape.seq / seconds[-1],
            "collectives": {"op_bytes": cs.op_bytes, "op_count": cs.op_count,
                            "link_bytes_per_device": cs.link_bytes_per_device,
                            "group_sizes": sorted({g for _, _, g, _ in
@@ -923,27 +1219,40 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
            "finite": bool(torch.isfinite(logits.float()).all()),
            "output_shape": list(logits.shape),
            "greedy_tokens": logits[:, -1].float().argmax(-1).tolist()}
+    if decode:
+        ms = (ranks[0]["device_ms"] if on_card else seconds[-1] * 1e3)
+        out.update(ms_per_step=ms, ms_per_step_host=seconds[-1] * 1e3,
+                   first_step_seconds=seconds[0], steps=RUN_STEPS,
+                   warm_steps=RUN_WARM, position=shape.seq - 1,
+                   tokens_per_second=shape.batch * 1e3 / ms)
+    else:
+        out.update(seconds=seconds[-1], seconds_each=seconds,
+                   tokens_per_second=shape.batch * shape.seq / seconds[-1])
     return out, logits
 
 
 def run_on_mesh(rec: dict, axes: dict, seed: int = 0, batch=None,
                 remat: Optional[str] = None, strategy: str = "auto",
-                device=None) -> tuple:
+                device=None, rows_out: str = "", seq=None) -> tuple:
     """--run --mesh for one dry-run record: the cell on a mesh of `axes`
     over the process group's ranks, at `batch` if given, else at the
     cell's batch where its per-card estimate (``rec["per_card"]``,
     `per_card_fit`) fits and at the largest batch that fits where it does
-    not (recorded under ``reduced``). Returns (run record, logits)."""
+    not (recorded under ``reduced``), at the length `seq` where given (a
+    cut, recorded under ``reduced``). Returns (run record, logits)."""
     cut = rec.get("cut_layers")
     cfg, shape, _, pol = resolved_cell(rec["arch"], rec["shape"], False,
                                        remat, strategy, axes,
                                        cut[1] if cut else None)
     dev = resolve_device(device)
-    full = shape.batch
+    full, full_seq = shape.batch, shape.seq
     if batch is not None:
         shape = dataclasses.replace(shape, batch=int(batch))
+    if seq is not None:
+        shape = dataclasses.replace(shape, seq=int(seq))
     fit = rec.get("per_card")
-    if fit is None or fit["batch"] != shape.batch:
+    if fit is None or fit["batch"] != shape.batch or \
+            fit.get("seq", full_seq) != shape.seq:
         fit = per_card_fit(cfg, pol, shape, axes)
     reduced = None
     if batch is not None:
@@ -955,10 +1264,14 @@ def run_on_mesh(rec: dict, axes: dict, seed: int = 0, batch=None,
         reduced = {"batch": [full, fit["batch_that_fits"]],
                    "why": "per-card estimate"}
         shape = dataclasses.replace(shape, batch=fit["batch_that_fits"])
+    if seq is not None:
+        reduced = dict(reduced or {}, seq=[full_seq, shape.seq],
+                       why=", ".join(filter(None, [
+                           (reduced or {}).get("why"), "seq given by --seq"])))
     at = fit["estimates"][str(shape.batch)]
     mesh = make_mesh(axes, dev.type)
     multihost.assert_mesh_spans_processes(mesh)
-    out, logits = run_mesh_cell(cfg, pol, shape, mesh, seed, dev)
+    out, logits = run_mesh_cell(cfg, pol, shape, mesh, seed, dev, rows_out)
     out["peak_bytes_estimate_one_card"] = rec["peak_bytes_estimate"]
     out["peak_bytes_estimate_per_card"] = at["peak_bytes_estimate"]
     out["argument_bytes_estimate_per_card"] = at["argument_bytes"]
@@ -1002,9 +1315,16 @@ def main(argv=None) -> list:
                          "group's cards")
     ap.add_argument("--batch", type=int, default=None,
                     help="with --run --mesh: the batch, cut from the cell's")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="with --run --mesh: the length, cut from the "
+                         "cell's")
     ap.add_argument("--logits-out", type=str, default="",
                     help="with --run --mesh: save the last position's "
                          "logits (torch.save, from rank 0)")
+    ap.add_argument("--rows-out", type=str, default="",
+                    help="with --run --mesh, a decode cell: each rank "
+                         "saves its parts of rows 0 and B - 1 of the cache "
+                         "after the steps to ROWS_OUT.rank<r>")
     ap.add_argument("--records", type=str, default="",
                     help="take the cells and their dry-run records from "
                          "this file (an earlier run's --out) instead of "
@@ -1052,7 +1372,7 @@ def main(argv=None) -> list:
                        "trace": traceback.format_exc()[-2000:]}
                 print(f"[dryrun] FAIL {tag:55s} {type(e).__name__}: "
                       f"{str(e)[:200]}", flush=True)
-            if rec["ok"] and axes and rec["kind"] == "prefill" and \
+            if rec["ok"] and axes and rec["kind"] != "train" and \
                     "per_card" not in rec:
                 cut = rec.get("cut_layers")
                 cfg, shape_, _, pol = resolved_cell(
@@ -1060,6 +1380,8 @@ def main(argv=None) -> list:
                     cut[1] if cut else None)
                 if args.batch is not None:
                     shape_ = dataclasses.replace(shape_, batch=args.batch)
+                if args.seq is not None:
+                    shape_ = dataclasses.replace(shape_, seq=args.seq)
                 rec["per_card"] = per_card_fit(cfg, pol, shape_, axes)
                 if lead:
                     est = rec["per_card"]["peak_bytes_estimate_per_card"]
@@ -1068,7 +1390,7 @@ def main(argv=None) -> list:
             if args.run and rec["ok"] and axes:
                 rec["run"], logits = run_on_mesh(
                     rec, axes, args.seed, args.batch, args.remat,
-                    args.strategy)
+                    args.strategy, rows_out=args.rows_out, seq=args.seq)
                 if args.logits_out and lead:
                     torch.save(logits.cpu(), args.logits_out)
                 del logits

@@ -22,6 +22,7 @@ self-attention KV cache, written in place, and the fixed cross K/V.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -186,6 +187,33 @@ def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
                        xv=z(memory_len), pos=0)
 
 
+def cache_axes(cfg: ModelConfig) -> EncDecCache:
+    """The logical axes of `init_cache`'s tensors, the reference's
+    (`encdec.py:148-151`)."""
+    ax = ("layers", "batch", "cache_seq", "kv_heads", None)
+    xax = ("layers", "batch", None, "kv_heads", None)
+    return EncDecCache(k=ax, v=ax, xk=xax, xv=xax, pos=())
+
+
+#: logical axes of one layer's cross K/V [B, Tm, KVr, hd]
+CROSS_AXES = ("batch", None, "kv_heads", None)
+
+
+def _cross_decode(q, xk, xv, dtype):
+    """One query row [B, 1, H, hd] against the fixed memory K/V: float32
+    logits scaled after the product, a float32 softmax, the weights
+    rounded to x's dtype before P.V, as in the reference (plain tensors:
+    a rank's rows and heads on a mesh)."""
+    B, _, H, hd = q.shape
+    KVr = xk.shape[2]
+    qg = q.reshape(B, 1, KVr, H // KVr, hd)
+    lg = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                      xk.to(dtype).float()) / math.sqrt(hd)
+    w = torch.softmax(lg, dim=-1)
+    return torch.einsum("bkgst,btkh->bskgh", w.to(dtype),
+                        xv.to(dtype)).reshape(B, 1, H, hd)
+
+
 def decode_step(cfg: ModelConfig, pol: Policy, params, cache: EncDecCache,
                 tokens):
     """One decode step against the cross K/V in the cache. tokens: [B, 1].
@@ -193,7 +221,7 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: EncDecCache,
     in place and the cache returned with ``pos + 1``."""
     B = tokens.shape[0]
     hd = cfg.hd
-    x = params["embed"][tokens].to(cfg.cdtype())
+    x = L.embed_lookup(cfg, pol, params["embed"], tokens)
     pos = torch.full((1, 1), cache.pos, device=x.device)
     x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
     for i, lp in enumerate(params["dec"]):
@@ -201,20 +229,17 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: EncDecCache,
         a, _, _ = L.attn_decode(lp["attn"], cfg, pol, h, cache.k[i],
                                 cache.v[i], cache.pos)
         x = x + a
-        # cross attention against the fixed memory K/V: float32 logits
-        # scaled after the product, a float32 softmax, the weights rounded
-        # to x's dtype before P.V, as in the reference
+        # cross attention against the fixed memory K/V, on a mesh on each
+        # rank's rows and heads
         h = L.apply_norm(lp["lnx"], x, cfg.norm_eps, cfg.norm_type)
         q = (h @ lp["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, hd)
-        xk, xv = cache.xk[i], cache.xv[i]
-        KVr = xk.shape[2]
-        qg = q.reshape(B, 1, KVr, cfg.n_heads // KVr, hd)
-        lg = torch.einsum("bskgh,btkh->bkgst", qg.float(),
-                          xk.to(x.dtype).float()) / math.sqrt(hd)
-        w = torch.softmax(lg, dim=-1)
-        o = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype),
-                         xv.to(x.dtype)).reshape(B, 1, cfg.n_heads * hd)
-        x = x + o @ lp["xattn"]["wo"]
+        o = L.on_shards(functools.partial(_cross_decode, dtype=x.dtype), pol,
+                        (L.DEC_Q_AXES, CROSS_AXES, CROSS_AXES), L.DEC_Q_AXES,
+                        q, cache.xk[i], cache.xv[i])
+        # a partial sum over "heads" on a mesh: all-reduced, as the
+        # self-attention's own
+        x = x + pol.constrain(o.reshape(B, 1, cfg.n_heads * hd)
+                              @ lp["xattn"]["wo"], "batch", "seq", None)
         h = L.apply_norm(lp["ln2"], x, cfg.norm_eps, cfg.norm_type)
         x = x + L.mlp_forward(lp["mlp"], cfg, pol, h)
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)

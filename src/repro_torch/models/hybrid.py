@@ -147,13 +147,12 @@ def rglru_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
                                                   CONV_AXES),
                              [RNN_AXES, CONV_AXES], u, p["conv"], conv_st)
     a, bx = rglru_gates(p, u, pol)
-    if cfg.attention_impl == "pallas" and S > 1:
-        # on a mesh, each rank's kernel walks its [B/data, S, dr/model]
-        # shard: channels and rows are independent
-        hs = L.on_shards(chunked_lru, pol, (RNN_AXES, RNN_AXES, H_AXES),
-                         RNN_AXES, a, bx, h0)
-    else:
-        hs = lru_scan(a, bx, h0)
+    # on a mesh, each rank's kernel (or scan) walks its [B/data, S,
+    # dr/model] shard: channels and rows are independent
+    scan = chunked_lru if cfg.attention_impl == "pallas" and S > 1 \
+        else lru_scan
+    hs = L.on_shards(scan, pol, (RNN_AXES, RNN_AXES, H_AXES), RNN_AXES, a,
+                     bx, h0)
     # on a mesh the product over the sharded "rnn" is a partial sum: the
     # constraint all-reduces it, as `layers.attn_forward` does its own
     y = pol.constrain((hs.to(x.dtype) * gate) @ p["wo"], "batch", "seq", None)
@@ -301,6 +300,14 @@ def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
         pos=0)
 
 
+def cache_axes(cfg: ModelConfig) -> HybridCache:
+    """The logical axes of `init_cache`'s tensors, the reference's
+    (`hybrid.py:227-233`)."""
+    kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+    return HybridCache(h=("layers",) + H_AXES, conv=("layers",) + CONV_AXES,
+                       k=kv, v=kv, pos=())
+
+
 def _layers(cfg: ModelConfig, params):
     """(block parameters, kind) of every layer, in order."""
     pat, reps, tail = _split(cfg)
@@ -316,16 +323,17 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: HybridCache,
     """One-token decode. tokens: [B, 1]. Returns (logits [B,1,V], cache):
     the cache's tensors are updated in place (the reference restacks new
     ones) and returned with ``pos + 1``. A conv tail is kept in float32,
-    which holds a bf16 tail exactly."""
-    x = params["embed"][tokens].to(cfg.cdtype())
+    which holds a bf16 tail exactly. On a mesh each new state is laid out
+    on its cache slice's axes before the copy."""
+    x = L.embed_lookup(cfg, pol, params["embed"], tokens)
     ri = ai = 0
     for p, t in _layers(cfg, params):
         if t == "rec":
             y, (h1, c1) = rglru_forward(p["rec"], cfg, pol, x,
                                         state=(cache.h[ri], cache.conv[ri]),
                                         return_state=True)
-            cache.h[ri].copy_(h1)
-            cache.conv[ri].copy_(c1)
+            cache.h[ri].copy_(pol.constrain(h1, *H_AXES))
+            cache.conv[ri].copy_(pol.constrain(c1, *CONV_AXES))
             ri += 1
             x = x + y
         else:

@@ -20,13 +20,15 @@ Full-sequence attention runs the flash-attention kernel under
 the CPU) and the plain query-chunked softmax under ``"xla"``. On a mesh
 either runs on each rank's local ``[B/data, S, H/model, hd]`` shards
 through `local_map` (`on_shards`, which the recurrent families' scans use
-too).
+too), and so does a decode step's cache write and attention: on its rows
+and KV heads, or on its range of the cache's slots under ``seq_kv``,
+combined across ranks as flash-decoding does (`attn_decode`).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -179,6 +181,15 @@ Q_AXES = ("attn_batch", "seq", "heads", None)
 KV_AXES = ("attn_batch", "kv_seq", "kv_heads", None)
 
 
+class Summed(NamedTuple):
+    """Out axes of an `on_shards` result that each rank holds as a partial
+    `op` ("sum" or "max") over the ranks of the mesh axis `over`: laid out
+    on `axes` otherwise. The `constrain` that follows reduces it."""
+    axes: tuple
+    over: str = "model"
+    op: str = "sum"
+
+
 def on_shards(fn, pol: Policy, in_axes, out_axes, *args):
     """`fn(*args)`; for DTensors, on each rank's local shards through
     `local_map`. Each tensor argument is first laid out on its logical
@@ -186,17 +197,25 @@ def on_shards(fn, pol: Policy, in_axes, out_axes, *args):
     placements differ, once, before `fn`); None stands for an argument
     that is not a tensor (or is None). `fn` then runs on plain local
     tensors and its outputs are placed on `out_axes`: one logical-axes
-    tuple for a single output, a list of them for a tuple of outputs.
-    `fn` must compute each local output from the local inputs alone
-    (rows, heads or channels that do not interact across ranks)."""
+    tuple (or `Summed`) for a single output, a list of them for a tuple
+    of outputs. `fn` must compute each local output from the local inputs
+    alone (rows, heads or channels that do not interact across ranks),
+    or a partial result that a `Summed` output declares."""
     lead = next((a for a in args if partitioning.is_dtensor(a)), None)
     if lead is None:
         return fn(*args)
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     mesh = partitioning.current_mesh() or lead.device_mesh
-    place = lambda ax: list(partitioning.logical_placements(mesh, ax,
-                                                            pol.rules))
+
+    def place(ax):
+        if not isinstance(ax, Summed):
+            return list(partitioning.logical_placements(mesh, ax, pol.rules))
+        out = list(partitioning.logical_placements(mesh, ax.axes, pol.rules))
+        out[list(mesh.mesh_dim_names).index(ax.over)] = Partial(ax.op)
+        return out
+
     args = [a if ax is None or a is None else pol.constrain(a, *ax)
             for a, ax in zip(args, in_axes)]
     ins = tuple(None if ax is None or a is None else place(ax)
@@ -285,6 +304,14 @@ def cross_attn_forward(p, cfg: ModelConfig, pol: Policy, x, memory):
     return pol.constrain(y, "batch", "seq", None), (k, v)
 
 
+#: logical axes of one decode step's query [B, 1, H, hd], new key and
+#: value [B, 1, KVr, hd] and one layer's cache [B, T, KVr, hd] (the
+#: reference's `constrain` of the cache, `layers.py:285-286`)
+DEC_Q_AXES = ("batch", "seq", "heads", None)
+DEC_KV_AXES = ("batch", "seq", "kv_heads", None)
+CACHE_AXES = ("batch", "cache_seq", "kv_heads", None)
+
+
 def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,
                 window: int = 0):
     """One-token decode step.
@@ -295,58 +322,168 @@ def attn_decode(p, cfg: ModelConfig, pol: Policy, x, cache_k, cache_v, pos,
     The new key and value are written into `cache_k` / `cache_v` IN PLACE
     (the reference returns updated copies). Returns
     (out [B, 1, d], cache_k, cache_v).
+
+    On a mesh (an int `pos`) the write and the attention run on each
+    rank's local shards (`on_shards`): under ``tp_heads`` its batch rows
+    and KV heads, the output projection's partial sum all-reduced, as
+    `attn_forward`'s; under ``seq_kv`` (the cache's time axis sharded,
+    ``rules["cache_seq"]``) its range of slots, combined across ranks as
+    flash-decoding does (`_attend_seq_kv`).
     """
     B, _, d = x.shape
     hd = cfg.hd
     T = cache_k.shape[1]
-    KVr = cache_k.shape[2]
     ring = window > 0 and T == window
     if isinstance(pos, int) and not ring and pos >= T:
         raise ValueError(f"position {pos} does not fit a cache of {T} slots")
+    mesh = partitioning.is_dtensor(x)
+    if mesh and isinstance(pos, torch.Tensor):
+        raise NotImplementedError("decode on a mesh takes one int position "
+                                  "for every row")
     q = (x @ p["wq"]).reshape(B, 1, cfg.n_heads, hd)
     k = (x @ p["wk"]).reshape(B, 1, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
-    if isinstance(pos, torch.Tensor):
-        posb = pos.to(x.device).expand(B)
-    else:       # a fill on the device: no host-to-device copy, no sync
-        posb = torch.full((B,), int(pos), dtype=torch.long, device=x.device)
     if cfg.rope_theta > 0:
-        q = apply_rope(q, posb[:, None], cfg.rope_theta)
-        k = apply_rope(k, posb[:, None], cfg.rope_theta)
+        # every row at one position: [1, 1], broadcast over the rows
+        at = (pos.to(x.device).expand(B)[:, None]
+              if isinstance(pos, torch.Tensor)
+              else torch.full((1, 1), int(pos), device=x.device))
+        q = apply_rope(q, at, cfg.rope_theta)
+        k = apply_rope(k, at, cfg.rope_theta)
     k = _repeat_kv(k, pol.kv_repeat)
     v = _repeat_kv(v, pol.kv_repeat)
+    kw = dict(pos=pos, T=T, ring=ring, window=window,
+              softcap=cfg.logit_softcap, dtype=x.dtype)
+    if mesh and pol.rules.get("cache_seq") is not None:
+        out = _attend_seq_kv(pol, q, k, v, cache_k, cache_v, **kw)
+    else:
+        out = on_shards(functools.partial(_write_and_attend, **kw), pol,
+                        (DEC_Q_AXES, DEC_KV_AXES, DEC_KV_AXES, CACHE_AXES,
+                         CACHE_AXES), DEC_Q_AXES, q, k, v, cache_k, cache_v)
+    y = out.reshape(B, 1, cfg.n_heads * hd) @ p["wo"]
+    # a partial sum over "heads" on a mesh: all-reduced, as in attn_forward
+    return pol.constrain(y, "batch", "seq", None), cache_k, cache_v
 
+
+def _positions(pos, B: int, device):
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device).expand(B)
+    # a fill on the device: no host-to-device copy, no sync
+    return torch.full((B,), int(pos), dtype=torch.long, device=device)
+
+
+def _valid_slots(ki, slot, posb, T: int, ring: bool, window: int):
+    """Which of the absolute slots `ki` [1, n] a query at `posb` [B] sees."""
+    if ring:
+        # slot i holds absolute position: valid iff within the last `window`
+        age = (slot[:, None] - ki) % T
+        return age <= torch.clamp(posb[:, None], max=T - 1)
+    valid = ki <= posb[:, None]
+    if window > 0:
+        valid &= ki > posb[:, None] - window
+    return valid
+
+
+def _decode_logits(q, cache_k, valid, softcap: float, dtype):
+    """Float32 logits [B, KVr, g, 1, n] of the query against the slots of
+    `cache_k` [B, n, KVr, hd], the invalid ones -1e30."""
+    B, _, H, hd = q.shape
+    KVr = cache_k.shape[2]
+    qg = q.reshape(B, 1, KVr, H // KVr, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          cache_k.to(dtype).float()) / math.sqrt(hd)
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+
+
+def _write_and_attend(q, k, v, cache_k, cache_v, *, pos, T, ring, window,
+                      softcap, dtype):
+    """The new row written at its slot, then the query's attention over
+    every slot of the cache (plain tensors: a rank's rows and heads on a
+    mesh). Returns out [B, 1, H, hd]."""
+    B, _, H, hd = q.shape
+    posb = _positions(pos, B, q.device)
     slot = posb % T if ring else posb
     # The reference blends a one-hot row into the cache; writing the new
     # row at `slot` gives the same values (the blend multiplies the other
     # rows by exactly 1 and the slot's old value by exactly 0).
-    rows = torch.arange(B, device=x.device)
+    rows = torch.arange(B, device=q.device)
     cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
-
-    ki = torch.arange(T, device=x.device)[None, :]
-    if ring:
-        # slot i holds absolute position: valid iff within the last `window`
-        age = (slot[:, None] - ki) % T
-        valid = age <= torch.clamp(posb[:, None], max=T - 1)
-    else:
-        valid = ki <= posb[:, None]
-        if window > 0:
-            valid &= ki > posb[:, None] - window
-
-    g = cfg.n_heads // KVr
-    qg = q.reshape(B, 1, KVr, g, hd)
-    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(),
-                          cache_k.to(x.dtype).float()) / math.sqrt(hd)
-    if cfg.logit_softcap > 0:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    logits = logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    ki = torch.arange(T, device=q.device)[None, :]
+    logits = _decode_logits(q, cache_k, _valid_slots(ki, slot, posb, T, ring,
+                                                     window), softcap, dtype)
     w = torch.softmax(logits, dim=-1)
     # the weights are rounded to x's dtype before P.V, as in the reference
-    out = torch.einsum("bkgst,btkh->bskgh", w.to(x.dtype),
-                       cache_v.to(x.dtype)).reshape(B, 1, cfg.n_heads * hd)
-    y = out @ p["wo"]
-    return y, cache_k, cache_v
+    return torch.einsum("bkgst,btkh->bskgh", w.to(dtype),
+                        cache_v.to(dtype)).reshape(B, 1, H, hd)
+
+
+def _slot_range(T: int, mesh_axis: str):
+    """(first absolute slot, count) of this rank's shard of a time axis of
+    T slots split over `mesh_axis` (DTensor's even split, the last shards
+    the shorter)."""
+    mesh = partitioning.current_mesh()
+    n, r = mesh.size(mesh.mesh_dim_names.index(mesh_axis)), \
+        mesh.get_local_rank(mesh_axis)
+    size = -(-T // n)
+    return min(r * size, T), max(0, min(size, T - r * size))
+
+
+def _attend_seq_kv(pol: Policy, q, k, v, cache_k, cache_v, *, pos, T, ring,
+                   window, softcap, dtype):
+    """`seq_kv` decode attention, flash-decoding: each rank holds T / n
+    slots of every head (the cache's time axis on "model") and writes the
+    new row only where its slots hold `slot`; it computes the float32
+    logits over its slots, masked by their absolute indices; the ranks
+    combine their maxima (an all-reduce of max), then their sums of
+    exp(logit - max) (of sum), and each rank's weights, rounded to x's
+    dtype before P.V as the reference rounds them, give its partial P.V,
+    summed in float32 (of sum). A rank whose slots are all masked adds
+    zero. Returns out [B, 1, H, hd], replicated over "model"."""
+    axis = pol.rules["cache_seq"]
+    if not isinstance(axis, str):
+        raise NotImplementedError(f"cache_seq over {axis!r}")
+    off, n = _slot_range(T, axis)
+    stats = ("batch", "kv_heads", None, None, None)
+
+    def logits_of(q, k, v, cache_k, cache_v):
+        B = q.shape[0]
+        posb = _positions(pos, B, q.device)
+        slot = pos % T if ring else pos
+        if off <= slot < off + n:
+            cache_k[:, slot - off] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, slot - off] = v[:, 0].to(cache_v.dtype)
+        ki = off + torch.arange(n, device=q.device)[None, :]
+        logits = _decode_logits(
+            q, cache_k, _valid_slots(ki, posb % T if ring else posb, posb, T,
+                                     ring, window), softcap, dtype)
+        return logits, logits.amax(-1, keepdim=True)
+
+    logits, m = on_shards(
+        logits_of, pol, (DEC_Q_AXES, DEC_KV_AXES, DEC_KV_AXES, CACHE_AXES,
+                         CACHE_AXES),
+        [("batch", "kv_heads", None, None, "cache_seq"),
+         Summed(stats, axis, "max")], q, k, v, cache_k, cache_v)
+    m = pol.constrain(m, *stats)
+    e, l = on_shards(lambda lg, m: (lambda e: (e, e.sum(-1, keepdim=True)))(
+        torch.exp(lg - m)), pol,
+        (("batch", "kv_heads", None, None, "cache_seq"), stats),
+        [("batch", "kv_heads", None, None, "cache_seq"), Summed(stats, axis)],
+        logits, m)
+    l = pol.constrain(l, *stats)
+
+    def pv(e, l, cache_v):
+        B, KVr, g = e.shape[:3]
+        w = (e / l).to(dtype)
+        return torch.einsum("bkgst,btkh->bskgh", w, cache_v.to(dtype)
+                            ).reshape(B, 1, KVr * g, -1).float()
+
+    out = on_shards(pv, pol, (("batch", "kv_heads", None, None, "cache_seq"),
+                              stats, CACHE_AXES),
+                    Summed(DEC_Q_AXES, axis), e, l, cache_v)
+    return pol.constrain(out, *DEC_Q_AXES).to(dtype)
 
 
 # ---------------------------------------------------------------- conv

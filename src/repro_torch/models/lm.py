@@ -103,11 +103,13 @@ def param_axes(cfg: ModelConfig, pol: Policy) -> dict:
             "norm": L.norm_axes(cfg.norm_type)}
 
 
-def _ffn(cfg: ModelConfig, pol: Policy, p, h):
-    """The block's feed-forward part: (out, MoE aux loss)."""
+def _ffn(cfg: ModelConfig, pol: Policy, p, h, aux: bool = True):
+    """The block's feed-forward part: (out, MoE aux loss; None without
+    `aux`)."""
     if not cfg.n_experts:
         return L.mlp_forward(p["mlp"], cfg, pol, h), 0.0
-    mo, aux = moe_lib.moe_forward(p["moe"], cfg, pol, h, impl=cfg.moe_impl)
+    mo, aux = moe_lib.moe_forward(p["moe"], cfg, pol, h, impl=cfg.moe_impl,
+                                  aux=aux)
     if "mlp" in p:
         mo = mo + L.mlp_forward(p["mlp"], cfg, pol, h)
     return mo, aux
@@ -206,6 +208,13 @@ def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
                        pos=0)
 
 
+def cache_axes(cfg: ModelConfig) -> DecodeCache:
+    """The logical axes of `init_cache`'s tensors, the reference's
+    (`lm.py:178-180`): "layers" first, as both stack the layers."""
+    ax = ("layers", "batch", "cache_seq", "kv_heads", None)
+    return DecodeCache(k=ax, v=ax, pos=())
+
+
 def decode_step(cfg: ModelConfig, pol: Policy, params, cache: DecodeCache,
                 tokens):
     """One decode step. tokens: [B, 1]. Returns (logits [B,1,V], cache):
@@ -220,7 +229,9 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: DecodeCache,
                                 window=cfg.local_window)
         x = x + a
         h = L.apply_norm(lp["ln2"], x, cfg.norm_eps, cfg.norm_type)
-        x = x + _ffn(cfg, pol, lp, h)[0]
+        # the aux loss is not read: skipped, as XLA drops it (on a mesh it
+        # would take a collective of its own)
+        x = x + _ffn(cfg, pol, lp, h, aux=False)[0]
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
     logits = L.unembed(cfg, pol, x, params["embed"])
     return logits, cache._replace(pos=cache.pos + 1)

@@ -10,12 +10,17 @@ The port has all six of the reference's families (its
                                              leaves (the reference's
                                              `unbox(...)[1]`, one dict a
                                              layer, no leading "layers")
+  cache_axes(cfg)                         -> logical axes of init_cache's
+                                             tensors (the reference's, its
+                                             leading "layers" kept: the
+                                             caches stack the layers)
 the decoder-only LM (`models/lm.py`) for the dense, moe and vlm families,
 the xLSTM LM (`models/xlstm.py`) for ssm, the hybrid RG-LRU +
 local-attention LM (`models/hybrid.py`) and the encoder-decoder backbone
-(`models/encdec.py`). An unknown family raises `ValueError`. The
-reference's `cache_axes` (logical sharding axes of the cache) belongs to
-sharded decode and waits for ROADMAP.md item 19b, step 2.
+(`models/encdec.py`). An unknown family raises `ValueError`. On a mesh
+(`launch/dryrun.py --run --mesh`) a prefill or decode cell runs sharded,
+the cache on its `cache_axes`; a train cell waits for ROADMAP.md item
+19b, step 3.
 """
 from __future__ import annotations
 

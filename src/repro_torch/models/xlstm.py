@@ -24,7 +24,9 @@ and plain PyTorch here. Serving: `init_cache` holds the float32 states
 (O(1) in the context length) and `decode_step` runs one token through every
 block, writing the new state into the cache in place (the reference
 restacks new arrays); `serve.engine.generate` replays a prompt through it
-token by token.
+token by token. On a mesh a decode step keeps each mLSTM block's matrix
+memory C on the ranks of its dv columns (`cache_axes`,
+`_mlstm_decode_sharded`): only one token's vectors cross ranks.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import meta_repeat, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import partitioning
 from repro_torch.sharding.policy import Policy
 
 PROJ_FACTOR = 2          # mLSTM up-projection factor
@@ -66,13 +69,13 @@ def _pattern(cfg: ModelConfig) -> tuple[str, ...]:
 #: batch rows whole (the loops mix every channel of a row)
 SEQ_AXES = ("batch", "seq", None)
 ROW_AXES = ("batch", None)
-#: with shapes only (the ``meta`` device), the sLSTM's time loop runs its
-#: first two steps and counts the second once for each later step
-#: (`device.meta_repeat`), and so does the mLSTM's chunk loop without
-#: autograd. Every step after the first allocates and frees the same
-#: storages (the outputs go into buffers made before the loop), so the
-#: FLOPs and the live and peak bytes are the whole loop's. False runs
-#: every step, as on a card.
+#: with shapes only (the ``meta`` device), the sLSTM's time loop and the
+#: mLSTM's chunk loop run their first two steps and count the second once
+#: for each later step (`device.meta_repeat`), forward and backward. Every
+#: step after the first allocates and frees the same storages (the
+#: outputs, and the states a gradient needs, go into buffers made before
+#: the loop), so the FLOPs and the live and peak bytes are the whole
+#: loop's. False runs every step, as on a card.
 META_LOOP_BY_COUNT = True
 
 
@@ -135,8 +138,9 @@ class MLSTMState(NamedTuple):
 def mlstm_scan(q, k, v, logf, logi, state: MLSTMState, chunk: int):
     """Chunkwise-parallel mLSTM.
 
-    q, k, v: [B, S, H, dh]; logf, logi: [B, S, H] (<= 0).
-    Returns (out [B, S, H, dh], final state).
+    q, k: [B, S, H, dh]; v: [B, S, H, dv] (dv = dh, or a rank's columns
+    of it: C's columns evolve apart); logf, logi: [B, S, H] (<= 0).
+    Returns (out [B, S, H, dv], final state).
     """
     B, S, H, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
@@ -152,38 +156,88 @@ def mlstm_scan(q, k, v, logf, logi, state: MLSTMState, chunk: int):
         S = S + pad
     nc = S // chunk
     r = lambda x: x.reshape(B, nc, chunk, *x.shape[2:])
-    qs, ks, vs, lfs, lis = map(r, (q, k, v, logf, logi))
-    ti = torch.arange(chunk, device=q.device)
-    causal = (ti[:, None] >= ti[None, :])[None, :, :, None]
     C, n = state
-    # the chunks' outputs go into a buffer made before the loop, so that
-    # every chunk after the first allocates and frees alike; on meta and
-    # without autograd (which keeps each chunk's graph), `_steps` counts
-    # the second for the rest
-    outs = q.new_empty((B, nc, chunk, H, dh))
-    for j in _steps(nc, q.is_meta and not torch.is_grad_enabled()):
-        qc, kc, vc, lf, li = qs[:, j], ks[:, j], vs[:, j], lfs[:, j], lis[:, j]
-        Fc = torch.cumsum(lf, dim=1)                          # [B, c, H]
-        # intra-chunk decay matrix A[t, s] = exp(F_t - F_s + li_s), s <= t
-        logA = Fc[:, :, None] - Fc[:, None, :] + li[:, None, :]  # [B,t,s,H]
-        A = torch.where(causal, torch.exp(logA), 0.0)
-        scores = torch.einsum("bthd,bshd->btsh", qc, kc) * scale * A
-        num = torch.einsum("btsh,bshd->bthd", scores, vc)
-        # inter-chunk contribution of the carried state
-        decay = torch.exp(Fc)                                 # [B, c, H]
-        qCin = torch.einsum("bthd,bhde->bthe", qc, C) * scale
-        num = num + decay[..., None] * qCin
-        nvec = torch.einsum("btsh,bshd->bthd", scores / scale, kc) \
-            + decay[..., None] * n[:, None]
-        denom = torch.abs(torch.einsum("bthd,bthd->bth", qc, nvec)) * scale
-        outs[:, j] = num / torch.clamp_min(denom, 1.0)[..., None]
-        # the state at the chunk's end
-        dAll = torch.exp(Fc[:, -1])                           # [B, H]
-        w = torch.exp(Fc[:, -1][:, None] - Fc + li)           # [B, c, H]
-        C = dAll[:, :, None, None] * C + \
-            torch.einsum("bsh,bshd,bshe->bhde", w, kc, vc)
-        n = dAll[:, :, None] * n + torch.einsum("bsh,bshd->bhd", w, kc)
-    return outs.reshape(B, S, H, dh)[:, :S0], MLSTMState(C, n)
+    outs, C, n = _MLSTMScan.apply(*map(r, (q, k, v, logf, logi)), C, n,
+                                  scale)
+    return outs.reshape(B, S, H, v.shape[-1])[:, :S0], MLSTMState(C, n)
+
+
+def _mlstm_chunk(qc, kc, vc, lf, li, C, n, scale: float):
+    """One chunk of `mlstm_scan` from the state (C, n) before it: (out
+    [B, c, H, dv], C, n after it)."""
+    c = qc.shape[1]
+    ti = torch.arange(c, device=qc.device)
+    causal = (ti[:, None] >= ti[None, :])[None, :, :, None]
+    Fc = torch.cumsum(lf, dim=1)                          # [B, c, H]
+    # intra-chunk decay matrix A[t, s] = exp(F_t - F_s + li_s), s <= t
+    logA = Fc[:, :, None] - Fc[:, None, :] + li[:, None, :]  # [B,t,s,H]
+    A = torch.where(causal, torch.exp(logA), 0.0)
+    scores = torch.einsum("bthd,bshd->btsh", qc, kc) * scale * A
+    num = torch.einsum("btsh,bshd->bthd", scores, vc)
+    # inter-chunk contribution of the carried state
+    decay = torch.exp(Fc)                                 # [B, c, H]
+    qCin = torch.einsum("bthd,bhde->bthe", qc, C) * scale
+    num = num + decay[..., None] * qCin
+    nvec = torch.einsum("btsh,bshd->bthd", scores / scale, kc) \
+        + decay[..., None] * n[:, None]
+    denom = torch.abs(torch.einsum("bthd,bthd->bth", qc, nvec)) * scale
+    out = num / torch.clamp_min(denom, 1.0)[..., None]
+    # the state at the chunk's end
+    dAll = torch.exp(Fc[:, -1])                           # [B, H]
+    w = torch.exp(Fc[:, -1][:, None] - Fc + li)           # [B, c, H]
+    C = dAll[:, :, None, None] * C + \
+        torch.einsum("bsh,bshd,bshe->bhde", w, kc, vc)
+    n = dAll[:, :, None] * n + torch.einsum("bsh,bshd->bhd", w, kc)
+    return out, C, n
+
+
+class _MLSTMScan(torch.autograd.Function):
+    """The mLSTM's loop over chunks, as `_SLSTMScan` runs the sLSTM's:
+    forward chunk by chunk (`_mlstm_chunk`), the outputs written into a
+    buffer made before the loop and, when a gradient is wanted, the state
+    before each chunk into buffers of their own; backward chunk by chunk
+    in reverse, each chunk recomputed from the state before it and
+    differentiated by autograd. With shapes only (`_steps`), the first two
+    chunks run and the second counts for the rest, forward and backward.
+    Inputs [B, nc, c, ...] (the chunks along dim 1)."""
+
+    @staticmethod
+    def forward(ctx, qs, ks, vs, lfs, lis, C, n, scale):
+        B, nc, c, H, _ = qs.shape
+        keep = any(ctx.needs_input_grad)
+        outs = qs.new_empty((B, nc, c, H, vs.shape[-1]))
+        if keep:
+            Cs = C.new_empty((B, nc) + tuple(C.shape[1:]))
+            ns = n.new_empty((B, nc) + tuple(n.shape[1:]))
+        for j in _steps(nc, qs.is_meta):
+            if keep:
+                Cs[:, j], ns[:, j] = C, n
+            outs[:, j], C, n = _mlstm_chunk(qs[:, j], ks[:, j], vs[:, j],
+                                            lfs[:, j], lis[:, j], C, n,
+                                            scale)
+        if keep:
+            ctx.save_for_backward(qs, ks, vs, lfs, lis, Cs, ns)
+            ctx.scale = scale
+        return outs, C, n
+
+    @staticmethod
+    def backward(ctx, douts, dC, dn):
+        *ins, Cs, ns = ctx.saved_tensors
+        grads = [torch.zeros_like(x) for x in ins]
+        carry = [torch.zeros_like(Cs[:, 0]) if dC is None else dC,
+                 torch.zeros_like(ns[:, 0]) if dn is None else dn]
+        for j in _steps(ins[0].shape[1], ins[0].is_meta, reverse=True):
+            with torch.enable_grad():
+                xs = [x[:, j].detach().requires_grad_()
+                      for x in (*ins, Cs, ns)]
+                out = _mlstm_chunk(*xs, ctx.scale)
+                up = [torch.zeros_like(out[0]) if douts is None
+                      else douts[:, j]] + carry
+                g = torch.autograd.grad(out, xs, up)
+            for buf, gj in zip(grads, g[:5]):
+                buf[:, j] = gj
+            carry = list(g[5:])
+        return (*grads, *carry, None)
 
 
 def mlstm_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
@@ -197,6 +251,9 @@ def mlstm_forward(p, cfg: ModelConfig, pol: Policy, x, state=None,
     all-reduced, as the MLP's own."""
     h = L.apply_norm(p["ln"], x, cfg.norm_eps, cfg.norm_type)
     up = pol.constrain(h @ p["w_up"], *SEQ_AXES)
+    if state is not None and x.shape[1] == 1 and partitioning.is_dtensor(up):
+        y, state = _mlstm_decode_sharded(p, cfg, pol, up, state, x.dtype)
+        return (y, state) if return_state else y
     cell_state, conv_state = state if state is not None else (None, None)
     C0, n0 = (None, None) if cell_state is None else cell_state
     names = ("conv", "wq", "wk", "wv", "w_gate", "gate_bias")
@@ -241,6 +298,113 @@ def _mlstm_core(up, conv, wq, wk, wv, w_gate, gate_bias, gn, C, n,
     out = out.reshape(B, S, di).to(dtype)
     out = L.apply_norm({"scale": gn}, out, cfg.norm_eps, "rmsnorm")
     return out * F.silu(z), C, n, conv_state
+
+
+#: logical axes of a decode step's state on a mesh: C [B, H, dk, dv] with
+#: its dv columns on "rnn" (the cache's), n [B, H, dk] whole on each rank
+C_AXES = ("batch", None, None, "rnn")
+N_AXES = ("batch", None, None)
+CONV_AXES = ("batch", None, "rnn")
+RNN_AXES = ("batch", "seq", "rnn")
+HEAD_AXES = ("batch", "seq", None, None)     # q, k [B, 1, H, dk], whole
+V_AXES = ("batch", "seq", None, "rnn")       # v and the output's dv columns
+
+
+def _block_of(n: int, axis):
+    """This rank's (first index, count) of a dim of `n` split over the
+    mesh axis `axis` (DTensor's even split; the whole dim for None)."""
+    if axis is None:
+        return 0, n
+    mesh = partitioning.current_mesh()
+    size = -(-n // mesh.size(mesh.mesh_dim_names.index(axis)))
+    return mesh.get_local_rank(axis) * size, size
+
+
+def _mlstm_decode_sharded(p, cfg: ModelConfig, pol: Policy, up, state,
+                          dtype):
+    """One mLSTM decode step on a mesh with C and n never leaving their
+    rank: the C update (k outer v), C q (a contraction over dk) and n are
+    local to a rank's dv columns once q and k are whole. `up` [B, 1, 2di]
+    is whole on each rank. In four local steps (`layers.on_shards`): the
+    causal conv of this rank's di channels (its conv tail's), gathered;
+    the gates, q and k as partial sums over this rank's rows of w_gate,
+    wq and wk (one all-reduce of the three, float32) and v's dv columns;
+    `mlstm_scan` on the dv columns, the group norm's sum of squares a
+    partial sum (one all-reduce); the normed output times silu(z),
+    gathered for the down projection, whose partial sum is all-reduced.
+    Only token-sized tensors [B/data, 1, ...] cross ranks."""
+    di, H, dh = _mlstm_dims(cfg)
+    (C, n), conv_state = state
+    conv_state = pol.constrain(conv_state, *CONV_AXES)
+    c0, _ = _block_of(di, pol.rules["rnn"])
+
+    def conv(up, w, tail):
+        u = up[..., :di]
+        cv, tail = L.causal_conv(u[..., c0:c0 + w.shape[1]], w, tail)
+        return F.silu(cv), tail
+
+    c, conv_state = L.on_shards(conv, pol, (SEQ_AXES, (None, "rnn"),
+                                            CONV_AXES),
+                                [RNN_AXES, CONV_AXES], up, p["conv"],
+                                conv_state)
+    c = pol.constrain(c, *SEQ_AXES)
+    r0, _ = _block_of(dh, pol.rules["rnn"])
+
+    def proj(c, up, w_gate, wq, wk, wv):
+        B, S, _ = c.shape
+        cH = c.reshape(B, S, H, dh)
+        rows = cH[..., r0:r0 + wq.shape[1]].float()
+        gates = c[..., c0:c0 + w_gate.shape[0]].float() @ w_gate
+        q = torch.einsum("bshd,hde->bshe", rows, wq.float())
+        k = torch.einsum("bshd,hde->bshe", rows, wk.float())
+        v = torch.einsum("bshd,hde->bshe", up[..., :di].reshape(B, S, H, dh),
+                         wv)
+        return torch.cat([gates, q.reshape(B, S, -1), k.reshape(B, S, -1)],
+                         -1), v
+
+    part, v = L.on_shards(proj, pol, (SEQ_AXES, SEQ_AXES, ("rnn", None),
+                                      (None, "rnn", None), (None, "rnn", None),
+                                      (None, None, "rnn")),
+                          [L.Summed(SEQ_AXES), V_AXES], c, up, p["w_gate"],
+                          p["wq"], p["wk"], p["wv"])
+    part = pol.constrain(part, *SEQ_AXES)
+
+    def cell(part, v, C, n, gate_bias):
+        B, S, _ = part.shape
+        gates = part[..., :2 * H] + gate_bias
+        q = part[..., 2 * H:2 * H + H * dh].reshape(B, S, H, dh).to(dtype)
+        k = (part[..., 2 * H + H * dh:].reshape(B, S, H, dh)
+             / math.sqrt(dh)).to(dtype)
+        logf = F.logsigmoid(gates[..., :H])
+        logi = F.logsigmoid(gates[..., H:])
+        out, (C, n) = mlstm_scan(q.float(), k.float(), v.float(), logf, logi,
+                                 MLSTMState(C, n), cfg.mlstm_chunk)
+        out = out.to(dtype)
+        return out, C, n, (out.float() ** 2).sum((2, 3), keepdim=True)
+
+    out, C, n, sq = L.on_shards(
+        cell, pol, (SEQ_AXES, V_AXES, C_AXES, N_AXES, (None,)),
+        [V_AXES, C_AXES, N_AXES, L.Summed(HEAD_AXES)], part, v, C, n,
+        p["gate_bias"])
+    sq = pol.constrain(sq, *HEAD_AXES)
+
+    def gate_out(out, sq, gn, up):
+        B, S, _, cols = out.shape
+        # the group norm over all di (the reference's rmsnorm), then
+        # out * silu(z), on this rank's dv columns of every head
+        e0, _ = _block_of(dh, pol.rules["rnn"])
+        pick = lambda t: t.reshape(B, S, H, dh)[..., e0:e0 + cols] if \
+            t.dim() == 3 else t.reshape(H, dh)[:, e0:e0 + cols]
+        y = out.float() * torch.rsqrt(sq[..., 0, 0][..., None, None] / di
+                                      + cfg.norm_eps) * pick(gn).float()
+        return y.to(dtype) * F.silu(pick(up[..., di:]))
+
+    g = L.on_shards(gate_out, pol, (V_AXES, HEAD_AXES, (None,), SEQ_AXES),
+                    V_AXES, out, sq, p["gn"]["scale"], up)
+    g = pol.constrain(g, *HEAD_AXES)
+    B, S = g.shape[:2]
+    y = pol.constrain(g.reshape(B, S, di) @ p["w_down"], "batch", "seq", None)
+    return y, (MLSTMState(C, n), conv_state)
 
 
 # ------------------------------------------------------------------ sLSTM
@@ -474,6 +638,15 @@ def init_cache(cfg: ModelConfig, pol: Policy, batch: int, max_len: int,
         pos=0)
 
 
+def cache_axes(cfg: ModelConfig) -> XLSTMCache:
+    """The logical axes of `init_cache`'s tensors, the reference's
+    (`xlstm.py:362-369`): C's dv columns on "rnn"."""
+    row = ("layers", "batch", None)
+    return XLSTMCache(mC=("layers",) + C_AXES, mn=("layers",) + N_AXES,
+                      mconv=("layers",) + CONV_AXES, sh=row, sc=row, sn=row,
+                      sm=row, pos=())
+
+
 def decode_step(cfg: ModelConfig, pol: Policy, params, cache: XLSTMCache,
                 tokens):
     """One-token decode: recurrent state only. tokens: [B, 1]. Returns
@@ -481,7 +654,7 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: XLSTMCache,
     cache slot in place (rounded to the cache's dtype, as the reference
     casts it) and the cache returned with ``pos + 1``."""
     pat = _pattern(cfg)
-    x = params["embed"][tokens].to(cfg.cdtype())
+    x = L.embed_lookup(cfg, pol, params["embed"], tokens)
     mi = si = 0
     for bp in params["blocks"]:
         for i, t in enumerate(pat):
@@ -490,9 +663,10 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: XLSTMCache,
                 st = (MLSTMState(cache.mC[mi], cache.mn[mi]), cache.mconv[mi])
                 y, (cell, conv) = mlstm_forward(p, cfg, pol, x, state=st,
                                                 return_state=True)
-                cache.mC[mi].copy_(cell.C)
-                cache.mn[mi].copy_(cell.n)
-                cache.mconv[mi].copy_(conv)
+                # each new state on its cache slice's axes (on a mesh)
+                cache.mC[mi].copy_(pol.constrain(cell.C, *C_AXES))
+                cache.mn[mi].copy_(pol.constrain(cell.n, *N_AXES))
+                cache.mconv[mi].copy_(pol.constrain(conv, *CONV_AXES))
                 mi += 1
             else:
                 st = SLSTMState(cache.sh[si], cache.sc[si], cache.sn[si],
@@ -501,7 +675,7 @@ def decode_step(cfg: ModelConfig, pol: Policy, params, cache: XLSTMCache,
                                       return_state=True)
                 for slot, new in zip((cache.sh, cache.sc, cache.sn,
                                       cache.sm), st):
-                    slot[si].copy_(new)
+                    slot[si].copy_(pol.constrain(new, *ROW_AXES))
                 si += 1
             x = x + y
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)

@@ -35,9 +35,11 @@ and ``rules["seq"]`` (a sharded sequence disables query chunking of the
 plain attention and the loss's sequence chunks). On a mesh of cards
 (`launch/mesh.py::make_mesh`, under `partitioning.mesh_context`) the
 rules also lay DTensors out: `Policy.constrain` redistributes to the
-placements of logical axes, and the prefill path runs on that mesh
-(`launch/dryrun.py --mesh`). Training, sharded decode and the expert axis
-on a mesh wait for ROADMAP.md item 19b, steps 2 to 4.
+placements of logical axes, and the prefill and decode paths run on that
+mesh (`launch/dryrun.py --mesh`; ``seq_kv`` decode as flash-decoding over
+the cache's time axis, an MoE layer's experts on "model"). Training and
+the expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3 and
+4.
 """
 from __future__ import annotations
 

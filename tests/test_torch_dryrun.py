@@ -207,6 +207,32 @@ class TestMetaRun:
         assert (f1, p1) == (f0, p0) and f1 > 0
         assert n1 < n0 / 10          # the steps the loops really ran
 
+    def test_xlstm_train_chunks_counted_from_one_step(self, monkeypatch):
+        """A reduced xLSTM train cell (remat, 9 mLSTM chunks a block): its
+        mLSTM chunk loop under autograd runs two chunks on meta, forward
+        and backward, and gives the FLOPs and peak bytes of every chunk
+        run one by one, exactly."""
+        cfg = tconfigs.smoke_config("xlstm-1.3b", attention_impl="pallas",
+                                    remat="full")
+        s = dataclasses.replace(tconfigs.SHAPES["train_4k"], seq=72, batch=2)
+        pol = resolve(cfg, MESH1, s.batch, s.kind, seq=s.seq)
+        one_chunk = txlstm._mlstm_chunk
+        got = {}
+        for by_count in (True, False):
+            monkeypatch.setattr(txlstm, "META_LOOP_BY_COUNT", by_count)
+            chunks = []
+            monkeypatch.setattr(txlstm, "_mlstm_chunk", lambda *a: (
+                chunks.append(1), one_chunk(*a))[1])
+            step = dryrun.build_step(cfg, pol, s, META)
+            with dryrun.MetaRun(exclude=step.argument_tensors()) as run:
+                step.fn()
+            got[by_count] = (run.flops, run.peak, len(chunks))
+        (f1, p1, n1), (f0, p0, n0) = got[True], got[False]
+        assert (f1, p1) == (f0, p0) and f1 > 0
+        # 7 blocks x 9 chunks, run forward, again under remat and once
+        # more in the backward; by count 2 chunks each time
+        assert n0 == 3 * 7 * 9 and n1 == 3 * 7 * 2
+
     def test_attention_counts_as_its_kernel(self):
         """The kernel's meta function: its output's bytes and the visible
         pairs' FLOPs, never the plain version's scores."""
@@ -284,6 +310,35 @@ def test_decode_from_a_filled_cache_matches_the_reference(ref, arch, seq):
     for f in jcache._fields:
         if f != "pos":
             close(getattr(tnew, f).float(), getattr(jnew, f), f"cache.{f}")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b",
+                                  "seamless-m4t-large-v2", "granite-3-2b"])
+def test_cache_rows_drawn_alone_are_the_whole_draws(arch):
+    """Every (cache tensor, layer, batch row) slice has a seed of its own:
+    rows drawn alone (a one-card reference's) are those rows of the whole
+    draw, bitwise, and a mesh rank's shard of a tensor
+    (`dryrun.draw_rows` with its offsets) is that part of it."""
+    cfg = tconfigs.smoke_config(arch)
+    pol = single_device_policy(cfg)
+    whole = dryrun.filled_cache(cfg, pol, 5, 20,
+                                torch.Generator().manual_seed(4), "cpu")
+    for rows in ([0], [4], [1, 3]):
+        alone = dryrun.filled_cache(cfg, pol, 5, 20,
+                                    torch.Generator().manual_seed(4), "cpu",
+                                    rows=rows)
+        assert alone.pos == whole.pos == 19
+        for a, w in zip(dryrun.tensors_of(alone), dryrun.tensors_of(whole)):
+            assert a.dtype == w.dtype and torch.equal(a, w[:, rows])
+    for leaf, w in enumerate(dryrun.tensors_of(whole)):
+        part = torch.empty((w.shape[0], 2) + tuple(
+            (n + 1) // 2 for n in w.shape[2:]), dtype=w.dtype)
+        offs = [n // 2 for n in w.shape[2:]]
+        dryrun.draw_rows(part, leaf, 4, [2, 3], offs, w.shape[2:])
+        want = w[:, 2:4][(slice(None), slice(None)) + tuple(
+            slice(o, o + k) for o, k in zip(offs, part.shape[2:]))]
+        assert torch.equal(part[(slice(None), slice(None)) + tuple(
+            slice(0, k) for k in want.shape[2:])], want)
 
 
 def test_filled_cache_is_seeded():

@@ -27,6 +27,17 @@
   one process, the reference's greedy tokens, the attention and RG-LRU
   wrappers on plain local shards, `dryrun.prefill_counts`' all-reduces,
   and `dryrun.per_card_fit`'s argument bytes equal to each rank's.
+- Every family's `cache_axes` against the reference's, and decode on the
+  mesh (`launch/dryrun.py::mesh_decode`), in the same groups: B 4 from a
+  filled cache of 32 positions (recurrentgemma's ring of 16 wraps), 3
+  steps: every step's logits and every cache tensor within 1e-5 of one
+  process (a bf16 cache within one bf16 step more), the reference's
+  greedy tokens, each step's collectives equal to `dryrun.decode_counts`,
+  no kernel on the path, the per-card estimate's argument bytes the
+  ranks', and the mesh runner's own decode cell (its cache drawn shard by
+  shard) against one process row by row. `seq_kv` on data 1 x model 4:
+  reduced phi3-medium-14b with 12 heads over 3 KV heads, with and without
+  a ring shorter than the cache (flash-decoding across the ranks' slots).
 - `CollectiveStats`'s ring factors against the reference's
   `collective_stats` on an HLO text with one op of each kind, and the
   collective each redistribution issues (`partitioning.transition`).
@@ -49,7 +60,7 @@ from repro_torch.models import registry as tregistry
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.layers import unembed
 from repro_torch.sharding import partitioning as tpart
-from repro_torch.sharding.policy import resolve
+from repro_torch.sharding.policy import resolve, single_device_policy
 from test_torch_multihost import run_ranks
 from test_torch_reference import load_reference
 
@@ -108,6 +119,29 @@ def test_param_axes_are_the_reference(ref, arch, size):
         assert t.dim() == len(ax)
 
     _walk(check, params, got)
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_cache_axes_are_the_reference(ref, arch, size):
+    """Every family's `cache_axes` field by field against the reference's
+    (`lm.py:178-180`, `hybrid.py:227-233`, `xlstm.py:362-369`,
+    `encdec.py:148-151`): "layers" first, as both stack the cache's
+    layers; one axes tuple a cache tensor, of its rank."""
+    jc = (ref.configs.get_config(arch) if size == "full"
+          else ref.configs.smoke_config(arch))
+    tc = (tconfigs.get_config(arch) if size == "full"
+          else tconfigs.smoke_config(arch))
+    fam = tregistry.get_family(tc)
+    got = dict(dryrun._fields(fam.cache_axes(tc)))
+    assert got == ref.registry.get_family(jc).cache_axes(jc)._asdict()
+    cache = fam.init_cache(tc, single_device_policy(tc), 2, 8,
+                           device="meta")
+    for name, t in dryrun._fields(cache):
+        if isinstance(t, torch.Tensor):
+            assert t.dim() == len(got[name]) and got[name][0] == "layers"
+        else:
+            assert got[name] == ()
 
 
 def _meta():
@@ -244,12 +278,12 @@ from repro_torch.launch.collective_stats import CollectiveRecorder
 from repro_torch.models import hybrid, layers
 from repro_torch.models.registry import get_family
 from repro_torch.sharding import partitioning
-from test_torch_mesh_model import case_config, case_shape, positions
+from test_torch_mesh_model import (case_config, case_shape, decode_config,
+                                   decode_shape, positions)
 
 multihost.initialize(timeout_s=60, device="cpu")
-m = tmesh.make_mesh(tmesh.FOUR_CARD, "cpu")
 case = torch.load(sys.argv[1] + "/case.pt")
-cfg, pol = case_config(**case["config"])
+m = tmesh.make_mesh(case.get("axes", tmesh.FOUR_CARD), "cpu")
 seen, seen_lru = [], []
 kernel, lru = layers.flash_attention, hybrid.chunked_lru
 
@@ -265,38 +299,106 @@ def spy_lru(a, bx, h0=None, **kw):
 
 
 layers.flash_attention, hybrid.chunked_lru = spy, spy_lru
-inputs = {k: case[k] for k in ("tokens", "embeds") if case.get(k) is not None}
-fn, params, inputs = dryrun.mesh_step(cfg, pol, m, case["params"], inputs)
-with CollectiveRecorder() as rec:
-    logits = fn()
-with torch.no_grad(), partitioning.mesh_context(m):
-    hidden = get_family(cfg).forward(cfg, pol, params, inputs["tokens"],
-                                     inputs.get("embeds"))[0]
-    placements = tuple(hidden.placements) == (Shard(0), Replicate())
-    hidden = hidden.full_tensor()
-layers.flash_attention, hybrid.chunked_lru = kernel, lru
-# the logits at some positions of the same prefill (`positions`)
-at, _, _ = dryrun.mesh_step(
-    cfg, pol, m, case["params"],
-    {k: case[k] for k in ("tokens", "embeds") if case.get(k) is not None},
-    positions(case["config"]["seq"]))
-logits_at = at()
-if multihost.process_index() == 0:
-    torch.save({"hidden": hidden, "logits": logits, "logits_at": logits_at},
-               sys.argv[1] + "/out.pt")
-out = {"ops": rec.ops, "seen": seen, "seen_lru": seen_lru,
-       "hidden_placements": placements,
-       "embed_local": list(params["embed"].to_local().shape),
-       "tokens_local": list(inputs["tokens"].to_local().shape)}
-if "layers" in params:
-    out["wq_local"] = list(params["layers"][0]["attn"]["wq"].to_local().shape)
-# the mesh runner's own draw of the same cell: its argument bytes a rank
-run, _ = dryrun.run_mesh_cell(cfg, pol, case_shape(**case["config"]), m,
-                              device="cpu")
-out["argument_bytes"] = [r["argument_bytes"] for r in run["ranks"]]
+out = {}
+if "tokens" in case:
+    cfg, pol = case_config(**case["config"])
+    inputs = {k: case[k] for k in ("tokens", "embeds")
+              if case.get(k) is not None}
+    fn, params, inputs = dryrun.mesh_step(cfg, pol, m, case["params"],
+                                          inputs)
+    with CollectiveRecorder() as rec:
+        logits = fn()
+    with torch.no_grad(), partitioning.mesh_context(m):
+        hidden = get_family(cfg).forward(cfg, pol, params, inputs["tokens"],
+                                         inputs.get("embeds"))[0]
+        placements = tuple(hidden.placements) == (Shard(0), Replicate())
+        hidden = hidden.full_tensor()
+    layers.flash_attention, hybrid.chunked_lru = kernel, lru
+    # the logits at some positions of the same prefill (`positions`)
+    at, _, _ = dryrun.mesh_step(
+        cfg, pol, m, case["params"],
+        {k: case[k] for k in ("tokens", "embeds") if case.get(k) is not None},
+        positions(case["config"]["seq"]))
+    logits_at = at()
+    if multihost.process_index() == 0:
+        torch.save({"hidden": hidden, "logits": logits,
+                    "logits_at": logits_at}, sys.argv[1] + "/out.pt")
+    out.update({"ops": rec.ops, "hidden_placements": placements,
+                "embed_local": list(params["embed"].to_local().shape),
+                "tokens_local": list(inputs["tokens"].to_local().shape)})
+    if "layers" in params:
+        out["wq_local"] = list(
+            params["layers"][0]["attn"]["wq"].to_local().shape)
+    # the mesh runner's own draw of the same cell: its argument bytes a rank
+    run, _ = dryrun.run_mesh_cell(cfg, pol, case_shape(**case["config"]), m,
+                                  device="cpu")
+    out["argument_bytes"] = [r["argument_bytes"] for r in run["ranks"]]
+out.update({"seen": list(seen), "seen_lru": list(seen_lru)})
+dec = case.get("decode")
+if dec:
+    # no attention or RG-LRU kernel on the decode path
+    seen.clear(), seen_lru.clear()
+    layers.flash_attention, hybrid.chunked_lru = spy, spy_lru
+    # decode steps from the given cache, each step's collectives recorded
+    cfg, pol = decode_config(**dec["config"])
+    fam = get_family(cfg)
+    params = dryrun.distribute(dec["params"], dryrun.param_specs(cfg, pol, m))
+    cache = dryrun._with_fields(fam.init_cache(
+        cfg, pol, dec["config"]["batch"], dec["config"]["seq"], device="cpu"),
+        **dec["cache"])
+    cache = dryrun.distribute_cache(cfg, pol, m, cache)
+    tok_sh = dryrun.batch_sharding(cfg, pol, m, {"tokens": dec["tokens"][0]})
+    got, ops = [], []
+    for tok in dec["tokens"]:
+        tok = dryrun.distribute(tok, tok_sh["tokens"])
+        with torch.no_grad(), partitioning.mesh_context(m), \
+                CollectiveRecorder() as rec:
+            logits, cache = fam.decode_step(cfg, pol, params, cache, tok)
+            got.append(dryrun._replicated(logits, m))
+        ops.append(rec.ops)
+    full = {name: t.full_tensor() for name, t in dryrun._fields(cache)
+            if hasattr(t, "full_tensor")}
+    if multihost.process_index() == 0:
+        torch.save({"logits": torch.stack(got), "cache": full,
+                    "pos": cache.pos}, sys.argv[1] + "/decode.pt")
+    out["decode_ops"] = ops
+    out["decode_cache_placements"] = {
+        name: [str(p) for p in t.placements]
+        for name, t in dryrun._fields(cache) if hasattr(t, "placements")}
+    # the mesh runner's own draw of a decode cell of the same shape: its
+    # argument bytes a rank, and each rank's parts of rows 0 and B - 1
+    run, _ = dryrun.run_mesh_cell(cfg, pol, decode_shape(**dec["config"]), m,
+                                  device="cpu",
+                                  rows_out=sys.argv[1] + "/rows")
+    out["decode_argument_bytes"] = [r["argument_bytes"] for r in run["ranks"]]
+    out["decode_run_ops"] = run["collectives"]["op_count"]
+    out["decode_seen"] = len(seen) + len(seen_lru)
 print(json.dumps(out))
 multihost.shutdown()
 """
+
+
+#: the decode cases: B 4, a cache of DECODE_LEN slots filled with seeded
+#: draws (`dryrun.filled_cache`), DECODE_STEPS steps from DECODE_POS
+DECODE_BATCH, DECODE_LEN, DECODE_POS, DECODE_STEPS = 4, 36, 32, 3
+
+
+def decode_config(arch=ARCH, n_layers=LAYERS, batch=DECODE_BATCH,
+                  seq=DECODE_LEN, axes=None, overrides=None):
+    """The reduced config of a decode case (`overrides` on top) and its
+    decode policy on the mesh of `axes` (the four-card mesh by
+    default)."""
+    depth = {} if n_layers is None else {"n_layers": n_layers}
+    cfg = tconfigs.smoke_config(arch, attention_impl="pallas", **depth,
+                                **(overrides or {}))
+    return cfg, resolve(cfg, axes or FOUR_CARD, batch, "decode", seq=seq)
+
+
+def decode_shape(arch=ARCH, n_layers=LAYERS, batch=DECODE_BATCH,
+                 seq=DECODE_LEN, axes=None, overrides=None):
+    from repro_torch.configs import SHAPES
+    import dataclasses
+    return dataclasses.replace(SHAPES["decode_32k"], batch=batch, seq=seq)
 
 
 def case_config(arch=ARCH, n_layers=LAYERS, batch=BATCH, seq=SEQ):
@@ -319,17 +421,18 @@ def case_shape(arch=ARCH, n_layers=LAYERS, batch=BATCH, seq=SEQ):
     return dataclasses.replace(SHAPES["prefill_32k"], batch=batch, seq=seq)
 
 
-def reference_prefill(ref, arch, n_layers, batch, seq):
+def reference_prefill(ref, arch, n_layers, batch, seq, overrides=None):
     """The reference's parameters (carried to the port) and its prefill
     of seeded numpy inputs: (port params, tokens, embeds or None,
     reference greedy tokens of the last position)."""
     depth = {} if n_layers is None else {"n_layers": n_layers}
-    jc = ref.configs.smoke_config(arch, **depth)
+    jc = ref.configs.smoke_config(arch, **depth, **(overrides or {}))
     jpol = ref.policy.single_device_policy(jc)
     jfam = ref.registry.get_family(jc)
     jp, _ = ref.layers.unbox(jfam.init_params(jc, jpol,
                                               ref.jax.random.PRNGKey(3)))
-    cfg, _ = case_config(arch, n_layers, batch, seq)
+    cfg = tconfigs.smoke_config(arch, attention_impl="pallas", **depth,
+                                **(overrides or {}))
     params = params_from_jax(cfg, ref.jax.tree.map(np.asarray, jp),
                              device="cpu")
     rng = np.random.default_rng(5)
@@ -350,26 +453,101 @@ def reference_prefill(ref, arch, n_layers, batch, seq):
             np.argmax(np.asarray(jl)[:, -1], -1))
 
 
-def mesh_case(ref, tmp, arch, n_layers, batch, seq):
-    """One family's cell run on a data 2 x model 2 mesh of four gloo ranks
-    (its own group: no DTensor state carries from one family to the next)
-    and in one process."""
-    params, tokens, embeds, ref_tokens = reference_prefill(
-        ref, arch, n_layers, batch, seq)
-    config = dict(arch=arch, n_layers=n_layers, batch=batch, seq=seq)
-    torch.save({"params": params, "tokens": tokens, "embeds": embeds,
-                "config": config}, tmp / "case.pt")
-    outs = run_ranks(_RANKS, 4, tmp)
-    got = torch.load(tmp / "out.pt")
-    cfg, pol = case_config(**config)
+def reference_decode(ref, dconfig, params):
+    """A decode case from the reference's parameters carried to the port
+    (`params`): the cache (`dryrun.filled_cache`, seed 11, at the
+    reference's single-device layout, its KV heads then repeated for the
+    mesh's policy), DECODE_STEPS steps of seeded tokens from DECODE_POS,
+    and the reference's `decode_step` on the same cache and tokens: (the
+    cache at the mesh policy's layout, tokens [steps, B, 1], the
+    reference's greedy tokens [steps, B])."""
+    cfg, pol = decode_config(**dconfig)
+    one = single_device_policy(cfg)
+    B, T = dconfig["batch"], dconfig["seq"]
+    cache = dryrun._at_position(dryrun.filled_cache(
+        cfg, one, B, T, torch.Generator().manual_seed(11), "cpu"),
+        DECODE_POS)
+    rng = np.random.default_rng(13)
+    tokens = rng.integers(0, cfg.vocab_size, (DECODE_STEPS, B, 1)).astype(
+        np.int32)
+    depth = ({} if dconfig["n_layers"] is None
+             else {"n_layers": dconfig["n_layers"]})
+    jc = ref.configs.smoke_config(dconfig["arch"], **depth,
+                                  **(dconfig["overrides"] or {}))
+    jpol = ref.policy.single_device_policy(jc)
+    jfam = ref.registry.get_family(jc)
+    jp, _ = ref.layers.unbox(jfam.init_params(jc, jpol,
+                                              ref.jax.random.PRNGKey(3)))
+    jcache = jfam.init_cache(jc, jpol, B, T)
+    jcache = jcache._replace(pos=ref.jnp.int32(DECODE_POS), **{
+        f: ref.jnp.asarray(getattr(cache, f).float().numpy()).astype(
+            getattr(jcache, f).dtype) for f in jcache._fields if f != "pos"})
+    greedy = []
+    for tok in tokens:
+        jl, jcache = jfam.decode_step(jc, jpol, jp, jcache,
+                                      ref.jnp.asarray(tok))
+        greedy.append(np.argmax(np.asarray(jl)[:, -1, :cfg.vocab_size], -1))
+    if pol.kv_repeat > 1:
+        cache = dryrun._with_fields(cache, **{
+            f: t.repeat_interleave(pol.kv_repeat, dim=3)
+            for f, t in dryrun._fields(cache) if f in ("k", "v", "xk", "xv")})
+    return cache, torch.from_numpy(tokens), np.stack(greedy)
+
+
+def one_process_decode(cfg, pol, params, cache, tokens):
+    """The decode steps in one process on plain tensors (a copy of
+    `cache`): (logits [steps, B, 1, Vp], the cache after them)."""
     fam = tregistry.get_family(cfg)
+    cache = dryrun._with_fields(cache, **{
+        f: t.clone() for f, t in dryrun._fields(cache)
+        if isinstance(t, torch.Tensor)})
+    got = []
     with torch.no_grad():
-        hidden = fam.forward(cfg, pol, params, tokens, embeds)[0]
-        logits = unembed(cfg, pol, hidden[:, -1:], params["embed"])
-    return types.SimpleNamespace(
-        outs=outs, got=got, hidden=hidden, logits=logits,
-        ref_tokens=ref_tokens, cfg=cfg, pol=pol, config=config,
-        params=params)
+        for tok in tokens:
+            logits, cache = fam.decode_step(cfg, pol, params, cache, tok)
+            got.append(logits)
+    return torch.stack(got), cache
+
+
+def mesh_case(ref, tmp, arch, n_layers, batch, seq, prefill=True,
+              axes=None, overrides=None):
+    """One family's cells run on a data 2 x model 2 mesh of four gloo ranks
+    (its own group: no DTensor state carries from one family to the next)
+    and in one process: a prefill of B x S (where `prefill`) and a decode
+    case (DECODE_STEPS steps from a filled cache, on the mesh of
+    `axes`)."""
+    params, tokens, embeds, ref_tokens = reference_prefill(
+        ref, arch, n_layers, batch, seq, overrides)
+    config = dict(arch=arch, n_layers=n_layers, batch=batch, seq=seq)
+    dconfig = dict(arch=arch, n_layers=n_layers, batch=DECODE_BATCH,
+                   seq=DECODE_LEN, axes=axes, overrides=overrides)
+    cache, dtokens, ref_greedy = reference_decode(ref, dconfig, params)
+    case = {"decode": {"config": dconfig, "params": params,
+                       "cache": dict(dryrun._fields(cache)),
+                       "tokens": dtokens}, "axes": axes or FOUR_CARD}
+    if prefill:
+        case.update(params=params, tokens=tokens, embeds=embeds,
+                    config=config)
+    torch.save(case, tmp / "case.pt")
+    outs = run_ranks(_RANKS, 4, tmp)
+    run = types.SimpleNamespace(outs=outs, ref_tokens=ref_tokens,
+                                config=config, params=params, tmp=tmp,
+                                dconfig=dconfig, ref_greedy=ref_greedy,
+                                dtokens=dtokens)
+    run.dcfg, run.dpol = decode_config(**dconfig)
+    run.dgot = torch.load(tmp / "decode.pt")
+    run.dlogits, run.dcache = one_process_decode(run.dcfg, run.dpol, params,
+                                                 cache, dtokens)
+    if prefill:
+        run.got = torch.load(tmp / "out.pt")
+        run.cfg, run.pol = case_config(**config)
+        fam = tregistry.get_family(run.cfg)
+        with torch.no_grad():
+            run.hidden = fam.forward(run.cfg, run.pol, params, tokens,
+                                     embeds)[0]
+            run.logits = unembed(run.cfg, run.pol, run.hidden[:, -1:],
+                                 params["embed"])
+    return run
 
 
 @pytest.fixture(scope="module")
@@ -541,10 +719,16 @@ def test_family_counted_collectives(family_run):
     cfg = family_run.cfg
     counts = dryrun.prefill_counts(cfg)
     act = FAMILY_BATCH // 2 * FAMILY_SEQ * cfg.d_model * 4
+    # an MoE layer's aux-loss sums: [2, E] float32 over the data ranks
+    aux = 2 * (family_run.pol.expert_pad or cfg.n_experts) * 4
     for out in family_run.outs:
         ar = [o for o in out["ops"] if o[0] == "all-reduce"]
-        assert len(ar) == counts["all_reduces"]
-        assert {(o[1], o[2]) for o in ar} == {(act, 2)}
+        assert len(ar) == counts["all_reduces"] + counts.get(
+            "aux_all_reduces", 0)
+        assert {(o[1], o[2]) for o in ar if o[1] != aux or not cfg.n_experts
+                } == {(act, 2)}
+        assert sum(o[1] == aux for o in ar) == counts.get("aux_all_reduces",
+                                                          0)
         rs = [o for o in out["ops"] if o[0] == "reduce-scatter"]
         assert len(rs) == 2 * counts["lru_forward"]
         assert out["ops"][-2:] == [["all-gather", o[1], 2, o[3]]
@@ -561,6 +745,166 @@ def test_family_per_card_estimate_is_the_ranks_arguments(family_run):
     at = fit["estimates"][str(fit["batch"])]
     for out in family_run.outs:
         assert out["argument_bytes"] == [at["argument_bytes"]] * 4
+    counts = dryrun.prefill_counts(cfg)
     assert at["collective_count"]["all-reduce"] == \
-        dryrun.prefill_counts(cfg)["all_reduces"]
+        counts["all_reduces"] + counts.get("aux_all_reduces", 0)
     assert fit["fits_per_card"] and at["transient_bytes"] > 0
+
+
+# ------------------------------------------------- decode on a mesh
+
+BF16_STEP = 2.0 ** -7       # bf16's spacing, at most this of a value
+
+
+def close_cache(got, want):
+    """A cache tensor against one process's: within 1e-5 as `close`, and
+    for a bf16 tensor (the KV caches, as the reference keeps them) also
+    one bf16 step of each value: both sides round float32 values that
+    agree within 1e-5 to bf16, and such a pair can round a step apart."""
+    if want.dtype != torch.bfloat16:
+        return close(got.float(), want.float())
+    got, want = got.float().numpy(), want.float().numpy()
+    bound = 1e-5 * (np.abs(want) + np.abs(want).max()) + \
+        BF16_STEP * np.abs(want)
+    assert np.all(np.abs(got - want) <= bound), \
+        float(np.max(np.abs(got - want) - bound))
+
+
+def check_decode(run):
+    """The mesh's decode steps against the same steps in one process:
+    every step's logits and every cache tensor after them within 1e-5
+    (`close_cache`), the padded vocabulary's -1e30 equal; the cache laid
+    out on its `cache_axes`; no kernel launched."""
+    V = run.dcfg.vocab_size
+    got = run.dgot
+    assert got["logits"].shape == run.dlogits.shape
+    close(got["logits"][..., :V], run.dlogits[..., :V])
+    assert torch.equal(got["logits"][..., V:], run.dlogits[..., V:])
+    assert got["pos"] == run.dcache.pos == DECODE_POS + DECODE_STEPS
+    want = {f: t for f, t in dryrun._fields(run.dcache)
+            if isinstance(t, torch.Tensor)}
+    assert got["cache"].keys() == want.keys()
+    for f, t in want.items():
+        assert got["cache"][f].dtype == t.dtype
+        close_cache(got["cache"][f], t)
+    from torch.distributed.tensor import Replicate, Shard  # noqa: F401
+    places = dryrun.cache_placements(run.dcfg, run.dpol,
+                                     types.SimpleNamespace(
+                                         mesh_dim_names=tuple(FOUR_CARD)))
+    for out in run.outs:
+        assert out["decode_cache_placements"] == {
+            f: [str(p) for p in pl] for f, pl in places.items()}
+        assert out["decode_seen"] == 0      # no kernel on the decode path
+
+
+def check_decode_tokens(run):
+    greedy = run.dgot["logits"][:, :, -1, :run.dcfg.vocab_size].argmax(-1)
+    np.testing.assert_array_equal(greedy.numpy(), run.ref_greedy)
+
+
+def check_decode_collectives(run):
+    """Each step's collectives, by kind, the logits' gathers to every rank
+    included: `dryrun.decode_counts`' count and operand bytes."""
+    want = dryrun.decode_counts(run.dcfg, run.dpol, DECODE_BATCH,
+                                run.dconfig["axes"] or FOUR_CARD)
+    for out in run.outs:
+        for ops in out["decode_ops"]:
+            stats = tcs.stats_of((o[0], o[1], o[2]) for o in ops)
+            got = {k: [stats.op_count[k], stats.op_bytes[k]]
+                   for k in stats.op_count}
+            assert got == want, (got, want)
+
+
+def check_decode_estimate(run):
+    """The per-card estimate's argument bytes (rank 0 of a fake group) are
+    each gloo rank's in the mesh runner's decode cell, and its meta step
+    issues `decode_counts`' collectives."""
+    axes = run.dconfig["axes"] or FOUR_CARD
+    fit = dryrun.per_card_fit(run.dcfg, run.dpol,
+                              decode_shape(**run.dconfig), axes)
+    at = fit["estimates"][str(fit["batch"])]
+    for out in run.outs:
+        assert out["decode_argument_bytes"] == [at["argument_bytes"]] * 4
+    want = dryrun.decode_counts(run.dcfg, run.dpol, DECODE_BATCH, axes)
+    assert {k: [at["collective_count"][k], at["collective_bytes"][k]]
+            for k in at["collective_count"]} == want
+    assert fit["fits_per_card"] and at["transient_bytes"] > 0
+
+
+def check_decode_rows(run):
+    """The mesh runner's decode cell (its cache drawn shard by shard,
+    RUN_WARM + RUN_STEPS steps at position seq - 1): each rank's parts of
+    rows 0 and B - 1 after the steps against one process's run of the
+    same cell (`dryrun.build_step`, the whole cache drawn at once)."""
+    shape = decode_shape(**run.dconfig)
+    step = dryrun.build_step(run.dcfg, run.dpol, shape, "cpu",
+                             torch.Generator().manual_seed(0))
+    for _ in range(dryrun.RUN_WARM + dryrun.RUN_STEPS):
+        step.fn()
+    want = dryrun.local_rows(step.state, [0, shape.batch - 1],
+                             shape.seq - 1, shape.seq)
+    seen = {f: 0 for f in want}
+    for r in range(4):
+        parts = torch.load(run.tmp / f"rows.rank{r}")
+        assert parts.keys() == want.keys()
+        for f, got in parts.items():
+            whole = {row: (offs, t) for row, offs, t in want[f]}
+            for row, offs, t in got:
+                at, ref = whole[row]
+                ref = ref[(slice(None),) + tuple(
+                    slice(o - a, o - a + n)
+                    for o, a, n in zip(offs, at, t.shape[1:]))]
+                assert ref.shape == t.shape
+                close_cache(t, ref)
+                seen[f] += t.numel()
+    for f, parts in want.items():     # every element of the rows is held
+        assert seen[f] >= sum(t.numel() for _, _, t in parts)
+
+
+DECODE_CHECKS = {"matches_one_process": check_decode,
+                 "gives_the_reference_tokens": check_decode_tokens,
+                 "counted_collectives": check_decode_collectives,
+                 "per_card_estimate_is_the_ranks_arguments":
+                     check_decode_estimate,
+                 "runner_rows_match_one_process": check_decode_rows}
+
+
+@pytest.mark.parametrize("check", DECODE_CHECKS)
+def test_mesh_decode(mesh_run, check):
+    """Reduced granite-3-2b decoding on data 2 x model 2 (`tp_heads`)."""
+    DECODE_CHECKS[check](mesh_run)
+
+
+@pytest.mark.parametrize("check", DECODE_CHECKS)
+def test_family_decode(family_run, check):
+    """Each family decoding on data 2 x model 2, reduced, float32, B 4,
+    from a filled cache of 32 positions (recurrentgemma's ring of 16
+    slots wrapped), 3 steps."""
+    DECODE_CHECKS[check](family_run)
+
+
+#: the `seq_kv` cases: reduced phi3-medium-14b with 12 heads over 3 KV
+#: heads, which do not divide 4 (as phi3's 10 KV heads), on data 1 x model
+#: 4: `resolve` gives `seq_kv` decode (the cache's time axis on "model");
+#: "ring" with a local window of 16 slots, a ring shorter than the cache
+SEQ_KV = {"plain": {"n_heads": 12, "n_kv_heads": 3},
+          "ring": {"n_heads": 12, "n_kv_heads": 3, "local_window": 16}}
+SEQ_KV_AXES = {"data": 1, "model": 4}
+
+
+@pytest.fixture(scope="module", params=SEQ_KV)
+def seq_kv_run(request, ref, tmp_path_factory):
+    return mesh_case(ref, tmp_path_factory.mktemp("seq_kv"),
+                     "phi3-medium-14b", None, FAMILY_BATCH, FAMILY_SEQ,
+                     prefill=False, axes=SEQ_KV_AXES,
+                     overrides=SEQ_KV[request.param])
+
+
+@pytest.mark.parametrize("check", DECODE_CHECKS)
+def test_seq_kv_decode(seq_kv_run, check):
+    """Flash-decoding over a cache whose time axis is split over four
+    ranks (a ring that wraps in the second case): the policy is `seq_kv`,
+    and every check of the other families holds."""
+    assert seq_kv_run.dpol.decode_attn == "seq_kv"
+    assert seq_kv_run.dpol.rules["cache_seq"] == "model"
+    DECODE_CHECKS[check](seq_kv_run)
