@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--only multicard_path]
+    python3 chip_smoke.py [--profile] [--only multicard_train,...]
 
 Builds the six CUDA kernels from the sources in this checkout (one `nvcc`
 per source, started together; the attention and RG-LRU builds go on while
@@ -139,7 +139,21 @@ card, drives the port's paths and prints one JSON line per phase:
   apart), per-rank bytes beside the per-card estimate and launches, the
   last position's logits against one-card runs of the same seed.
   ``--only multicard_path`` runs only env, the builds and this phase, for
-  a call on four cards.
+  a call on four cards (``multicard_path_des``, ``_dense``,
+  ``_encdec_hybrid`` and ``_xlstm`` split it over four calls);
+- the train step on a mesh (`multicard_train`): granite-3-2b train_4k at
+  full width under tp and dp_zero1 (`launch/dryrun.py --run --mesh
+  --strategy`, `launch.train --mesh`), each in a torchrun group of its own
+  on four cards at the batch its per-card estimate admits, both on a 1 x 1
+  mesh at B 2 x 1 024 and 8 layers on one card; its gates and their
+  reasons are in `phase_multicard_train`'s docstring (the loss and
+  gradient norm against one card on the same global batch at 1e-2 / 5e-2
+  relative: bf16 runs that sum in another order; the gradient leaves at
+  MULTICARD_LOGIT_TOL, for the reason given below for the logits; the
+  first moment at 1e-6: the same float32 product; on four cards
+  `launch.train`'s first step at MULTICARD_TRAIN_SAME_TOL of the gates'
+  pass, which runs the same model on the same first batch, and its loss
+  falling over its steps).
 
 `--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
 `torch.profiler` (device time by kind of kernel, idle share), and
@@ -555,6 +569,32 @@ MULTICARD_CACHE_TOL = 0.1
 # its mLSTM state must not be gathered
 MULTICARD_DECODE_BYTES_SHARE = 0.01
 DEC_TAG = "/decode"             # a group running `decode_cell_on_ranks`
+# the train step on a mesh (multicard_train): granite-3-2b train_4k at full
+# width and depth on the data x model mesh, under tp (what `resolve` gives
+# on data 2 x model 2) and dp_zero1 (forced, as the dry run allows), each in
+# a torchrun group of its own on four cards at the largest batch whose
+# per-card estimate fits; both in one group on one card (1 x 1) at
+# MULTICARD_TRAIN_ONE_CARD's batch, length and depth (cuts; launch.train,
+# which takes no depth, at every layer there)
+MULTICARD_TRAIN_ARCH = "granite-3-2b"
+MULTICARD_TRAIN_STRATEGIES = ("tp", "dp_zero1")
+MULTICARD_TRAIN_ONE_CARD = (2, 1024, 8)
+MULTICARD_TRAIN_SECONDS = 900   # a strategy's group's limit
+MULTICARD_TRAIN_STEPS = 4       # launch.train.main's steps on the stream
+MULTICARD_TRAIN_MICRO_ROWS = 4  # rows a micro-batch of the one-card run
+# against the one-card run of the same global batch (its micro-batches'
+# float32 gradients against the mesh's bf16 ones): relative differences
+MULTICARD_TRAIN_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
+# the first moment after one AdamW step against (1 - b1) x the clipped
+# gradient given to it: the same float32 product on each rank's shard
+MULTICARD_MOMENT_TOL = 1e-6
+# launch.train's first step against the gates' pass where both run every
+# layer (four cards): the same seed, first batch, placements and code, so
+# equal but for any reduction whose order on the cards may vary between
+# calls (bitwise equal in the first four-card run): relative, loss and
+# grad norm
+MULTICARD_TRAIN_SAME_TOL = 1e-5
+TRAIN_TAG = "/train."           # a group running `train_cell_on_ranks`
 BASELINE_WORKSPACE_RING = 10_000    # 24 B a slot in float64: past 227 KB
 BASELINE_CAP_ITERS = 500        # events a lane on the workspace case: a cap
                                 # (a lane of 1 000 jobs takes ~2 000)
@@ -4371,14 +4411,18 @@ def multicard_one_card_logits(cfg, pol, axes, batch, dev,
 
 
 def multicard_record(arch: str, axes: dict, batch, layers, seq=None,
-                     shape_name: str = "prefill_32k") -> dict:
+                     shape_name: str = "prefill_32k",
+                     strategy: str = "auto") -> dict:
     """A cell's dry-run record on the mesh of `axes` (its depth cut to
-    `layers` where given), with its per-card estimate at the cell's batch
-    and length (at `batch` and `seq` where given): the meta work of
-    `dryrun --mesh`, done in a worker off the card."""
-    rec = dryrun.lower_cell(arch, shape_name, axes=axes, layers=layers)
+    `layers` where given, a train cell's strategy `strategy`), with its
+    per-card estimate at the cell's batch and length (at `batch` and `seq`
+    where given): the meta work of `dryrun --mesh`, done in a worker off
+    the card."""
+    rec = dryrun.lower_cell(arch, shape_name, axes=axes, layers=layers,
+                            strategy=strategy)
     cfg, shape, _, pol = dryrun.resolved_cell(arch, shape_name, axes=axes,
-                                              layers=layers)
+                                              layers=layers,
+                                              strategy=strategy)
     if batch is not None:
         shape = dataclasses.replace(shape, batch=batch)
     if seq is not None:
@@ -4566,6 +4610,8 @@ def multicard_rank(outdir: str, archs: str = ""):
             float32_check_on_ranks(outdir, arch[:-len(F32_TAG)], out)
         elif arch.endswith(DEC_TAG):
             decode_cell_on_ranks(outdir, arch[:-len(DEC_TAG)], out)
+        elif TRAIN_TAG in arch:
+            train_cell_on_ranks(outdir, *arch.split(TRAIN_TAG), out)
         else:
             mesh_cell_on_ranks(outdir, arch, out)
     name = rank_file(rank, archs)
@@ -4803,14 +4849,29 @@ def multicard_des_and_granite(n: int, outdir: str, mine, mine_runs,
     return des_launches
 
 
-def phase_multicard_path(flows):
+#: `--only` groups that split multicard_path's cells over calls on four
+#: cards, each group within one call: the DES ranks' group with
+#: granite-3-2b; the dense and VLM cells; the encoder-decoder and hybrid
+#: cells; xlstm-1.3b with its float32 check (its host-bound time loops make
+#: it the longest). `--only multicard_path` runs them all in one call
+MULTICARD_PATH_GROUPS = {
+    "multicard_path_des": ("des",),
+    "multicard_path_dense": ("yi-6b", "starcoder2-7b", "phi3-medium-14b",
+                             "pixtral-12b"),
+    "multicard_path_encdec_hybrid": ("seamless-m4t-large-v2",
+                                     "recurrentgemma-2b"),
+    "multicard_path_xlstm": ("xlstm-1.3b", "xlstm-1.3b" + F32_TAG)}
+
+
+def phase_multicard_path(flows, only=None):
     """The multi-card path over the N = torch.cuda.device_count() cards:
     ranks under torchrun (`multicard_rank`), each on its own card. First,
     off the card and while the one-rank DES runs below go on, every cell's
     dry-run record with its per-card estimate (`multicard_record`, spawned
     workers). The DES: both flows' 666-lane fault grids and the homog
     cohort study under the 8-cell fault axis through the split fused path,
-    held bitwise against this process's one-rank fused runs; gates: every
+    held bitwise against this process's one-rank fused runs (`only`, a
+    group of MULTICARD_PATH_GROUPS, runs that group's part alone); gates: every
     rank holds the whole grid (rank 0's saved), `sweep_plan` gives
     n_devices N and the pad, one event-step launch a segment (no rank more
     than the one-rank run, the rank with the longest lane exactly as
@@ -4839,15 +4900,19 @@ def phase_multicard_path(flows):
     n = torch.cuda.device_count()
     outdir = tempfile.mkdtemp(prefix="multicard_")
     granite = MULTICARD_CELL.split(":")[0]
-    f32 = [a + F32_TAG for a in MULTICARD_FLOAT32_LAYERS] if n > 1 else []
-    cells_run = list(MULTICARD_ARCHS if n > 1 else MULTICARD_ONE_CARD_ARCHS)
-    archs = [granite] + cells_run
+    want = lambda name: only is None or name in only
+    des = want("des")
+    f32 = [a + F32_TAG for a in MULTICARD_FLOAT32_LAYERS
+           if want(a + F32_TAG)] if n > 1 else []
+    cells_run = [a for a in (MULTICARD_ARCHS if n > 1
+                             else MULTICARD_ONE_CARD_ARCHS) if want(a)]
+    archs = [granite] * des + cells_run
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max(len(archs), 1),
                              multiprocessing.get_context("spawn"),
                              initializer=_dryrun_worker) as pool:
         futures = start_multicard_records(pool, n, archs)
-        mine, mine_runs = des_multicard_runs(flows)
+        mine, mine_runs = des_multicard_runs(flows) if des else (None, None)
         records = {a: f.result() for a, f in futures.items()}
     records_seconds = time.perf_counter() - t0
     for arch, rec in records.items():
@@ -4880,9 +4945,10 @@ def phase_multicard_path(flows):
             for k, v in got.items():
                 launches[k] += v
 
-    launches["packet_event_steps"] = multicard_des_and_granite(
-        n, outdir, mine, mine_runs, check_cells)
-    groups = ([tuple(cells_run)] if n == 1
+    if des:
+        launches["packet_event_steps"] = multicard_des_and_granite(
+            n, outdir, mine, mine_runs, check_cells)
+    groups = ([tuple(cells_run)] if n == 1 and cells_run
               else [(a,) for a in cells_run + f32])
     for group in groups:
         tag = ",".join(group)
@@ -5185,13 +5251,424 @@ def phase_multicard_decode():
              f"failed: {failures}")
 
 
+def leaf_names(tree, prefix="") -> list:
+    """Dotted names of a parameter tree's leaves, in `tree_leaves`
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def held_leaves(params, n_layers: int) -> list:
+    """Indices (in `tree_leaves` order) of the gradient leaves held
+    against one card: the embedding's, the first and the last layer's."""
+    first, last = "layers.0.", f"layers.{n_layers - 1}."
+    return [i for i, n in enumerate(leaf_names(params))
+            if n == "embed" or n.startswith(first) or n.startswith(last)]
+
+
+def train_key(arch: str, strategy: str) -> str:
+    """A train cell's name in the ranks' files and records."""
+    return f"{arch}.train-{strategy}"
+
+
+def train_shape(n: int, rec: dict):
+    """(batch, length, layers) of a train cell on n cards: the per-card
+    estimate's batch, the cell's length and every layer on four,
+    MULTICARD_TRAIN_ONE_CARD on one."""
+    if n == 1:
+        return MULTICARD_TRAIN_ONE_CARD
+    return (rec["per_card"]["batch_that_fits"], SHAPES["train_4k"].seq,
+            get_config(MULTICARD_TRAIN_ARCH).n_layers)
+
+
+def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
+    """One strategy's train_4k cell on this group's ranks, in three parts.
+    (1) `dryrun.main(["--records", ..., "--run", "--mesh", ...,
+    "--strategy", ...])`: a cold step and RUN_TRAIN_STEPS timed ones
+    (rank 0 saves the record). (2) `launch.train.main(["--mesh", ...])`,
+    the user's entry point: MULTICARD_TRAIN_STEPS steps on the synthetic
+    stream, each rank reading its rows. (3) The gates' pass on the same
+    parameters and first batch (seed 0): the gradients (`make_grad_fn`,
+    reduced to the parameters' placements), the held leaves gathered,
+    then the AdamW update on them, its first moment against (1 - b1) x
+    the clipped gradient on each rank's shards; then, on rank 0, the
+    one-card run of the same global batch (the ranks' shards
+    concatenated) in micro-batches of MULTICARD_TRAIN_MICRO_ROWS rows.
+    The kernel counts are zeroed before (1) and read after (3)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train.step import make_grad_fn
+
+    rank, n = multihost.process_index(), multihost.device_count()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    axes = multicard_axes(n)
+    key = train_key(arch, strategy)
+    records = cell_file(outdir, key, "records.json")
+    with open(records) as f:
+        batch, seq, depth = train_shape(n, json.load(f)[0])
+    mesh_arg = ",".join(f"{k}={v}" for k, v in axes.items())
+    argv = ["--records", records, "--run", "--seed", "0", "--mesh",
+            mesh_arg, "--strategy", strategy,
+            "--out", cell_file(outdir, key, "cell.json")]
+    if n == 1:
+        argv += ["--batch", str(batch), "--seq", str(seq)]
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    dryrun.main(argv)
+    out["cell_seconds"][key] = time.perf_counter() - t0
+    free_card()
+    dist.barrier()
+    stats = {}
+    t0 = time.perf_counter()
+    with dryrun.expandable_segments(dev):
+        train.main(["--arch", arch, "--mesh", mesh_arg, "--strategy",
+                    strategy, "--batch", str(batch), "--seq", str(seq),
+                    "--steps", str(MULTICARD_TRAIN_STEPS), "--log-every",
+                    "1", "--seed", "0"], stats)
+    out.setdefault("train_main", {})[key] = dict(
+        stats, seconds=time.perf_counter() - t0)
+    free_card()
+    dist.barrier()
+    cfg, shape, _, pol = dryrun.resolved_cell(arch, "train_4k", axes=axes,
+                                              strategy=strategy, layers=depth)
+    shape = dataclasses.replace(shape, batch=batch, seq=seq)
+    mesh = make_mesh(axes, "cuda")
+    ocfg = AdamWConfig()
+    t0 = time.perf_counter()
+    with dryrun.expandable_segments(dev):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = dryrun.distribute(get_family(cfg).init_params(cfg, pol, gen),
+                                   dryrun.param_specs(cfg, pol, mesh))
+        state = state_for(params, ocfg)
+        rows = dryrun.mesh_batch(cfg, pol, shape, mesh, 0, dev)
+        loss, _, grads = make_grad_fn(cfg, pol, mesh=mesh)(params, rows)
+        keep = held_leaves(params, cfg.n_layers)
+        held = {i: grads[i] for i in keep}
+        whole = {i: g.full_tensor().float().cpu() for i, g in held.items()}
+        gn = float(global_norm(grads))
+        optim_lib.apply(ocfg, state.opt, params, grads, optim_lib.decay_mask(
+            params, get_family(cfg).STACKED_KEYS))
+        del grads
+        scale = min(1.0, ocfg.grad_clip / max(gn, 1e-9))
+        moment_err = max(
+            float((state.opt.m[i].to_local() - (1 - ocfg.b1) * scale
+                   * g.to_local().float()).norm()
+                  / state.opt.m[i].to_local().norm().clamp_min(1e-30))
+            for i, g in held.items())
+        names = leaf_names(params)
+        del params, state, rows, held
+    out["cell_launches"][key] = kernel_counts()
+    free_card()
+    gates = {"loss": float(loss), "grad_norm": gn,
+             "moment_rel_l2": moment_err, "seconds": time.perf_counter() - t0}
+    dist.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        one = single_device_policy(cfg)
+        with dryrun.expandable_segments(dev):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = get_family(cfg).init_params(cfg, one, gen)
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            count = dryrun.batch_unit(pol, axes)
+            parts = [next(train_data.batches(cfg, train_data.DataConfig(
+                batch=batch, seq=seq, seed=0, host_id=i, n_hosts=count)))
+                for i in range(count)]
+            spec = dryrun.input_specs(cfg, dataclasses.replace(shape, batch=1))
+            glob = {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+                    .to(dev, spec[k].dtype) for k in parts[0]}
+            n_micro = max(1, batch // MULTICARD_TRAIN_MICRO_ROWS)
+            loss1, _, g1 = make_grad_fn(cfg, one, n_micro=n_micro)(params,
+                                                                   glob)
+            gates.update(
+                one_card_loss=float(loss1),
+                one_card_grad_norm=float(global_norm(g1)),
+                one_card_micro_batches=n_micro,
+                leaves_rel_l2={names[i]: float(
+                    (whole[i] - g1[i].float().cpu()).norm()
+                    / g1[i].float().cpu().norm().clamp_min(1e-30))
+                    for i in whole},
+                one_card_seconds=time.perf_counter() - t0)
+            del params, g1, glob
+        free_card()
+    out.setdefault("train_gates", {})[key] = gates
+    dist.barrier()
+
+
+def attention_train_cases(n: int) -> dict:
+    """The attention kernel's shapes on the multicard_train path, cut to
+    (at most) 2 batch rows a call: each strategy's rank shard of
+    granite-3-2b's layer ([rows, S, H / model, hd] under tp, all 32 heads
+    under dp_zero1), S 4 096 on four cards, the one-card length on one."""
+    cfg = get_config(MULTICARD_TRAIN_ARCH)
+    axes = multicard_axes(n)
+    S = SHAPES["train_4k"].seq if n > 1 else MULTICARD_TRAIN_ONE_CARD[1]
+    out = {}
+    for strategy in MULTICARD_TRAIN_STRATEGIES:
+        m = axes["model"] if strategy == "tp" else 1
+        out[strategy] = (2, S, S, cfg.n_heads // m, cfg.n_kv_heads // m,
+                         cfg.hd, True, 0, 0.0)
+    return out
+
+
+def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
+                     n: int, wall: float) -> dict:
+    """The gates of one strategy's train cell (see `phase_multicard_train`);
+    emits its line. Returns the attention kernel's launches over the
+    ranks; raises CellFailure."""
+    key = train_key(arch, strategy)
+    with open(cell_file(outdir, key, "cell.json")) as f:
+        rec = json.load(f)[0]
+    run = rec["run"]
+    axes = multicard_axes(n)
+    cfg = get_config(arch)
+    L = train_shape(n, rec)[2]
+    problems = []
+    if not run["finite"] or not all(np.isfinite(run["losses"])):
+        problems.append(f"losses {run['losses']}")
+    # AdamW on one batch: the loss falls over the runner's steps
+    if not run["losses"][-1] < run["losses"][0]:
+        problems.append(f"the loss does not fall over the steps on one "
+                        f"batch: {run['losses']}")
+    # the forward and the remat recompute launch the kernel once a layer
+    want = {"flash_attention": 2 * L * dryrun.RUN_TRAIN_STEPS,
+            "lru_forward": 0, "lru_reverse": 0}
+    for r, rk in enumerate(run["ranks"]):
+        if rk["launches"] != want:
+            problems.append(f"rank {r} launched {rk['launches']} in "
+                            f"{dryrun.RUN_TRAIN_STEPS} steps, not {want}")
+    est = rec["per_card"]["estimates"][str(run["batch"])]
+    got_ops = {k: int(v) for k, v in run["collectives"]["op_count"].items()}
+    meta_ops = {k: int(v) for k, v in est["collective_count"].items()}
+    if n > 1 and got_ops != meta_ops:
+        problems.append(f"collectives {got_ops}, the meta step's {meta_ops}")
+    # under tp every all-gather is a ZeRO-3 weight made whole over "data",
+    # twice a weight a layer (forward, recompute): a rank's shard each
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    elems = 2 * d * (cfg.n_heads + cfg.n_kv_heads) * hd + 3 * d * ff
+    shard = elems * 2 // n          # bf16: a rank's shard of a layer's
+    gathers = (2 * 7 * L, 2 * L * shard) if strategy == "tp" else (0, 0)
+    got_gathers = (got_ops.get("all-gather", 0),
+                   int(run["collectives"]["op_bytes"].get("all-gather", 0)))
+    if n > 1 and got_gathers != gathers:
+        problems.append(f"all-gathers {got_gathers} (count, bytes), the "
+                        f"weights' {gathers}")
+    gates = ranks[0]["train_gates"][key]
+    tm = ranks[0]["train_main"][key]
+    for k, tol in MULTICARD_TRAIN_TOL.items():
+        rel = abs(gates[k] - gates[f"one_card_{k}"]) / abs(
+            gates[f"one_card_{k}"])
+        gates[f"{k}_rel_vs_one_card"] = rel
+        if rel > tol:
+            problems.append(f"{k} {gates[k]} against one card's "
+                            f"{gates[f'one_card_{k}']} ({rel} > {tol})")
+    worst = max(gates["leaves_rel_l2"].values())
+    if worst > MULTICARD_LOGIT_TOL:
+        problems.append(f"gradient leaves rel L2 up to {worst}")
+    moments = [rk["train_gates"][key]["moment_rel_l2"] for rk in ranks]
+    if max(moments) > MULTICARD_MOMENT_TOL:
+        problems.append(f"first moments {moments}")
+    if not all(np.isfinite(tm["losses"])):
+        problems.append(f"launch.train's losses {tm['losses']}")
+    # the user's entry point computes what the gates' pass computes where
+    # both run the same model (every layer: four cards), and learns
+    same = L == cfg.n_layers
+    if same:
+        for k, got in (("loss", tm["losses"][0]),
+                       ("grad_norm", tm["grad_norms"][0])):
+            rel = abs(got - gates[k]) / abs(gates[k])
+            gates[f"train_main_{k}_rel"] = rel
+            if rel > MULTICARD_TRAIN_SAME_TOL:
+                problems.append(f"launch.train's first {k} {got}, the "
+                                f"gates' pass's {gates[k]} ({rel} > "
+                                f"{MULTICARD_TRAIN_SAME_TOL})")
+        if not tm["losses"][-1] < tm["losses"][0]:
+            problems.append(f"launch.train's loss does not fall over its "
+                            f"steps: {tm['losses']}")
+    peaks = [rk["peak_bytes"] for rk in run["ranks"]]
+    line = dict(
+        run=f"{arch}:train_4k", strategy=strategy, ranks=n, mesh=axes,
+        batch=run["batch"], seq=run["seq"], reduced=run.get("reduced"),
+        policy=rec["policy"], ms_per_step=run["ms_per_step"],
+        ms_per_step_host=run["ms_per_step_host"],
+        first_step_seconds=run["first_step_seconds"],
+        tokens_per_second=run["tokens_per_second"],
+        device_ms_by_rank=[rk.get("device_ms") for rk in run["ranks"]],
+        redistribution_ms_by_rank=[rk.get("redistribution_ms")
+                                   for rk in run["ranks"]],
+        rest_ms_by_rank=[rk.get("rest_ms") for rk in run["ranks"]],
+        collectives=run["collectives"], meta_collectives=meta_ops,
+        all_gathers_expected=gathers,
+        attention_launches_per_rank_per_step=[
+            rk["launches"]["flash_attention"] / dryrun.RUN_TRAIN_STEPS
+            for rk in run["ranks"]],
+        attention_launches_expected_per_step=2 * L,
+        launches_by_rank=[rk["cell_launches"][key] for rk in ranks],
+        peak_bytes_by_rank=peaks,
+        peak_bytes_estimate_per_card=run["peak_bytes_estimate_per_card"],
+        peak_over_per_card_estimate=(max(peaks) /
+                                     run["peak_bytes_estimate_per_card"]),
+        argument_bytes_by_rank=[rk["argument_bytes"] for rk in run["ranks"]],
+        argument_bytes_estimate_per_card=run[
+            "argument_bytes_estimate_per_card"],
+        setup_peak_bytes_by_rank=[rk.get("setup_peak_bytes")
+                                  for rk in run["ranks"]],
+        peak_bytes_estimate_one_card=run["peak_bytes_estimate_one_card"],
+        cell_losses=run["losses"], train_main_losses=tm["losses"],
+        train_main_grad_norms=tm["grad_norms"],
+        train_main_step_seconds=tm["step_seconds"],
+        train_main_shard_by_rank=[rk["train_main"][key]["shard"]
+                                  for rk in ranks],
+        train_main_gated=same, gates=gates, moment_rel_l2_by_rank=moments,
+        tolerances=dict(MULTICARD_TRAIN_TOL, leaves=MULTICARD_LOGIT_TOL,
+                        moment=MULTICARD_MOMENT_TOL,
+                        train_main=MULTICARD_TRAIN_SAME_TOL),
+        cell_seconds=ranks[0]["cell_seconds"][key],
+        cards=[rk["device"] for rk in run["ranks"]], ranks_wall_seconds=wall)
+    if problems:
+        emit("multicard_train", **line, ok=False)
+        raise CellFailure(f"{arch} {strategy}: " + "; ".join(problems))
+    emit("multicard_train", **line, ok=True)
+    return sum(rk["cell_launches"][key]["flash_attention"] for rk in ranks)
+
+
+def phase_multicard_train():
+    """The train step on a mesh over the N = torch.cuda.device_count()
+    cards: granite-3-2b train_4k at full width and depth under each of
+    MULTICARD_TRAIN_STRATEGIES. First, off the card, each strategy's
+    dry-run record on the mesh with its per-card estimate
+    (`multicard_record`, spawned workers: on four cards the largest batch,
+    a multiple of the batch axes' size, whose estimate fits; on one card
+    MULTICARD_TRAIN_ONE_CARD). Then the attention kernel against its plain
+    version at each strategy's rank shard of the layer
+    (`attention_train_cases`), timed beside its bound, and each strategy
+    through `train_cell_on_ranks`: in a torchrun group of its own under
+    MULTICARD_TRAIN_SECONDS on four cards, both in one group on one card.
+    Gates (`check_train_cell`): finite losses; the attention kernel twice a
+    layer a step on every rank (forward and remat recompute; its gradient
+    is plain, R5) and no RG-LRU launch; on several cards the cold step's
+    collectives equal to the meta step's, and under tp exactly the
+    weights' all-gathers (2 x 7 a layer, each a rank's shard of a ZeRO-3
+    weight: no batch gathered); the first step's loss and gradient norm
+    within MULTICARD_TRAIN_TOL of the one-card run of the same global
+    batch, the embedding's and the first and last layers' gradient leaves
+    within MULTICARD_LOGIT_TOL (relative L2), the first moment within
+    MULTICARD_MOMENT_TOL of (1 - b1) x the clipped gradient; the loss
+    falls over the runner's 1 + RUN_TRAIN_STEPS steps on its one batch;
+    `launch.train.main`'s MULTICARD_TRAIN_STEPS losses on the stream are
+    finite. Where `launch.train` and the gates' pass run the same model
+    (every layer: on four cards), its first step's loss and gradient norm
+    are the pass's within MULTICARD_TRAIN_SAME_TOL (the same seed, first
+    batch and placements), and its loss falls from its first step to its
+    last (a batch of 72-80 x 4 096 tokens averages away the batch-to-batch
+    wander seen on one card below; on four H100s it fell 0.067 under tp
+    and 0.075 under dp_zero1 over four steps). On one card `launch.train`,
+    which takes no depth, runs every layer beside the pass's cut, so its
+    first step is another model's; there its losses are only held finite,
+    and not to fall: on fresh batches of B 2 x 1 024 a random model's loss
+    over four warm-up steps wanders (11.2106, 11.2026, 11.2345, 11.2114).
+    The first AdamW update
+    is not held: at step 1 it is about lr x sign(g), and a near-zero
+    gradient's sign flips with bf16 order noise between two runs equally
+    right. Each rank's peak stands beside its per-card
+    estimate (printed). A strategy that fails does not stop the next; the
+    phase fails at the end. Returns, for the kernels line, the attention
+    kernel's launches over the ranks and its check and times at each
+    strategy's shard, by strategy."""
+    n = torch.cuda.device_count()
+    outdir = tempfile.mkdtemp(prefix="multicard_train_")
+    arch = MULTICARD_TRAIN_ARCH
+    axes = multicard_axes(n)
+    batch, seq, depth = (MULTICARD_TRAIN_ONE_CARD if n == 1
+                         else (None, None, None))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(MULTICARD_TRAIN_STRATEGIES),
+                             multiprocessing.get_context("spawn"),
+                             initializer=_dryrun_worker) as pool:
+        futures = {s: pool.submit(multicard_record, arch, axes, batch, depth,
+                                  seq, "train_4k", s)
+                   for s in MULTICARD_TRAIN_STRATEGIES}
+        cases = attention_train_cases(n)
+        attn = {}
+        for strategy, case in cases.items():
+            q, k, v = attn_inputs(case, torch.bfloat16, seed=7)
+            got = attn_ops.flash_attention(q, k, v, impl="cuda", causal=True)
+            want = attn_ops.flash_attention(q, k, v, impl="torch",
+                                            causal=True)
+            err, atol = attn_check(got, want, f"multicard_train {strategy} "
+                                   f"attention {case}")
+            del q, k, v, got, want
+            attn[strategy] = dict(time_attention(case), max_abs_err=err,
+                                  atol=atol)
+        records = {s: f.result() for s, f in futures.items()}
+    for s, rec in records.items():
+        with open(cell_file(outdir, train_key(arch, s), "records.json"),
+                  "w") as f:
+            json.dump([rec], f)
+    emit("multicard_train_records", seconds=time.perf_counter() - t0,
+         mesh=axes, attention=attn,
+         cells={s: dict(strategy=r["policy"]["strategy"],
+                        batch_axes=r["policy"]["batch_axes"],
+                        one_card=r["peak_bytes_estimate"],
+                        per_card=r["per_card"]["peak_bytes_estimate_per_card"],
+                        batch=r["per_card"]["batch"],
+                        batch_that_fits=r["per_card"]["batch_that_fits"],
+                        estimates={b: dict(
+                            peak=e["peak_bytes_estimate"],
+                            arguments=e["argument_bytes"],
+                            moments=e["moment_bytes"],
+                            collective_count=e["collective_count"],
+                            collective_bytes=e["collective_bytes"],
+                            meta_seconds=e["meta_seconds"])
+                            for b, e in r["per_card"]["estimates"].items()})
+                for s, r in records.items()})
+    free_card()
+    failures, launches = {}, {}
+    groups = ([tuple(MULTICARD_TRAIN_STRATEGIES)] if n == 1
+              else [(s,) for s in MULTICARD_TRAIN_STRATEGIES])
+    for group in groups:
+        tag = ",".join(f"{arch}{TRAIN_TAG}{s}" for s in group)
+        t0 = time.perf_counter()
+        try:
+            run_multicard_ranks(n, outdir, tag, MULTICARD_TRAIN_SECONDS)
+        except CellFailure as e:
+            for s in group:
+                failures[s] = str(e)
+            continue
+        wall = time.perf_counter() - t0
+        group_ranks = []
+        for r in range(n):
+            with open(os.path.join(outdir, rank_file(r, tag))) as f:
+                group_ranks.append(json.load(f))
+        for s in group:
+            try:
+                launches[s] = check_train_cell(arch, s, outdir, group_ranks,
+                                               n, wall)
+            except CellFailure as e:
+                failures[s] = str(e)
+    if failures:
+        fail(f"multicard_train: {len(failures)} of "
+             f"{len(MULTICARD_TRAIN_STRATEGIES)} strategies failed: "
+             f"{failures}")
+    return launches, attn
+
+
 def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                   train_launches, select_times, select_launches, attn_build,
                   while_launches, while_times, while_build, lru_build,
                   cohort_times, base_launches, base_times, base_plain_ms,
                   base_build, hybrid_launches, ckpt_launches, lm_launches,
-                  cells_out, multicard_launches):
+                  cells_out, multicard_launches, train_out):
     cells_launches, cells_attn, cells_lru = cells_out
+    train_launches_by, train_attn = train_out
     main = time_kernel(Dispatch(flows["homog0.85"], np.float32, False))
     others = [time_kernel(Dispatch(flows["hetero0.85"], np.float64, False)),
               time_kernel(Dispatch(flows["homog0.85"], np.float32, True))]
@@ -5228,7 +5705,8 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
                "hybrid_serve_path": hybrid_launches["flash_attention"],
                "ckpt_path": ckpt_launches["flash_attention"],
                "cells_path": cells_launches["flash_attention"],
-               "multicard_path": multicard_launches["flash_attention"]}
+               "multicard_path": multicard_launches["flash_attention"],
+               "multicard_train": sum(train_launches_by.values())}
     by_path.update(lm_launches)
     layer_times = {}
     for name, case, path in (
@@ -5244,6 +5722,11 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
     layer_times["recurrentgemma-2b prefill_32k"] = dict(
         cells_attn, launches=cells_launches["flash_attention"],
         path="cells_path")
+    for strategy, times in train_attn.items():
+        layer_times[f"{MULTICARD_TRAIN_ARCH} train_4k, a {strategy} rank's "
+                    f"shard"] = dict(times,
+                                     launches=train_launches_by[strategy],
+                                     path="multicard_train")
     line["kernels"].append({
         "name": "flash_attention",
         "route": "cuda",
@@ -5505,12 +5988,13 @@ def main(argv=None):
     cells_out = timed("cells_path", phase_cells_path)
     multicard_launches = timed("multicard_path", phase_multicard_path, flows)
     timed("multicard_decode", phase_multicard_decode)
+    train_out = timed("multicard_train", phase_multicard_train)
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
           while_build, lru_build, cohort_times, base_launches, base_times,
           base_plain_ms, base_build, hybrid_launches, ckpt_launches,
-          lm_launches, cells_out, multicard_launches)
+          lm_launches, cells_out, multicard_launches, train_out)
     finish(t0, seconds)
 
 
@@ -5525,7 +6009,12 @@ def finish(t0, seconds):
 
 #: the phases `--only` runs, each with the workloads it needs
 ONLY_PHASES = {"multicard_path": lambda: phase_multicard_path(
-    paper_workloads(0)), "multicard_decode": phase_multicard_decode}
+    paper_workloads(0)), "multicard_decode": phase_multicard_decode,
+    "multicard_train": phase_multicard_train,
+    **{name: functools.partial(
+        lambda only: phase_multicard_path(
+            paper_workloads(0) if "des" in only else None, only), group)
+       for name, group in MULTICARD_PATH_GROUPS.items()}}
 
 
 def main_only(phases):

@@ -86,8 +86,16 @@ rest. ``--batch`` and ``--seq`` cut the cell's batch and length
 (recorded under ``reduced``); ``--logits-out`` saves the logits from rank
 0, ``--rows-out`` each rank's parts of a decode cache's rows 0 and B - 1
 after the steps; ``--records`` takes the cells and their records from an
-earlier ``--out`` (the meta work done once, off the ranks). Train cells
-on a mesh wait for ROADMAP.md item 19b (step 3) and raise.
+earlier ``--out`` (the meta work done once, off the ranks). A train cell
+on a mesh (``tp`` as `resolve` gives it, or ``--strategy dp_zero1``)
+draws each rank's rows of the synthetic stream (`mesh_batch`: its place
+on the batch's mesh axes), the moments on their parameters' placements,
+and runs a cold AdamW step (its collectives recorded) then RUN_TRAIN_STEPS
+warm ones, timed as the prefill's; its per-card estimate counts the
+rank's parameter, gradient and moment shards, its rows, and the peak of
+forward, remat recompute, backward and AdamW. ``dp_zero3`` and
+``dp_seq`` on a mesh raise NotImplementedError (ROADMAP.md item 19b,
+step 3b).
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the
@@ -143,13 +151,16 @@ from repro_torch.models.registry import get_family
 from repro_torch.serve.engine import make_decode_logits_step
 from repro_torch.sharding import partitioning
 from repro_torch.sharding import policy as policy_lib
+from repro_torch.train import data as data_lib
 from repro_torch.train import optim as optim_lib
-from repro_torch.train.step import make_train_step, state_for
+from repro_torch.train.step import (check_mesh_train, make_train_step,
+                                    shard_batch, state_for)
 
 CARD_BYTES = 80e9        # one H100's HBM
 FIT_SHARE = 0.9          # the share of it an estimate may claim
 RUN_STEPS = 5            # timed decode steps of --run, after RUN_WARM
 RUN_WARM = 2
+RUN_TRAIN_STEPS = 2      # timed train steps of --run --mesh, after a cold one
 META = torch.device("meta")
 
 
@@ -843,18 +854,24 @@ def mesh_prefill(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
                  device=None, positions=None):
     """Draw a cell's parameters and inputs from `seed` on this rank's
     device, keep this rank's shards, and return ``(fn, params, state,
-    inputs)``: for a prefill, `fn()` runs it on `mesh` and returns the
+    inputs)``: for a train cell, `state` is the AdamW moments on their
+    parameters' placements, the inputs this rank's rows of the synthetic
+    stream of `seed` (`mesh_batch`), and `fn()` takes one train step on
+    `mesh` (`mesh_train`), returning its loss; for a prefill, `fn()` runs
+    it on `mesh` and returns the
     last position's logits (those of `positions` where given), replicated
     on every rank (the reference's ``out_shardings=repl``), and `state` is
     None; for a decode cell, `state` is the cache, each rank drawing only
     its shard (`mesh_cache`), and `fn()` runs one decode step at position
     ``seq - 1`` (`mesh_decode`)."""
-    if shape.kind == "train":
-        raise NotImplementedError("a train cell on a mesh is not ported "
-                                  "(ROADMAP.md item 19b, step 3)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = get_family(cfg).init_params(cfg, pol, gen)
+    if shape.kind == "train":
+        check_mesh_train(cfg, pol)
+        params = distribute(params, param_specs(cfg, pol, mesh))
+        return mesh_train(cfg, pol, mesh, params,
+                          mesh_batch(cfg, pol, shape, mesh, seed, dev))
     inputs = random_inputs(cfg, shape, gen, dev)
     if shape.kind == "decode":
         # the parameters' shards first: the whole tree and the cache's
@@ -864,6 +881,43 @@ def mesh_prefill(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
         return mesh_decode(cfg, pol, mesh, params, inputs, cache)
     fn, params, inputs = mesh_step(cfg, pol, mesh, params, inputs, positions)
     return fn, params, None, inputs
+
+
+def mesh_batch(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int,
+               device) -> dict:
+    """This rank's rows of a train cell's global batch of `shape`: the
+    synthetic stream of `seed` (`train/data.py::batches`) with ``host_id``
+    / ``n_hosts`` its place on the batch's mesh axes
+    (`multihost.batch_data_shard`), in the dtypes of `input_specs`, as
+    DTensors of the global batch (`train.step.shard_batch`). The global
+    batch is the ranks' shards concatenated in that order."""
+    index, count = multihost.batch_data_shard(mesh, pol.batch_axes)
+    rows = next(data_lib.batches(cfg, data_lib.DataConfig(
+        batch=shape.batch, seq=shape.seq, seed=seed, host_id=index,
+        n_hosts=count)))
+    specs = input_specs(cfg, dataclasses.replace(shape, batch=1),
+                        device=META)
+    return shard_batch(pol, mesh, {
+        k: torch.from_numpy(v).to(device, specs[k].dtype)
+        for k, v in rows.items()})
+
+
+def mesh_train(cfg: ModelConfig, pol, mesh, params, inputs) -> tuple:
+    """A train cell on `mesh` from the parameters already sharded
+    (`distribute`) and the batch (DTensors, `mesh_batch`): ``(fn, params,
+    moments, inputs)``. `fn()` takes one AdamW step of `make_train_step`
+    on the mesh (the moments from `state_for`, on their parameters'
+    placements, `_moment_dtype`'s type; the parameters and moments updated
+    in place) and returns its loss, whole on every rank."""
+    ocfg = optim_lib.AdamWConfig(moment_dtype=_moment_dtype(cfg))
+    state = [state_for(params, ocfg)]
+    step = make_train_step(cfg, pol, ocfg, mesh=mesh)
+
+    def fn():
+        state[0], mets = step(state[0], inputs)
+        return mets["loss"]
+
+    return fn, params, state[0].opt, inputs
 
 
 def mesh_step(cfg: ModelConfig, pol, mesh, params, inputs,
@@ -1015,14 +1069,18 @@ def _local_tensors(tree) -> list:
 
 
 def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
-    """One rank's step of a prefill or decode cell on `mesh`, built on
-    the meta device (the parameters, inputs and cache of `mesh_step` /
-    `mesh_decode` as meta DTensors) and metered by `MetaRun`: this rank's
-    argument bytes (its shards of the parameters, inputs and cache), the
+    """One rank's step of a cell on `mesh`, built on the meta device (the
+    parameters, inputs and cache of `mesh_step` / `mesh_decode`, or the
+    parameters, moments and batch of `mesh_train`, as meta DTensors) and
+    metered by `MetaRun`: this rank's argument bytes (its shards of the
+    parameters, inputs and cache or moments), the
     peak of the bytes its step allocates (every local transient: the
     replicated norms and residual stream, each output projection's partial
     sum before its all-reduce, a decode step's float32 copy of one layer's
-    K shard and whatever state it gathers, the gathered logits), their sum
+    K shard and whatever state it gathers, the gathered logits; a train
+    step's activations kept for the backward, its remat recompute, its
+    gathered ZeRO-3 weights, the gradients and AdamW's float32
+    temporaries), their sum
     and the collectives it issues (no FLOPs). On a mesh of a fake process
     group's rank 0 (`per_card_fit`), whose shards are the largest where a
     dim does not divide."""
@@ -1030,7 +1088,14 @@ def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
     fam = get_family(cfg)
     params = fam.init_params(cfg, pol, meta_generator())
     inputs = input_specs(cfg, shape, device=META)
-    if shape.kind == "decode":
+    if shape.kind == "train":
+        check_mesh_train(cfg, pol)
+        inputs = {k: distribute(v, sh) for (k, v), sh in zip(
+            inputs.items(), batch_sharding(cfg, pol, mesh, inputs).values())}
+        fn, params, cache, inputs = mesh_train(
+            cfg, pol, mesh, distribute(params, param_specs(cfg, pol, mesh)),
+            inputs)
+    elif shape.kind == "decode":
         cache = mesh_cache(cfg, pol, mesh, shape.batch, shape.seq, None,
                            META)
         fn, params, cache, inputs = mesh_decode(
@@ -1047,7 +1112,10 @@ def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
     arg_bytes = nbytes(args)
     cs = rec.stats()
     return {"batch": shape.batch, "argument_bytes": arg_bytes,
-            "cache_bytes": nbytes(_local_tensors(cache)),
+            "cache_bytes": (0 if shape.kind == "train"
+                            else nbytes(_local_tensors(cache))),
+            "moment_bytes": (nbytes(_local_tensors(cache))
+                             if shape.kind == "train" else 0),
             "transient_bytes": run.peak,
             "peak_bytes_estimate": arg_bytes + run.peak,
             "fits": arg_bytes + run.peak <= FIT_SHARE * CARD_BYTES,
@@ -1056,10 +1124,20 @@ def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
             "meta_seconds": time.perf_counter() - t0}
 
 
+def batch_unit(pol, axes: dict) -> int:
+    """The batch's granule on a mesh of `axes`: the product of the sizes
+    of the mesh axes it shards over (`Policy.batch_axes`: "data" for a
+    prefill, data x model under ``dp_zero1``)."""
+    names = pol.batch_axes
+    names = (() if names is None else (names,) if isinstance(names, str)
+             else names)
+    return math.prod(axes.get(a, 1) for a in names)
+
+
 def per_card_fit(cfg: ModelConfig, pol, shape: Shape, axes: dict) -> dict:
-    """The per-card estimate of a prefill or decode cell on a mesh of `axes`
-    (`mesh_estimate`) at `shape`'s batch and, where it exceeds FIT_SHARE
-    of a card, the largest batch (a multiple of the batch axes' size) whose
+    """The per-card estimate of a cell on a mesh of `axes` (`mesh_estimate`)
+    at `shape`'s batch and, where it exceeds FIT_SHARE of a card, the
+    largest batch (a multiple of the batch axes' size, `batch_unit`) whose
     estimate fits: ``{"batch", "peak_bytes_estimate_per_card",
     "fits_per_card", "batch_that_fits", "estimates": {str(batch): the
     record of each batch built}}``. The meta step runs under a
@@ -1093,8 +1171,8 @@ def per_card_fit(cfg: ModelConfig, pol, shape: Shape, axes: dict) -> dict:
         fits = full <= FIT_SHARE * CARD_BYTES
         b = shape.batch
         if not fits:
-            unit = math.prod(axes.get(a, 1) for a in ("pod", "data"))
-            b, _ = largest_fitting_batch(cfg, pol, shape, peak, unit)
+            b, _ = largest_fitting_batch(cfg, pol, shape, peak,
+                                         batch_unit(pol, axes))
         return {"batch": shape.batch, "seq": shape.seq,
                 "peak_bytes_estimate_per_card": full,
                 "fits_per_card": fits, "batch_that_fits": b,
@@ -1111,9 +1189,11 @@ TIMED_CALLS = {"ssm": (("repro_torch.models.xlstm", "slstm_forward"),)}
 def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
                   device=None, rows_out: str = "") -> tuple:
     """Run a cell on `mesh` (see the module's docstring): a prefill twice,
-    a decode cell RUN_WARM + RUN_STEPS steps. Returns (record, logits of
-    the last step): the collectives of the first step, the seconds of the
-    second prefill or the ms a timed decode step, and per rank the bytes
+    a decode cell RUN_WARM + RUN_STEPS steps, a train cell 1 +
+    RUN_TRAIN_STEPS steps. Returns (record, logits of the last step; a
+    train cell's loss): the collectives of the first step, the seconds of
+    the second prefill or the ms a timed decode or train step (a train
+    cell's losses), and per rank the bytes
     it holds (its peak while the parameters and cache are drawn and
     distributed, then what stays), the peak of the steps, its argument
     bytes and the kernel launches of one prefill or of the timed decode
@@ -1132,6 +1212,7 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     decode = shape.kind == "decode"
+    train = shape.kind == "train"
     ctx = expandable_segments(dev) if on_card else contextlib.nullcontext()
     with ctx:
         fn, params, cache, inputs = mesh_prefill(cfg, pol, shape, mesh,
@@ -1150,10 +1231,11 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
             logits = fn()
             sync()
         seconds.append(time.perf_counter() - t0)
+        losses = [float(logits)] if train else []
         for _ in range(RUN_WARM - 1 if decode else 0):
             fn()
         sync()
-        steps = RUN_STEPS if decode else 1
+        steps = RUN_STEPS if decode else RUN_TRAIN_STEPS if train else 1
         before = kernel_launches()
         with contextlib.ExitStack() as stack:
             timing = {}
@@ -1168,6 +1250,8 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
             t0 = time.perf_counter()
             for _ in range(steps):
                 logits = fn()
+                if train:
+                    losses.append(logits)
             if on_card:
                 stop.record()
             sync()
@@ -1217,8 +1301,16 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
            "peak_bytes_max": (max(r["peak_bytes"] for r in ranks)
                               if on_card else None),
            "finite": bool(torch.isfinite(logits.float()).all()),
-           "output_shape": list(logits.shape),
-           "greedy_tokens": logits[:, -1].float().argmax(-1).tolist()}
+           "output_shape": list(logits.shape)}
+    if train:
+        out.update(losses=[float(x) for x in losses],
+                   ms_per_step=(ranks[0]["device_ms"] if on_card
+                                else seconds[-1] * 1e3),
+                   ms_per_step_host=seconds[-1] * 1e3,
+                   first_step_seconds=seconds[0], steps=RUN_TRAIN_STEPS,
+                   tokens_per_second=shape.batch * shape.seq / seconds[-1])
+        return out, logits
+    out["greedy_tokens"] = logits[:, -1].float().argmax(-1).tolist()
     if decode:
         ms = (ranks[0]["device_ms"] if on_card else seconds[-1] * 1e3)
         out.update(ms_per_step=ms, ms_per_step_host=seconds[-1] * 1e3,
@@ -1372,8 +1464,7 @@ def main(argv=None) -> list:
                        "trace": traceback.format_exc()[-2000:]}
                 print(f"[dryrun] FAIL {tag:55s} {type(e).__name__}: "
                       f"{str(e)[:200]}", flush=True)
-            if rec["ok"] and axes and rec["kind"] != "train" and \
-                    "per_card" not in rec:
+            if rec["ok"] and axes and "per_card" not in rec:
                 cut = rec.get("cut_layers")
                 cfg, shape_, _, pol = resolved_cell(
                     arch, shape, False, args.remat, args.strategy, axes,

@@ -121,6 +121,26 @@ def host_data_shard() -> tuple[int, int]:
     return process_index(), device_count()
 
 
+def batch_data_shard(mesh, batch_axes) -> tuple[int, int]:
+    """(shard index, shard count) of this rank's rows of the global batch
+    on `mesh`, for the input pipeline (``DataConfig(host_id=index,
+    n_hosts=count)``): its coordinate along the mesh axes the batch shards
+    over (`Policy.batch_axes`: a name, a tuple in mesh order, or None),
+    the first axis outermost, as DTensor lays out ``Shard(0)`` on several
+    mesh axes; and the product of their sizes. Ranks that differ only
+    along other axes hold the same rows: under ``tp`` the two "model"
+    ranks of a data row. (0, 1) where the batch is not sharded.
+    `host_data_shard` stays the reference's (rank, world)."""
+    names = (() if batch_axes is None else (batch_axes,)
+             if isinstance(batch_axes, str) else tuple(batch_axes))
+    index, count = 0, 1
+    for name in names:
+        size = mesh.size(list(mesh.mesh_dim_names).index(name))
+        index = index * size + mesh.get_local_rank(name)
+        count *= size
+    return index, count
+
+
 def assert_mesh_spans_processes(mesh) -> None:
     """The mesh must use every device of the world (catches a mesh shape
     that disagrees with the processes launched). `mesh` is a DeviceMesh,

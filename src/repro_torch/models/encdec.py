@@ -102,14 +102,20 @@ def init_params(cfg: ModelConfig, pol: Policy, gen: torch.Generator):
     }
 
 
-def _layers(cfg: ModelConfig, body, x, layer_params):
+def _layers(cfg: ModelConfig, pol: Policy, body, x, layer_params):
     """x through `body(x, lp)` for each layer, each under a checkpoint
-    when the config remats and gradients are on."""
+    when the config remats and gradients are on; on a mesh that shards
+    weights over ZeRO-3's axes, the layer's weights gathered whole first,
+    inside the checkpoint (`Policy.at_use`)."""
     remat = cfg.remat != "none" and torch.is_grad_enabled()
+
+    def layer(x, lp):
+        return body(x, pol.at_use(lp))
+
     for lp in layer_params:
         # nothing in a layer draws random numbers: no RNG state to replay
-        x = (checkpoint(body, x, lp, use_reentrant=False,
-                        preserve_rng_state=False) if remat else body(x, lp))
+        x = (checkpoint(layer, x, lp, use_reentrant=False,
+                        preserve_rng_state=False) if remat else layer(x, lp))
     return x
 
 
@@ -129,7 +135,7 @@ def encode(cfg: ModelConfig, pol: Policy, params, frames):
         h = L.apply_norm(lp["ln2"], x, cfg.norm_eps, cfg.norm_type)
         return x + L.mlp_forward(lp["mlp"], cfg, pol, h)
 
-    x = _layers(cfg, body, x, params["enc"])
+    x = _layers(cfg, pol, body, x, params["enc"])
     return L.apply_norm(params["enc_norm"], x, cfg.norm_eps, cfg.norm_type)
 
 
@@ -151,7 +157,7 @@ def decode_train(cfg: ModelConfig, pol: Policy, params, tokens, memory):
         h = L.apply_norm(lp["ln2"], x, cfg.norm_eps, cfg.norm_type)
         return x + L.mlp_forward(lp["mlp"], cfg, pol, h)
 
-    x = _layers(cfg, body, x, params["dec"])
+    x = _layers(cfg, pol, body, x, params["dec"])
     return L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
 
 

@@ -66,7 +66,8 @@ def embed_lookup(cfg: ModelConfig, pol: Policy, table, tokens):
     and the constraint sums them: one all-reduce of the activations, where
     indexing would gather the whole table inside DTensor's dispatch."""
     x = F.embedding(tokens, table).to(cfg.cdtype())
-    return pol.constrain(x, "batch", "seq", None)
+    # the backward of a vocabulary-sharded lookup takes a whole gradient
+    return partitioning.grad_placed(pol.constrain(x, "batch", "seq", None))
 
 
 def norm_axes(norm_type="rmsnorm") -> dict:
@@ -200,7 +201,13 @@ def on_shards(fn, pol: Policy, in_axes, out_axes, *args):
     tuple (or `Summed`) for a single output, a list of them for a tuple
     of outputs. `fn` must compute each local output from the local inputs
     alone (rows, heads or channels that do not interact across ranks),
-    or a partial result that a `Summed` output declares."""
+    or a partial result that a `Summed` output declares.
+
+    In the backward each local input's gradient is placed as its input
+    is, except on a mesh axis where the input is replicated and some
+    output is not: there the ranks computed different parts from it, and
+    its gradient is their partial sum (a weight beside rows sharded over
+    the batch's axes, or hidden states beside a vocabulary slice)."""
     lead = next((a for a in args if partitioning.is_dtensor(a)), None)
     if lead is None:
         return fn(*args)
@@ -223,9 +230,15 @@ def on_shards(fn, pol: Policy, in_axes, out_axes, *args):
     # a list of placements is one output's; a tuple holds one an output
     outs = (tuple(place(ax) for ax in out_axes)
             if isinstance(out_axes, list) else place(out_axes))
+    split = [any(not o[i].is_replicate() for o in
+                 (outs if isinstance(out_axes, list) else (outs,)))
+             for i in range(mesh.ndim)]
+    grads = tuple(None if pl is None else
+                  [Partial() if p.is_replicate() and split[i] else p
+                   for i, p in enumerate(pl)] for pl in ins)
     with partitioning.local_ops_unrecorded():
         return local_map(fn, out_placements=outs, in_placements=ins,
-                         device_mesh=mesh)(*args)
+                         in_grad_placements=grads, device_mesh=mesh)(*args)
 
 
 def _attention_on_shards(fn, pol: Policy, q, k, v, **kw):
@@ -234,11 +247,12 @@ def _attention_on_shards(fn, pol: Policy, q, k, v, **kw):
     `Q_AXES` out, so that the kernel sees its rank's ``[B/data, S,
     H/model, hd]`` tensors. Heads and batch rows are independent, so the
     local results are the global one's shards. A sharded sequence needs
-    the keys of other ranks: it raises (the training strategies on a mesh
-    wait for ROADMAP.md item 19b, step 3)."""
+    the keys of other ranks: it raises (``dp_seq``, with its K/V gather
+    and dK/dV reduce-scatter, waits for ROADMAP.md item 19b, step 3b)."""
     if partitioning.is_dtensor(q) and pol.rules.get("seq") is not None:
         raise NotImplementedError("attention over a sequence sharded on a "
-                                  "mesh (dp_seq) is not ported")
+                                  "mesh (dp_seq) is not ported (ROADMAP.md "
+                                  "item 19b, step 3b)")
     return on_shards(functools.partial(fn, **kw), pol,
                      (Q_AXES, KV_AXES, KV_AXES), Q_AXES, q, k, v)
 

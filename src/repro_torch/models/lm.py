@@ -19,10 +19,12 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import partitioning
 from repro_torch.sharding.policy import Policy
 
 #: the families this module runs (the reference's `registry.FAMILIES`
@@ -116,7 +118,11 @@ def _ffn(cfg: ModelConfig, pol: Policy, p, h, aux: bool = True):
 
 
 def _block(cfg: ModelConfig, pol: Policy, p, x, positions):
-    """One pre-norm transformer block. Returns (x, aux_loss, (k, v))."""
+    """One pre-norm transformer block. Returns (x, aux_loss, (k, v)). On a
+    mesh whose policy shards weights over ZeRO-3's axes (training under
+    ``tp``), the block's weights are first gathered whole there
+    (`Policy.at_use`)."""
+    p = pol.at_use(p)
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps, cfg.norm_type)
     a, kv = L.attn_forward(p["attn"], cfg, pol, h, positions,
                            window=cfg.local_window)
@@ -142,7 +148,9 @@ def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens,
         n = embeds.shape[1]
         x = pol.constrain(x, "batch", "seq", None)
         x = torch.cat([embeds.to(x.dtype), x[:, n:]], dim=1)
-    return pol.constrain(x.to(cfg.cdtype()), "batch", "seq", None)
+    x = pol.constrain(x.to(cfg.cdtype()), "batch", "seq", None)
+    # the backward of a vocabulary-sharded lookup takes a whole gradient
+    return partitioning.grad_placed(x)
 
 
 def forward(cfg: ModelConfig, pol: Policy, params, tokens,
@@ -152,16 +160,28 @@ def forward(cfg: ModelConfig, pol: Policy, params, tokens,
 
     Returns (hidden [B,S,d] post-final-norm, aux_loss): the MoE layers'
     load-balance losses summed, times ``router_aux_loss / n_layers`` (0
-    for a dense model).
+    for a dense model). With ``cfg.remat != "none"`` and gradients on,
+    each block runs under `torch.utils.checkpoint` and is recomputed in
+    the backward, as the reference's scanned body runs under
+    `jax.checkpoint`: the attention kernel launches twice a layer a step.
     """
     _check_lm(cfg)
     B, S = tokens.shape
     x = embed_tokens(cfg, pol, params, tokens, embeds)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, lp):
+        x, a, _ = _block(cfg, pol, lp, x, positions)
+        return x, a
+
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, a, _ = _block(cfg, pol, lp, x, positions)
+        # nothing in a block draws random numbers: no RNG state to replay
+        x, a = (checkpoint(body, x, lp, use_reentrant=False,
+                           preserve_rng_state=False) if remat
+                else body(x, lp))
         aux = aux + a
     x = L.apply_norm(params["norm"], x, cfg.norm_eps, cfg.norm_type)
     return x, aux * cfg.router_aux_loss / max(cfg.n_layers, 1)

@@ -25,6 +25,7 @@ is unchanged.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Mapping, NamedTuple, Optional, Sequence
 
 # Default rules: tensor parallel on "model", ZeRO-3-style parameter sharding
@@ -156,7 +157,14 @@ def constrain(x, *axes, rules=LOGICAL_RULES):
     mesh = current_mesh()
     if mesh is None or not is_dtensor(x):
         return x
-    want = logical_placements(mesh, axes, rules)
+    return redistribute(x, mesh, logical_placements(mesh, axes, rules))
+
+
+def redistribute(x, mesh, want):
+    """The DTensor `x` redistributed to placements `want` on `mesh` (`x`
+    itself where it has them). Inside `timed_redistributions` each one is
+    timed."""
+    want = tuple(want)
     if tuple(x.placements) == want:
         return x
     if not _TIMED:
@@ -168,6 +176,59 @@ def constrain(x, *axes, rules=LOGICAL_RULES):
         local.trigger_wait()
     _TIMED[-1].append((transition(x.placements, want), start, _event()))
     return y
+
+
+def whole_over(x, axes):
+    """The DTensor `x` with each of its shards on the mesh axes `axes` (a
+    name, a tuple of names or None) gathered, its other placements kept:
+    ZeRO-3's gather of a weight at its point of use, where `axes` is what
+    ``embed_fsdp`` maps to. The identity on a plain tensor, outside a
+    mesh, or where `x` is not sharded on `axes`. Its gradient goes back
+    through the gather's transpose: a partial sum reduce-scattered onto
+    the shards."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x) or not axes:
+        return x
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    want = [Replicate() if name in names and p.is_shard() else p
+            for name, p in zip(mesh.mesh_dim_names, x.placements)]
+    return redistribute(x, mesh, want)
+
+
+def grad_placed(x):
+    """The DTensor `x` itself, its gradient redistributed in the backward
+    to `x`'s own placements (the identity on anything else). DTensor's
+    backward may leave a gradient a partial sum over "model" (each rank's
+    share from its heads or vocabulary slice), which the transpose of a
+    redistribution that made `x` whole cannot take: the embedding's, from
+    DTensor's masked partial lookup (it raises), or a `layers.Summed`
+    output's (it would take each rank's share for the whole). Placed
+    after such a redistribution, this makes the gradient whole first."""
+    if not is_dtensor(x):
+        return x
+    return _grad_placed().apply(x)
+
+
+@functools.cache
+def _grad_placed():
+    """`grad_placed`'s autograd Function (made at first use: this module
+    imports torch only where it needs it)."""
+    import torch
+
+    class GradPlaced(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.spec = (x.device_mesh, tuple(x.placements))
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            mesh, places = ctx.spec
+            return redistribute(g, mesh, places)
+
+    return GradPlaced
 
 
 _TIMED: list = []           # the open `timed_redistributions` records

@@ -37,8 +37,10 @@ plain attention and the loss's sequence chunks). On a mesh of cards
 rules also lay DTensors out: `Policy.constrain` redistributes to the
 placements of logical axes, and the prefill and decode paths run on that
 mesh (`launch/dryrun.py --mesh`; ``seq_kv`` decode as flash-decoding over
-the cache's time axis, an MoE layer's experts on "model"). Training and
-the expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3 and
+the cache's time axis, an MoE layer's experts on "model"), and so does
+the train step under ``tp`` and ``dp_zero1`` (`train/step.py`: ZeRO-3's
+weights gathered at use, `Policy.at_use`). ``dp_zero3``, ``dp_seq`` and
+the expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3b and
 4.
 """
 from __future__ import annotations
@@ -82,6 +84,25 @@ class Policy:
     def spec(self, axes):
         """The mesh axes of each logical axis (a PartitionSpec's entries)."""
         return partitioning.logical_spec(axes, self.rules)
+
+    def at_use(self, tree):
+        """The weights of `tree` (a layer's dict of tensors) made whole
+        over the mesh axes ZeRO-3 shards them on (``rules["embed_fsdp"]``,
+        `partitioning.whole_over`): on a mesh an all-gather of each such
+        weight where it is used, as the reference's ZeRO-3 gathers it in
+        the forward, again in the remat recompute, and reduce-scatters its
+        gradient. `tree` itself off a mesh or where no rule shards so."""
+        axes = self.rules.get("embed_fsdp")
+        if not axes or partitioning.current_mesh() is None:
+            return tree
+
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [walk(v) for v in t]
+            return partitioning.whole_over(t, axes)
+        return walk(tree)
 
 
 def _prod(xs):

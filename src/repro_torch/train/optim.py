@@ -10,6 +10,15 @@ order). Unlike the
 reference, which returns new trees, `apply` updates the parameters and
 the moments IN PLACE, one tensor at a time: at recurrentgemma-2b's size a
 second copy of the 19 GB of moments would not be free.
+
+On a mesh the parameters are DTensors, and so are the moments
+(`torch.zeros_like` keeps a parameter's placements, as the reference's
+dry run lowers ``m=p_shard, v=p_shard``). `reduce_to_params` first makes
+each gradient's placements its parameter's, explicitly (an all-reduce of
+a partial sum over the batch's axes where the parameter is replicated, a
+reduce-scatter where it is a shard); `global_norm` sums the squares of
+each leaf's local shard and makes the sum whole once for each set of
+placements; `apply` then updates each leaf's local shard in place.
 """
 from __future__ import annotations
 
@@ -88,10 +97,60 @@ def init(cfg: AdamWConfig, params) -> OptState:
                     v=[z(p) for p in leaves])
 
 
+def _local(x):
+    """A DTensor's local shard (its storage: in-place ops on it update
+    the DTensor); a plain tensor as it is."""
+    return x._local_tensor if _is_dtensor(x) else x
+
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.sharding.partitioning import is_dtensor
+    return is_dtensor(x)
+
+
+def reduce_to_params(grads, params) -> list:
+    """Each gradient (in `tree_leaves` order) redistributed to its
+    parameter's placements where both are DTensors: a partial sum over
+    the batch's mesh axes all-reduced onto a replicated parameter, or
+    reduce-scattered onto a shard (ZeRO-3's dims, where the gather at use
+    has not already done so). Plain gradients as they are."""
+    from repro_torch.sharding.partitioning import redistribute
+
+    return [redistribute(g, p.device_mesh, p.placements)
+            if _is_dtensor(g) else g
+            for g, p in zip(tree_leaves(grads), tree_leaves(params))]
+
+
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32."""
-    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-    return torch.sqrt(torch.stack(sq).sum())
+    """sqrt of the sum of every gradient's squares, in float32. DTensor
+    leaves: each local shard's sum of squares, summed over the leaves of
+    one mesh and placements, is made whole once for each such set (an
+    all-reduce over the axes a placement shards, none over the axes it
+    replicates, so that a replicated leaf counts once, not once a
+    rank)."""
+    plain, groups = [], {}
+    for g in tree_leaves(grads):
+        sq = torch.sum(torch.square(_local(g).float()))
+        if _is_dtensor(g):
+            groups.setdefault((g.device_mesh, tuple(g.placements)),
+                              []).append(sq)
+        else:
+            plain.append(sq)
+    total = [torch.stack(plain).sum()] if plain else []
+    if groups:
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        for (mesh, places), sqs in groups.items():
+            if any(p.is_partial() for p in places):
+                raise ValueError("a partial gradient: reduce it to its "
+                                 "parameter's placements first "
+                                 "(`reduce_to_params`)")
+            part = DTensor.from_local(
+                torch.stack(sqs).sum(), mesh,
+                [Partial() if p.is_shard() else Replicate()
+                 for p in places], run_check=False)
+            total.append(part.full_tensor())
+    return torch.sqrt(torch.stack(total).sum() if len(total) > 1
+                      else total[0])
 
 
 @torch.no_grad()
@@ -109,6 +168,8 @@ def apply(cfg: AdamWConfig, state: OptState, params, grads, decay):
     b2c = 1 - cfg.b2 ** step
     for p, g, m, v, dk in zip(tree_leaves(params), tree_leaves(grads),
                               state.m, state.v, decay):
+        # the same placements on a mesh: elementwise on the local shards
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         g = g.float() * scale
         m32, v32 = m.float(), v.float()     # the moments themselves if f32
         m32.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)

@@ -1,26 +1,40 @@
 """Train step: microbatched gradient accumulation + AdamW + metrics.
 
-The counterpart of the reference's `repro/train/step.py` on one card:
+The counterpart of the reference's `repro/train/step.py`:
 ``make_train_step`` builds a (state, batch) -> (state, metrics) function
 for every family of `models/registry.py`; a batch's ``embeds`` (a VLM
 backbone's patch embeddings, an encoder-decoder's frames) go to the
-forward. With ``n_micro > 1`` the
-batch is split into microbatches whose float32 gradients are summed in a
-Python loop (the reference's `lax.scan`), then averaged. The policy is the
-single-card one (`sharding/policy.py`); the reference's mesh resolution
-and the logical axes that `init_state` returns beside the state there have
-no counterpart on one card. The parameters are updated in place
+forward. With ``n_micro > 1`` the batch is split into microbatches whose
+float32 gradients are summed in a Python loop (the reference's
+`lax.scan`), then averaged. The parameters are updated in place
 (`optim.apply`), with weight decay counted in the reference's stacked
 layout of the family (its module's ``STACKED_KEYS``).
+
+On a mesh (``mesh=``: the parameters DTensors of each rank's shards,
+`launch/dryrun.py::distribute`; the moments from `state_for`, on their
+parameters' placements; the batch each rank's rows, `shard_batch`), the
+step runs under `partitioning.mesh_context` with the policy `resolve`
+gave for ``"train"``: ``tp`` (heads, MLP and vocabulary over "model",
+ZeRO-3 over "data": each such weight gathered where it is used,
+`Policy.at_use`, its gradient reduce-scattered) or ``dp_zero1`` (the
+batch over every mesh axis, parameters and moments replicated). The kernels and the loss run
+on each rank's shards; each gradient is then reduced to its parameter's
+placements explicitly (`optim.reduce_to_params`) before AdamW updates the
+local shards. With ``n_micro > 1`` each rank splits its own rows. The
+``dp_zero3`` and ``dp_seq`` strategies, and the families outside
+`MESH_TRAIN_FAMILIES`, raise NotImplementedError: ROADMAP.md item 19b,
+step 3b.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_family
+from repro_torch.sharding import partitioning
 from repro_torch.sharding.policy import Policy
 from repro_torch.train import optim as optim_lib
 from repro_torch.train.loss import chunked_ce
@@ -51,6 +65,69 @@ def state_for(params, ocfg: Optional[optim_lib.AdamWConfig] = None
                                          params))
 
 
+#: the strategies and families whose train step runs on a mesh; the
+#: others wait for ROADMAP.md item 19b, step 3b
+MESH_TRAIN_STRATEGIES = ("tp", "dp_zero1")
+MESH_TRAIN_FAMILIES = ("dense", "encdec")
+
+
+def check_mesh_train(cfg: ModelConfig, pol: Policy):
+    """Raises NotImplementedError for a train step on a mesh that the port
+    does not run yet."""
+    if pol.strategy not in MESH_TRAIN_STRATEGIES:
+        raise NotImplementedError(
+            f"the {pol.strategy} train step on a mesh is not ported "
+            f"(ROADMAP.md item 19b, step 3b); it runs "
+            f"{', '.join(MESH_TRAIN_STRATEGIES)}")
+    if cfg.family not in MESH_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's train step on a mesh "
+            f"is not ported (ROADMAP.md item 19b, step 3b); it runs "
+            f"{', '.join(MESH_TRAIN_FAMILIES)}")
+
+
+def shard_batch(pol: Policy, mesh, local: dict) -> dict:
+    """This rank's rows of the global batch (``DataConfig(host_id, n_hosts)
+    = launch.multihost.batch_data_shard(mesh, pol.batch_axes)``: tensors
+    whose leading dim is its shard) as DTensors of the global batch laid
+    out on ("batch", None, ...). Nothing moves between ranks."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.multihost import batch_data_shard
+
+    _, count = batch_data_shard(mesh, pol.batch_axes)
+    out = {}
+    for name, x in local.items():
+        shape = (x.shape[0] * count,) + tuple(x.shape[1:])
+        out[name] = DTensor.from_local(
+            x, mesh, partitioning.logical_placements(
+                mesh, ("batch",) + (None,) * (x.dim() - 1), pol.rules),
+            run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
+def _micro(batch: dict, n_micro: int, i: int) -> dict:
+    """Micro-batch `i` of `n_micro`: rows of a plain batch; on a mesh,
+    rows of each rank's own shard, as DTensors of the micro-batch."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, x in batch.items():
+        if partitioning.is_dtensor(x):
+            local = x.to_local()
+            b = local.shape[0] // n_micro
+            shape = (x.shape[0] // n_micro,) + tuple(x.shape[1:])
+            out[name] = DTensor.from_local(
+                local[i * b:(i + 1) * b], x.device_mesh, x.placements,
+                run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+        else:
+            b = x.shape[0] // n_micro
+            out[name] = x[i * b:(i + 1) * b]
+    return out
+
+
 def make_loss_fn(cfg: ModelConfig, pol: Policy, loss_chunk: int = 512):
     family = get_family(cfg)
 
@@ -64,34 +141,34 @@ def make_loss_fn(cfg: ModelConfig, pol: Policy, loss_chunk: int = 512):
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, pol: Policy,
-                    ocfg: Optional[optim_lib.AdamWConfig] = None,
-                    n_micro: int = 1, loss_chunk: int = 512):
-    """(state, batch of tensors) -> (state, metrics). The metrics are
-    0-d tensors on the device (``loss``, ``grad_norm``, ``ce``,
-    ``tokens``) and the host float ``lr``."""
-    ocfg = ocfg or optim_lib.AdamWConfig()
+def make_grad_fn(cfg: ModelConfig, pol: Policy, n_micro: int = 1,
+                 loss_chunk: int = 512, mesh=None):
+    """(params, batch) -> (loss, metrics, gradients in `tree_leaves`
+    order): with ``n_micro > 1`` the micro-batches' float32 gradients
+    summed, then averaged; on a mesh each reduced to its parameter's
+    placements (`optim.reduce_to_params`). Runs under the mesh's
+    `partitioning.mesh_context` where `mesh` is given."""
+    if mesh is not None:
+        check_mesh_train(cfg, pol)
     loss_fn = make_loss_fn(cfg, pol, loss_chunk)
-    stacked = get_family(cfg).STACKED_KEYS
 
     def value_and_grad(params, batch):
         loss, mets = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, optim_lib.tree_leaves(params))
         return loss.detach(), mets, list(grads)
 
-    def train_step(state: TrainState, batch):
+    def grads_of(params, batch):
         if n_micro == 1:
-            loss, mets, grads = value_and_grad(state.params, batch)
+            loss, mets, grads = value_and_grad(params, batch)
         else:
             B = batch["tokens"].shape[0]
             if B % n_micro:
                 raise ValueError(f"batch {B} is not a multiple of n_micro "
                                  f"{n_micro}")
-            micro = [{k: x[i * (B // n_micro):(i + 1) * (B // n_micro)]
-                      for k, x in batch.items()} for i in range(n_micro)]
             loss, grads = 0.0, None
-            for mb in micro:
-                li, mets, gi = value_and_grad(state.params, mb)
+            for i in range(n_micro):
+                li, mets, gi = value_and_grad(params,
+                                              _micro(batch, n_micro, i))
                 loss = loss + li
                 if grads is None:
                     grads = [g.float() for g in gi]
@@ -100,11 +177,45 @@ def make_train_step(cfg: ModelConfig, pol: Policy,
                         g.add_(x)
                 del gi
             loss = loss / n_micro
+        if mesh is not None:
+            grads = optim_lib.reduce_to_params(grads, params)
+        if n_micro > 1:
             grads = [g / n_micro for g in grads]
+        # the loss on a mesh is replicated: each rank's whole copy
+        if partitioning.is_dtensor(loss):
+            loss = loss.to_local()
+        return loss, mets, grads
+
+    def grad_fn(params, batch):
+        with (partitioning.mesh_context(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            return grads_of(params, batch)
+
+    return grad_fn
+
+
+def make_train_step(cfg: ModelConfig, pol: Policy,
+                    ocfg: Optional[optim_lib.AdamWConfig] = None,
+                    n_micro: int = 1, loss_chunk: int = 512, mesh=None):
+    """(state, batch of tensors) -> (state, metrics). The metrics are
+    0-d tensors on the device (``loss``, ``grad_norm``, ``ce``,
+    ``tokens``; on a mesh each rank's whole copy) and the host float
+    ``lr``. With `mesh`, the state and batch are DTensors on it (see the
+    module's docstring)."""
+    ocfg = ocfg or optim_lib.AdamWConfig()
+    grad_fn = make_grad_fn(cfg, pol, n_micro, loss_chunk, mesh)
+    stacked = get_family(cfg).STACKED_KEYS
+
+    def train_step(state: TrainState, batch):
+        loss, mets, grads = grad_fn(state.params, batch)
+        # on a mesh the update runs on each leaf's local shard
         params, opt, omets = optim_lib.apply(
             ocfg, state.opt, state.params, grads,
             optim_lib.decay_mask(state.params, stacked))
         out = {"loss": loss, **omets, **mets}
+        # a metric on a mesh is replicated: each rank's whole copy
+        out = {k: v.to_local() if partitioning.is_dtensor(v) else v
+               for k, v in out.items()}
         return TrainState(params=params, opt=opt), out
 
     return train_step

@@ -1,0 +1,495 @@
+"""The train step on a mesh, on the CPU: four gloo ranks against one
+process.
+
+One group of four gloo ranks (`test_torch_multihost.run_ranks`) on a data
+2 x model 2 mesh runs each case of `CASES` in turn: reduced granite-3-2b
+under ``tp`` (forced, as the dry run forces a strategy; ``remat="full"``,
+so that ZeRO-3's gathers run in the forward and again in the recompute)
+and under ``dp_zero1`` (as `resolve` gives it, with two micro-batches of
+each rank's rows), and reduced seamless-m4t-large-v2 under ``dp_zero1``
+(as `resolve` gives it). Every rank draws the same float32 parameters from
+one seed and keeps its shards (`launch/dryrun.py::distribute`); its rows
+are the synthetic stream's shard at its place on the batch's mesh axes
+(`multihost.batch_data_shard`). The one process is given the same
+parameters and the global batch: the shards concatenated in that order.
+
+Held, for each case:
+- the loss and gradient norm of each of two AdamW steps, every gradient
+  leaf (reduced to its parameter's placements, then gathered), and the
+  first and second moments after the steps: within MESH_RTOL = 1e-5
+  relative (relative L2 for a tensor) of the one process. Float32 sums
+  over two or four shards in another order; seen: at most 5.5e-6 (a
+  moment of ``tp``), 1e-6 for the gradient leaves.
+- the parameters after the steps: the relative L2 of the whole tree
+  within MESH_RTOL, and each leaf as `tests/test_torch_train.py` holds
+  them, counted in elements so that a leaf of 64 may hold one: at most 1
+  % of a leaf's elements, or one, beyond 1e-6, every element within 2 lr
+  a step. AdamW moves an element whose gradient is near 0 by up to lr on
+  one side and not the other, from a gradient difference of 1e-9 (seen:
+  one element of 64 in a norm leaf of ``tp`` and of ``dp_zero1``'s
+  seamless, 1.8e-6 apart, the rest of every leaf within 1e-6).
+- after the first step, the first moment is (1 - b1) times the clipped
+  gradient, on each rank's shard (to 1e-6 relative: the same float32
+  product).
+- each rank's rows are the reference's `repro.train.data.batches` with
+  ``host_id`` its batch coordinate, bit for bit; under ``tp`` the two
+  "model" ranks of a data row hold the same rows.
+- the step's collectives (`CollectiveRecorder`, counts and bytes by
+  kind) equal those of the meta step the per-card estimate runs
+  (`dryrun.per_card_fit`); under ``tp`` each all-gather is a ZeRO-3
+  weight made whole over "data" (twice a weight a layer: forward and
+  recompute), none the batch's.
+- the mesh runner's own train cell (`dryrun.run_mesh_cell`): each rank's
+  argument bytes equal the per-card estimate's, and its losses are
+  finite.
+
+The one-process steps are held against the JAX reference by
+`tests/test_torch_train.py`; together they hold the slice end to end.
+Also here: `launch.train --mesh` refuses ``--ckpt-dir``, the train step on
+a mesh refuses ``dp_zero3``, ``dp_seq`` and the families it does not run
+(naming ROADMAP.md item 19b, step 3b), `batch_data_shard`'s coordinates,
+the LM's remat against its plain forward, and the loss's chunk code off a
+mesh against `torch.logsumexp`, bit for bit.
+"""
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import dataclasses
+import functools
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import SHAPES, smoke_config
+from repro_torch.launch import dryrun, multihost
+from repro_torch.launch import train as tlaunch
+from repro_torch.launch.mesh import FOUR_CARD
+from repro_torch.models.registry import get_family
+from repro_torch.sharding.policy import resolve, single_device_policy
+from repro_torch.train import data as tdata
+from repro_torch.train import optim as toptim
+from repro_torch.train import step as tstep
+from test_torch_multihost import run_ranks
+from test_torch_reference import load_reference
+
+BATCH, SEQ, STEPS, SEED = 8, 16, 2, 3
+OPT = dict(lr=3e-3, warmup_steps=1, total_steps=10)
+MESH_RTOL = 1e-5
+#: name -> (arch, strategy given to `resolve`, remat, n_micro, the strategy
+#: it resolves to)
+CASES = {
+    "granite_tp": ("granite-3-2b", "tp", "full", 1, "tp"),
+    "granite_dp_zero1": ("granite-3-2b", "auto", "none", 2, "dp_zero1"),
+    "seamless_dp_zero1": ("seamless-m4t-large-v2", "auto", "none", 1,
+                          "dp_zero1"),
+}
+
+
+def case_setup(arch, strategy, remat):
+    """The reduced config (float32, the attention kernel's path: its plain
+    version on the CPU) and its train policy on the four-card mesh."""
+    cfg = smoke_config(arch, attention_impl="pallas", remat=remat)
+    return cfg, resolve(cfg, FOUR_CARD, BATCH, "train", seq=SEQ,
+                        strategy=strategy)
+
+
+def case_shape():
+    return dataclasses.replace(SHAPES["train_4k"], batch=BATCH, seq=SEQ)
+
+
+def full_params(cfg, pol):
+    return get_family(cfg).init_params(cfg, pol,
+                                       torch.Generator().manual_seed(SEED))
+
+
+def to_torch(b):
+    return {k: torch.from_numpy(v) if k == "embeds" else
+            torch.from_numpy(v).long() for k, v in b.items()}
+
+
+_RANKS = r"""
+import json, sys
+import torch
+from repro_torch.launch import dryrun, mesh as tmesh, multihost
+from repro_torch.launch.collective_stats import CollectiveRecorder
+from repro_torch.train import data as tdata, optim as toptim, step as tstep
+from test_torch_mesh_train import (BATCH, CASES, OPT, SEQ, STEPS, SEED,
+                                   case_setup, case_shape, full_params,
+                                   to_torch)
+
+multihost.initialize(timeout_s=60, device="cpu")
+m = tmesh.make_mesh(tmesh.FOUR_CARD, "cpu")
+rank = multihost.process_index()
+out = {}
+for name, (arch, strategy, remat, n_micro, _) in CASES.items():
+    cfg, pol = case_setup(arch, strategy, remat)
+    specs = dryrun.param_specs(cfg, pol, m)
+    params = dryrun.distribute(full_params(cfg, pol), specs)
+    index, count = multihost.batch_data_shard(m, pol.batch_axes)
+    it = tdata.batches(cfg, tdata.DataConfig(
+        batch=BATCH, seq=SEQ, seed=1, host_id=index, n_hosts=count))
+    rows = [next(it) for _ in range(STEPS)]
+    batches = [tstep.shard_batch(pol, m, to_torch(b)) for b in rows]
+    # the gradients of the first batch, reduced to the parameters'
+    # placements, then whole
+    ocfg = toptim.AdamWConfig(**OPT)
+    state = tstep.state_for(params, ocfg)
+    grad_fn = tstep.make_grad_fn(cfg, pol, n_micro, mesh=m)
+    _, _, grads = grad_fn(params, batches[0])
+    step = tstep.make_train_step(cfg, pol, ocfg, n_micro=n_micro, mesh=m)
+    mets, ops = [], []
+    for i, b in enumerate(batches):
+        with CollectiveRecorder() as rec:
+            state, got = step(state, b)
+        mets.append({k: float(v) for k, v in got.items()})
+        ops.append([list(o[:3]) for o in rec.ops])
+        if i == 0:
+            # the first moment after one step: (1 - b1) x the clipped
+            # gradient, on this rank's shards
+            scale = min(1.0, ocfg.grad_clip
+                        / max(mets[0]["grad_norm"], 1e-9))
+            m1 = max(float((mm.to_local() - (1 - ocfg.b1) * scale
+                            * g.to_local().float()).norm()
+                           / (mm.to_local().norm() + 1e-30))
+                     for mm, g in zip(state.opt.m, grads))
+    whole = {"grads": [g.full_tensor() for g in grads],
+             "params": [p.full_tensor().detach()
+                        for p in toptim.tree_leaves(state.params)],
+             "m": [x.full_tensor() for x in state.opt.m],
+             "v": [x.full_tensor() for x in state.opt.v]}
+    if rank == 0:
+        torch.save(whole, sys.argv[1] + f"/{name}.pt")
+    run, _ = dryrun.run_mesh_cell(cfg, pol, case_shape(), m, seed=SEED,
+                                  device="cpu")
+    out[name] = {
+        "shard": [index, count], "strategy": pol.strategy,
+        "tokens": [r["tokens"].tolist() for r in rows],
+        "labels": [r["labels"].tolist() for r in rows],
+        "mets": mets, "ops": ops, "m_after_one": m1,
+        "fsdp_local": sorted({int(x.to_local().numel()
+                                  * x.element_size() * m.size(0))
+                              for x in toptim.tree_leaves(params)
+                              if x.placements[0].is_shard()}),
+        "run_arguments": [r["argument_bytes"] for r in run["ranks"]],
+        "run_ops": run["collectives"]["op_count"],
+        "run_losses": run["losses"], "run_finite": run["finite"]}
+print(json.dumps(out))
+multihost.shutdown()
+"""
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return load_reference()
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every case on four gloo ranks, in one group."""
+    tmp = tmp_path_factory.mktemp("mesh_train")
+    outs = run_ranks(_RANKS, 4, tmp)
+    return types.SimpleNamespace(outs=outs, tmp=tmp)
+
+
+@pytest.fixture(scope="module")
+def one_process(ranks):
+    """Each case in this process: the same parameters, the global batch
+    (the ranks' shards concatenated in order), the same steps."""
+    cache = {}
+
+    def get(name):
+        if name in cache:
+            return cache[name]
+        arch, strategy, remat, n_micro, _ = CASES[name]
+        cfg, mpol = case_setup(arch, strategy, remat)
+        pol = single_device_policy(cfg)
+        count = ranks.outs[0][name]["shard"][1]
+        its = [tdata.batches(cfg, tdata.DataConfig(
+            batch=BATCH, seq=SEQ, seed=1, host_id=i, n_hosts=count))
+            for i in range(count)]
+        batches = []
+        for _ in range(STEPS):
+            parts = [next(it) for it in its]
+            batches.append(to_torch({k: np.concatenate([p[k] for p in parts])
+                                     for k in parts[0]}))
+        ocfg = toptim.AdamWConfig(**OPT)
+        state = tstep.state_for(full_params(cfg, mpol), ocfg)
+        _, _, grads = tstep.make_grad_fn(cfg, pol, n_micro)(state.params,
+                                                            batches[0])
+        step = tstep.make_train_step(cfg, pol, ocfg, n_micro=n_micro)
+        mets = []
+        for b in batches:
+            state, got = step(state, b)
+            mets.append({k: float(v) for k, v in got.items()})
+        cache[name] = types.SimpleNamespace(
+            mets=mets, grads=[g.detach() for g in grads],
+            params=[p.detach() for p in toptim.tree_leaves(state.params)],
+            m=state.opt.m, v=state.opt.v,
+            mesh=torch.load(ranks.tmp / f"{name}.pt"))
+        return cache[name]
+    return get
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_resolved_strategy(ranks, name):
+    assert ranks.outs[0][name]["strategy"] == CASES[name][4]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_loss_and_grad_norm_match_one_process(ranks, one_process, name):
+    one = one_process(name)
+    for r, out in enumerate(ranks.outs):
+        for got, want in zip(out[name]["mets"], one.mets):
+            for key in ("loss", "grad_norm"):
+                assert got[key] == pytest.approx(want[key], rel=MESH_RTOL,
+                                                 abs=0), (r, key)
+            assert got["tokens"] == want["tokens"]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_every_gradient_leaf_matches_one_process(one_process, name):
+    one = one_process(name)
+    assert len(one.mesh["grads"]) == len(one.grads)
+    for i, (got, want) in enumerate(zip(one.mesh["grads"], one.grads)):
+        assert got.shape == want.shape
+        assert rel_l2(got, want) <= MESH_RTOL, i
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_moments_match_one_process(one_process, name):
+    one = one_process(name)
+    for key in ("m", "v"):
+        for i, (got, want) in enumerate(zip(one.mesh[key],
+                                            getattr(one, key))):
+            assert rel_l2(got, want) <= MESH_RTOL, (key, i)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_parameters_match_one_process(one_process, name):
+    one = one_process(name)
+    got = torch.cat([p.flatten() for p in one.mesh["params"]])
+    want = torch.cat([p.flatten() for p in one.params])
+    assert rel_l2(got, want) <= MESH_RTOL
+    for i, (g, w) in enumerate(zip(one.mesh["params"], one.params)):
+        d = (g - w).abs()
+        assert int((d > 1e-6).sum()) <= max(1, d.numel() // 100), i
+        assert float(d.max()) <= 2 * OPT["lr"] * STEPS, i
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_first_moment_is_the_clipped_gradient(ranks, name):
+    for out in ranks.outs:
+        assert out[name]["m_after_one"] <= 1e-6
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rank_rows_are_the_reference_stream(ref, ranks, name):
+    """Bit for bit the reference's `data.batches` at the rank's batch
+    coordinate; the "model" ranks of a data row share rows under tp."""
+    arch = CASES[name][0]
+    jc = ref.configs.smoke_config(arch)
+    for r, out in enumerate(ranks.outs):
+        index, count = out[name]["shard"]
+        it = ref.train_data.batches(jc, ref.train_data.DataConfig(
+            batch=BATCH, seq=SEQ, seed=1, host_id=index, n_hosts=count))
+        for step in range(STEPS):
+            want = next(it)
+            for key in ("tokens", "labels"):
+                got = np.asarray(out[name][key][step], np.int32)
+                assert got.shape == (BATCH // count, SEQ)
+                np.testing.assert_array_equal(got, want[key])
+    shards = [tuple(out[name]["shard"]) for out in ranks.outs]
+    if CASES[name][4] == "tp":
+        # ranks (data, model) in row-major order: the model pairs share
+        assert shards == [(0, 2), (0, 2), (1, 2), (1, 2)]
+        assert ranks.outs[0][name]["tokens"] == ranks.outs[1][name]["tokens"]
+        assert ranks.outs[0][name]["tokens"] != ranks.outs[2][name]["tokens"]
+    else:
+        assert shards == [(r, 4) for r in range(4)]
+
+
+@pytest.fixture(scope="module")
+def per_card():
+    """The per-card estimate of each case's train cell (meta, a fake
+    group of four)."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            arch, strategy, remat, _, _ = CASES[name]
+            cfg, pol = case_setup(arch, strategy, remat)
+            cache[name] = dryrun.per_card_fit(cfg, pol, case_shape(),
+                                              FOUR_CARD)
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_per_card_estimate_is_the_ranks_arguments(ranks, per_card, name):
+    est = per_card(name)["estimates"][str(BATCH)]
+    assert est["moment_bytes"] > 0 and est["cache_bytes"] == 0
+    for out in ranks.outs:
+        assert out[name]["run_arguments"] == [est["argument_bytes"]] * 4
+        assert out[name]["run_finite"]
+        assert len(out[name]["run_losses"]) == 1 + dryrun.RUN_TRAIN_STEPS
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_step_collectives_are_the_meta_steps(ranks, per_card, name):
+    """A step's collectives equal the meta step's: the mesh runner's cold
+    step by count; each step of the library's, where it runs no
+    micro-batches (as the cell does not), by count and bytes."""
+    est = per_card(name)["estimates"][str(BATCH)]
+    assert ranks.outs[0][name]["run_ops"] == est["collective_count"]
+    if CASES[name][3] > 1:
+        return      # the library's steps run micro-batches; the cell not
+    for out in ranks.outs:
+        for ops in out[name]["ops"]:
+            count, nbytes = {}, {}
+            for kind, result, group in ops:
+                count[kind] = count.get(kind, 0) + 1
+                nbytes[kind] = nbytes.get(kind, 0) + (
+                    result // group if kind == "all-gather" else
+                    result * group if kind == "reduce-scatter" else result)
+            assert count == {k: int(v) for k, v in
+                             est["collective_count"].items()}
+            assert nbytes == {k: int(v) for k, v in
+                              est["collective_bytes"].items()}
+
+
+def test_tp_gathers_weights_not_the_batch(ranks):
+    """Under tp every all-gather of a step is a ZeRO-3 weight made whole
+    over "data" (its bytes one of the weights' on "model"), twice a
+    weight a layer (the forward and the remat recompute); no activation
+    and no batch is gathered. Each weight's gradient is reduce-scattered
+    back onto its shards."""
+    arch, strategy, remat, _, _ = CASES["granite_tp"]
+    cfg, pol = case_setup(arch, strategy, remat)
+    out = ranks.outs[0]["granite_tp"]
+    weights = set(out["fsdp_local"])
+    gathers = [(result, group) for kind, result, group in out["ops"][0]
+               if kind == "all-gather"]
+    per_layer = 7           # wq, wk, wv, wo and the SwiGLU's wi, wg, wo
+    assert len(gathers) == 2 * per_layer * cfg.n_layers
+    assert all(group == 2 and result in weights for result, group in gathers)
+    scatters = [k for k, _, _ in out["ops"][0] if k == "reduce-scatter"]
+    assert len(scatters) >= per_layer * cfg.n_layers
+
+
+@pytest.mark.parametrize("strategy", ["dp_zero3", "dp_seq"])
+def test_mesh_train_refuses_the_strategies_of_step_3b(strategy):
+    cfg, pol = case_setup("granite-3-2b", strategy, "none")
+    assert pol.strategy == strategy
+    with pytest.raises(NotImplementedError, match="item 19b, step 3b"):
+        tstep.make_train_step(cfg, pol, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 19b, step 3b"):
+        dryrun.per_card_fit(cfg, pol, case_shape(), FOUR_CARD)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-2b",
+                                  "xlstm-1.3b"])
+def test_mesh_train_refuses_the_other_families(arch):
+    cfg, pol = case_setup(arch, "tp", "none")
+    with pytest.raises(NotImplementedError, match="item 19b, step 3b"):
+        tstep.make_grad_fn(cfg, pol, mesh=object())
+
+
+def test_train_on_a_mesh_refuses_a_checkpoint_dir(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 19b, step 5"):
+        tlaunch.main(["--arch", "granite-3-2b", "--reduced", "--mesh",
+                      "data=2,model=2", "--device", "cpu", "--steps", "1",
+                      "--ckpt-dir", str(tmp_path)])
+    assert not multihost.is_initialized()
+
+
+class _FakeMesh:
+    """A data 2 x model 2 mesh's coordinates for one rank."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, d, m):
+        self.coord = {"data": d, "model": m}
+
+    def size(self, i):
+        return 2
+
+    def get_local_rank(self, name):
+        return self.coord[name]
+
+
+@pytest.mark.parametrize("d,m", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_batch_data_shard(d, m):
+    mesh = _FakeMesh(d, m)
+    assert multihost.batch_data_shard(mesh, "data") == (d, 2)
+    assert multihost.batch_data_shard(mesh, ("data", "model")) == \
+        (2 * d + m, 4)
+    assert multihost.batch_data_shard(mesh, None) == (0, 1)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "pixtral-12b"])
+def test_lm_remat_is_the_plain_forward(arch):
+    """`remat="full"` checkpoints each block: the same loss and gradients
+    as without it."""
+    base = smoke_config(arch)
+    batch = to_torch(next(tdata.batches(base, tdata.DataConfig(
+        batch=2, seq=SEQ, seed=1))))
+    got = []
+    for remat in ("none", "full"):
+        cfg = base.with_(remat=remat)
+        pol = single_device_policy(cfg)
+        params = tstep.state_for(full_params(cfg, pol)).params
+        loss, _, grads = tstep.make_grad_fn(cfg, pol)(params, batch)
+        got.append((loss, grads))
+    assert float(got[0][0]) == float(got[1][0])
+    for a, b in zip(got[0][1], got[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _logsumexp_terms(cfg, h, w, lab):
+    """One chunk's (sum of nll, count, sum of lse^2) written with
+    `torch.logsumexp` on the whole vocabulary, as one card computes it."""
+    from repro_torch.train.loss import IGNORE, NEG_INF
+    logits = (h @ w.T).float()
+    logits = logits.masked_fill(torch.arange(w.shape[0]) >= cfg.vocab_size,
+                                NEG_INF)
+    if cfg.logit_softcap > 0:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    lse = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, torch.clamp(
+        lab, 0, cfg.vocab_size - 1)[..., None])[..., 0]
+    valid = lab != IGNORE
+    zero = torch.zeros(())
+    return (torch.where(valid, lse - gold, zero).sum(), valid.sum(),
+            torch.where(valid, lse ** 2, zero).sum())
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b"])
+def test_chunk_terms_off_a_mesh_are_logsumexps(arch, dtype, softcap):
+    """Off a mesh the loss's one chunk code (the mesh's, every mesh step
+    the identity) is `torch.logsumexp`'s in value and gradient, bit for
+    bit: m is the chunk's logsumexp and exp(lse - m) is exactly 1."""
+    from repro_torch.train.loss import _chunk_terms
+    cfg = smoke_config(arch).with_(logit_softcap=softcap)
+    gen = torch.Generator().manual_seed(0)
+    h = torch.randn(2, 32, cfg.d_model, generator=gen).to(dtype)
+    w = torch.randn(cfg.vocab_size + 5, cfg.d_model, generator=gen).to(dtype)
+    lab = torch.randint(-1, cfg.vocab_size, (2, 32), generator=gen)
+    got = []
+    for terms in (functools.partial(_chunk_terms, cfg,
+                                    single_device_policy(cfg)),
+                  functools.partial(_logsumexp_terms, cfg)):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        nll, cnt, z = terms(hh, ww, lab)
+        got.append((nll, cnt, z, *torch.autograd.grad(nll + 0.5 * z,
+                                                      (hh, ww))))
+    for a, b in zip(*got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
