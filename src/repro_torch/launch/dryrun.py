@@ -87,15 +87,19 @@ rest. ``--batch`` and ``--seq`` cut the cell's batch and length
 0, ``--rows-out`` each rank's parts of a decode cache's rows 0 and B - 1
 after the steps; ``--records`` takes the cells and their records from an
 earlier ``--out`` (the meta work done once, off the ranks). A train cell
-on a mesh (``tp`` as `resolve` gives it, or ``--strategy dp_zero1``)
-draws each rank's rows of the synthetic stream (`mesh_batch`: its place
-on the batch's mesh axes), the moments on their parameters' placements,
-and runs a cold AdamW step (its collectives recorded) then RUN_TRAIN_STEPS
-warm ones, timed as the prefill's; its per-card estimate counts the
-rank's parameter, gradient and moment shards, its rows, and the peak of
-forward, remat recompute, backward and AdamW. ``dp_zero3`` and
-``dp_seq`` on a mesh raise NotImplementedError (ROADMAP.md item 19b,
-step 3b).
+on a mesh (``tp`` as `resolve` gives it, or ``--strategy dp_zero1`` /
+``dp_zero3``) draws each rank's rows of the synthetic stream
+(`mesh_batch`: its place on the batch's mesh axes), the moments on their
+parameters' placements, and runs a cold AdamW step (its collectives
+recorded, with their group sizes by kind) then RUN_TRAIN_STEPS warm ones,
+timed as the prefill's; its per-card estimate counts the rank's
+parameter, gradient and moment shards (under ``dp_zero3`` a quarter of
+each block weight and of its moments, the embedding table and the norms
+whole), its rows (the batch's granule `batch_unit` is 4 under
+``dp_zero1`` and ``dp_zero3``), and the peak of forward, remat
+recompute, backward and AdamW (under ZeRO-3 one block's gathered weights
+at a time, as a transient). ``dp_seq`` on a mesh raises
+NotImplementedError (ROADMAP.md item 19b, step 3b).
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the
@@ -1127,7 +1131,7 @@ def mesh_estimate(cfg: ModelConfig, pol, shape: Shape, mesh) -> dict:
 def batch_unit(pol, axes: dict) -> int:
     """The batch's granule on a mesh of `axes`: the product of the sizes
     of the mesh axes it shards over (`Policy.batch_axes`: "data" for a
-    prefill, data x model under ``dp_zero1``)."""
+    prefill, data x model under ``dp_zero1`` and ``dp_zero3``)."""
     names = pol.batch_axes
     names = (() if names is None else (names,) if isinstance(names, str)
              else names)
@@ -1296,7 +1300,8 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
            "collectives": {"op_bytes": cs.op_bytes, "op_count": cs.op_count,
                            "link_bytes_per_device": cs.link_bytes_per_device,
                            "group_sizes": sorted({g for _, _, g, _ in
-                                                  rec.ops})},
+                                                  rec.ops}),
+                           "by_group": group_counts(rec.ops)},
            "ranks": ranks,
            "peak_bytes_max": (max(r["peak_bytes"] for r in ranks)
                               if on_card else None),
@@ -1321,6 +1326,17 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
         out.update(seconds=seconds[-1], seconds_each=seconds,
                    tokens_per_second=shape.batch * shape.seq / seconds[-1])
     return out, logits
+
+
+def group_counts(ops) -> dict:
+    """{"kind/group size": count} of a `CollectiveRecorder`'s ops: which
+    ranks each kind of collective spans (an all-gather over "data" alone
+    under ``tp``, over the four ranks under ``dp_zero3``)."""
+    out: dict = {}
+    for kind, _, group, _ in ops:
+        key = f"{kind}/{group}"
+        out[key] = out.get(key, 0) + 1
+    return out
 
 
 def run_on_mesh(rec: dict, axes: dict, seed: int = 0, batch=None,

@@ -29,8 +29,8 @@ On a mesh of cards, under torchrun (one card a rank, NCCL;
 ``--device cpu`` joins gloo ranks on the CPU):
 
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
-      --arch granite-3-2b --mesh data=2,model=2 [--strategy tp|dp_zero1] \
-      --batch 16 --seq 4096 --steps 3
+      --arch granite-3-2b --mesh data=2,model=2 \
+      [--strategy tp|dp_zero1|dp_zero3] --batch 16 --seq 4096 --steps 3
 
 the policy is resolved on the mesh's axes for ``"train"`` at ``--batch``
 and ``--seq`` (`sharding.policy.resolve`, as the reference's
@@ -40,11 +40,13 @@ shards (`launch/dryrun.py::distribute`), the moments take their
 parameters' placements, and each rank reads only its rows of the stream:
 ``DataConfig(host_id, n_hosts)`` from its place on the batch's mesh axes
 (`multihost.batch_data_shard`; the "model" ranks of a data row read the
-same rows under ``tp``). ``--batch`` is the global batch. Checkpoints
-copy whole leaves, so ``--ckpt-dir`` with ``--mesh`` raises (re-shard is
-ROADMAP.md item 19b, step 5), and so do the strategies the mesh step does
-not run yet (`train/step.py::check_mesh_train`, step 3b). Without
-``--mesh`` the one-card path is unchanged.
+same rows under ``tp``; under ``dp_zero1`` and ``dp_zero3`` the batch
+spans both axes, and each of the four ranks reads rows of its own).
+``--batch`` is the global batch. Checkpoints copy whole leaves, so
+``--ckpt-dir`` with ``--mesh`` raises (re-shard is ROADMAP.md item 19b,
+step 5), and so do the strategies the mesh step does not run yet
+(`train/step.py::check_mesh_train`, step 3b). Without ``--mesh`` the
+one-card path is unchanged.
 """
 from __future__ import annotations
 

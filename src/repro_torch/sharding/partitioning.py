@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Mapping, NamedTuple, Optional, Sequence
 
 # Default rules: tensor parallel on "model", ZeRO-3-style parameter sharding
@@ -185,7 +186,16 @@ def whole_over(x, axes):
     ``embed_fsdp`` maps to. The identity on a plain tensor, outside a
     mesh, or where `x` is not sharded on `axes`. Its gradient goes back
     through the gather's transpose: a partial sum reduce-scattered onto
-    the shards."""
+    the shards.
+
+    A dim sharded over several of those axes (``dp_zero3``'s
+    ``embed_fsdp`` = ("data", "model"): ``(Shard(d), Shard(d))``) is
+    gathered by ONE all-gather over the axes taken together
+    (`flat_group`), and its gradient reduce-scattered back by one
+    (`_whole_over_flat`): DTensor (2.11, 2.13) redistributes such a nested
+    shard one mesh dim at a time, two collectives each way, unless a
+    flattened DeviceMesh of those dims exists, which would change its
+    other redistributions too (see `flat_group`)."""
     from torch.distributed.tensor import Replicate
 
     mesh = current_mesh()
@@ -194,7 +204,159 @@ def whole_over(x, axes):
     names = (axes,) if isinstance(axes, str) else tuple(axes)
     want = [Replicate() if name in names and p.is_shard() else p
             for name, p in zip(mesh.mesh_dim_names, x.placements)]
+    dims = nested_dims(x.placements, want)
+    if dims is not None:
+        return _whole_over_flat().apply(x, dims)
     return redistribute(x, mesh, want)
+
+
+def nested_dims(have, want):
+    """The mesh dims (in mesh order) of a transition from placements
+    `have` to `want` that is one tensor dim's nested shard over two or
+    more mesh dims, all of them made whole (``want`` Replicate) or all
+    made that shard from a partial sum (``have`` Partial("sum")), the other
+    mesh dims untouched and not sharding that tensor dim; else None."""
+    moved = [i for i, (a, b) in enumerate(zip(have, want)) if a != b]
+    if len(moved) < 2 or any(have[i] != want[i] for i in range(len(have))
+                             if i not in moved):
+        return None
+    if all(have[i].is_shard() and want[i].is_replicate() for i in moved):
+        shard = [have[i] for i in moved]
+    elif all(have[i].is_partial() and getattr(have[i], "reduce_op", None)
+             == "sum" and want[i].is_shard() for i in moved):
+        shard = [want[i] for i in moved]
+    else:
+        return None
+    dim = shard[0].dim
+    if any(type(s) is not type(shard[0]) or s.dim != dim for s in shard):
+        return None
+    if any(p.is_shard() and getattr(p, "dim", None) == dim
+           for i, p in enumerate(have) if i not in moved):
+        return None
+    return tuple(moved)
+
+
+def flat_group(mesh, dims):
+    """The process group of `mesh`'s dims `dims` (mesh order) taken
+    together, its ranks in the row-major order of their coordinates there,
+    which is the order of a nested shard's chunks: one group for a
+    collective over several mesh axes. Made once for each mesh (every rank
+    makes every such group, as `torch.distributed.new_group` wants) and
+    kept on it. Not a flattened DeviceMesh: DTensor would then merge its
+    own redistributions over those dims, and issue other collectives than
+    the same step on a mesh where no such group was made yet."""
+    import torch.distributed as dist
+
+    dims = tuple(dims)
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    cache = mesh.__dict__.setdefault("_repro_flat_groups", {})
+    if dims not in cache:
+        rows = mesh.mesh.movedim(dims, tuple(range(-len(dims), 0)))
+        rows = rows.reshape(-1, math.prod(mesh.size(i) for i in dims))
+        me = dist.get_rank()
+        for row in rows.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                cache[dims] = group
+    return cache[dims]
+
+
+def _equal_chunks(shape, dim, n):
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(shape)} does not split into "
+                         f"{n} equal shards")
+
+
+def _gather_flat(local, dim: int, group):
+    """The all-gather of each rank's `local` along tensor dim `dim` over
+    `group`, in group-rank order: one `_c10d_functional` collective."""
+    import torch
+
+    ops = torch.ops._c10d_functional
+    n = group.size()
+    out = ops.wait_tensor(ops.all_gather_into_tensor(
+        local.movedim(dim, 0).contiguous(), n, group.group_name))
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def _reduce_scatter_flat(local, dim: int, group):
+    """The sum of every rank's `local` over `group`, this rank's shard of
+    it along tensor dim `dim` (group-rank order): one reduce-scatter."""
+    import torch
+
+    ops = torch.ops._c10d_functional
+    n = group.size()
+    _equal_chunks(local.shape, dim, n)
+    out = ops.wait_tensor(ops.reduce_scatter_tensor(
+        local.movedim(dim, 0).contiguous(), "sum", n, group.group_name))
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def sum_over(t, mesh, dims):
+    """The plain tensor `t` summed over `mesh`'s dims `dims` by one
+    all-reduce over them together (`flat_group`); `t` where `dims` is
+    empty."""
+    import torch
+
+    if not dims:
+        return t
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(
+        t.contiguous(), "sum", flat_group(mesh, dims).group_name))
+
+
+def place(x, mesh, want):
+    """`redistribute`, except that a partial sum made one tensor dim's
+    nested shard over several mesh dims (a ZeRO-3 gradient under
+    ``dp_zero3``, `nested_dims`) is one reduce-scatter over those dims
+    together (`flat_group`), where DTensor would issue one for each."""
+    from torch.distributed.tensor import DTensor
+
+    want = tuple(want)
+    dims = nested_dims(tuple(x.placements), want)
+    if dims is None:
+        return redistribute(x, mesh, want)
+    local = _reduce_scatter_flat(x._local_tensor, want[dims[0]].dim,
+                                flat_group(mesh, dims))
+    return DTensor.from_local(local, mesh, want, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+@functools.cache
+def _whole_over_flat():
+    """`whole_over`'s autograd Function for a nested shard (made at first
+    use): forward one all-gather over the shard's mesh dims together,
+    backward its transpose, one reduce-scatter of the partial gradient
+    (`place`). Timed inside `timed_redistributions` as `redistribute`
+    times its own."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    class WholeOverFlat(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dims):
+            mesh, places = x.device_mesh, tuple(x.placements)
+            ctx.spec = (mesh, places)
+            dim = places[dims[0]].dim
+            n = math.prod(mesh.size(i) for i in dims)
+            _equal_chunks(x.shape, dim, n)
+            want = tuple(Replicate() if i in dims else p
+                         for i, p in enumerate(places))
+            start = _event() if _TIMED else None
+            whole = _gather_flat(x._local_tensor, dim, flat_group(mesh, dims))
+            if start is not None:
+                _TIMED[-1].append((transition(places, want), start,
+                                   _event()))
+            return DTensor.from_local(whole, mesh, want, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+
+        @staticmethod
+        def backward(ctx, g):
+            mesh, places = ctx.spec
+            return place(g, mesh, places), None
+
+    return WholeOverFlat
 
 
 def grad_placed(x):

@@ -38,10 +38,12 @@ rules also lay DTensors out: `Policy.constrain` redistributes to the
 placements of logical axes, and the prefill and decode paths run on that
 mesh (`launch/dryrun.py --mesh`; ``seq_kv`` decode as flash-decoding over
 the cache's time axis, an MoE layer's experts on "model"), and so does
-the train step under ``tp`` and ``dp_zero1`` (`train/step.py`: ZeRO-3's
-weights gathered at use, `Policy.at_use`). ``dp_zero3``, ``dp_seq`` and
-the expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3b and
-4.
+the train step under ``tp``, ``dp_zero1`` and ``dp_zero3`` (`train/step.py`:
+ZeRO-3's weights gathered at use, `Policy.at_use`; under ``dp_zero3``
+over both axes of the mesh together, one all-gather a weight and one
+reduce-scatter of its gradient, `partitioning.whole_over`). ``dp_seq``
+and the expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3b
+and 4.
 """
 from __future__ import annotations
 
@@ -91,7 +93,9 @@ class Policy:
         `partitioning.whole_over`): on a mesh an all-gather of each such
         weight where it is used, as the reference's ZeRO-3 gathers it in
         the forward, again in the remat recompute, and reduce-scatters its
-        gradient. `tree` itself off a mesh or where no rule shards so."""
+        gradient; under ``dp_zero3`` (``embed_fsdp`` = ("data", "model"))
+        one all-gather over the two axes together, and one reduce-scatter.
+        `tree` itself off a mesh or where no rule shards so."""
         axes = self.rules.get("embed_fsdp")
         if not axes or partitioning.current_mesh() is None:
             return tree

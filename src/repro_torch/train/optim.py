@@ -13,12 +13,15 @@ second copy of the 19 GB of moments would not be free.
 
 On a mesh the parameters are DTensors, and so are the moments
 (`torch.zeros_like` keeps a parameter's placements, as the reference's
-dry run lowers ``m=p_shard, v=p_shard``). `reduce_to_params` first makes
-each gradient's placements its parameter's, explicitly (an all-reduce of
-a partial sum over the batch's axes where the parameter is replicated, a
-reduce-scatter where it is a shard); `global_norm` sums the squares of
-each leaf's local shard and makes the sum whole once for each set of
-placements; `apply` then updates each leaf's local shard in place.
+dry run lowers ``m=p_shard, v=p_shard``: under ``dp_zero3`` a quarter of
+each block weight's on four cards, ``(Shard(d), Shard(d))``).
+`reduce_to_params` first makes each gradient's placements its
+parameter's, explicitly (an all-reduce of a partial sum over the batch's
+axes where the parameter is replicated, a reduce-scatter where it is a
+shard: one over both axes together onto ``dp_zero3``'s nested shard,
+`partitioning.place`); `global_norm` sums the squares of each leaf's
+local shard and makes the sum whole once for each set of sharded mesh
+dims; `apply` then updates each leaf's local shard in place.
 """
 from __future__ import annotations
 
@@ -114,41 +117,38 @@ def reduce_to_params(grads, params) -> list:
     the batch's mesh axes all-reduced onto a replicated parameter, or
     reduce-scattered onto a shard (ZeRO-3's dims, where the gather at use
     has not already done so). Plain gradients as they are."""
-    from repro_torch.sharding.partitioning import redistribute
+    from repro_torch.sharding.partitioning import place
 
-    return [redistribute(g, p.device_mesh, p.placements)
+    return [place(g, p.device_mesh, p.placements)
             if _is_dtensor(g) else g
             for g, p in zip(tree_leaves(grads), tree_leaves(params))]
 
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every gradient's squares, in float32. DTensor
-    leaves: each local shard's sum of squares, summed over the leaves of
-    one mesh and placements, is made whole once for each such set (an
-    all-reduce over the axes a placement shards, none over the axes it
-    replicates, so that a replicated leaf counts once, not once a
-    rank)."""
+    leaves: each local shard's sum of squares, summed over the leaves that
+    shard the same mesh dims (whatever tensor dims they shard), is made
+    whole once for each such set of mesh dims: one all-reduce over those
+    dims together (`partitioning.sum_over`), none over the dims a leaf
+    replicates, so that a replicated leaf counts once, not once a rank."""
+    from repro_torch.sharding.partitioning import sum_over
+
     plain, groups = [], {}
     for g in tree_leaves(grads):
         sq = torch.sum(torch.square(_local(g).float()))
         if _is_dtensor(g):
-            groups.setdefault((g.device_mesh, tuple(g.placements)),
-                              []).append(sq)
-        else:
-            plain.append(sq)
-    total = [torch.stack(plain).sum()] if plain else []
-    if groups:
-        from torch.distributed.tensor import DTensor, Partial, Replicate
-        for (mesh, places), sqs in groups.items():
-            if any(p.is_partial() for p in places):
+            if any(p.is_partial() for p in g.placements):
                 raise ValueError("a partial gradient: reduce it to its "
                                  "parameter's placements first "
                                  "(`reduce_to_params`)")
-            part = DTensor.from_local(
-                torch.stack(sqs).sum(), mesh,
-                [Partial() if p.is_shard() else Replicate()
-                 for p in places], run_check=False)
-            total.append(part.full_tensor())
+            dims = tuple(i for i, p in enumerate(g.placements)
+                         if p.is_shard())
+            groups.setdefault((g.device_mesh, dims), []).append(sq)
+        else:
+            plain.append(sq)
+    total = [torch.stack(plain).sum()] if plain else []
+    for (mesh, dims), sqs in groups.items():
+        total.append(sum_over(torch.stack(sqs).sum(), mesh, dims))
     return torch.sqrt(torch.stack(total).sum() if len(total) > 1
                       else total[0])
 

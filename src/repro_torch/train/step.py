@@ -16,14 +16,18 @@ parameters' placements; the batch each rank's rows, `shard_batch`), the
 step runs under `partitioning.mesh_context` with the policy `resolve`
 gave for ``"train"``: ``tp`` (heads, MLP and vocabulary over "model",
 ZeRO-3 over "data": each such weight gathered where it is used,
-`Policy.at_use`, its gradient reduce-scattered) or ``dp_zero1`` (the
-batch over every mesh axis, parameters and moments replicated). The kernels and the loss run
+`Policy.at_use`, its gradient reduce-scattered), ``dp_zero1`` (the batch
+over every mesh axis, parameters and moments replicated) or ``dp_zero3``
+(the batch over every mesh axis as under ``dp_zero1``; each block weight
+sharded over ("data", "model") together, gathered whole at use by one
+all-gather over the four ranks and its gradient reduce-scattered back by
+one, its moments on the same quarter; the embedding table and the norms
+replicated). The kernels and the loss run
 on each rank's shards; each gradient is then reduced to its parameter's
 placements explicitly (`optim.reduce_to_params`) before AdamW updates the
 local shards. With ``n_micro > 1`` each rank splits its own rows. The
-``dp_zero3`` and ``dp_seq`` strategies, and the families outside
-`MESH_TRAIN_FAMILIES`, raise NotImplementedError: ROADMAP.md item 19b,
-step 3b.
+``dp_seq`` strategy, and the families outside `MESH_TRAIN_FAMILIES`,
+raise NotImplementedError: ROADMAP.md item 19b, step 3b.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ def state_for(params, ocfg: Optional[optim_lib.AdamWConfig] = None
 
 #: the strategies and families whose train step runs on a mesh; the
 #: others wait for ROADMAP.md item 19b, step 3b
-MESH_TRAIN_STRATEGIES = ("tp", "dp_zero1")
+MESH_TRAIN_STRATEGIES = ("tp", "dp_zero1", "dp_zero3")
 MESH_TRAIN_FAMILIES = ("dense", "encdec")
 
 

@@ -85,6 +85,9 @@ CASES = {
     "granite_dp_zero1": ("granite-3-2b", "auto", "none", 2, "dp_zero1"),
     "seamless_dp_zero1": ("seamless-m4t-large-v2", "auto", "none", 1,
                           "dp_zero1"),
+    "granite_dp_zero3": ("granite-3-2b", "dp_zero3", "full", 2, "dp_zero3"),
+    "seamless_dp_zero3": ("seamless-m4t-large-v2", "dp_zero3", "none", 1,
+                          "dp_zero3"),
 }
 
 
@@ -115,6 +118,8 @@ import json, sys
 import torch
 from repro_torch.launch import dryrun, mesh as tmesh, multihost
 from repro_torch.launch.collective_stats import CollectiveRecorder
+from repro_torch.models.registry import get_family
+from repro_torch.sharding import partitioning
 from repro_torch.train import data as tdata, optim as toptim, step as tstep
 from test_torch_mesh_train import (BATCH, CASES, OPT, SEQ, STEPS, SEED,
                                    case_setup, case_shape, full_params,
@@ -173,8 +178,20 @@ for name, (arch, strategy, remat, n_micro, _) in CASES.items():
                                   * x.element_size() * m.size(0))
                               for x in toptim.tree_leaves(params)
                               if x.placements[0].is_shard()}),
+        # per leaf: does its logical axes hold embed_fsdp, its whole and
+        # this rank's elements, its moments' elements on this rank
+        "leaves": [[bool(f), x.numel(), x.to_local().numel(),
+                    mm.to_local().numel(), vv.to_local().numel()]
+                   for f, x, mm, vv in zip(
+                       toptim.tree_leaves(partitioning.map_axes(
+                           lambda ax: "embed_fsdp" in ax,
+                           get_family(cfg).param_axes(cfg, pol))),
+                       toptim.tree_leaves(params), state.opt.m,
+                       state.opt.v)],
+        "element_size": toptim.tree_leaves(params)[0].element_size(),
         "run_arguments": [r["argument_bytes"] for r in run["ranks"]],
         "run_ops": run["collectives"]["op_count"],
+        "run_by_group": run["collectives"]["by_group"],
         "run_losses": run["losses"], "run_finite": run["finite"]}
 print(json.dumps(out))
 multihost.shutdown()
@@ -384,7 +401,62 @@ def test_tp_gathers_weights_not_the_batch(ranks):
     assert len(scatters) >= per_layer * cfg.n_layers
 
 
-@pytest.mark.parametrize("strategy", ["dp_zero3", "dp_seq"])
+DP_ZERO3 = [name for name, case in CASES.items() if case[4] == "dp_zero3"]
+
+
+@pytest.mark.parametrize("name", DP_ZERO3)
+def test_dp_zero3_gathers_block_weights_over_four(ranks, name):
+    """Under dp_zero3 every all-gather of a step is a ZeRO-3 block weight
+    made whole over ("data", "model") together, a group of 4 (its result
+    the whole weight's bytes): once in the forward and, with remat, again
+    in the recompute, for each micro-batch; granite's 7 a layer (wq, wk,
+    wv, wo and the SwiGLU's wi, wg, wo). No activation and no batch is
+    gathered. Each weight's gradient comes back onto its shard by one
+    reduce-scatter over the same group of 4, once a micro-batch."""
+    arch, _, remat, n_micro, _ = CASES[name]
+    out = ranks.outs[0][name]
+    size = out["element_size"]
+    fsdp = [whole * size for is_fsdp, whole, _, _, _ in out["leaves"]
+            if is_fsdp]
+    if arch == "granite-3-2b":
+        cfg, _ = case_setup(arch, "dp_zero3", remat)
+        assert len(fsdp) == 7 * cfg.n_layers
+    uses = 2 if remat != "none" else 1
+    for ops in out["ops"]:
+        gathers = sorted(result for kind, result, group in ops
+                         if kind == "all-gather")
+        assert gathers == sorted(fsdp * (n_micro * uses))
+        assert all(group == 4 for kind, _, group in ops
+                   if kind == "all-gather")
+        scatters = sorted(result * group for kind, result, group in ops
+                          if kind == "reduce-scatter")
+        assert scatters == sorted(fsdp * n_micro)
+        assert all(group == 4 for kind, _, group in ops
+                   if kind == "reduce-scatter")
+    # the mesh runner's cold step: one batch, no micro-batches
+    by_group = out["run_by_group"]
+    assert by_group["all-gather/4"] == uses * len(fsdp)
+    assert by_group["reduce-scatter/4"] == len(fsdp)
+    assert not [k for k in by_group if k.startswith(("all-gather/",
+                                                      "reduce-scatter/"))
+                and not k.endswith("/4")]
+
+
+@pytest.mark.parametrize("name", DP_ZERO3)
+def test_dp_zero3_moments_are_a_quarter_of_each_fsdp_leaf(ranks, name):
+    """Under dp_zero3 each rank holds a quarter of every embed_fsdp leaf
+    and of its two moments (the reference's dry run's m = v = p_shard,
+    sharded over both axes), and the whole of every other leaf (the
+    embedding table, the norms) and of its moments."""
+    for out in ranks.outs:
+        leaves = out[name]["leaves"]
+        assert any(is_fsdp for is_fsdp, *_ in leaves)
+        for is_fsdp, whole, local, m_local, v_local in leaves:
+            assert local == m_local == v_local == (
+                whole // 4 if is_fsdp else whole)
+
+
+@pytest.mark.parametrize("strategy", ["dp_seq"])
 def test_mesh_train_refuses_the_strategies_of_step_3b(strategy):
     cfg, pol = case_setup("granite-3-2b", strategy, "none")
     assert pol.strategy == strategy
