@@ -141,22 +141,28 @@ card, drives the port's paths and prints one JSON line per phase:
   ``--only multicard_path`` runs only env, the builds and this phase, for
   a call on four cards (``multicard_path_des``, ``_dense``,
   ``_encdec_hybrid`` and ``_xlstm`` split it over four calls);
-- the train step on a mesh (`multicard_train`): granite-3-2b train_4k at
-  full width under tp, dp_zero1 and dp_zero3 (`launch/dryrun.py --run
-  --mesh --strategy`, `launch.train --mesh`), each in a torchrun group of
-  its own on four cards at the batch its per-card estimate admits, all on
-  a 1 x 1 mesh at B 2 x 1 024 and 8 layers on one card
-  (``--only multicard_train_tp``, ``_dp_zero1``, ``_dp_zero3`` run one
-  strategy's group; dp_zero3's also writes the per-card records of
-  yi-6b, starcoder2-7b and phi3-medium-14b train_4k under dp_zero3); its
+- the train step on a mesh (`multicard_train`): the cells of
+  MULTICARD_TRAIN_CELLS, granite-3-2b train_4k at full width under tp,
+  dp_zero1 and dp_zero3 and pixtral-12b train_4k (the VLM family, its
+  patch-embedding prefix spliced into the token embedding) under tp
+  (`launch/dryrun.py --run --mesh --strategy`, `launch.train --mesh`),
+  each in a torchrun group of its own on four cards at the batch its
+  per-card estimate admits, all on a 1 x 1 mesh at B 2 x 1 024 and 8
+  layers on one card (``--only multicard_train_tp``, ``_dp_zero1``,
+  ``_dp_zero3`` run one granite group, ``multicard_train_vlm`` pixtral's;
+  on four cards dp_zero3's also writes the per-card records of yi-6b,
+  starcoder2-7b and phi3-medium-14b train_4k under dp_zero3, and
+  pixtral's those of its train_4k cell under dp_zero1 and dp_zero3); its
   gates and their reasons are in `phase_multicard_train`'s docstring
   (the loss and gradient norm against one card on the same global batch at
   1e-2 / 5e-2 relative: bf16 runs that sum in another order; the gradient
   leaves at MULTICARD_LOGIT_TOL, for the reason given below for the
   logits; the first moment at 1e-6: the same float32 product; on four cards
-  `launch.train`'s first step at MULTICARD_TRAIN_SAME_TOL of the gates'
-  pass, which runs the same model on the same first batch, and its loss
-  falling over its steps).
+  `launch.train`'s first loss at MULTICARD_TRAIN_SAME_TOL of the
+  runner's cold step, which runs the same model on the same first batch,
+  and, where the gates' pass runs every layer too (granite), its first
+  step at that tolerance of the pass's and its loss falling over its
+  steps).
 
 `--profile` adds `serve_profile`: a warm prefill and 8 decode steps under
 `torch.profiler` (device time by kind of kernel, idle share), and
@@ -573,22 +579,52 @@ MULTICARD_CACHE_TOL = 0.1
 # its mLSTM state must not be gathered
 MULTICARD_DECODE_BYTES_SHARE = 0.01
 DEC_TAG = "/decode"             # a group running `decode_cell_on_ranks`
-# the train step on a mesh (multicard_train): granite-3-2b train_4k at full
-# width and depth on the data x model mesh, under tp (what `resolve` gives
-# on data 2 x model 2), dp_zero1 and dp_zero3 (forced, as the dry run
-# allows), each in a torchrun group of its own on four cards at the largest
-# batch whose per-card estimate fits; all in one group on one card (1 x 1)
-# at MULTICARD_TRAIN_ONE_CARD's batch, length and depth (cuts; launch.train,
-# which takes no depth, at every layer there)
+# the train step on a mesh (multicard_train): train_4k cells at full width
+# and depth on the data x model mesh, each an (arch, strategy) pair, each in
+# a torchrun group of its own on four cards at the largest batch whose
+# per-card estimate fits; all in one group on one card (1 x 1) at
+# MULTICARD_TRAIN_ONE_CARD's batch, length and depth (cuts; launch.train,
+# which takes no depth, at every layer there). granite-3-2b under tp (what
+# `resolve` gives on data 2 x model 2), dp_zero1 and dp_zero3 (forced, as
+# the dry run allows); pixtral-12b, the VLM family, under tp (`resolve`'s)
 MULTICARD_TRAIN_ARCH = "granite-3-2b"
 MULTICARD_TRAIN_STRATEGIES = ("tp", "dp_zero1", "dp_zero3")
+MULTICARD_TRAIN_VLM_ARCH = "pixtral-12b"
+MULTICARD_TRAIN_CELLS = tuple(
+    (MULTICARD_TRAIN_ARCH, s) for s in MULTICARD_TRAIN_STRATEGIES) + (
+    (MULTICARD_TRAIN_VLM_ARCH, "tp"),)
 # the dense configs whose train_4k cell the reference's `resolve` gives
 # dp_zero3 on its single pod: their per-card records on data 2 x model 2
-# (meta, off the card, beside dp_zero3's runs; not run)
+# (meta, off the card, beside dp_zero3's runs on four cards; not run)
 MULTICARD_TRAIN_ZERO3_RECORDS = ("yi-6b", "starcoder2-7b", "phi3-medium-14b")
+# a cell's per-card records under the strategies it is not run at (four
+# cards; meta, off the card, beside its group): pixtral-12b's under
+# dp_zero1 (no batch fits) and dp_zero3
+MULTICARD_TRAIN_RECORDS_ONLY = {MULTICARD_TRAIN_VLM_ARCH: ("dp_zero1",
+                                                           "dp_zero3")}
 MULTICARD_TRAIN_ONE_CARD = (2, 1024, 8)
+# the one-card length where MULTICARD_TRAIN_ONE_CARD's is no longer than
+# the arch's prefix: pixtral-12b's 1 024 patch embeddings would leave no
+# text position, every label -1 and the loss 0
+MULTICARD_TRAIN_ONE_CARD_SEQ = {MULTICARD_TRAIN_VLM_ARCH: 2048}
+# on four cards, the depth of the gates' pass and its one-card reference
+# where one card cannot hold the whole model's float32 gradients (a cut;
+# the runner and launch.train run every layer): pixtral-12b at 20 of 40
+# layers holds 12.2 GB of bf16 parameters, 24.5 GB of float32 gradients
+# and a micro-batch's 12.2 GB of bf16 ones (the reference's peak is
+# printed, `one_card_peak_bytes`)
+MULTICARD_TRAIN_GATE_LAYERS = {MULTICARD_TRAIN_VLM_ARCH: 20}
+# the archs whose launch.train runs --reduced on one card: 12.2 B
+# parameters with their AdamW moments do not fit one card
+MULTICARD_TRAIN_ONE_CARD_REDUCED = (MULTICARD_TRAIN_VLM_ARCH,)
 MULTICARD_TRAIN_SECONDS = 900   # a strategy's group's limit
+# the whole run's workers making the records of multicard_path,
+# multicard_decode and multicard_train while cells_path runs (a cut for
+# time: the card waited ~85 s for them); few, beside cells_path's own
+MULTICARD_EARLY_RECORD_WORKERS = 3
 MULTICARD_TRAIN_STEPS = 4       # launch.train.main's steps on the stream
+# ... on one card, where its losses are only held finite (a cut for time)
+MULTICARD_TRAIN_ONE_CARD_STEPS = 2
 MULTICARD_TRAIN_MICRO_ROWS = 4  # rows a micro-batch of the one-card run
 # against the one-card run of the same global batch (its micro-batches'
 # float32 gradients against the mesh's bf16 ones): relative differences
@@ -4871,12 +4907,24 @@ MULTICARD_PATH_GROUPS = {
     "multicard_path_xlstm": ("xlstm-1.3b", "xlstm-1.3b" + F32_TAG)}
 
 
-def phase_multicard_path(flows, only=None):
+def multicard_path_archs(n: int, only=None) -> list:
+    """The cells whose records `phase_multicard_path` needs on n cards
+    (`only`'s group's, where given): granite-3-2b's with the DES, then the
+    prefill cells that run."""
+    want = lambda name: only is None or name in only
+    cells_run = [a for a in (MULTICARD_ARCHS if n > 1
+                             else MULTICARD_ONE_CARD_ARCHS) if want(a)]
+    return [MULTICARD_CELL.split(":")[0]] * want("des") + cells_run
+
+
+def phase_multicard_path(flows, only=None, futures=None):
     """The multi-card path over the N = torch.cuda.device_count() cards:
     ranks under torchrun (`multicard_rank`), each on its own card. First,
     off the card and while the one-rank DES runs below go on, every cell's
     dry-run record with its per-card estimate (`multicard_record`, spawned
-    workers). The DES: both flows' 666-lane fault grids and the homog
+    workers, or `futures` from `start_multicard_records` of
+    `multicard_path_archs` where the caller submitted them earlier). The
+    DES: both flows' 666-lane fault grids and the homog
     cohort study under the 8-cell fault axis through the split fused path,
     held bitwise against this process's one-rank fused runs (`only`, a
     group of MULTICARD_PATH_GROUPS, runs that group's part alone); gates: every
@@ -4912,14 +4960,14 @@ def phase_multicard_path(flows, only=None):
     des = want("des")
     f32 = [a + F32_TAG for a in MULTICARD_FLOAT32_LAYERS
            if want(a + F32_TAG)] if n > 1 else []
-    cells_run = [a for a in (MULTICARD_ARCHS if n > 1
-                             else MULTICARD_ONE_CARD_ARCHS) if want(a)]
-    archs = [granite] * des + cells_run
+    archs = multicard_path_archs(n, only)
+    cells_run = archs[1:] if des else archs
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max(len(archs), 1),
                              multiprocessing.get_context("spawn"),
                              initializer=_dryrun_worker) as pool:
-        futures = start_multicard_records(pool, n, archs)
+        if futures is None:
+            futures = start_multicard_records(pool, n, archs)
         mine, mine_runs = des_multicard_runs(flows) if des else (None, None)
         records = {a: f.result() for a, f in futures.items()}
     records_seconds = time.perf_counter() - t0
@@ -5181,11 +5229,23 @@ def check_decode_cell(arch: str, outdir: str, ranks: list, n: int,
         raise CellFailure(f"{arch} decode: " + "; ".join(problems))
 
 
-def phase_multicard_decode():
+def decode_record_futures(pool, n: int) -> dict:
+    """`multicard_record` of each decode_32k cell of MULTICARD_DECODE on
+    its mesh of n cards, submitted to `pool` (spawned workers off the
+    card): {arch: future}."""
+    return {a: pool.submit(
+        multicard_record, a, decode_axes(a, n),
+        MULTICARD_ONE_CARD_BATCH if n == 1 else None, None, None,
+        "decode_32k") for a in MULTICARD_DECODE}
+
+
+def phase_multicard_decode(futures=None):
     """Sharded decode over the N = torch.cuda.device_count() cards. First,
     off the card, each decode_32k cell's dry-run record on its mesh with
-    its per-card estimate (`multicard_record`, spawned workers; on four
-    cards the largest batch that fits where B 128 does not). Then each
+    its per-card estimate (`multicard_record`, spawned workers, or
+    `futures` from `decode_record_futures` where the caller submitted them
+    earlier; on four cards the largest batch that fits where B 128 does
+    not). Then each
     cell through `dryrun --records ... --run --mesh` (`decode_cell_on_
     ranks`): on four cards starcoder2-7b and xlstm-1.3b on data 2 x model
     2 (tp_heads) and phi3-medium-14b on data 1 x model 4 (seq_kv), each in
@@ -5209,10 +5269,8 @@ def phase_multicard_decode():
     t0 = time.perf_counter()
     with ProcessPoolExecutor(len(archs), multiprocessing.get_context("spawn"),
                              initializer=_dryrun_worker) as pool:
-        futures = {a: pool.submit(
-            multicard_record, a, decode_axes(a, n),
-            MULTICARD_ONE_CARD_BATCH if n == 1 else None, None, None,
-            "decode_32k") for a in archs}
+        if futures is None:
+            futures = decode_record_futures(pool, n)
         records = {a: f.result() for a, f in futures.items()}
     for arch, rec in records.items():
         with open(cell_file(outdir, arch, "decode.records.json"), "w") as f:
@@ -5284,14 +5342,31 @@ def train_key(arch: str, strategy: str) -> str:
     return f"{arch}.train-{strategy}"
 
 
-def train_shape(n: int, rec: dict):
-    """(batch, length, layers) of a train cell on n cards: the per-card
-    estimate's batch, the cell's length and every layer on four,
-    MULTICARD_TRAIN_ONE_CARD on one."""
+def one_card_train_shape(arch: str):
+    """(batch, length, layers) of a train cell on one card:
+    MULTICARD_TRAIN_ONE_CARD, its length MULTICARD_TRAIN_ONE_CARD_SEQ's
+    where that has one for the arch."""
+    batch, seq, layers = MULTICARD_TRAIN_ONE_CARD
+    return batch, MULTICARD_TRAIN_ONE_CARD_SEQ.get(arch, seq), layers
+
+
+def train_shape(n: int, rec: dict, arch: str):
+    """(batch, length, layers) of a train cell's runner on n cards: the
+    per-card estimate's batch, the cell's length and every layer on four,
+    `one_card_train_shape` on one."""
     if n == 1:
-        return MULTICARD_TRAIN_ONE_CARD
+        return one_card_train_shape(arch)
     return (rec["per_card"]["batch_that_fits"], SHAPES["train_4k"].seq,
-            get_config(MULTICARD_TRAIN_ARCH).n_layers)
+            get_config(arch).n_layers)
+
+
+def gate_layers(n: int, arch: str) -> int:
+    """The depth of a train cell's gates' pass and its one-card reference:
+    the runner's on one card, MULTICARD_TRAIN_GATE_LAYERS' cut (else every
+    layer) on four."""
+    if n == 1:
+        return MULTICARD_TRAIN_ONE_CARD[2]
+    return MULTICARD_TRAIN_GATE_LAYERS.get(arch, get_config(arch).n_layers)
 
 
 def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
@@ -5299,15 +5374,19 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
     (1) `dryrun.main(["--records", ..., "--run", "--mesh", ...,
     "--strategy", ...])`: a cold step and RUN_TRAIN_STEPS timed ones
     (rank 0 saves the record). (2) `launch.train.main(["--mesh", ...])`,
-    the user's entry point: MULTICARD_TRAIN_STEPS steps on the synthetic
-    stream, each rank reading its rows. (3) The gates' pass on the same
-    parameters and first batch (seed 0): the gradients (`make_grad_fn`,
+    the user's entry point: MULTICARD_TRAIN_STEPS steps (on one card
+    MULTICARD_TRAIN_ONE_CARD_STEPS) on the synthetic
+    stream, each rank reading its rows (on one card --reduced for
+    MULTICARD_TRAIN_ONE_CARD_REDUCED). (3) The gates' pass at
+    `gate_layers`' depth on the same parameters and first batch (seed 0):
+    the gradients (`make_grad_fn`,
     reduced to the parameters' placements), the held leaves gathered,
     then the AdamW update on them, its first moment against (1 - b1) x
     the clipped gradient on each rank's shards; then, on rank 0, the
     one-card run of the same global batch (the ranks' shards
-    concatenated) in micro-batches of MULTICARD_TRAIN_MICRO_ROWS rows.
-    The kernel counts are zeroed before (1) and read after (3)."""
+    concatenated) in micro-batches of MULTICARD_TRAIN_MICRO_ROWS rows,
+    its peak recorded. The kernel counts are zeroed before (1) and read
+    after (3)."""
     import torch.distributed as dist
 
     from repro_torch.launch import multihost
@@ -5321,7 +5400,8 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
     key = train_key(arch, strategy)
     records = cell_file(outdir, key, "records.json")
     with open(records) as f:
-        batch, seq, depth = train_shape(n, json.load(f)[0])
+        batch, seq, _ = train_shape(n, json.load(f)[0], arch)
+    depth = gate_layers(n, arch)
     mesh_arg = ",".join(f"{k}={v}" for k, v in axes.items())
     argv = ["--records", records, "--run", "--seed", "0", "--mesh",
             mesh_arg, "--strategy", strategy,
@@ -5336,13 +5416,16 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
     dist.barrier()
     stats = {}
     t0 = time.perf_counter()
+    reduced = n == 1 and arch in MULTICARD_TRAIN_ONE_CARD_REDUCED
+    steps = MULTICARD_TRAIN_ONE_CARD_STEPS if n == 1 else MULTICARD_TRAIN_STEPS
     with dryrun.expandable_segments(dev):
         train.main(["--arch", arch, "--mesh", mesh_arg, "--strategy",
                     strategy, "--batch", str(batch), "--seq", str(seq),
-                    "--steps", str(MULTICARD_TRAIN_STEPS), "--log-every",
-                    "1", "--seed", "0"], stats)
+                    "--steps", str(steps), "--log-every",
+                    "1", "--seed", "0"] + (["--reduced"] if reduced else []),
+                   stats)
     out.setdefault("train_main", {})[key] = dict(
-        stats, seconds=time.perf_counter() - t0)
+        stats, seconds=time.perf_counter() - t0, reduced=reduced)
     free_card()
     dist.barrier()
     cfg, shape, _, pol = dryrun.resolved_cell(arch, "train_4k", axes=axes,
@@ -5375,13 +5458,14 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
         del params, state, rows, held
     out["cell_launches"][key] = kernel_counts()
     free_card()
-    gates = {"loss": float(loss), "grad_norm": gn,
+    gates = {"loss": float(loss), "grad_norm": gn, "layers": cfg.n_layers,
              "moment_rel_l2": moment_err, "seconds": time.perf_counter() - t0}
     dist.barrier()
     if rank == 0:
         t0 = time.perf_counter()
         one = single_device_policy(cfg)
         with dryrun.expandable_segments(dev):
+            torch.cuda.reset_peak_memory_stats(dev)
             gen = torch.Generator(device=dev).manual_seed(0)
             params = get_family(cfg).init_params(cfg, one, gen)
             for p in tree_leaves(params):
@@ -5400,6 +5484,8 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
                 one_card_loss=float(loss1),
                 one_card_grad_norm=float(global_norm(g1)),
                 one_card_micro_batches=n_micro,
+                one_card_layers=cfg.n_layers,
+                one_card_peak_bytes=torch.cuda.max_memory_allocated(dev),
                 leaves_rel_l2={names[i]: float(
                     (whole[i] - g1[i].float().cpu()).norm()
                     / g1[i].float().cpu().norm().clamp_min(1e-30))
@@ -5411,20 +5497,23 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
     dist.barrier()
 
 
-def attention_train_cases(n: int, strategies) -> dict:
+def attention_train_cases(n: int, cells) -> dict:
     """The attention kernel's shapes on the multicard_train path, cut to
-    (at most) 2 batch rows a call: each strategy's rank shard of
-    granite-3-2b's layer ([rows, S, H / model, hd] under tp, all 32 heads
-    under dp_zero1 and dp_zero3), S 4 096 on four cards, the one-card
-    length on one."""
-    cfg = get_config(MULTICARD_TRAIN_ARCH)
+    (at most) 2 batch rows a call, by train cell (`train_key`): each
+    cell's rank shard of its arch's layer ([rows, S, H / model, hd] under
+    tp: granite-3-2b's 32 / 8 heads of hd 64 and pixtral-12b's 32 / 8 of hd
+    128 at 16 / 4; all the heads under dp_zero1 and dp_zero3), S 4 096 on
+    four cards, the one-card length on one."""
     axes = multicard_axes(n)
-    S = SHAPES["train_4k"].seq if n > 1 else MULTICARD_TRAIN_ONE_CARD[1]
     out = {}
-    for strategy in strategies:
+    for arch, strategy in cells:
+        cfg = get_config(arch)
+        S = (SHAPES["train_4k"].seq if n > 1
+             else one_card_train_shape(arch)[1])
         m = axes["model"] if strategy == "tp" else 1
-        out[strategy] = (2, S, S, cfg.n_heads // m, cfg.n_kv_heads // m,
-                         cfg.hd, True, 0, 0.0)
+        out[train_key(arch, strategy)] = (
+            2, S, S, cfg.n_heads // m, cfg.n_kv_heads // m, cfg.hd, True, 0,
+            0.0)
     return out
 
 
@@ -5449,16 +5538,16 @@ def zero3_moment_bytes(arch: str, layers: int, n: int) -> int:
 
 def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
                      n: int, wall: float) -> dict:
-    """The gates of one strategy's train cell (see `phase_multicard_train`);
-    emits its line. Returns the attention kernel's launches over the
-    ranks; raises CellFailure."""
+    """The gates of one train cell (see `phase_multicard_train`); emits its
+    line. Returns the attention kernel's launches over the ranks; raises
+    CellFailure."""
     key = train_key(arch, strategy)
     with open(cell_file(outdir, key, "cell.json")) as f:
         rec = json.load(f)[0]
     run = rec["run"]
     axes = multicard_axes(n)
     cfg = get_config(arch)
-    L = train_shape(n, rec)[2]
+    L = train_shape(n, rec, arch)[2]
     problems = []
     if not run["finite"] or not all(np.isfinite(run["losses"])):
         problems.append(f"losses {run['losses']}")
@@ -5506,6 +5595,11 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
         if got_groups != want_groups:
             problems.append(f"collectives by group {got_groups}, the "
                             f"weights' {want_groups}")
+    peaks = [rk["peak_bytes"] for rk in run["ranks"]]
+    peak_ratio = max(peaks) / run["peak_bytes_estimate_per_card"]
+    if not MULTICARD_PEAK_BAND[0] <= peak_ratio <= MULTICARD_PEAK_BAND[1]:
+        problems.append(f"peak {max(peaks)}: {peak_ratio} of the per-card "
+                        f"estimate, outside {MULTICARD_PEAK_BAND}")
     # each rank's moments: a 1/n shard of every ZeRO-3 block weight's under
     # dp_zero3, the embedding table and the norms whole
     moments = [rk["cache_bytes"] for rk in run["ranks"]]
@@ -5531,9 +5625,19 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
         problems.append(f"first moments {moment_errs}")
     if not all(np.isfinite(tm["losses"])):
         problems.append(f"launch.train's losses {tm['losses']}")
-    # the user's entry point computes what the gates' pass computes where
-    # both run the same model (every layer: four cards), and learns
-    same = L == cfg.n_layers
+    # the user's entry point computes what the runner's cold step computes
+    # where both run the same model (every layer: four cards): the same
+    # seed, parameters, first batch and placements
+    if n > 1:
+        rel = abs(tm["losses"][0] - run["losses"][0]) / abs(run["losses"][0])
+        gates["train_main_loss_rel_vs_cold_step"] = rel
+        if rel > MULTICARD_TRAIN_SAME_TOL:
+            problems.append(f"launch.train's first loss {tm['losses'][0]}, "
+                            f"the runner's cold step's {run['losses'][0]} "
+                            f"({rel} > {MULTICARD_TRAIN_SAME_TOL})")
+    # and what the gates' pass computes where that runs every layer too
+    # (granite on four cards), and learns
+    same = n > 1 and gates["layers"] == cfg.n_layers
     if same:
         for k, got in (("loss", tm["losses"][0]),
                        ("grad_norm", tm["grad_norms"][0])):
@@ -5546,7 +5650,6 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
         if not tm["losses"][-1] < tm["losses"][0]:
             problems.append(f"launch.train's loss does not fall over its "
                             f"steps: {tm['losses']}")
-    peaks = [rk["peak_bytes"] for rk in run["ranks"]]
     line = dict(
         run=f"{arch}:train_4k", strategy=strategy, ranks=n, mesh=axes,
         batch=run["batch"], seq=run["seq"], reduced=run.get("reduced"),
@@ -5567,8 +5670,8 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
         launches_by_rank=[rk["cell_launches"][key] for rk in ranks],
         peak_bytes_by_rank=peaks,
         peak_bytes_estimate_per_card=run["peak_bytes_estimate_per_card"],
-        peak_over_per_card_estimate=(max(peaks) /
-                                     run["peak_bytes_estimate_per_card"]),
+        peak_over_per_card_estimate=peak_ratio,
+        peak_band=MULTICARD_PEAK_BAND, gate_layers=gates["layers"],
         argument_bytes_by_rank=[rk["argument_bytes"] for rk in run["ranks"]],
         moment_bytes_by_rank=moments, collectives_by_group=by_group,
         argument_bytes_estimate_per_card=run[
@@ -5581,7 +5684,8 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
         train_main_step_seconds=tm["step_seconds"],
         train_main_shard_by_rank=[rk["train_main"][key]["shard"]
                                   for rk in ranks],
-        train_main_gated=same, gates=gates,
+        train_main_gated=same, train_main_reduced=tm.get("reduced"),
+        gates=gates,
         moment_rel_l2_by_rank=moment_errs,
         tolerances=dict(MULTICARD_TRAIN_TOL, leaves=MULTICARD_LOGIT_TOL,
                         moment=MULTICARD_MOMENT_TOL,
@@ -5595,90 +5699,132 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
     return sum(rk["cell_launches"][key]["flash_attention"] for rk in ranks)
 
 
-def phase_multicard_train(only=None):
+def train_record_futures(pool, n: int, cells) -> dict:
+    """`multicard_record` of each train cell of `cells` on the mesh of n
+    cards (on one card at `one_card_train_shape`), submitted to `pool`
+    (spawned workers off the card): {(arch, strategy): future}."""
+    axes = multicard_axes(n)
+    futures = {}
+    for arch, strategy in cells:
+        batch, seq, depth = (one_card_train_shape(arch) if n == 1
+                             else (None, None, None))
+        futures[arch, strategy] = pool.submit(
+            multicard_record, arch, axes, batch, depth, seq, "train_4k",
+            strategy)
+    return futures
+
+
+def phase_multicard_train(only=None, futures=None):
     """The train step on a mesh over the N = torch.cuda.device_count()
-    cards: granite-3-2b train_4k at full width and depth under each of
-    MULTICARD_TRAIN_STRATEGIES (`only`'s, where given: ``--only
-    multicard_train_<strategy>``). First, off the card, each strategy's
+    cards: the train_4k cells of MULTICARD_TRAIN_CELLS at full width and
+    depth (`only`'s, where given: ``--only multicard_train_<strategy>`` for
+    one of granite-3-2b's, ``multicard_train_vlm`` for pixtral-12b's
+    under tp). First, off the card, each cell's
     dry-run record on the mesh with its per-card estimate
-    (`multicard_record`, spawned workers: on four cards the largest batch,
+    (`multicard_record`, spawned workers, or `futures` from
+    `train_record_futures` where the caller submitted them earlier: on
+    four cards the largest batch,
     a multiple of the batch axes' size, whose estimate fits; on one card
     MULTICARD_TRAIN_ONE_CARD). Then the attention kernel against its plain
-    version at each strategy's rank shard of the layer
-    (`attention_train_cases`), timed beside its bound, and each strategy
+    version at each cell's rank shard of the layer
+    (`attention_train_cases`), timed beside its bound, and each cell
     through `train_cell_on_ranks`: in a torchrun group of its own under
     MULTICARD_TRAIN_SECONDS on four cards, all in one group on one card.
     Gates (`check_train_cell`): finite losses; the attention kernel twice a
     layer a step on every rank (forward and remat recompute; its gradient
-    is plain, R5) and no RG-LRU launch; on several cards the cold step's
+    is plain, R5) and no RG-LRU launch; each rank's peak within
+    MULTICARD_PEAK_BAND of the per-card estimate; on several cards the
+    cold step's
     collectives equal to the meta step's, and under tp and dp_zero3
     exactly the weights' all-gathers (2 x 7 a layer, each a rank's shard
     of a ZeRO-3 weight: no batch gathered; over "data", a group of 2,
     under tp, over the four ranks under dp_zero3, where each weight's
     gradient is also one reduce-scatter over the four, 7 a layer) and
     under dp_zero3 each rank's moment bytes a quarter of the block
-    weights' moments and the rest whole (`zero3_moment_bytes`); the first
-    step's loss and gradient norm within MULTICARD_TRAIN_TOL of the
-    one-card run of the same global
-    batch, the embedding's and the first and last layers' gradient leaves
+    weights' moments and the rest whole (`zero3_moment_bytes`); the gates'
+    pass (at `gate_layers`' depth: every layer but where
+    MULTICARD_TRAIN_GATE_LAYERS cuts it) against the one-card run of the
+    same global batch at that depth: the first
+    step's loss and gradient norm within MULTICARD_TRAIN_TOL, the
+    embedding's and the first and last layers' gradient leaves
     within MULTICARD_LOGIT_TOL (relative L2), the first moment within
     MULTICARD_MOMENT_TOL of (1 - b1) x the clipped gradient; the loss
     falls over the runner's 1 + RUN_TRAIN_STEPS steps on its one batch;
-    `launch.train.main`'s MULTICARD_TRAIN_STEPS losses on the stream are
-    finite. Where `launch.train` and the gates' pass run the same model
-    (every layer: on four cards), its first step's loss and gradient norm
-    are the pass's within MULTICARD_TRAIN_SAME_TOL (the same seed, first
-    batch and placements), and its loss falls from its first step to its
+    `launch.train.main`'s MULTICARD_TRAIN_STEPS (one card:
+    MULTICARD_TRAIN_ONE_CARD_STEPS) losses on the stream are
+    finite. On four cards `launch.train` and the runner run the same model
+    (every layer), so its first loss is the runner's cold step's within
+    MULTICARD_TRAIN_SAME_TOL (the same seed, parameters, first batch and
+    placements); where the gates' pass runs every layer too (granite), its
+    first step's loss and gradient norm are also the pass's within that
+    tolerance, and its loss falls from its first step to its
     last (a batch of 72-80 x 4 096 tokens averages away the batch-to-batch
     wander seen on one card below; on four H100s it fell 0.067 under tp
     and 0.075 under dp_zero1 over four steps). On one card `launch.train`,
-    which takes no depth, runs every layer beside the pass's cut, so its
+    which takes no depth, runs every layer beside the pass's cut (pixtral
+    its reduced config), so its
     first step is another model's; there its losses are only held finite,
     and not to fall: on fresh batches of B 2 x 1 024 a random model's loss
     over four warm-up steps wanders (11.2106, 11.2026, 11.2345, 11.2114).
     The first AdamW update
     is not held: at step 1 it is about lr x sign(g), and a near-zero
     gradient's sign flips with bf16 order noise between two runs equally
-    right. Each rank's peak stands beside its per-card
-    estimate (printed). A strategy that fails does not stop the next; the
-    phase fails at the end. Under dp_zero3 the phase also writes, off the
-    card in the same workers while the groups run, the per-card records of
-    MULTICARD_TRAIN_ZERO3_RECORDS' train_4k cells under dp_zero3 on data 2
-    x model 2 (the estimate at B 256 and the largest batch that fits;
-    `multicard_train_zero3_records`, not run). Returns, for the kernels
-    line, the attention kernel's launches over the ranks and its check and
-    times at each strategy's shard, by strategy."""
+    right. A cell that fails does not stop the next; the
+    phase fails at the end. On four cards the phase also writes, off the
+    card in the same workers while the groups run, per-card records on
+    data 2 x model 2 (the estimate at B 256 and the largest batch that
+    fits; not run): with granite's dp_zero3 cell, those of
+    MULTICARD_TRAIN_ZERO3_RECORDS' train_4k cells under dp_zero3
+    (`multicard_train_zero3_records`); with pixtral's cell, those of its
+    train_4k cell under MULTICARD_TRAIN_RECORDS_ONLY's strategies
+    (`multicard_train_records_only`). Returns, for the kernels line, the
+    attention kernel's launches over the ranks and its check and times at
+    each cell's shard, by cell (`train_key`)."""
     n = torch.cuda.device_count()
-    strategies = tuple(only or MULTICARD_TRAIN_STRATEGIES)
+    cells = tuple(only or MULTICARD_TRAIN_CELLS)
     outdir = tempfile.mkdtemp(prefix="multicard_train_")
-    arch = MULTICARD_TRAIN_ARCH
     axes = multicard_axes(n)
-    batch, seq, depth = (MULTICARD_TRAIN_ONE_CARD if n == 1
-                         else (None, None, None))
-    extra = (MULTICARD_TRAIN_ZERO3_RECORDS if "dp_zero3" in strategies
-             else ())
+    archs = {a for a, _ in cells}
+    extra = []
+    if n > 1:
+        if (MULTICARD_TRAIN_ARCH, "dp_zero3") in cells:
+            extra += [(a, "dp_zero3") for a in MULTICARD_TRAIN_ZERO3_RECORDS]
+        extra += [(a, s) for a, ss in MULTICARD_TRAIN_RECORDS_ONLY.items()
+                  if a in archs for s in ss]
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(strategies) + len(extra),
+    # the cells' records first (the groups wait for them), then the others
+    # while the groups run
+    with ProcessPoolExecutor(min(6, len(cells) + len(extra)),
                              multiprocessing.get_context("spawn"),
                              initializer=_dryrun_worker) as pool:
-        futures = {s: pool.submit(multicard_record, arch, axes, batch, depth,
-                                  seq, "train_4k", s)
-                   for s in strategies}
-        zero3 = {a: pool.submit(multicard_record, a, dict(FOUR_CARD), None,
-                                None, None, "train_4k", "dp_zero3")
-                 for a in extra}
-        failures, launches, attn = run_train_groups(arch, axes, n, outdir,
-                                                    strategies, futures)
+        if futures is None:
+            futures = train_record_futures(pool, n, cells)
+        others = {c: pool.submit(multicard_record, c[0], dict(FOUR_CARD),
+                                 None, None, None, "train_4k", c[1])
+                  for c in extra}
+        failures, launches, attn = run_train_groups(axes, n, outdir, cells,
+                                                    futures)
         t1 = time.perf_counter()
-        zero3 = {a: f.result() for a, f in zero3.items()}
+        others = {c: f.result() for c, f in others.items()}
+    zero3 = {a: r for (a, _), r in others.items()
+             if a in MULTICARD_TRAIN_ZERO3_RECORDS}
     if zero3:
         emit("multicard_train_zero3_records", mesh=dict(FOUR_CARD),
              seconds=time.perf_counter() - t0,
              seconds_after_groups=time.perf_counter() - t1,
              cells={a: records_summary(r) for a, r in zero3.items()})
+    for arch in MULTICARD_TRAIN_RECORDS_ONLY:
+        recs = {s: r for (a, s), r in others.items() if a == arch}
+        if recs:
+            emit("multicard_train_records_only", arch=arch,
+                 mesh=dict(FOUR_CARD), seconds=time.perf_counter() - t0,
+                 seconds_after_groups=time.perf_counter() - t1,
+                 batch_that_fits={s: r["per_card"]["batch_that_fits"]
+                                  for s, r in recs.items()},
+                 strategies={s: records_summary(r) for s, r in recs.items()})
     if failures:
-        fail(f"multicard_train: {len(failures)} of "
-             f"{len(strategies)} strategies failed: {failures}")
+        fail(f"multicard_train: {len(failures)} of {len(cells)} cells "
+             f"failed: {failures}")
     return launches, attn
 
 
@@ -5703,55 +5849,55 @@ def records_summary(rec: dict) -> dict:
                     for b, e in per_card["estimates"].items()})
 
 
-def run_train_groups(arch: str, axes: dict, n: int, outdir: str,
-                     strategies, futures) -> tuple:
+def run_train_groups(axes: dict, n: int, outdir: str, cells,
+                     futures) -> tuple:
     """`phase_multicard_train`'s part on the card: the attention kernel
-    against its plain version at each strategy's shard while the records
-    (`futures`) are made, then the strategies' groups and their gates.
-    Returns (failures by strategy, launches by strategy, the attention
-    kernel's checks and times by strategy)."""
+    against its plain version at each cell's shard while the records
+    (`futures`, by cell) are made, then the cells' groups and their gates.
+    Returns (failures, launches, the attention kernel's checks and times),
+    each by cell (`train_key`)."""
     t0 = time.perf_counter()
     attn = {}
-    for strategy, case in attention_train_cases(n, strategies).items():
+    for key, case in attention_train_cases(n, cells).items():
         q, k, v = attn_inputs(case, torch.bfloat16, seed=7)
         got = attn_ops.flash_attention(q, k, v, impl="cuda", causal=True)
         want = attn_ops.flash_attention(q, k, v, impl="torch", causal=True)
-        err, atol = attn_check(got, want, f"multicard_train {strategy} "
+        err, atol = attn_check(got, want, f"multicard_train {key} "
                                f"attention {case}")
         del q, k, v, got, want
-        attn[strategy] = dict(time_attention(case), max_abs_err=err,
-                              atol=atol)
-    records = {s: f.result() for s, f in futures.items()}
-    for s, rec in records.items():
-        with open(cell_file(outdir, train_key(arch, s), "records.json"),
+        attn[key] = dict(time_attention(case), max_abs_err=err, atol=atol)
+    records = {c: f.result() for c, f in futures.items()}
+    for c, rec in records.items():
+        with open(cell_file(outdir, train_key(*c), "records.json"),
                   "w") as f:
             json.dump([rec], f)
     emit("multicard_train_records", seconds=time.perf_counter() - t0,
          mesh=axes, attention=attn,
-         cells={s: records_summary(r) for s, r in records.items()})
+         cells={train_key(*c): records_summary(r)
+                for c, r in records.items()})
     free_card()
     failures, launches = {}, {}
-    groups = ([strategies] if n == 1 else [(s,) for s in strategies])
+    groups = ([cells] if n == 1 else [(c,) for c in cells])
     for group in groups:
-        tag = ",".join(f"{arch}{TRAIN_TAG}{s}" for s in group)
+        tag = ",".join(f"{a}{TRAIN_TAG}{s}" for a, s in group)
         t0 = time.perf_counter()
         try:
             run_multicard_ranks(n, outdir, tag, MULTICARD_TRAIN_SECONDS)
         except CellFailure as e:
-            for s in group:
-                failures[s] = str(e)
+            for c in group:
+                failures[train_key(*c)] = str(e)
             continue
         wall = time.perf_counter() - t0
         group_ranks = []
         for r in range(n):
             with open(os.path.join(outdir, rank_file(r, tag))) as f:
                 group_ranks.append(json.load(f))
-        for s in group:
+        for arch, s in group:
             try:
-                launches[s] = check_train_cell(arch, s, outdir, group_ranks,
-                                               n, wall)
+                launches[train_key(arch, s)] = check_train_cell(
+                    arch, s, outdir, group_ranks, n, wall)
             except CellFailure as e:
-                failures[s] = str(e)
+                failures[train_key(arch, s)] = str(e)
     return failures, launches, attn
 
 
@@ -5816,11 +5962,11 @@ def phase_kernels(flows, des_launches, plain_ms, attn_launches, attn_grad,
     layer_times["recurrentgemma-2b prefill_32k"] = dict(
         cells_attn, launches=cells_launches["flash_attention"],
         path="cells_path")
-    for strategy, times in train_attn.items():
-        layer_times[f"{MULTICARD_TRAIN_ARCH} train_4k, a {strategy} rank's "
-                    f"shard"] = dict(times,
-                                     launches=train_launches_by[strategy],
-                                     path="multicard_train")
+    for arch, strategy in MULTICARD_TRAIN_CELLS:
+        key = train_key(arch, strategy)
+        layer_times[f"{arch} train_4k, a {strategy} rank's shard"] = dict(
+            train_attn[key], launches=train_launches_by[key],
+            path="multicard_train")
     line["kernels"].append({
         "name": "flash_attention",
         "route": "cuda",
@@ -6079,10 +6225,22 @@ def main(argv=None):
     ckpt_launches = timed("ckpt_path", phase_ckpt_path)
     if args.profile:
         timed("train_profile", profile_training)
-    cells_out = timed("cells_path", phase_cells_path)
-    multicard_launches = timed("multicard_path", phase_multicard_path, flows)
-    timed("multicard_decode", phase_multicard_decode)
-    train_out = timed("multicard_train", phase_multicard_train)
+    # the multicard phases' records (meta, off the card) are made while
+    # cells_path runs, not while the card waits for them
+    n = torch.cuda.device_count()
+    with ProcessPoolExecutor(MULTICARD_EARLY_RECORD_WORKERS,
+                             multiprocessing.get_context("spawn"),
+                             initializer=_dryrun_worker) as early:
+        path_records = start_multicard_records(early, n,
+                                               multicard_path_archs(n))
+        decode_records = decode_record_futures(early, n)
+        train_records = train_record_futures(early, n, MULTICARD_TRAIN_CELLS)
+        cells_out = timed("cells_path", phase_cells_path)
+        multicard_launches = timed("multicard_path", phase_multicard_path,
+                                   flows, None, path_records)
+        timed("multicard_decode", phase_multicard_decode, decode_records)
+        train_out = timed("multicard_train", phase_multicard_train, None,
+                          train_records)
     timed("kernels", phase_kernels, flows, des_launches, plain_ms,
           attn_launches, attn_grad, train_launches, select_times,
           select_launches, attn_build, while_launches, while_times,
@@ -6105,9 +6263,11 @@ def finish(t0, seconds):
 ONLY_PHASES = {"multicard_path": lambda: phase_multicard_path(
     paper_workloads(0)), "multicard_decode": phase_multicard_decode,
     "multicard_train": phase_multicard_train,
-    **{f"multicard_train_{s}": functools.partial(phase_multicard_train,
-                                                 (s,))
+    **{f"multicard_train_{s}": functools.partial(
+        phase_multicard_train, ((MULTICARD_TRAIN_ARCH, s),))
        for s in MULTICARD_TRAIN_STRATEGIES},
+    "multicard_train_vlm": functools.partial(
+        phase_multicard_train, ((MULTICARD_TRAIN_VLM_ARCH, "tp"),)),
     **{name: functools.partial(
         lambda only: phase_multicard_path(
             paper_workloads(0) if "des" in only else None, only), group)

@@ -98,8 +98,10 @@ each block weight and of its moments, the embedding table and the norms
 whole), its rows (the batch's granule `batch_unit` is 4 under
 ``dp_zero1`` and ``dp_zero3``), and the peak of forward, remat
 recompute, backward and AdamW (under ZeRO-3 one block's gathered weights
-at a time, as a transient). ``dp_seq`` on a mesh raises
-NotImplementedError (ROADMAP.md item 19b, step 3b).
+at a time, as a transient). A VLM's or an encoder-decoder's ``embeds``
+are batch-sharded beside the tokens (`batch_sharding`, `mesh_batch`).
+``dp_seq`` on a mesh, and the MoE, hybrid and xLSTM families' train
+cells, raise NotImplementedError (ROADMAP.md item 19b, step 3b).
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the

@@ -44,8 +44,11 @@ same rows under ``tp``; under ``dp_zero1`` and ``dp_zero3`` the batch
 spans both axes, and each of the four ranks reads rows of its own).
 ``--batch`` is the global batch. Checkpoints copy whole leaves, so
 ``--ckpt-dir`` with ``--mesh`` raises (re-shard is ROADMAP.md item 19b,
-step 5), and so do the strategies the mesh step does not run yet
-(`train/step.py::check_mesh_train`, step 3b). Without ``--mesh`` the
+step 5), and so do the strategies and families the mesh step does not
+run yet (`train/step.py::check_mesh_train`, step 3b: it runs the dense,
+encoder-decoder and VLM families; a VLM's and an encoder-decoder's
+float32 ``embeds`` are laid out by `shard_batch` as the tokens are).
+Without ``--mesh`` the
 one-card path is unchanged.
 """
 from __future__ import annotations

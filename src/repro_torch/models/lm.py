@@ -142,7 +142,10 @@ def embed_tokens(cfg: ModelConfig, pol: Policy, params, tokens,
     rows it holds, and the constraint sums them (an all-reduce). With a
     prefix, the lookup is summed before the splice: a partial sum of rows
     does not concatenate with the whole embeddings (DTensor refuses it),
-    and the one all-reduce stays the only one."""
+    and the one all-reduce stays the only one. In the backward (a train
+    step on a mesh, under ``tp``, ``dp_zero1`` or ``dp_zero3``) the splice
+    gives the prefix positions' rows of the lookup no gradient, and
+    `embeds`, an input, none."""
     x = F.embedding(tokens, params["embed"])
     if embeds is not None:
         n = embeds.shape[1]

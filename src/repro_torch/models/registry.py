@@ -19,10 +19,10 @@ the xLSTM LM (`models/xlstm.py`) for ssm, the hybrid RG-LRU +
 local-attention LM (`models/hybrid.py`) and the encoder-decoder backbone
 (`models/encdec.py`). An unknown family raises `ValueError`. On a mesh
 (`launch/dryrun.py --run --mesh`) a prefill or decode cell runs sharded,
-the cache on its `cache_axes`, and so does a train cell of the dense and
-encoder-decoder families under ``tp``, ``dp_zero1`` or ``dp_zero3``;
-``dp_seq`` and the other families' train steps wait for ROADMAP.md item
-19b, step 3b.
+the cache on its `cache_axes`, and so does a train cell of the dense,
+encoder-decoder and VLM families under ``tp``, ``dp_zero1`` or
+``dp_zero3``; ``dp_seq`` and the MoE, hybrid and xLSTM families' train
+steps wait for ROADMAP.md item 19b, step 3b.
 """
 from __future__ import annotations
 

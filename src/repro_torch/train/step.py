@@ -26,8 +26,13 @@ replicated). The kernels and the loss run
 on each rank's shards; each gradient is then reduced to its parameter's
 placements explicitly (`optim.reduce_to_params`) before AdamW updates the
 local shards. With ``n_micro > 1`` each rank splits its own rows. The
-``dp_seq`` strategy, and the families outside `MESH_TRAIN_FAMILIES`,
-raise NotImplementedError: ROADMAP.md item 19b, step 3b.
+``dp_seq`` strategy, and the families outside `MESH_TRAIN_FAMILIES`
+(the dense, encoder-decoder and VLM families run; the MoE, hybrid and
+xLSTM families do not), raise NotImplementedError: ROADMAP.md item 19b,
+step 3b. A VLM's ``embeds`` (its patch-embedding prefix) are the batch's
+rows as the tokens are; `models/lm.py::embed_tokens` splices them in
+after the vocabulary-sharded lookup is summed, and the prefix positions'
+labels of -1 drop out of the loss's count on every rank.
 """
 from __future__ import annotations
 
@@ -72,7 +77,7 @@ def state_for(params, ocfg: Optional[optim_lib.AdamWConfig] = None
 #: the strategies and families whose train step runs on a mesh; the
 #: others wait for ROADMAP.md item 19b, step 3b
 MESH_TRAIN_STRATEGIES = ("tp", "dp_zero1", "dp_zero3")
-MESH_TRAIN_FAMILIES = ("dense", "encdec")
+MESH_TRAIN_FAMILIES = ("dense", "encdec", "vlm")
 
 
 def check_mesh_train(cfg: ModelConfig, pol: Policy):

@@ -4,10 +4,14 @@ process.
 One group of four gloo ranks (`test_torch_multihost.run_ranks`) on a data
 2 x model 2 mesh runs each case of `CASES` in turn: reduced granite-3-2b
 under ``tp`` (forced, as the dry run forces a strategy; ``remat="full"``,
-so that ZeRO-3's gathers run in the forward and again in the recompute)
-and under ``dp_zero1`` (as `resolve` gives it, with two micro-batches of
-each rank's rows), and reduced seamless-m4t-large-v2 under ``dp_zero1``
-(as `resolve` gives it). Every rank draws the same float32 parameters from
+so that ZeRO-3's gathers run in the forward and again in the recompute),
+under ``dp_zero1`` (as `resolve` gives it, with two micro-batches of
+each rank's rows) and under ``dp_zero3``, reduced seamless-m4t-large-v2
+under ``dp_zero1`` (as `resolve` gives it) and ``dp_zero3``, and reduced
+pixtral-12b, the VLM family (its ``embeds`` prefix spliced into the
+token embedding, its labels -1 there), under ``tp`` (remat), ``dp_zero1``
+(two micro-batches) and ``dp_zero3`` (remat), each forced. Every rank
+draws the same float32 parameters from
 one seed and keeps its shards (`launch/dryrun.py::distribute`); its rows
 are the synthetic stream's shard at its place on the batch's mesh axes
 (`multihost.batch_data_shard`). The one process is given the same
@@ -31,9 +35,14 @@ Held, for each case:
 - after the first step, the first moment is (1 - b1) times the clipped
   gradient, on each rank's shard (to 1e-6 relative: the same float32
   product).
-- each rank's rows are the reference's `repro.train.data.batches` with
+- each rank's rows (tokens, labels and, for pixtral and seamless,
+  ``embeds``) are the reference's `repro.train.data.batches` with
   ``host_id`` its batch coordinate, bit for bit; under ``tp`` the two
   "model" ranks of a data row hold the same rows.
+- pixtral's loss in chunks of its prefix's length, so that the first
+  chunk of every row is labels -1 only: the count of tokens exact on every
+  rank, the mean loss and the gradient norm within MESH_RTOL of one
+  process.
 - the step's collectives (`CollectiveRecorder`, counts and bytes by
   kind) equal those of the meta step the per-card estimate runs
   (`dryrun.per_card_fit`); under ``tp`` each all-gather is a ZeRO-3
@@ -88,6 +97,9 @@ CASES = {
     "granite_dp_zero3": ("granite-3-2b", "dp_zero3", "full", 2, "dp_zero3"),
     "seamless_dp_zero3": ("seamless-m4t-large-v2", "dp_zero3", "none", 1,
                           "dp_zero3"),
+    "pixtral_tp": ("pixtral-12b", "tp", "full", 1, "tp"),
+    "pixtral_dp_zero1": ("pixtral-12b", "dp_zero1", "none", 2, "dp_zero1"),
+    "pixtral_dp_zero3": ("pixtral-12b", "dp_zero3", "full", 1, "dp_zero3"),
 }
 
 
@@ -144,6 +156,16 @@ for name, (arch, strategy, remat, n_micro, _) in CASES.items():
     state = tstep.state_for(params, ocfg)
     grad_fn = tstep.make_grad_fn(cfg, pol, n_micro, mesh=m)
     _, _, grads = grad_fn(params, batches[0])
+    prefix = None
+    if cfg.family == "vlm":
+        # loss chunks of the prefix's length: the first chunk of every row
+        # is all prefix, every label of it -1
+        loss, got, g = tstep.make_grad_fn(cfg, pol, n_micro,
+                                          loss_chunk=cfg.n_prefix,
+                                          mesh=m)(params, batches[0])
+        prefix = [float(loss), int(got["tokens"]),
+                  float(toptim.global_norm(g))]
+        del g
     step = tstep.make_train_step(cfg, pol, ocfg, n_micro=n_micro, mesh=m)
     mets, ops = [], []
     for i, b in enumerate(batches):
@@ -173,7 +195,9 @@ for name, (arch, strategy, remat, n_micro, _) in CASES.items():
         "shard": [index, count], "strategy": pol.strategy,
         "tokens": [r["tokens"].tolist() for r in rows],
         "labels": [r["labels"].tolist() for r in rows],
-        "mets": mets, "ops": ops, "m_after_one": m1,
+        "embeds": ([r["embeds"].tolist() for r in rows]
+                   if "embeds" in rows[0] else None),
+        "prefix_chunk": prefix, "mets": mets, "ops": ops, "m_after_one": m1,
         "fsdp_local": sorted({int(x.to_local().numel()
                                   * x.element_size() * m.size(0))
                               for x in toptim.tree_leaves(params)
@@ -236,13 +260,21 @@ def one_process(ranks):
         state = tstep.state_for(full_params(cfg, mpol), ocfg)
         _, _, grads = tstep.make_grad_fn(cfg, pol, n_micro)(state.params,
                                                             batches[0])
+        prefix = None
+        if cfg.family == "vlm":
+            loss, got, g = tstep.make_grad_fn(
+                cfg, pol, n_micro, loss_chunk=cfg.n_prefix)(state.params,
+                                                            batches[0])
+            prefix = [float(loss), int(got["tokens"]),
+                      float(toptim.global_norm(g))]
         step = tstep.make_train_step(cfg, pol, ocfg, n_micro=n_micro)
         mets = []
         for b in batches:
             state, got = step(state, b)
             mets.append({k: float(v) for k, v in got.items()})
         cache[name] = types.SimpleNamespace(
-            mets=mets, grads=[g.detach() for g in grads],
+            mets=mets, prefix_chunk=prefix,
+            grads=[g.detach() for g in grads],
             params=[p.detach() for p in toptim.tree_leaves(state.params)],
             m=state.opt.m, v=state.opt.v,
             mesh=torch.load(ranks.tmp / f"{name}.pt"))
@@ -269,6 +301,28 @@ def test_loss_and_grad_norm_match_one_process(ranks, one_process, name):
                 assert got[key] == pytest.approx(want[key], rel=MESH_RTOL,
                                                  abs=0), (r, key)
             assert got["tokens"] == want["tokens"]
+
+
+VLM = [name for name, case in CASES.items() if case[0] == "pixtral-12b"]
+
+
+@pytest.mark.parametrize("name", VLM)
+def test_prefix_only_loss_chunks_match_one_process(ranks, one_process, name):
+    """Loss chunks of the prefix's length, so that the first chunk of every
+    row holds only prefix positions (labels -1): on every rank the count of
+    tokens is one process's exactly, the text positions alone, and the
+    mean loss and the gradient norm are one process's."""
+    one = one_process(name)
+    cfg, _ = case_setup(*CASES[name][:3])
+    loss, tokens, norm = one.prefix_chunk
+    # the count is the last micro-batch's, as the step's metrics are
+    assert tokens == BATCH // CASES[name][3] * (SEQ - cfg.n_prefix)
+    assert tokens == one.mets[0]["tokens"]
+    for r, out in enumerate(ranks.outs):
+        got = out[name]["prefix_chunk"]
+        assert got[1] == tokens, r
+        assert got[0] == pytest.approx(loss, rel=MESH_RTOL, abs=0), r
+        assert got[2] == pytest.approx(norm, rel=MESH_RTOL, abs=0), r
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -323,6 +377,13 @@ def test_rank_rows_are_the_reference_stream(ref, ranks, name):
                 got = np.asarray(out[name][key][step], np.int32)
                 assert got.shape == (BATCH // count, SEQ)
                 np.testing.assert_array_equal(got, want[key])
+            # a VLM's patch-embedding prefix, an encoder-decoder's frames
+            assert (out[name]["embeds"] is None) == ("embeds" not in want)
+            if "embeds" in want:
+                got = np.asarray(out[name]["embeds"][step], np.float32)
+                assert got.shape == want["embeds"].shape
+                assert got.shape[0] == BATCH // count
+                np.testing.assert_array_equal(got, want["embeds"])
     shards = [tuple(out[name]["shard"]) for out in ranks.outs]
     if CASES[name][4] == "tp":
         # ranks (data, model) in row-major order: the model pairs share
