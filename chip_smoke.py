@@ -143,13 +143,16 @@ card, drives the port's paths and prints one JSON line per phase:
   ``_encdec_hybrid`` and ``_xlstm`` split it over four calls);
 - the train step on a mesh (`multicard_train`): the cells of
   MULTICARD_TRAIN_CELLS, granite-3-2b train_4k at full width under tp,
-  dp_zero1 and dp_zero3 and pixtral-12b train_4k (the VLM family, its
-  patch-embedding prefix spliced into the token embedding) under tp
+  dp_zero1 and dp_zero3, pixtral-12b train_4k (the VLM family, its
+  patch-embedding prefix spliced into the token embedding) and
+  qwen2-moe-a2.7b train_4k (the MoE family: the einsum dispatch, its aux
+  loss and the share of choices dropped printed) under tp
   (`launch/dryrun.py --run --mesh --strategy`, `launch.train --mesh`),
   each in a torchrun group of its own on four cards at the batch its
   per-card estimate admits, all on a 1 x 1 mesh at B 2 x 1 024 and 8
   layers on one card (``--only multicard_train_tp``, ``_dp_zero1``,
-  ``_dp_zero3`` run one granite group, ``multicard_train_vlm`` pixtral's;
+  ``_dp_zero3`` run one granite group, ``multicard_train_vlm`` pixtral's,
+  ``multicard_train_moe`` qwen2-moe's;
   on four cards dp_zero3's also writes the per-card records of yi-6b,
   starcoder2-7b and phi3-medium-14b train_4k under dp_zero3, and
   pixtral's those of its train_4k cell under dp_zero1 and dp_zero3); its
@@ -586,13 +589,15 @@ DEC_TAG = "/decode"             # a group running `decode_cell_on_ranks`
 # MULTICARD_TRAIN_ONE_CARD's batch, length and depth (cuts; launch.train,
 # which takes no depth, at every layer there). granite-3-2b under tp (what
 # `resolve` gives on data 2 x model 2), dp_zero1 and dp_zero3 (forced, as
-# the dry run allows); pixtral-12b, the VLM family, under tp (`resolve`'s)
+# the dry run allows); pixtral-12b, the VLM family, and qwen2-moe-a2.7b,
+# the MoE family, under tp (`resolve`'s)
 MULTICARD_TRAIN_ARCH = "granite-3-2b"
 MULTICARD_TRAIN_STRATEGIES = ("tp", "dp_zero1", "dp_zero3")
 MULTICARD_TRAIN_VLM_ARCH = "pixtral-12b"
+MULTICARD_TRAIN_MOE_ARCH = "qwen2-moe-a2.7b"
 MULTICARD_TRAIN_CELLS = tuple(
     (MULTICARD_TRAIN_ARCH, s) for s in MULTICARD_TRAIN_STRATEGIES) + (
-    (MULTICARD_TRAIN_VLM_ARCH, "tp"),)
+    (MULTICARD_TRAIN_VLM_ARCH, "tp"), (MULTICARD_TRAIN_MOE_ARCH, "tp"))
 # the dense configs whose train_4k cell the reference's `resolve` gives
 # dp_zero3 on its single pod: their per-card records on data 2 x model 2
 # (meta, off the card, beside dp_zero3's runs on four cards; not run)
@@ -612,11 +617,30 @@ MULTICARD_TRAIN_ONE_CARD_SEQ = {MULTICARD_TRAIN_VLM_ARCH: 2048}
 # the runner and launch.train run every layer): pixtral-12b at 20 of 40
 # layers holds 12.2 GB of bf16 parameters, 24.5 GB of float32 gradients
 # and a micro-batch's 12.2 GB of bf16 ones (the reference's peak is
-# printed, `one_card_peak_bytes`)
-MULTICARD_TRAIN_GATE_LAYERS = {MULTICARD_TRAIN_VLM_ARCH: 20}
+# printed, `one_card_peak_bytes`); qwen2-moe-a2.7b's reference takes its
+# B 18 whole (an MoE model's aux loss is not linear in the rows): its meta
+# estimate (the one-card gradient pass under `MetaRun`) is 67.56 GB at 20
+# of 24 layers, 76.70 GB at 24, over the 72 GB a cell may claim
+MULTICARD_TRAIN_GATE_LAYERS = {MULTICARD_TRAIN_VLM_ARCH: 20,
+                               MULTICARD_TRAIN_MOE_ARCH: 20}
 # the archs whose launch.train runs --reduced on one card: 12.2 B
-# parameters with their AdamW moments do not fit one card
-MULTICARD_TRAIN_ONE_CARD_REDUCED = (MULTICARD_TRAIN_VLM_ARCH,)
+# (pixtral) and 14.3 B (qwen2-moe) parameters with their AdamW moments do
+# not fit one card
+MULTICARD_TRAIN_ONE_CARD_REDUCED = (MULTICARD_TRAIN_VLM_ARCH,
+                                    MULTICARD_TRAIN_MOE_ARCH)
+# an MoE cell's leaves are held in float32, by the gates' pass at this
+# (batch, layers) and the cell's length against one card's float32 run of
+# the same rows (MULTICARD_FLOAT32_TOL): in bf16 a rounding moves which
+# choices a layer routes or drops (a third of them at capacity 342 under a
+# random router), and so its leaves. One card's two dispatches, gather and
+# einsum, both right, gave leaves 0.37 apart in bf16 and 1.7e-6 in float32
+# (reduced qwen2-moe at d 256, 60 experts top-4, 8 layers, on the CPU);
+# the bf16 leaves are printed, the bf16 loss and grad norm gated
+MULTICARD_TRAIN_FLOAT32 = (2, 8)
+# ... its depth on one card (a cut): 8 layers' 4.88 B parameters in float32
+# with their gradients and AdamW moments are 78.0 GB before activations,
+# more than the card holds; 4 layers' 2.59 B are 41.5 GB
+MULTICARD_TRAIN_FLOAT32_ONE_CARD_LAYERS = 4
 MULTICARD_TRAIN_SECONDS = 900   # a strategy's group's limit
 # the whole run's workers making the records of multicard_path,
 # multicard_decode and multicard_train while cells_path runs (a cut for
@@ -2977,19 +3001,22 @@ def phase_hybrid_serve_path():
 
 
 class DropCount:
-    """Stands in for `moe._route`: passes every call on and, for a call
-    over more than one position (a prefill), keeps on the card the number
-    of choices routed past their expert's capacity (an expert's choices
-    past C are those of rank >= C) and the number of choices."""
+    """Stands in for `moe._route` (or, with `name`, `moe._route_logits`,
+    which an MoE layer on a mesh calls on its rank's rows): passes every
+    call on and, for a call over more than one position (a prefill, a
+    train step), keeps on the card the number of choices routed past
+    their expert's capacity (an expert's choices past C are those of rank
+    >= C) and the number of choices."""
 
-    def __init__(self):
-        self.fn, self.dropped, self.choices = moe._route, [], 0
+    def __init__(self, name: str = "_route"):
+        self.fn, self.dropped, self.choices = getattr(moe, name), [], 0
 
-    def __call__(self, p, cfg, x):
-        gate, idx, probs = self.fn(p, cfg, x)
+    def __call__(self, *args):
+        gate, idx, probs = self.fn(*args)
+        cfg = args[-2]          # (p, cfg, x) or (cfg, logits)
         B, S, k = idx.shape
         if S > 1:
-            E = p["router"].shape[-1]
+            E = probs.shape[-1]
             C = moe.capacity(S, k, E, cfg.capacity_factor)
             counts = torch.nn.functional.one_hot(
                 idx.reshape(B, S * k), E).sum(1)              # [B, E]
@@ -5378,23 +5405,16 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
     MULTICARD_TRAIN_ONE_CARD_STEPS) on the synthetic
     stream, each rank reading its rows (on one card --reduced for
     MULTICARD_TRAIN_ONE_CARD_REDUCED). (3) The gates' pass at
-    `gate_layers`' depth on the same parameters and first batch (seed 0):
-    the gradients (`make_grad_fn`,
-    reduced to the parameters' placements), the held leaves gathered,
-    then the AdamW update on them, its first moment against (1 - b1) x
-    the clipped gradient on each rank's shards; then, on rank 0, the
-    one-card run of the same global batch (the ranks' shards
-    concatenated) in micro-batches of MULTICARD_TRAIN_MICRO_ROWS rows,
-    its peak recorded. The kernel counts are zeroed before (1) and read
-    after (3)."""
+    `gate_layers`' depth on the same parameters and first batch (seed 0)
+    against one card (`gates_pass`); for an MoE model also at float32 on
+    MULTICARD_TRAIN_FLOAT32's batch and depth (on one card
+    MULTICARD_TRAIN_FLOAT32_ONE_CARD_LAYERS'). The kernel counts are
+    zeroed before (1) and read when the mesh part of (3) ends."""
     import torch.distributed as dist
 
     from repro_torch.launch import multihost
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train import optim as optim_lib
-    from repro_torch.train.step import make_grad_fn
 
-    rank, n = multihost.process_index(), multihost.device_count()
+    n = multihost.device_count()
     dev = torch.device("cuda", torch.cuda.current_device())
     axes = multicard_axes(n)
     key = train_key(arch, strategy)
@@ -5428,8 +5448,85 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
         stats, seconds=time.perf_counter() - t0, reduced=reduced)
     free_card()
     dist.barrier()
+    gates, out["cell_launches"][key] = gates_pass(arch, strategy, axes,
+                                                  batch, seq, depth)
+    if get_config(arch).n_experts:
+        # bf16 rounding moves an MoE layer's routes and drops: its leaves
+        # are held in float32 (MULTICARD_TRAIN_FLOAT32)
+        f32_batch, f32_layers = MULTICARD_TRAIN_FLOAT32
+        if n == 1:
+            f32_layers = MULTICARD_TRAIN_FLOAT32_ONE_CARD_LAYERS
+        gates["float32"], _ = gates_pass(arch, strategy, axes, f32_batch,
+                                         seq, f32_layers, torch.float32)
+    out.setdefault("train_gates", {})[key] = gates
+    dist.barrier()
+
+
+def train_gathers(arch: str, strategy: str, n: int, layers: int,
+                  batch: int, seq: int) -> dict:
+    """The all-gathers a train step of a cell issues on n cards, by what
+    they gather: {"weights": (count, operand bytes, group size),
+    "router_logits": (...)}. Under tp and dp_zero3 each ZeRO-3 weight (a
+    leaf of the parameter tree whose logical axes hold embed_fsdp:
+    granite-3-2b's and pixtral-12b's 7 a layer, wq, wk, wv, wo and the
+    SwiGLU's wi, wg, wo; qwen2-moe-a2.7b's 10, the attention's four, the
+    experts' wi, wg, wo and the shared expert's three) is made whole twice
+    a step, in the forward and the remat recompute, from a rank's 1/n
+    shard: over "data" under tp, over the n ranks under dp_zero3. Under tp
+    an MoE layer's router logits are gathered over "model" twice a layer
+    too, from a rank's [batch / data, seq, E / model] float32. None under
+    dp_zero1."""
+    if strategy not in ("tp", "dp_zero3"):
+        return {}
+    from repro_torch.device import meta_generator
+    from repro_torch.sharding import partitioning
+
+    axes = multicard_axes(n)
+    cfg, _, _, pol = dryrun.resolved_cell(arch, "train_4k", axes=axes,
+                                          strategy=strategy, layers=layers)
+    fam = get_family(cfg)
+    fsdp = tree_leaves(partitioning.map_axes(lambda ax: "embed_fsdp" in ax,
+                                             fam.param_axes(cfg, pol)))
+    weights = [p for f, p in zip(fsdp, tree_leaves(
+        fam.init_params(cfg, pol, meta_generator()))) if f]
+    out = {"weights": (2 * len(weights), 2 * sum(
+        p.numel() * p.element_size() // n for p in weights),
+        axes["data"] if strategy == "tp" else n)}
+    if cfg.n_experts and strategy == "tp":
+        E = pol.expert_pad or cfg.n_experts
+        out["router_logits"] = (
+            2 * layers, 2 * layers * (batch // axes["data"]) * seq
+            * (E // axes["model"]) * 4, axes["model"])
+    return out
+
+
+def gates_pass(arch: str, strategy: str, axes: dict, batch: int, seq: int,
+               layers: int, dtype=None) -> tuple:
+    """`train_cell_on_ranks`' part (3) at (batch, seq, layers), in the
+    config's dtypes or, where given, in `dtype`: the gradients on the
+    mesh (seed 0, `make_grad_fn`, reduced to the parameters' placements),
+    the held leaves gathered, the AdamW update and its first moment
+    against (1 - b1) x the clipped gradient on each rank's shards; an MoE
+    model's aux term and the share of its choices dropped (`DropCount` on
+    each rank's rows); then, on rank 0, the one-card run of the same
+    global batch (the ranks' shards concatenated) in micro-batches of
+    MULTICARD_TRAIN_MICRO_ROWS rows (an MoE model's whole: its aux loss is
+    not linear in the rows), its peak recorded. Returns (this rank's
+    gates, the kernel launches counted when the mesh part ends)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train.step import make_grad_fn
+
+    rank = multihost.process_index()
+    dev = torch.device("cuda", torch.cuda.current_device())
     cfg, shape, _, pol = dryrun.resolved_cell(arch, "train_4k", axes=axes,
-                                              strategy=strategy, layers=depth)
+                                              strategy=strategy, layers=layers)
+    if dtype is not None:
+        name = str(dtype).removeprefix("torch.")
+        cfg = cfg.with_(param_dtype=name, compute_dtype=name)
     shape = dataclasses.replace(shape, batch=batch, seq=seq)
     mesh = make_mesh(axes, "cuda")
     ocfg = AdamWConfig()
@@ -5440,7 +5537,13 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
                                    dryrun.param_specs(cfg, pol, mesh))
         state = state_for(params, ocfg)
         rows = dryrun.mesh_batch(cfg, pol, shape, mesh, 0, dev)
-        loss, _, grads = make_grad_fn(cfg, pol, mesh=mesh)(params, rows)
+        drops = DropCount("_route_logits")
+        moe._route_logits = drops
+        try:
+            loss, mets, grads = make_grad_fn(cfg, pol, mesh=mesh)(params,
+                                                                  rows)
+        finally:
+            moe._route_logits = drops.fn
         keep = held_leaves(params, cfg.n_layers)
         held = {i: grads[i] for i in keep}
         whole = {i: g.full_tensor().float().cpu() for i, g in held.items()}
@@ -5456,10 +5559,14 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
             for i, g in held.items())
         names = leaf_names(params)
         del params, state, rows, held
-    out["cell_launches"][key] = kernel_counts()
+    launches = kernel_counts()
     free_card()
     gates = {"loss": float(loss), "grad_norm": gn, "layers": cfg.n_layers,
              "moment_rel_l2": moment_err, "seconds": time.perf_counter() - t0}
+    if "aux" in mets:
+        # an MoE model's aux term (in the loss) and its choices dropped
+        gates.update(aux=float(mets["aux"].to_local()),
+                     dropped_share=drops.share(), choices=drops.choices)
     dist.barrier()
     if rank == 0:
         t0 = time.perf_counter()
@@ -5477,9 +5584,14 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
             spec = dryrun.input_specs(cfg, dataclasses.replace(shape, batch=1))
             glob = {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
                     .to(dev, spec[k].dtype) for k in parts[0]}
-            n_micro = max(1, batch // MULTICARD_TRAIN_MICRO_ROWS)
-            loss1, _, g1 = make_grad_fn(cfg, one, n_micro=n_micro)(params,
-                                                                   glob)
+            # an MoE model's aux loss is not linear in the rows: its
+            # batch whole, as on the mesh
+            n_micro = (1 if cfg.n_experts
+                       else max(1, batch // MULTICARD_TRAIN_MICRO_ROWS))
+            loss1, mets1, g1 = make_grad_fn(cfg, one, n_micro=n_micro)(
+                params, glob)
+            if "aux" in mets1:
+                gates["one_card_aux"] = float(mets1["aux"])
             gates.update(
                 one_card_loss=float(loss1),
                 one_card_grad_norm=float(global_norm(g1)),
@@ -5493,8 +5605,8 @@ def train_cell_on_ranks(outdir: str, arch: str, strategy: str, out: dict):
                 one_card_seconds=time.perf_counter() - t0)
             del params, g1, glob
         free_card()
-    out.setdefault("train_gates", {})[key] = gates
     dist.barrier()
+    return gates, launches
 
 
 def attention_train_cases(n: int, cells) -> dict:
@@ -5502,8 +5614,9 @@ def attention_train_cases(n: int, cells) -> dict:
     (at most) 2 batch rows a call, by train cell (`train_key`): each
     cell's rank shard of its arch's layer ([rows, S, H / model, hd] under
     tp: granite-3-2b's 32 / 8 heads of hd 64 and pixtral-12b's 32 / 8 of hd
-    128 at 16 / 4; all the heads under dp_zero1 and dp_zero3), S 4 096 on
-    four cards, the one-card length on one."""
+    128 at 16 / 4, qwen2-moe-a2.7b's 16 / 16 of hd 128 at 8 / 8; all the
+    heads under dp_zero1 and dp_zero3), S 4 096 on four cards, the
+    one-card length on one."""
     axes = multicard_axes(n)
     out = {}
     for arch, strategy in cells:
@@ -5570,25 +5683,28 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
     # under tp and dp_zero3 every all-gather is a ZeRO-3 weight made whole
     # (over "data" under tp, a group of 2; over "data" and "model" together
     # under dp_zero3, a group of 4), twice a weight a layer (forward,
-    # recompute): a rank's shard each; none under dp_zero1
-    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.hd
-    elems = 2 * d * (cfg.n_heads + cfg.n_kv_heads) * hd + 3 * d * ff
-    shard = elems * 2 // n          # bf16: a rank's shard of a layer's
-    zero3 = strategy in ("tp", "dp_zero3")
-    gathers = (2 * 7 * L, 2 * L * shard) if zero3 else (0, 0)
+    # recompute): a rank's shard each, or under tp an MoE layer's router
+    # logits over "model", twice a layer; none under dp_zero1
+    want_gathers = train_gathers(arch, strategy, n, L, run["batch"],
+                                 run["seq"])
+    gathers = (sum(c for c, _, _ in want_gathers.values()),
+               sum(b for _, b, _ in want_gathers.values()))
     got_gathers = (got_ops.get("all-gather", 0),
                    int(run["collectives"]["op_bytes"].get("all-gather", 0)))
     if n > 1 and got_gathers != gathers:
         problems.append(f"all-gathers {got_gathers} (count, bytes), the "
-                        f"weights' {gathers}")
+                        f"weights' and router logits' {gathers}")
     by_group = run["collectives"]["by_group"]
-    groups = {"tp": axes["data"], "dp_zero3": n}
-    if n > 1 and strategy in groups:
-        want_groups = {f"all-gather/{groups[strategy]}": 2 * 7 * L}
+    if n > 1 and want_gathers:
+        want_groups = {}
+        for count, _, group in want_gathers.values():
+            key_g = f"all-gather/{group}"
+            want_groups[key_g] = want_groups.get(key_g, 0) + count
         if strategy == "dp_zero3":
             # each weight's gradient reduce-scattered back onto its shard
             # by one collective over the four ranks, once a step
-            want_groups[f"reduce-scatter/{n}"] = 7 * L
+            want_groups[f"reduce-scatter/{n}"] = \
+                want_gathers["weights"][0] // 2
         got_groups = {k: v for k, v in by_group.items()
                       if k.split("/")[0] in {w.split("/")[0]
                                              for w in want_groups}}
@@ -5618,9 +5734,27 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
             problems.append(f"{k} {gates[k]} against one card's "
                             f"{gates[f'one_card_{k}']} ({rel} > {tol})")
     worst = max(gates["leaves_rel_l2"].values())
-    if worst > MULTICARD_LOGIT_TOL:
+    f32 = gates.get("float32")
+    if f32 is None and worst > MULTICARD_LOGIT_TOL:
         problems.append(f"gradient leaves rel L2 up to {worst}")
+    if f32 is not None:
+        # an MoE model's leaves, held in float32 (MULTICARD_TRAIN_FLOAT32)
+        for k in ("loss", "grad_norm"):
+            rel = abs(f32[k] - f32[f"one_card_{k}"]) / abs(
+                f32[f"one_card_{k}"])
+            f32[f"{k}_rel_vs_one_card"] = rel
+            if rel > MULTICARD_FLOAT32_TOL:
+                problems.append(f"float32 {k} {f32[k]} against one card's "
+                                f"{f32[f'one_card_{k}']} ({rel} > "
+                                f"{MULTICARD_FLOAT32_TOL})")
+        f32_worst = max(f32["leaves_rel_l2"].values())
+        if f32_worst > MULTICARD_FLOAT32_TOL:
+            problems.append(f"float32 gradient leaves rel L2 up to "
+                            f"{f32_worst}")
     moment_errs = [rk["train_gates"][key]["moment_rel_l2"] for rk in ranks]
+    if f32 is not None:
+        moment_errs += [rk["train_gates"][key]["float32"]["moment_rel_l2"]
+                        for rk in ranks]
     if max(moment_errs) > MULTICARD_MOMENT_TOL:
         problems.append(f"first moments {moment_errs}")
     if not all(np.isfinite(tm["losses"])):
@@ -5662,7 +5796,8 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
                                    for rk in run["ranks"]],
         rest_ms_by_rank=[rk.get("rest_ms") for rk in run["ranks"]],
         collectives=run["collectives"], meta_collectives=meta_ops,
-        all_gathers_expected=gathers,
+        all_gathers_expected=gathers, all_gathers_by_what=want_gathers,
+        aux_by_step=run.get("aux"), train_main_aux=tm.get("aux"),
         attention_launches_per_rank_per_step=[
             rk["launches"]["flash_attention"] / dryrun.RUN_TRAIN_STEPS
             for rk in run["ranks"]],
@@ -5687,7 +5822,9 @@ def check_train_cell(arch: str, strategy: str, outdir: str, ranks: list,
         train_main_gated=same, train_main_reduced=tm.get("reduced"),
         gates=gates,
         moment_rel_l2_by_rank=moment_errs,
+        leaves_gated_in="float32" if f32 is not None else "bf16",
         tolerances=dict(MULTICARD_TRAIN_TOL, leaves=MULTICARD_LOGIT_TOL,
+                        float32=MULTICARD_FLOAT32_TOL,
                         moment=MULTICARD_MOMENT_TOL,
                         train_main=MULTICARD_TRAIN_SAME_TOL),
         cell_seconds=ranks[0]["cell_seconds"][key],
@@ -5718,8 +5855,9 @@ def phase_multicard_train(only=None, futures=None):
     """The train step on a mesh over the N = torch.cuda.device_count()
     cards: the train_4k cells of MULTICARD_TRAIN_CELLS at full width and
     depth (`only`'s, where given: ``--only multicard_train_<strategy>`` for
-    one of granite-3-2b's, ``multicard_train_vlm`` for pixtral-12b's
-    under tp). First, off the card, each cell's
+    one of granite-3-2b's, ``multicard_train_vlm`` for pixtral-12b's and
+    ``multicard_train_moe`` for qwen2-moe-a2.7b's under tp). First, off
+    the card, each cell's
     dry-run record on the mesh with its per-card estimate
     (`multicard_record`, spawned workers, or `futures` from
     `train_record_futures` where the caller submitted them earlier: on
@@ -5736,10 +5874,13 @@ def phase_multicard_train(only=None, futures=None):
     MULTICARD_PEAK_BAND of the per-card estimate; on several cards the
     cold step's
     collectives equal to the meta step's, and under tp and dp_zero3
-    exactly the weights' all-gathers (2 x 7 a layer, each a rank's shard
-    of a ZeRO-3 weight: no batch gathered; over "data", a group of 2,
-    under tp, over the four ranks under dp_zero3, where each weight's
-    gradient is also one reduce-scatter over the four, 7 a layer) and
+    exactly the all-gathers `train_gathers` counts from the arch's
+    parameter tree (2 x 7 a layer for granite and pixtral, 2 x 10 for
+    qwen2-moe, each a rank's shard of a ZeRO-3 weight: no batch gathered;
+    over "data", a group of 2, under tp, over the four ranks under
+    dp_zero3, where each weight's gradient is also one reduce-scatter over
+    the four, 7 a layer; beside them under tp qwen2-moe's router logits
+    over "model", 2 x 1 a layer) and
     under dp_zero3 each rank's moment bytes a quarter of the block
     weights' moments and the rest whole (`zero3_moment_bytes`); the gates'
     pass (at `gate_layers`' depth: every layer but where
@@ -6268,6 +6409,8 @@ ONLY_PHASES = {"multicard_path": lambda: phase_multicard_path(
        for s in MULTICARD_TRAIN_STRATEGIES},
     "multicard_train_vlm": functools.partial(
         phase_multicard_train, ((MULTICARD_TRAIN_VLM_ARCH, "tp"),)),
+    "multicard_train_moe": functools.partial(
+        phase_multicard_train, ((MULTICARD_TRAIN_MOE_ARCH, "tp"),)),
     **{name: functools.partial(
         lambda only: phase_multicard_path(
             paper_workloads(0) if "des" in only else None, only), group)

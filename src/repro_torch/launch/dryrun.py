@@ -100,8 +100,12 @@ whole), its rows (the batch's granule `batch_unit` is 4 under
 recompute, backward and AdamW (under ZeRO-3 one block's gathered weights
 at a time, as a transient). A VLM's or an encoder-decoder's ``embeds``
 are batch-sharded beside the tokens (`batch_sharding`, `mesh_batch`).
-``dp_seq`` on a mesh, and the MoE, hybrid and xLSTM families' train
-cells, raise NotImplementedError (ROADMAP.md item 19b, step 3b).
+An MoE train cell runs under ``tp`` (`resolve`'s for qwen2-moe-a2.7b):
+the einsum dispatch, as the reference's where the experts are sharded,
+whose float32 ``[rows, S k, E, C]`` products set its batch; the record
+holds each step's aux term (``aux``). ``dp_seq`` on a mesh, an MoE cell
+under ``dp_zero1`` / ``dp_zero3``, and the hybrid and xLSTM families'
+train cells raise NotImplementedError (ROADMAP.md item 19b, step 3b).
 
 ``--run`` (the card only; without one it raises) then runs each requested
 cell on the card at its assigned shape if its estimate fits, else at the
@@ -914,15 +918,20 @@ def mesh_train(cfg: ModelConfig, pol, mesh, params, inputs) -> tuple:
     moments, inputs)``. `fn()` takes one AdamW step of `make_train_step`
     on the mesh (the moments from `state_for`, on their parameters'
     placements, `_moment_dtype`'s type; the parameters and moments updated
-    in place) and returns its loss, whole on every rank."""
+    in place) and returns its loss, whole on every rank; an MoE model's
+    aux term of each step is appended to ``fn.aux``."""
     ocfg = optim_lib.AdamWConfig(moment_dtype=_moment_dtype(cfg))
     state = [state_for(params, ocfg)]
     step = make_train_step(cfg, pol, ocfg, mesh=mesh)
+    aux = []
 
     def fn():
         state[0], mets = step(state[0], inputs)
+        if "aux" in mets:
+            aux.append(mets["aux"])
         return mets["loss"]
 
+    fn.aux = aux
     return fn, params, state[0].opt, inputs
 
 
@@ -1288,6 +1297,7 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
             torch.save(local_rows(cache, sorted({0, shape.batch - 1}),
                                   cache.pos, shape.seq),
                        f"{rows_out}.rank{multihost.process_index()}")
+        aux = getattr(fn, "aux", [])
         del fn, params, cache, inputs
         if on_card:
             # NCCL may set up the world's communicator only now, and needs
@@ -1311,6 +1321,7 @@ def run_mesh_cell(cfg: ModelConfig, pol, shape: Shape, mesh, seed: int = 0,
            "output_shape": list(logits.shape)}
     if train:
         out.update(losses=[float(x) for x in losses],
+                   aux=[float(x) for x in aux],
                    ms_per_step=(ranks[0]["device_ms"] if on_card
                                 else seconds[-1] * 1e3),
                    ms_per_step_host=seconds[-1] * 1e3,

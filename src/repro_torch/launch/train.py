@@ -46,8 +46,11 @@ spans both axes, and each of the four ranks reads rows of its own).
 ``--ckpt-dir`` with ``--mesh`` raises (re-shard is ROADMAP.md item 19b,
 step 5), and so do the strategies and families the mesh step does not
 run yet (`train/step.py::check_mesh_train`, step 3b: it runs the dense,
-encoder-decoder and VLM families; a VLM's and an encoder-decoder's
-float32 ``embeds`` are laid out by `shard_batch` as the tokens are).
+encoder-decoder and VLM families, and the MoE family under ``tp`` at one
+micro-batch, whose aux term each step prints; a VLM's and an
+encoder-decoder's float32 ``embeds`` are laid out by `shard_batch` as
+the tokens are). qwen2-moe-a2.7b takes ``--reduced`` on one card: its
+14.3 B parameters with their moments do not fit one.
 Without ``--mesh`` the
 one-card path is unchanged.
 """
@@ -154,7 +157,7 @@ def _main_on_mesh(args, cfg, ocfg, stats):
         multihost.assert_mesh_spans_processes(mesh)
         pol = resolve(cfg, axes, args.batch, "train", seq=args.seq,
                       strategy=args.strategy)
-        check_mesh_train(cfg, pol)
+        check_mesh_train(cfg, pol, args.n_micro)
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         params = get_family(cfg).init_params(cfg, pol, gen)
         state = state_for(distribute(params, param_specs(cfg, pol, mesh)),
@@ -188,7 +191,8 @@ def _steps(args, dev, state, step_fn, it, start, stats, place, mgr, cfg,
     """Steps `start` .. ``args.steps`` on the stream `it` (each batch laid
     out by `place`); returns the last loss."""
     if stats is not None:
-        stats.update(step_seconds=[], losses=[], grad_norms=[], start=start)
+        stats.update(step_seconds=[], losses=[], grad_norms=[], aux=[],
+                     start=start)
     t0 = time.time()
     loss = float("nan")
     for i in range(start, args.steps):
@@ -205,13 +209,17 @@ def _steps(args, dev, state, step_fn, it, start, stats, place, mgr, cfg,
             stats["step_seconds"].append(time.perf_counter() - ts)
             stats["losses"].append(loss)
             stats["grad_norms"].append(float(mets["grad_norm"]))
+            if "aux" in mets:
+                stats["aux"].append(float(mets["aux"]))
         if lead and ((i + 1) % args.log_every == 0 or i == start):
             tput = args.batch * args.seq * (i + 1 - start) / \
                 (time.time() - t0)
             print(f"[train] step {i + 1:5d} loss={loss:.4f} "
                   f"lr={mets['lr']:.2e} "
                   f"gnorm={float(mets['grad_norm']):.3f} "
-                  f"tok/s={tput:.0f}", flush=True)
+                  + (f"aux={float(mets['aux']):.3e} " if "aux" in mets
+                     else "")
+                  + f"tok/s={tput:.0f}", flush=True)
         if mgr and (i + 1) % args.ckpt_every == 0:
             mgr.save(i + 1, state, {"arch": cfg.name})
     if mgr:

@@ -31,7 +31,10 @@ On a mesh either dispatch runs on each rank's local shards
 (`_moe_on_shards`): the routes of its batch rows from the router's logits
 gathered over the experts, its experts only, the combined output a
 partial sum over the experts made whole by one all-reduce; one card runs
-the same code over every expert.
+the same code over every expert. The train step runs it on a mesh under
+``tp`` (the batch over "data" alone, the experts on "model"): the aux
+loss's gradient reaches the router once, through each rank's own
+experts' columns.
 
 Top-k is a stable descending sort, so that ties go to the lower expert
 index, as ``jax.lax.top_k`` breaks them (``torch.topk`` promises no order).
@@ -234,7 +237,13 @@ def _moe_on_shards(p, cfg: ModelConfig, pol: Policy, x, impl: str,
     partial sum over the experts, made whole by one all-reduce, as the
     MLP's output projection. The aux loss takes its two per-expert sums
     over the rows (one all-reduce over the batch's mesh axis, [2, E]
-    float32)."""
+    float32). Every rank of the expert axis computes all E columns of
+    those sums alike, but in the backward only its own experts' columns
+    pass a gradient to the logits, whose gradient is a partial sum over
+    that axis: else the aux term would reach the router (and `x`) once a
+    rank. The batch's rows over more than one mesh axis (``dp_zero1`` /
+    ``dp_zero3`` on data x model) raise: ROADMAP.md item 19b, step
+    3b(ii)."""
     from repro_torch.models import layers as L
 
     E = p["router"].shape[-1]
@@ -254,13 +263,26 @@ def _moe_on_shards(p, cfg: ModelConfig, pol: Policy, x, impl: str,
                        e0)
         if not aux:
             return out
-        return out, torch.stack([F.one_hot(idx, E).float().sum((0, 1, 2)),
-                                 probs.sum((0, 1))])
+        sums = torch.stack([F.one_hot(idx, E).float().sum((0, 1, 2)),
+                            probs.sum((0, 1))])
+        E0 = wi.shape[0]
+        if E0 < E:
+            # every rank of the expert axis computes the same sums from the
+            # same gathered logits (the value is replicated), but only its
+            # own experts' columns carry a gradient, so that the logits'
+            # partial gradients over that axis sum the aux term's once
+            col = torch.arange(E, device=sums.device)
+            sums = torch.where((col >= e0) & (col < e0 + E0), sums,
+                               sums.detach())
+        return out, sums
 
     out_axes = ROWS if axis is None else L.Summed(ROWS, axis)
     rows_over = pol.rules.get("batch")
     if rows_over is not None and not isinstance(rows_over, str):
-        raise NotImplementedError(f"batch rows over {rows_over!r}")
+        raise NotImplementedError(
+            f"an MoE layer with its batch rows over {rows_over!r} "
+            f"(dp_zero1 / dp_zero3) is not ported (ROADMAP.md item 19b, "
+            f"step 3b(ii))")
     sums_axes = (None, None) if rows_over is None else \
         L.Summed((None, None), rows_over)
     got = L.on_shards(

@@ -21,8 +21,9 @@ local-attention LM (`models/hybrid.py`) and the encoder-decoder backbone
 (`launch/dryrun.py --run --mesh`) a prefill or decode cell runs sharded,
 the cache on its `cache_axes`, and so does a train cell of the dense,
 encoder-decoder and VLM families under ``tp``, ``dp_zero1`` or
-``dp_zero3``; ``dp_seq`` and the MoE, hybrid and xLSTM families' train
-steps wait for ROADMAP.md item 19b, step 3b.
+``dp_zero3``, and of the MoE family under ``tp``; ``dp_seq``, the MoE
+family under ``dp_zero1`` / ``dp_zero3`` and the hybrid and xLSTM
+families' train steps wait for ROADMAP.md item 19b, step 3b.
 """
 from __future__ import annotations
 

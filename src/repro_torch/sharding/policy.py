@@ -41,9 +41,10 @@ the cache's time axis, an MoE layer's experts on "model"), and so does
 the train step under ``tp``, ``dp_zero1`` and ``dp_zero3`` (`train/step.py`:
 ZeRO-3's weights gathered at use, `Policy.at_use`; under ``dp_zero3``
 over both axes of the mesh together, one all-gather a weight and one
-reduce-scatter of its gradient, `partitioning.whole_over`). ``dp_seq``
-and the expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3b
-and 4.
+reduce-scatter of its gradient, `partitioning.whole_over`; an MoE
+model's under ``tp`` alone, its experts on "model"). ``dp_seq``, an MoE
+model's batch over both axes (``dp_zero1`` / ``dp_zero3``) and the
+expert axis's all-to-all wait for ROADMAP.md item 19b, steps 3b and 4.
 """
 from __future__ import annotations
 

@@ -26,11 +26,15 @@ replicated). The kernels and the loss run
 on each rank's shards; each gradient is then reduced to its parameter's
 placements explicitly (`optim.reduce_to_params`) before AdamW updates the
 local shards. With ``n_micro > 1`` each rank splits its own rows. The
-``dp_seq`` strategy, and the families outside `MESH_TRAIN_FAMILIES`
-(the dense, encoder-decoder and VLM families run; the MoE, hybrid and
-xLSTM families do not), raise NotImplementedError: ROADMAP.md item 19b,
-step 3b. A VLM's ``embeds`` (its patch-embedding prefix) are the batch's
-rows as the tokens are; `models/lm.py::embed_tokens` splices them in
+``dp_seq`` strategy, and the families and strategies outside
+`MESH_TRAIN_FAMILIES` (the dense, encoder-decoder and VLM families run
+under all three; the MoE family under ``tp`` alone and at one
+micro-batch, its aux loss not being linear in the rows; the hybrid and
+xLSTM families not at all), raise NotImplementedError: ROADMAP.md item
+19b, step 3b. An MoE model's metrics hold its aux term (``aux``; with
+micro-batches, the last one's, as the others). A VLM's ``embeds`` (its
+patch-embedding prefix) are the batch's rows as the tokens are;
+`models/lm.py::embed_tokens` splices them in
 after the vocabulary-sharded lookup is summed, and the prefix positions'
 labels of -1 drop out of the loss's count on every rank.
 """
@@ -74,25 +78,46 @@ def state_for(params, ocfg: Optional[optim_lib.AdamWConfig] = None
                                          params))
 
 
-#: the strategies and families whose train step runs on a mesh; the
-#: others wait for ROADMAP.md item 19b, step 3b
+#: the strategies whose train step runs on a mesh, and for each family
+#: those it runs under; the others wait for ROADMAP.md item 19b, step 3b
 MESH_TRAIN_STRATEGIES = ("tp", "dp_zero1", "dp_zero3")
-MESH_TRAIN_FAMILIES = ("dense", "encdec", "vlm")
+MESH_TRAIN_FAMILIES = {"dense": MESH_TRAIN_STRATEGIES,
+                       "encdec": MESH_TRAIN_STRATEGIES,
+                       "vlm": MESH_TRAIN_STRATEGIES,
+                       "moe": ("tp",)}
 
 
-def check_mesh_train(cfg: ModelConfig, pol: Policy):
+def check_mesh_train(cfg: ModelConfig, pol: Policy, n_micro: int = 1):
     """Raises NotImplementedError for a train step on a mesh that the port
-    does not run yet."""
+    does not run yet: ``dp_seq``; the hybrid and xLSTM families; the MoE
+    family under ``dp_zero1`` / ``dp_zero3`` (their batch spans both mesh
+    axes, `models/moe.py::_moe_on_shards` takes it over one) and with
+    ``n_micro > 1`` (its aux loss is not linear in the rows, and a rank's
+    micro-batch is not the reference's run of global rows)."""
     if pol.strategy not in MESH_TRAIN_STRATEGIES:
         raise NotImplementedError(
             f"the {pol.strategy} train step on a mesh is not ported "
             f"(ROADMAP.md item 19b, step 3b); it runs "
             f"{', '.join(MESH_TRAIN_STRATEGIES)}")
-    if cfg.family not in MESH_TRAIN_FAMILIES:
+    runs = MESH_TRAIN_FAMILIES.get(cfg.family, ())
+    if not runs:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family's train step on a mesh "
             f"is not ported (ROADMAP.md item 19b, step 3b); it runs "
             f"{', '.join(MESH_TRAIN_FAMILIES)}")
+    if pol.strategy not in runs:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's train step on a mesh "
+            f"runs under {', '.join(runs)}, not {pol.strategy} (ROADMAP.md "
+            f"item 19b, step 3b(ii): its batch over both mesh axes, "
+            f"models/moe.py::_moe_on_shards)")
+    if cfg.family == "moe" and n_micro > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: an MoE train step on a mesh with n_micro "
+            f"{n_micro} > 1 is not ported (ROADMAP.md item 19b, step "
+            f"3b(ii)): the aux loss is not linear in the rows, and a "
+            f"rank's micro-batch is rows of its own shard, not the "
+            f"reference's run of global rows")
 
 
 def shard_batch(pol: Policy, mesh, local: dict) -> dict:
@@ -145,6 +170,9 @@ def make_loss_fn(cfg: ModelConfig, pol: Policy, loss_chunk: int = 512):
                                      batch.get("embeds"))
         loss, mets = chunked_ce(cfg, pol, hidden, params["embed"],
                                 batch["labels"], chunk=loss_chunk)
+        if cfg.n_experts:
+            # the MoE layers' load-balance term, as the loss adds it
+            mets = dict(mets, aux=aux.detach())
         return loss + aux.to(loss.dtype), mets
 
     return loss_fn
@@ -158,7 +186,7 @@ def make_grad_fn(cfg: ModelConfig, pol: Policy, n_micro: int = 1,
     placements (`optim.reduce_to_params`). Runs under the mesh's
     `partitioning.mesh_context` where `mesh` is given."""
     if mesh is not None:
-        check_mesh_train(cfg, pol)
+        check_mesh_train(cfg, pol, n_micro)
     loss_fn = make_loss_fn(cfg, pol, loss_chunk)
 
     def value_and_grad(params, batch):

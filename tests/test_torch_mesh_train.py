@@ -10,8 +10,11 @@ each rank's rows) and under ``dp_zero3``, reduced seamless-m4t-large-v2
 under ``dp_zero1`` (as `resolve` gives it) and ``dp_zero3``, and reduced
 pixtral-12b, the VLM family (its ``embeds`` prefix spliced into the
 token embedding, its labels -1 there), under ``tp`` (remat), ``dp_zero1``
-(two micro-batches) and ``dp_zero3`` (remat), each forced. Every rank
-draws the same float32 parameters from
+(two micro-batches) and ``dp_zero3`` (remat), each forced, and reduced
+qwen2-moe-a2.7b, the MoE family (4 experts, top-2, 2 experts a "model"
+rank, the einsum dispatch), under ``tp`` (remat, one micro-batch), once at
+its capacity factor 1.25 and once at 0.5, where choices drop on every
+rank. Every rank draws the same float32 parameters from
 one seed and keeps its shards (`launch/dryrun.py::distribute`); its rows
 are the synthetic stream's shard at its place on the batch's mesh axes
 (`multihost.batch_data_shard`). The one process is given the same
@@ -51,12 +54,20 @@ Held, for each case:
 - the mesh runner's own train cell (`dryrun.run_mesh_cell`): each rank's
   argument bytes equal the per-card estimate's, and its losses are
   finite.
+- under ``tp`` a layer's all-gathers by arch (`TP_GATHERS_A_LAYER`: the
+  ZeRO-3 weights, and an MoE layer's router logits over "model").
+- the MoE layers' aux term alone (the CE loss left out) and its gradient
+  into every router: one process's within MESH_RTOL on every rank (each
+  "model" rank computes the term from the same gathered logits; counted
+  once a rank, the routers' gradient was twice one process's).
 
 The one-process steps are held against the JAX reference by
 `tests/test_torch_train.py`; together they hold the slice end to end.
 Also here: `launch.train --mesh` refuses ``--ckpt-dir``, the train step on
-a mesh refuses ``dp_zero3``, ``dp_seq`` and the families it does not run
-(naming ROADMAP.md item 19b, step 3b), `batch_data_shard`'s coordinates,
+a mesh refuses ``dp_seq``, the MoE family under ``dp_zero1`` /
+``dp_zero3`` and with two micro-batches, and the hybrid and xLSTM
+families (naming ROADMAP.md item 19b, step 3b), `resolve` gives
+qwen2-moe-a2.7b train_4k ``tp``, `batch_data_shard`'s coordinates,
 the LM's remat against its plain forward, and the loss's chunk code off a
 mesh against `torch.logsumexp`, bit for bit.
 """
@@ -72,11 +83,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import SHAPES, smoke_config
+from repro_torch.configs import SHAPES, get_config, smoke_config
 from repro_torch.launch import dryrun, multihost
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import FOUR_CARD
+from repro_torch.models import moe
 from repro_torch.models.registry import get_family
+from repro_torch.sharding import partitioning
 from repro_torch.sharding.policy import resolve, single_device_policy
 from repro_torch.train import data as tdata
 from repro_torch.train import optim as toptim
@@ -100,15 +113,55 @@ CASES = {
     "pixtral_tp": ("pixtral-12b", "tp", "full", 1, "tp"),
     "pixtral_dp_zero1": ("pixtral-12b", "dp_zero1", "none", 2, "dp_zero1"),
     "pixtral_dp_zero3": ("pixtral-12b", "dp_zero3", "full", 1, "dp_zero3"),
+    "qwen2moe_tp": ("qwen2-moe-a2.7b", "tp", "full", 1, "tp"),
+    "qwen2moe_tp_drops": ("qwen2-moe-a2.7b", "tp", "full", 1, "tp"),
 }
+#: a case's config overrides: capacity factor 0.5 makes the capacity C = 4
+#: of a row's 32 choices over 4 experts, so that choices drop on every rank
+OVERRIDES = {"qwen2moe_tp_drops": {"capacity_factor": 0.5}}
+MOE = [name for name, case in CASES.items() if case[0] == "qwen2-moe-a2.7b"]
 
 
-def case_setup(arch, strategy, remat):
+def case_setup(arch, strategy, remat, **overrides):
     """The reduced config (float32, the attention kernel's path: its plain
     version on the CPU) and its train policy on the four-card mesh."""
-    cfg = smoke_config(arch, attention_impl="pallas", remat=remat)
+    cfg = smoke_config(arch, attention_impl="pallas", remat=remat,
+                       **overrides)
     return cfg, resolve(cfg, FOUR_CARD, BATCH, "train", seq=SEQ,
                         strategy=strategy)
+
+
+def case(name):
+    """`case_setup` of the case `name` of `CASES`, with its `OVERRIDES`."""
+    return case_setup(*CASES[name][:3], **OVERRIDES.get(name, {}))
+
+
+def moe_aux(cfg, pol, params, tokens):
+    """The MoE layers' aux term alone (the CE loss left out) and its
+    gradient into each layer's router."""
+    _, aux = get_family(cfg).forward(cfg, pol, params, tokens)
+    routers = [lp["moe"]["router"] for lp in params["layers"]]
+    return aux, torch.autograd.grad(aux, routers)
+
+
+class DropCount:
+    """Stands in for `moe._route_logits` (a rank's local rows on a mesh):
+    counts the choices routed past their expert's capacity and all
+    choices."""
+
+    def __init__(self):
+        self.fn, self.dropped, self.choices = moe._route_logits, 0, 0
+
+    def __call__(self, cfg, logits):
+        gate, idx, probs = self.fn(cfg, logits)
+        B, S, k = idx.shape
+        E = logits.shape[-1]
+        counts = torch.nn.functional.one_hot(idx.reshape(B, S * k),
+                                             E).sum(1)
+        C = moe.capacity(S, k, E, cfg.capacity_factor)
+        self.dropped += int((counts - C).clamp(min=0).sum())
+        self.choices += idx.numel()
+        return gate, idx, probs
 
 
 def case_shape():
@@ -133,16 +186,17 @@ from repro_torch.launch.collective_stats import CollectiveRecorder
 from repro_torch.models.registry import get_family
 from repro_torch.sharding import partitioning
 from repro_torch.train import data as tdata, optim as toptim, step as tstep
+from repro_torch.models import moe
 from test_torch_mesh_train import (BATCH, CASES, OPT, SEQ, STEPS, SEED,
-                                   case_setup, case_shape, full_params,
-                                   to_torch)
+                                   DropCount, case, case_shape, full_params,
+                                   moe_aux, to_torch)
 
 multihost.initialize(timeout_s=60, device="cpu")
 m = tmesh.make_mesh(tmesh.FOUR_CARD, "cpu")
 rank = multihost.process_index()
 out = {}
 for name, (arch, strategy, remat, n_micro, _) in CASES.items():
-    cfg, pol = case_setup(arch, strategy, remat)
+    cfg, pol = case(name)
     specs = dryrun.param_specs(cfg, pol, m)
     params = dryrun.distribute(full_params(cfg, pol), specs)
     index, count = multihost.batch_data_shard(m, pol.batch_axes)
@@ -155,7 +209,19 @@ for name, (arch, strategy, remat, n_micro, _) in CASES.items():
     ocfg = toptim.AdamWConfig(**OPT)
     state = tstep.state_for(params, ocfg)
     grad_fn = tstep.make_grad_fn(cfg, pol, n_micro, mesh=m)
+    drops = DropCount()
+    if cfg.n_experts:
+        moe._route_logits = drops
     _, _, grads = grad_fn(params, batches[0])
+    moe._route_logits = drops.fn
+    whole_aux = None
+    if cfg.n_experts:
+        # the aux term alone and its gradient into each router, whole
+        with partitioning.mesh_context(m):
+            aux, g = moe_aux(cfg, pol, params, batches[0]["tokens"])
+        whole_aux = {"aux": aux.full_tensor().detach(),
+                     "routers": [x.full_tensor() for x in g]}
+        del aux, g
     prefix = None
     if cfg.family == "vlm":
         # loss chunks of the prefix's length: the first chunk of every row
@@ -186,7 +252,8 @@ for name, (arch, strategy, remat, n_micro, _) in CASES.items():
              "params": [p.full_tensor().detach()
                         for p in toptim.tree_leaves(state.params)],
              "m": [x.full_tensor() for x in state.opt.m],
-             "v": [x.full_tensor() for x in state.opt.v]}
+             "v": [x.full_tensor() for x in state.opt.v],
+             "aux": whole_aux}
     if rank == 0:
         torch.save(whole, sys.argv[1] + f"/{name}.pt")
     run, _ = dryrun.run_mesh_cell(cfg, pol, case_shape(), m, seed=SEED,
@@ -198,6 +265,8 @@ for name, (arch, strategy, remat, n_micro, _) in CASES.items():
         "embeds": ([r["embeds"].tolist() for r in rows]
                    if "embeds" in rows[0] else None),
         "prefix_chunk": prefix, "mets": mets, "ops": ops, "m_after_one": m1,
+        "dropped": [drops.dropped, drops.choices],
+        "aux": None if whole_aux is None else float(whole_aux["aux"]),
         "fsdp_local": sorted({int(x.to_local().numel()
                                   * x.element_size() * m.size(0))
                               for x in toptim.tree_leaves(params)
@@ -244,8 +313,8 @@ def one_process(ranks):
     def get(name):
         if name in cache:
             return cache[name]
-        arch, strategy, remat, n_micro, _ = CASES[name]
-        cfg, mpol = case_setup(arch, strategy, remat)
+        n_micro = CASES[name][3]
+        cfg, mpol = case(name)
         pol = single_device_policy(cfg)
         count = ranks.outs[0][name]["shard"][1]
         its = [tdata.batches(cfg, tdata.DataConfig(
@@ -267,6 +336,10 @@ def one_process(ranks):
                                                             batches[0])
             prefix = [float(loss), int(got["tokens"]),
                       float(toptim.global_norm(g))]
+        aux = None
+        if cfg.n_experts:
+            a, g = moe_aux(cfg, pol, state.params, batches[0]["tokens"])
+            aux = {"aux": a.detach(), "routers": list(g)}
         step = tstep.make_train_step(cfg, pol, ocfg, n_micro=n_micro)
         mets = []
         for b in batches:
@@ -276,7 +349,7 @@ def one_process(ranks):
             mets=mets, prefix_chunk=prefix,
             grads=[g.detach() for g in grads],
             params=[p.detach() for p in toptim.tree_leaves(state.params)],
-            m=state.opt.m, v=state.opt.v,
+            m=state.opt.m, v=state.opt.v, aux=aux,
             mesh=torch.load(ranks.tmp / f"{name}.pt"))
         return cache[name]
     return get
@@ -313,7 +386,7 @@ def test_prefix_only_loss_chunks_match_one_process(ranks, one_process, name):
     tokens is one process's exactly, the text positions alone, and the
     mean loss and the gradient norm are one process's."""
     one = one_process(name)
-    cfg, _ = case_setup(*CASES[name][:3])
+    cfg, _ = case(name)
     loss, tokens, norm = one.prefix_chunk
     # the count is the last micro-batch's, as the step's metrics are
     assert tokens == BATCH // CASES[name][3] * (SEQ - cfg.n_prefix)
@@ -402,8 +475,7 @@ def per_card():
 
     def get(name):
         if name not in cache:
-            arch, strategy, remat, _, _ = CASES[name]
-            cfg, pol = case_setup(arch, strategy, remat)
+            cfg, pol = case(name)
             cache[name] = dryrun.per_card_fit(cfg, pol, case_shape(),
                                               FOUR_CARD)
         return cache[name]
@@ -443,23 +515,91 @@ def test_step_collectives_are_the_meta_steps(ranks, per_card, name):
                               est["collective_bytes"].items()}
 
 
-def test_tp_gathers_weights_not_the_batch(ranks):
+#: a layer's all-gathers under tp, by arch: (the ZeRO-3 weights made whole
+#: over "data": wq, wk, wv, wo and the SwiGLU's wi, wg, wo; an MoE layer's
+#: are the attention's four, the experts' wi, wg, wo and the shared
+#: expert's three), (the router's float32 logits gathered over "model",
+#: [B / data, S, E])
+TP_GATHERS_A_LAYER = {"granite-3-2b": (7, 0), "pixtral-12b": (7, 0),
+                      "qwen2-moe-a2.7b": (10, 1)}
+TP = [name for name, c in CASES.items() if c[4] == "tp"]
+
+
+def _check_tp_gathers(ranks, name):
     """Under tp every all-gather of a step is a ZeRO-3 weight made whole
-    over "data" (its bytes one of the weights' on "model"), twice a
-    weight a layer (the forward and the remat recompute); no activation
-    and no batch is gathered. Each weight's gradient is reduce-scattered
-    back onto its shards."""
-    arch, strategy, remat, _, _ = CASES["granite_tp"]
-    cfg, pol = case_setup(arch, strategy, remat)
-    out = ranks.outs[0]["granite_tp"]
+    over "data" (its bytes one of the weights' on "model"), or an MoE
+    layer's router logits over "model", each twice a layer (the forward
+    and the remat recompute); no other activation and no batch is
+    gathered. Each weight's gradient is reduce-scattered back onto its
+    shards."""
+    cfg, pol = case(name)
+    out = ranks.outs[0][name]
     weights = set(out["fsdp_local"])
+    per_layer, logits = TP_GATHERS_A_LAYER[cfg.name]
+    layer_fsdp = toptim.tree_leaves(partitioning.map_axes(
+        lambda ax: "embed_fsdp" in ax,
+        get_family(cfg).param_axes(cfg, pol)["layers"][0]))
+    assert sum(layer_fsdp) == per_layer
     gathers = [(result, group) for kind, result, group in out["ops"][0]
                if kind == "all-gather"]
-    per_layer = 7           # wq, wk, wv, wo and the SwiGLU's wi, wg, wo
-    assert len(gathers) == 2 * per_layer * cfg.n_layers
-    assert all(group == 2 and result in weights for result, group in gathers)
+    assert all(group == 2 for _, group in gathers)
+    assert sum(result in weights for result, _ in gathers) == \
+        2 * per_layer * cfg.n_layers
+    E = pol.expert_pad or cfg.n_experts
+    rest = [result for result, _ in gathers if result not in weights]
+    assert rest == [BATCH // 2 * SEQ * E * 4] * (2 * logits * cfg.n_layers)
     scatters = [k for k, _, _ in out["ops"][0] if k == "reduce-scatter"]
     assert len(scatters) >= per_layer * cfg.n_layers
+
+
+def test_tp_gathers_weights_not_the_batch(ranks):
+    _check_tp_gathers(ranks, "granite_tp")
+
+
+@pytest.mark.parametrize("name", [n for n in TP if n != "granite_tp"])
+def test_tp_gathers_each_archs_weights_and_router_logits(ranks, name):
+    _check_tp_gathers(ranks, name)
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_aux_term_and_router_gradient_match_one_process(
+        ranks, one_process, name):
+    """The MoE layers' aux term alone (no CE loss) and its gradient into
+    each layer's router on the mesh equal one process's: each "model"
+    rank computes the same term from the same gathered logits, and only
+    its own experts' columns carry its gradient, so that the sum of the
+    ranks' partial gradients counts the term once."""
+    one = one_process(name)
+    for r, out in enumerate(ranks.outs):
+        assert out[name]["aux"] == pytest.approx(float(one.aux["aux"]),
+                                                 rel=MESH_RTOL, abs=0), r
+    got, want = one.mesh["aux"]["routers"], one.aux["routers"]
+    assert len(got) == len(want) == case(name)[0].n_layers
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape
+        assert rel_l2(g, w) <= MESH_RTOL, i
+
+
+def test_moe_choices_drop_on_every_rank_where_capacity_is_cut(ranks):
+    """At capacity factor 0.5 (C = 4 of a row's 32 choices) choices drop
+    on every rank, in every layer's routes, and more than at 1.25."""
+    for out in ranks.outs:
+        dropped, choices = out["qwen2moe_tp_drops"]["dropped"]
+        base, base_choices = out["qwen2moe_tp"]["dropped"]
+        assert choices == base_choices > 0
+        assert 0 < dropped < choices
+        assert base < dropped
+
+
+def test_moe_train_4k_resolves_to_tp():
+    """`resolve`'s strategy for qwen2-moe-a2.7b train_4k on data 2 x model
+    2, the one its mesh train step runs."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    pol = resolve(cfg, FOUR_CARD, SHAPES["train_4k"].batch, "train",
+                  seq=SHAPES["train_4k"].seq)
+    assert pol.strategy == "tp"
+    assert pol.rules["expert"] == "model" and pol.batch_axes == "data"
+    tstep.check_mesh_train(cfg, pol)
 
 
 DP_ZERO3 = [name for name, case in CASES.items() if case[4] == "dp_zero3"]
@@ -527,12 +667,17 @@ def test_mesh_train_refuses_the_strategies_of_step_3b(strategy):
         dryrun.per_card_fit(cfg, pol, case_shape(), FOUR_CARD)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-2b",
-                                  "xlstm-1.3b"])
-def test_mesh_train_refuses_the_other_families(arch):
-    cfg, pol = case_setup(arch, "tp", "none")
+@pytest.mark.parametrize("arch,strategy,n_micro", [
+    ("qwen2-moe-a2.7b", "dp_zero1", 1), ("qwen2-moe-a2.7b", "dp_zero3", 1),
+    ("qwen2-moe-a2.7b", "tp", 2), ("recurrentgemma-2b", "tp", 1),
+    ("xlstm-1.3b", "tp", 1)])
+def test_mesh_train_refuses_the_other_families(arch, strategy, n_micro):
+    """The MoE family runs under tp alone and at one micro-batch; the
+    hybrid and xLSTM families not at all."""
+    cfg, pol = case_setup(arch, strategy, "none")
+    assert pol.strategy == strategy
     with pytest.raises(NotImplementedError, match="item 19b, step 3b"):
-        tstep.make_grad_fn(cfg, pol, mesh=object())
+        tstep.make_grad_fn(cfg, pol, n_micro, mesh=object())
 
 
 def test_train_on_a_mesh_refuses_a_checkpoint_dir(tmp_path):
